@@ -1,0 +1,4 @@
+from repro_torch.configs.base import ArchConfig, smoke_variant
+from repro_torch.configs.registry import ARCH_IDS, get_config
+
+__all__ = ["ArchConfig", "smoke_variant", "ARCH_IDS", "get_config"]

@@ -1,0 +1,67 @@
+"""Architecture configuration schema (a trimmed copy of ``repro.configs.base``).
+
+Only the fields the dense paged serve path reads are kept; the other
+families' fields arrive with their slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    # -- identity -----------------------------------------------------------
+    arch_id: str
+    family: str                      # dense (the only family ported so far)
+    citation: str = ""
+
+    # -- transformer geometry ------------------------------------------------
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    pos_emb: str = "rope"
+    rope_theta: float = 10000.0
+
+    # -- attention pattern ---------------------------------------------------
+    sliding_window: int = 0          # 0 = full attention
+    global_every: int = 0            # gemma3: every Nth layer is global
+
+    # -- numerics -------------------------------------------------------------
+    dtype: str = "float32"           # activation dtype
+    param_dtype: str = "float32"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def smoke_variant(cfg: ArchConfig) -> ArchConfig:
+    """The reference's per-arch smoke shape: same family and code paths,
+    laptop-scale widths (2 layers, d_model 256, vocab 512)."""
+    kw = dict(
+        n_layers=2,
+        d_model=256,
+        n_heads=4,
+        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=64,
+        d_ff=512,
+        vocab_size=512,
+        dtype="float32",
+        param_dtype="float32",
+    )
+    if cfg.sliding_window:
+        kw.update(sliding_window=32)
+    return cfg.replace(**kw)

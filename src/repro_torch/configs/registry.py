@@ -1,0 +1,55 @@
+"""Architecture registry for the port: the dense family only.
+
+The values are copies of ``repro/configs/{qwen2_0_5b,llama3_2_1b,
+gemma3_27b,qwen2_7b}.py``. Other families of the reference registry raise
+``NotImplementedError`` until their slice of the port lands.
+"""
+from __future__ import annotations
+
+from typing import List
+
+from repro_torch.configs.base import ArchConfig, smoke_variant
+
+_DENSE = {
+    "qwen2-0.5b": ArchConfig(
+        arch_id="qwen2-0.5b", family="dense", citation="arXiv:2407.10671",
+        n_layers=24, d_model=896, n_heads=14, n_kv_heads=2, head_dim=64,
+        d_ff=4864, vocab_size=151936, qkv_bias=True, rope_theta=1000000.0,
+        tie_embeddings=True),
+    "llama3.2-1b": ArchConfig(
+        arch_id="llama3.2-1b", family="dense",
+        citation="hf:meta-llama/Llama-3.2-1B",
+        n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+        d_ff=8192, vocab_size=128256, rope_theta=500000.0,
+        tie_embeddings=True),
+    "gemma3-27b": ArchConfig(
+        arch_id="gemma3-27b", family="dense", citation="hf:google/gemma-3-1b-pt",
+        n_layers=62, d_model=5376, n_heads=32, n_kv_heads=16, head_dim=128,
+        d_ff=21504, vocab_size=262144, rope_theta=1000000.0,
+        sliding_window=1024, global_every=6, tie_embeddings=True),
+    "qwen2-7b": ArchConfig(
+        arch_id="qwen2-7b", family="dense", citation="arXiv:2407.10671",
+        n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+        d_ff=18944, vocab_size=152064, qkv_bias=True, rope_theta=1000000.0),
+}
+
+#: reference architectures whose families are not ported yet
+_LATER = ("whisper-large-v3", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+          "phi-3-vision-4.2b", "zamba2-7b", "mamba2-780m")
+
+ARCH_IDS: List[str] = list(_DENSE)
+
+
+def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
+    if arch_id in _LATER:
+        raise NotImplementedError(
+            f"{arch_id!r} is not a dense architecture; its family is ported "
+            "later (ROADMAP queue A, items 6-7)")
+    if arch_id not in _DENSE:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    cfg = _DENSE[arch_id]
+    if smoke:
+        cfg = smoke_variant(cfg)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

@@ -1,0 +1,127 @@
+"""Serving driver for the port: the paged continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+        --preset full --engine continuous --cache paged --slots 8 \\
+        --batch 16 --prompt-len 256 --shared-prefix 64 --max-new 64 \\
+        --max-len 1024 --decode-horizon 8
+
+Weights come from the port's ``init_params`` under a ``torch.Generator``
+seeded with ``--seed`` (nothing is downloaded); the request set is the
+reference driver's ``make_requests`` (``repro/launch/serve.py:98``) on the
+same seed. ``--preset smoke`` is the reference's laptop-scale shape,
+``full`` the published widths. ``--device`` defaults to ``cuda``; the CPU
+runs the kernels' plain versions. Prints a JSON summary.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.serve import ServeEngine, ServeRequest, ServeStats
+
+
+def make_requests(cfg, n: int, prompt_len: int, max_new: int,
+                  arrival_rate: float, seed: int = 0,
+                  shared_prefix: int = 0) -> List[ServeRequest]:
+    """Mixed-length request set (lengths uniform in [len/2, len]) with
+    optional open-loop arrivals; ``shared_prefix`` prepends one common
+    prefix to every prompt (a system-prompt workload for the prefix
+    cache)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, cfg.vocab_size,
+                          size=shared_prefix).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        s = int(rng.integers(max(1, prompt_len // 2), prompt_len + 1))
+        arrival = (i / arrival_rate) if arrival_rate > 0 else 0.0
+        tail = rng.integers(1, cfg.vocab_size, size=s).astype(np.int32)
+        reqs.append(ServeRequest(
+            np.concatenate([prefix, tail]) if shared_prefix else tail,
+            max_new_tokens=max_new, arrival_time=arrival))
+    return reqs
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Paged continuous-batching serving on the port.")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCH_IDS)
+    ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--engine", default="continuous",
+                    choices=["static", "continuous"])
+    ap.add_argument("--cache", default="paged", choices=["paged"])
+    ap.add_argument("--batch", type=int, default=8,
+                    help="number of requests in the set")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots (continuous engine)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV positions per block")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="pool size in blocks (0 = slots * ceil(max_len / "
+                         "block_size))")
+    ap.add_argument("--prefill-lanes", type=int, default=4,
+                    help="joining requests prefilled per chunk-round")
+    ap.add_argument("--prompt-len", type=int, default=8,
+                    help="max prompt length (lengths mixed in [len/2, len])")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="common prefix tokens prepended to every prompt")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--decode-horizon", type=int, default=8,
+                    help="decode steps per horizon dispatch")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop arrivals per decode step (0 = all at "
+                         "once)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the request set")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def run(args) -> Tuple[ServeEngine, List[ServeRequest], ServeStats]:
+    """Build the engine and the request set from ``args`` and serve it."""
+    cfg = get_config(args.arch, smoke=args.preset == "smoke")
+    reqs = make_requests(cfg, args.batch, args.prompt_len, args.max_new,
+                         args.arrival_rate, seed=args.seed,
+                         shared_prefix=args.shared_prefix)
+    engine = ServeEngine(
+        cfg, max_len=args.max_len,
+        n_slots=args.slots if args.engine == "continuous" else None,
+        cache=args.cache, block_size=args.block_size,
+        n_blocks=args.blocks or None, prefill_lanes=args.prefill_lanes,
+        decode_horizon=args.decode_horizon, device=args.device,
+        seed=args.seed)
+    out, stats = engine.run(reqs)
+    return engine, out, stats
+
+
+def summary(args, engine: ServeEngine, out: List[ServeRequest],
+            stats: ServeStats) -> dict:
+    dev = engine.device
+    return {
+        "arch": engine.cfg.arch_id,
+        "preset": args.preset,
+        "engine": args.engine,
+        "cache": args.cache,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "slots": engine.n_slots or args.batch,
+        **dataclasses.asdict(stats),
+        "sample_output": out[0].output[:8],
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = build_parser().parse_args(argv)
+    engine, out, stats = run(args)
+    print(json.dumps(summary(args, engine, out, stats), indent=2))
+
+
+if __name__ == "__main__":
+    main()

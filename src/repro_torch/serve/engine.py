@@ -1,0 +1,544 @@
+"""Paged continuous-batching serve engine (``repro/serve/engine.py``,
+``cache="paged"``, greedy decoding).
+
+The loop is the reference's, boundary for boundary, so its counters match
+it exactly:
+
+  * admission: ``ContinuousScheduler`` over a ``BlockManager`` (watermark
+    admission by free blocks, prefix-cache hits, deferral);
+  * prefill: prompts run in ``block_size`` chunks, up to ``prefill_lanes``
+    joining requests per ``[P, block_size]`` dispatch (one dispatch per
+    chunk-round, padded lanes masked), starting past each request's
+    prefix-cache hits; the finishing lanes' first tokens are picked on the
+    device and fetched once per round;
+  * decode: one *horizon* per boundary runs up to ``decode_horizon`` steps
+    of ``paged_decode_step`` with token selection (argmax), token feedback,
+    per-row ``pos`` advance and budget/EOS stop masks all on the device —
+    a Python loop where the reference scans — and fetches only the
+    ``[W, h]`` int32 token block, so ``host_syncs`` keeps its meaning;
+  * compaction: the horizon runs over the live slots bucketed to a power
+    of two (``_bucket``), ``h`` is a power of two (``_pick_h``), and
+    ``_ensure_growth`` shrinks ``h`` before it preempts.
+
+Between horizons the decode state (``_DecodeState``) stays on the device
+and takes delta updates at admission, growth and eviction only.
+
+Sampling (``temperature > 0``), the contiguous cache, tenants, fault
+injection, elastic reshapes, sharding, tracing and profiling are ported
+later and raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.api import Model, build_model
+from repro_torch.obs.metrics import RunObs
+from repro_torch.serve.paged import BlockManager
+from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
+
+#: engine options of the reference that later slices port, by ROADMAP
+#: queue A item
+_LATER = {"tenants": 8, "allocation": 8, "injector": 8, "elastic": 8,
+          "tracer": 9, "profiler": 9, "profile_store": 9, "sharding": 10}
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pow2_floor(n: int) -> int:
+    b = 1
+    while b * 2 <= n:
+        b *= 2
+    return b
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Compacted width: smallest power of two >= n, capped at the pool
+    width (the reference also rounds to the mesh 'data' axis; the port
+    runs on one device)."""
+    return min(_pow2(max(n, 1)), cap)
+
+
+@dataclass
+class ServeStats:
+    n_requests: int
+    new_tokens: int
+    steps: int
+    wall_s: float
+    tokens_per_s: float
+    slot_utilization: float           # mean active/n_slots over decode steps
+    mean_latency_steps: float
+    p95_latency_steps: float
+    mean_latency_s: float
+    max_active: int = 0               # peak concurrently-decoding requests
+    unfinished: int = 0               # requests that never finished
+    decode_rows_saved: float = 0.0    # fraction of pool rows never decoded
+    preemptions: int = 0              # requests bounced on pool pressure
+    block_report: Optional[dict] = field(default=None)
+    prefill_s: float = 0.0            # wall seconds inside prefill
+    decode_s: float = 0.0             # wall seconds inside decode horizons
+    prefill_dispatches: int = 0       # one per chunk-round across all lanes
+    decode_dispatches: int = 0        # one per horizon (<= K steps)
+    decode_horizon: int = 1           # configured K
+    host_syncs: int = 0               # one [W, h] fetch per horizon + one
+                                      # id fetch per finishing prefill round
+    prefix_blocks_total: int = 0
+    prefix_blocks_hit: int = 0
+    prefix_hit_rate: float = 0.0
+    mean_queue_depth: float = 0.0     # waiting requests at boundaries
+    max_queue_depth: int = 0
+    mean_occupancy: float = 0.0       # used blocks at boundaries
+    max_occupancy: float = 0.0
+
+
+@dataclass
+class _PrefillLane:
+    """One live lane of the batched prefill: a joining request and its
+    chunk cursor (starting past any prefix-cache hits)."""
+    req: ServeRequest
+    prompt: np.ndarray
+    ptr: int
+
+
+class _DecodeState:
+    """Device-resident decode state: last token, per-row ``pos``, per-row
+    freeze position ``stop`` (a row is live while ``pos < stop``), and the
+    block tables. The host writes deltas only, at admission, growth and
+    eviction."""
+
+    def __init__(self, n_slots: int, max_blocks: int, device):
+        self.device = device
+        i32 = dict(dtype=torch.int32, device=device)
+        self.tok = torch.zeros((n_slots, 1), **i32)
+        self.pos = torch.zeros((n_slots,), **i32)
+        self.stop = torch.zeros((n_slots,), **i32)
+        self.tables = torch.full((n_slots, max_blocks), -1, **i32)
+
+    def _idx(self, slots) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+
+    def _put(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    def set_rows(self, slots, toks, pos, stop) -> None:
+        """Install freshly prefilled rows."""
+        idx = self._idx(slots)
+        self.tok[idx] = self._put(toks)[:, None]
+        self.pos[idx] = self._put(pos)
+        self.stop[idx] = self._put(stop)
+
+    def set_tables(self, slots, rows) -> None:
+        self.tables[self._idx(slots)] = self._put(rows)
+
+    def freeze(self, slots) -> None:
+        """stop=0 for vacated slots: frozen rows never advance and never
+        write KV through a stale block table."""
+        if slots:
+            self.stop[self._idx(sorted(slots))] = 0
+
+
+class ServeEngine:
+    """Paged serving engine for the dense family (greedy decoding).
+
+    ``n_slots=None`` sizes the pool to the request set (static batching);
+    a fixed ``n_slots`` turns on continuous batching. ``decode_horizon=K``
+    runs up to K decode steps per dispatch; any K gives the same tokens.
+    ``device`` holds the weights, the pools and the decode state; CUDA
+    runs the hand-written attention kernels, the CPU their plain versions.
+    """
+
+    def __init__(self, cfg: ArchConfig, params=None, max_len: int = 256,
+                 n_slots: Optional[int] = None, policy: str = "fcfs",
+                 cache: str = "paged", block_size: int = 16,
+                 n_blocks: Optional[int] = None, watermark: float = 0.05,
+                 temperature: float = 0.0, prefill_lanes: int = 4,
+                 prefix_cache: bool = True, decode_horizon: int = 8,
+                 eos_token: Optional[int] = None, device="cuda",
+                 seed: int = 0, **later):
+        for name, value in later.items():
+            if name not in _LATER:
+                raise TypeError(f"unexpected keyword argument {name!r}")
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}= is not ported yet (ROADMAP queue A, item "
+                    f"{_LATER[name]})")
+        if cache != "paged":
+            raise NotImplementedError(
+                "cache='contiguous' is not ported yet (ROADMAP queue A, "
+                "item 5); the port serves the paged cache")
+        if temperature > 0:
+            raise NotImplementedError(
+                "sampled decoding is not ported yet (ROADMAP queue A, item "
+                "4); the port decodes greedily")
+        self.cfg = cfg
+        self.model: Model = build_model(cfg)
+        self.device = torch.device(device)
+        self.max_len = max_len
+        self.n_slots = n_slots
+        self.policy = policy
+        self.block_size = block_size
+        self.n_blocks = n_blocks
+        self.watermark = watermark
+        self.prefill_lanes = max(int(prefill_lanes), 1)
+        self.prefix_cache = bool(prefix_cache)
+        self.decode_horizon = max(int(decode_horizon), 1)
+        self.eos_token = None if eos_token is None else int(eos_token)
+        #: the most recent run's block pool (audit surface)
+        self.pool: Optional[BlockManager] = None
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.model.init(gen)
+        self.params = params
+
+    # -- the engine loop ---------------------------------------------------------
+    def run(self, requests: List[ServeRequest]
+            ) -> Tuple[List[ServeRequest], ServeStats]:
+        """Serve ``requests`` to completion; returns (requests, stats)."""
+        reqs = list(requests)
+        n_slots = self.n_slots if self.n_slots else max(len(reqs), 1)
+        c = RunObs()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            self._run_paged(reqs, n_slots, c)
+        wall = time.perf_counter() - t0
+        return reqs, self._stats(reqs, c, n_slots, wall)
+
+    def _finished(self, r: ServeRequest) -> bool:
+        return (r.done and r.latency_steps is not None
+                and r.latency_s is not None)
+
+    def _stats(self, reqs, c: RunObs, n_slots, wall) -> ServeStats:
+        m = c.metrics
+        new_tokens = sum(len(r.output) for r in reqs)
+        lat_steps = [r.latency_steps for r in reqs
+                     if r.latency_steps is not None]
+        lat_wall = [r.latency_s for r in reqs if r.latency_s is not None]
+        steps = int(m.value("steps"))
+        rows_possible = steps * n_slots
+        hit, total = int(m.value("prefix_hits")), int(m.value("prefix_total"))
+        qd_mean, qd_max = m.series_stats("queue_depth")
+        occ_mean, occ_max = m.series_stats("occupancy")
+        return ServeStats(
+            n_requests=len(reqs),
+            new_tokens=new_tokens,
+            steps=steps,
+            wall_s=wall,
+            tokens_per_s=new_tokens / wall if wall > 0 else 0.0,
+            slot_utilization=m.value("util_acc") / steps if steps else 0.0,
+            mean_latency_steps=float(np.mean(lat_steps)) if lat_steps else 0.0,
+            p95_latency_steps=(float(np.percentile(lat_steps, 95))
+                               if lat_steps else 0.0),
+            mean_latency_s=float(np.mean(lat_wall)) if lat_wall else 0.0,
+            max_active=int(m.value("max_active")),
+            unfinished=sum(1 for r in reqs if not self._finished(r)),
+            decode_rows_saved=(1.0 - m.value("rows_decoded") / rows_possible
+                               if rows_possible else 0.0),
+            preemptions=int(m.value("preemptions")),
+            block_report=c.block_report,
+            prefill_s=m.value("prefill_s"),
+            decode_s=m.value("decode_s"),
+            prefill_dispatches=int(m.value("prefill_dispatches")),
+            decode_dispatches=int(m.value("decode_dispatches")),
+            decode_horizon=self.decode_horizon,
+            host_syncs=int(m.value("host_syncs")),
+            prefix_blocks_total=total,
+            prefix_blocks_hit=hit,
+            prefix_hit_rate=hit / total if total else 0.0,
+            mean_queue_depth=qd_mean,
+            max_queue_depth=int(qd_max),
+            mean_occupancy=occ_mean,
+            max_occupancy=occ_max,
+        )
+
+    def _sample_boundary(self, sched, pool, c: RunObs) -> None:
+        """Update the gauges after a decode boundary and snapshot them into
+        the series (the stats' queue-depth and occupancy summaries)."""
+        m = c.metrics
+        m.set("queue_depth", len(sched.waiting))
+        m.set("active", len(sched.active))
+        m.set("occupancy", (1.0 - pool.free_blocks / pool.n_blocks
+                            if pool.n_blocks else 0.0))
+        m.sample(sched.step)
+
+    def _evict(self, sched, state: _DecodeState, c: RunObs):
+        """Evict finished requests and freeze their device rows."""
+        done_slots = [s for s, r in sched.active.items() if r.done]
+        out = sched.evict_finished()
+        state.freeze(done_slots)
+        for r in out:
+            c.metrics.observe("latency_steps", r.latency_steps)
+
+    # -- horizon scheduling helpers (host side) --------------------------------
+    def _pick_h(self, sched, act) -> int:
+        """Horizon length: at most ``decode_horizon``, capped to the longest
+        remaining budget and to the next open-loop arrival when the pool
+        could admit it, quantized down to a power of two."""
+        rem = max(sched.active[s].max_new_tokens - len(sched.active[s].output)
+                  for s in act)
+        h = max(1, min(self.decode_horizon, rem))
+        nxt = sched.next_arrival()
+        if (nxt is not None and nxt > sched.step
+                and any(sched.pool.can_admit(len(r.prompt))
+                        for r in sched.waiting)):
+            h = max(1, min(h, int(math.ceil(nxt - sched.step))))
+        return _pow2_floor(h)
+
+    def _horizon(self, pool: BlockManager, state: _DecodeState, idx, h: int,
+                 full: bool) -> torch.Tensor:
+        """Up to ``h`` decode steps on the device over the bucket ``idx``:
+        greedy selection, token feedback, per-row pos advance and stop
+        masks; frozen rows keep (token, pos), write no KV and emit -1.
+        Returns the [W, h] int32 token block (still on the device)."""
+        if full:
+            t, p, s, tb = state.tok, state.pos, state.stop, state.tables
+        else:
+            ix = torch.as_tensor(idx, device=self.device)
+            t, p, s, tb = state.tok[ix], state.pos[ix], state.stop[ix], \
+                state.tables[ix]
+        emitted = []
+        for _ in range(h):
+            active = p < s
+            logits, _ = self.model.paged_decode_step(
+                self.params, pool.buffers, t, p, tb, write_valid=active)
+            nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+            emitted.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
+            t = torch.where(active[:, None], nxt[:, None], t)
+            p = p + active.to(torch.int32)
+            if self.eos_token is not None:
+                s = torch.where(active & (nxt == self.eos_token), p, s)
+        if full:
+            state.tok, state.pos, state.stop = t, p, s
+        else:
+            state.tok[ix], state.pos[ix], state.stop[ix] = t, p, s
+        return torch.stack(emitted, dim=1)
+
+    def _decode_boundary(self, sched, pool, state, c, n_slots,
+                         h) -> List[int]:
+        """One horizon dispatch at a scheduler boundary: bucket the live
+        rows, run the horizon, unpack the [W, h] token block, update the
+        counters and the scheduler clock. Returns the per-row emitted
+        counts in sorted-active order."""
+        act = sorted(sched.active)
+        h = _pow2_floor(min(h, max(sched.active[s].max_new_tokens
+                                   - len(sched.active[s].output)
+                                   for s in act)))
+        bc = _bucket(len(act), n_slots)
+        full = bc == n_slots
+        if full:
+            idx = np.arange(n_slots, dtype=np.int64)
+            rows = act                       # block rows are slot-indexed
+        else:
+            idle = [s for s in range(n_slots) if s not in sched.active]
+            idx = np.asarray(act + idle[:bc - len(act)], np.int64)
+            rows = list(range(len(act)))     # compacted row order
+        t0 = time.perf_counter()
+        blk = self._horizon(pool, state, idx, h, full)
+        c.inc("decode_dispatches")
+        blk = blk.cpu().numpy()              # the one [W, h] int32 fetch
+        c.inc("host_syncs")
+        c.inc("decode_s", time.perf_counter() - t0)
+        counts = self._unpack_horizon(sched, act, rows, blk, h, n_slots, c)
+        c.inc("rows_decoded", len(idx) * h)
+        c.hi("max_active", len(act))
+        c.inc("steps", h)
+        c.metrics.observe("horizon_k", h)
+        sched.step += h
+        self._sample_boundary(sched, pool, c)
+        return counts
+
+    def _unpack_horizon(self, sched, act, rows, blk, h, n_slots,
+                        c) -> List[int]:
+        """Distribute a horizon's [W, h] token block: active slot
+        ``act[i]`` reads row ``rows[i]``, its first min(h, remaining)
+        entries, truncated at the EOS token."""
+        counts = []
+        step0 = sched.step
+        for slot, row in zip(act, rows):
+            r = sched.active[slot]
+            m = min(h, r.max_new_tokens - len(r.output))
+            toks = [int(x) for x in blk[row, :m]]
+            if self.eos_token is not None and self.eos_token in toks:
+                toks = toks[:toks.index(self.eos_token) + 1]
+                r.finished_early = True
+            r.output.extend(toks)
+            counts.append(len(toks))
+            if r.done and r.finished_at is None:
+                r.finished_at = float(step0 + len(toks))
+        for k in range(h):
+            c.inc("util_acc", sum(1 for m in counts if m > k) / n_slots)
+        return counts
+
+    # -- prefill -----------------------------------------------------------------
+    def _batched_paged_prefill(self, pool: BlockManager, reqs,
+                               c: RunObs) -> None:
+        """Prefill the joining requests through up to ``prefill_lanes``
+        lanes in lockstep chunk-rounds (one ``[P, block_size]`` dispatch per
+        round). A lane starts past its prefix-cache hits, commits each
+        completed full block to the prefix cache, and on its final chunk
+        takes its first token; the freed lane refills from the queue."""
+        if not reqs:
+            return
+        bs, mb = pool.block_size, pool.max_blocks
+        dev = self.device
+        queue = deque(reqs)
+        lanes: List[_PrefillLane] = []
+        while queue or lanes:
+            while queue and len(lanes) < self.prefill_lanes:
+                r = queue.popleft()
+                lanes.append(_PrefillLane(
+                    req=r, prompt=np.asarray(r.prompt, np.int32),
+                    ptr=pool.cached_tokens(r.slot)))
+            w = _bucket(len(lanes), self.prefill_lanes)
+            tokens = np.zeros((w, bs), np.int32)
+            starts = np.zeros((w,), np.int32)
+            nv = np.zeros((w,), np.int32)
+            tables = np.full((w, mb), -1, np.int32)
+            for i, ln in enumerate(lanes):
+                n = min(bs, len(ln.prompt) - ln.ptr)
+                tokens[i, :n] = ln.prompt[ln.ptr:ln.ptr + n]
+                starts[i], nv[i] = ln.ptr, n
+                tables[i] = pool.tables[ln.req.slot]
+            logits, _, _ = self.model.paged_prefill_chunk(
+                self.params, pool.buffers,
+                torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(starts, device=dev),
+                torch.as_tensor(tables, device=dev),
+                n_valid=torch.as_tensor(nv, device=dev))
+            c.inc("prefill_dispatches")
+            done_idx: List[int] = []
+            live: List[_PrefillLane] = []
+            for i, ln in enumerate(lanes):
+                n = int(nv[i])
+                if n == bs:        # a full block is final: cacheable
+                    pool.commit_block(ln.req.slot, ln.ptr // bs)
+                ln.ptr += n
+                if ln.ptr >= len(ln.prompt):
+                    done_idx.append(i)
+                else:
+                    live.append(ln)
+            if done_idx:
+                sel = torch.as_tensor(done_idx, device=dev)
+                toks = logits[sel, -1].argmax(dim=-1).cpu().numpy()
+                c.inc("host_syncs")
+                for t, i in zip(toks, done_idx):
+                    lanes[i].req.output.append(int(t))
+            lanes = live
+
+    # -- growth ------------------------------------------------------------------
+    def _growth_blocks_needed(self, sched, pool: BlockManager, pos_np,
+                              stop_np, h: int) -> int:
+        """Fresh blocks a horizon of ``h`` steps would allocate."""
+        need = 0
+        for s in sched.active:
+            want = pool.blocks_for(min(int(pos_np[s]) + h, int(stop_np[s])))
+            need += max(0, want - pool.owned_blocks(s))
+        return need
+
+    def _ensure_growth(self, sched, pool: BlockManager, pos_np, stop_np,
+                       h: int):
+        """Guarantee blocks for up to ``h`` decode tokens per active row
+        before a horizon. Shrinks the horizon toward 1 before preempting
+        the most recently admitted request. Returns (h, victim slots)."""
+        victims = []
+        while True:
+            while h > 1 and (self._growth_blocks_needed(
+                    sched, pool, pos_np, stop_np, h) > pool.free_blocks):
+                h = max(1, h // 2)
+            blocked = next(
+                (s for s in sorted(sched.active)
+                 if not pool.ensure(s, min(int(pos_np[s]) + h,
+                                           int(stop_np[s])))),
+                None)
+            if blocked is None:
+                return h, victims
+            if len(sched.active) == 1:
+                raise RuntimeError(
+                    "paged KV pool exhausted with a single active request; "
+                    "grow n_blocks or lower max_new_tokens")
+            victim = max(sched.active.values(),
+                         key=lambda r: (r.admitted_at, r.slot))
+            victims.append(victim.slot)
+            sched.preempt(victim)
+
+    def _run_paged(self, reqs, n_slots, c: RunObs):
+        self.pool = pool = BlockManager(self.model, n_slots, self.max_len,
+                                        block_size=self.block_size,
+                                        n_blocks=self.n_blocks,
+                                        watermark=self.watermark,
+                                        prefix_cache=self.prefix_cache,
+                                        device=self.device)
+        sched = ContinuousScheduler(pool, self.policy)
+        for i, r in enumerate(reqs):
+            r.job_id = i
+            sched.submit(r)
+        state = _DecodeState(n_slots, pool.max_blocks, self.device)
+        pos_np = np.zeros((n_slots,), np.int64)
+        stop_np = np.zeros((n_slots,), np.int64)
+        peak_report = pool.report()
+
+        while sched.has_work:
+            self._evict(sched, state, c)
+            sched.admit()
+            admitted = sched.drain_prefill()
+            if admitted:
+                t0 = time.perf_counter()
+                self._batched_paged_prefill(pool, admitted, c)
+                c.inc("prefill_s", time.perf_counter() - t0)
+                for r in admitted:
+                    pos_np[r.slot] = len(r.prompt)
+                    stop_np[r.slot] = len(r.prompt) + r.max_new_tokens - 1
+                    if (self.eos_token is not None
+                            and r.output[-1] == self.eos_token):
+                        r.finished_early = True
+                slots = [r.slot for r in admitted]
+                state.set_rows(slots, [r.output[-1] for r in admitted],
+                               [int(pos_np[s]) for s in slots],
+                               [int(stop_np[s]) for s in slots])
+                snap = pool.report()
+                if snap["used_blocks"] >= peak_report["used_blocks"]:
+                    peak_report = snap
+            self._evict(sched, state, c)  # satisfied by prefill alone / EOS
+            if not sched.active:
+                nxt = sched.next_arrival()
+                if nxt is None:
+                    break
+                if not admitted and nxt <= sched.step:
+                    raise RuntimeError(
+                        "paged KV pool cannot admit any waiting request; "
+                        "grow n_blocks or lower the watermark")
+                sched.step = max(sched.step + 1, int(math.ceil(nxt)))
+                continue
+
+            h = self._pick_h(sched, sorted(sched.active))
+            h, victims = self._ensure_growth(sched, pool, pos_np, stop_np, h)
+            c.inc("preemptions", len(victims))
+            state.freeze(victims)
+            # delta-sync the device tables: only rows dirtied by admission
+            # or growth (freed rows stay stale — frozen and write-masked)
+            dirty = sorted(s for s in pool.drain_dirty() if s in sched.active)
+            if dirty:
+                state.set_tables(dirty, pool.tables[np.asarray(dirty)])
+
+            act = sorted(sched.active)
+            counts = self._decode_boundary(sched, pool, state, c, n_slots, h)
+            for slot, m in zip(act, counts):
+                pos_np[slot] += m
+            snap = pool.report()
+            if snap["used_blocks"] >= peak_report["used_blocks"]:
+                peak_report = snap
+        self._evict(sched, state, c)
+        c.block_report = peak_report
+        c.inc("prefix_hits", pool.prefix_blocks_hit)
+        c.inc("prefix_total", pool.prefix_blocks_total)

@@ -1,0 +1,161 @@
+"""Continuous-batching scheduler (``repro/serve/scheduler.py:38-268``):
+a request queue with admission by free pool capacity and per-boundary
+join/evict of finished requests.
+
+Ordering reuses the queue policies (``core.policies``): FCFS is FIFO on
+arrival, SJF is SRTF on the work a request still owes. The clock is the
+engine's decode-step counter. The tenant budget check and the chaos
+admission hold of the reference are ported later (ROADMAP queue A, item 8).
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.policies import FIFO, SRTF, Policy
+
+SERVE_POLICIES = {"fcfs": FIFO, "sjf": SRTF}
+
+
+@dataclass(eq=False)                   # identity equality: prompts are arrays
+class ServeRequest:
+    prompt: np.ndarray                 # [S] int32
+    max_new_tokens: int = 16
+    job_id: int = 0
+    arrival_time: float = 0.0          # engine decode-step clock
+    output: List[int] = field(default_factory=list)
+    slot: Optional[int] = None
+    admitted_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    #: stopped before its budget (EOS token)
+    finished_early: bool = False
+    #: times preempted under pool pressure (each bounce regenerates its
+    #: tokens identically after re-admission)
+    n_preempted: int = 0
+    # wall clocks: t_arrived is stamped when the engine clock first passes
+    # arrival_time (not at admission), so latency_s includes queue wait.
+    t_arrived: Optional[float] = None
+    t_admitted: Optional[float] = None
+    t_finished: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return self.finished_early or len(self.output) >= self.max_new_tokens
+
+    @property
+    def remaining(self) -> float:
+        """Work still owed (SJF key): prompt prefill + tokens left."""
+        return float(len(self.prompt) + self.max_new_tokens - len(self.output))
+
+    @property
+    def latency_steps(self) -> Optional[float]:
+        if self.finished_at is None:
+            return None
+        return self.finished_at - self.arrival_time
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        """Wall seconds from becoming admissible to finishing (incl. queue)."""
+        if self.t_finished is None or self.t_arrived is None:
+            return None
+        return self.t_finished - self.t_arrived
+
+
+class ContinuousScheduler:
+    """Admission + eviction over a paged ``BlockManager``, ordered by a
+    queue policy (a registered name or a ``Policy`` instance)."""
+
+    def __init__(self, pool, policy="fcfs"):
+        if isinstance(policy, Policy):
+            self.policy: Policy = policy
+        elif policy in SERVE_POLICIES:
+            self.policy = SERVE_POLICIES[policy]()
+        else:
+            raise KeyError(f"unknown serve policy {policy!r}; "
+                           f"known: {sorted(SERVE_POLICIES)}")
+        self.pool = pool
+        self.n_preempted = 0
+        self.waiting: List[ServeRequest] = []
+        self.active: Dict[int, ServeRequest] = {}
+        #: admitted-but-not-yet-prefilled requests, drained into the
+        #: engine's prefill lanes
+        self.prefill_queue: deque = deque()
+        self.step: int = 0
+
+    def submit(self, req: ServeRequest) -> None:
+        self.pool.validate_request(req)
+        self.waiting.append(req)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.active)
+
+    def next_arrival(self) -> Optional[float]:
+        return min((r.arrival_time for r in self.waiting), default=None)
+
+    def admit(self) -> List[ServeRequest]:
+        """Admit policy-ordered admissible requests while the pool has room
+        (free blocks above the watermark and a free slot)."""
+        ready = [r for r in self.waiting if r.arrival_time <= self.step]
+        now = time.perf_counter()
+        for r in ready:
+            if r.t_arrived is None:
+                r.t_arrived = now
+        admitted = []
+        for req in self.policy.order(ready, float(self.step)):
+            slot = self.pool.alloc_for(req)
+            if slot is None:
+                # a prefix-cache deferral (donor still prefilling) parks
+                # only that request; pool exhaustion ends the scan.
+                if self.pool.deferred_last_alloc:
+                    continue
+                break
+            req.slot = slot
+            req.admitted_at = float(self.step)
+            req.t_admitted = time.perf_counter()
+            self.active[slot] = req
+            self.waiting.remove(req)
+            self.prefill_queue.append(req)
+            admitted.append(req)
+        return admitted
+
+    def drain_prefill(self) -> List[ServeRequest]:
+        """All admitted requests awaiting prefill (clears the queue)."""
+        items = list(self.prefill_queue)
+        self.prefill_queue.clear()
+        return items
+
+    def preempt(self, req: ServeRequest) -> None:
+        """Return an active request to the queue under block-pool pressure:
+        its slot and blocks are freed and its tokens discarded; greedy
+        decoding regenerates them identically after re-admission."""
+        if req.slot is None or self.active.get(req.slot) is not req:
+            raise ValueError("can only preempt an active request")
+        self.n_preempted += 1
+        self.pool.free(req.slot)
+        del self.active[req.slot]
+        req.slot = None
+        req.admitted_at = None
+        req.t_admitted = None
+        req.output = []
+        req.finished_early = False
+        req.n_preempted += 1
+        self.waiting.append(req)
+
+    def evict_finished(self) -> List[ServeRequest]:
+        """Release slots of finished requests."""
+        done = [r for r in self.active.values() if r.done]
+        for req in done:
+            # the engine pre-stamps the exact finishing step of a request
+            # that finished inside a decode horizon
+            if req.finished_at is None:
+                req.finished_at = float(self.step)
+            req.t_finished = time.perf_counter()
+            self.pool.free(req.slot)
+            del self.active[req.slot]
+            req.slot = None
+        return done

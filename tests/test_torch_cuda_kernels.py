@@ -1,0 +1,90 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
+skips without one. The file imports neither JAX nor the JAX package, so it
+runs on a machine that has only the port's dependencies:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances are tests/test_kernels.py's: 2e-5 in f32, 2e-2 in bf16.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(device, dtype, b, c, seed):
+    """qwen2-0.5b's serve shapes: 14 q heads over 2 kv heads, head_dim 64,
+    block 16, 64 table columns, scattered blocks, a last all -1 row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb, bs, hkv, hq, d, mb = 160, 16, 2, 14, 64, 64
+    kp = torch.randn(nb, bs, hkv, d, generator=g, device=device).to(dtype)
+    vp = torch.randn(nb, bs, hkv, d, generator=g, device=device).to(dtype)
+    perm = torch.randperm(nb, generator=g, device=device).to(torch.int32)
+    start = torch.randint(1, 300, (b,), generator=g, device=device,
+                          dtype=torch.int32)
+    tables = torch.full((b, mb), -1, dtype=torch.int32, device=device)
+    for i in range(b - 1):
+        n = (int(start[i]) + c - 1) // bs + 1
+        tables[i, :n] = perm[i * 20:i * 20 + n]
+    q = torch.randn(b, c, hq, d, generator=g, device=device).to(dtype)
+    return q, kp, vp, tables, start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 5])
+def test_decode_kernel_matches_plain(cuda_device, dtype, window):
+    q, kp, vp, tables, pos = _case(cuda_device, dtype, 8, 1, 1 + window)
+    before = ops.paged_attention.launches
+    out = ops.paged_attention(q[:, 0], kp, vp, tables, pos, window)
+    exp = pa.paged_attention_plain(q[:, 0], kp, vp, tables, pos, window)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q[:, 0].shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 5])
+def test_prefill_kernel_matches_plain(cuda_device, dtype, window):
+    q, kp, vp, tables, start = _case(cuda_device, dtype, 4, 16, 2 + window)
+    before = ops.paged_prefill_attention.launches
+    out = ops.paged_prefill_attention(q, kp, vp, tables, start, window)
+    exp = pa.paged_prefill_attention_plain(q, kp, vp, tables, start, window)
+    torch.cuda.synchronize()
+    assert ops.paged_prefill_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_what_they_do_not_take(cuda_device):
+    """No fallback: an input the kernels do not take raises."""
+    q, kp, vp, tables, pos = _case(cuda_device, torch.float32, 2, 16, 0)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_attention(q[:, 0], kp, vp, tables.long(), pos)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_prefill_attention(strided, kp, vp, tables, pos)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.paged_attention(q[:, 0].double(), kp, vp, tables, pos)
