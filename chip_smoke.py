@@ -7,31 +7,54 @@ Phases, each printed as it runs; any failure exits non-zero:
 
   1. device    — require a CUDA device, print the card's name and power
                  limit, turn TF32 off;
-  2. build     — compile the CUDA kernels from src/repro_torch/kernels/csrc
-                 into build/kernels/ with nvcc for sm_90a;
-  3. kernels   — hold each kernel against its plain PyTorch version on the
-                 card at the serve path's shapes for qwen2-0.5b (f32 and
-                 bf16, window 0 and 5, an all -1 table row), and time the
-                 kernel, the plain version and, as a yardstick the port never
-                 calls, torch's scaled_dot_product_attention on the gathered
-                 K/V (each launch behind an L2 flush, as the serve loop
-                 finds the cache cold after 23 other layers);
-  4. reference — the paged prefill + decode path on the card against the
-                 same path on the CPU (plain versions, which the CPU tests
-                 hold against the JAX package) at the smoke shape;
+  2. build     — compile every CUDA source of src/repro_torch/kernels/csrc
+                 (one nvcc per source, all at once) into one library under
+                 build/kernels/, for sm_90a;
+  3. kernels   — hold each of the four kernels against its plain PyTorch
+                 version on the card and time the kernel, the plain version
+                 and a library yardstick the port never calls (each launch
+                 behind an L2 flush): the paged kernels at qwen2-0.5b's serve
+                 shapes (f32 and bf16, window 0 and 5, an all -1 table row;
+                 torch's scaled_dot_product_attention on the gathered K/V);
+                 flash attention at olmoe-1b-7b's prefill shape
+                 ([1, S, 16, 128], S 128 and 256, causal) and at edge shapes
+                 (14/2 heads at D 64, window 5, non-causal, ragged S 200),
+                 f32 and bf16 (scaled_dot_product_attention); grouped matmul
+                 at olmoe-1b-7b's expert shapes (64 experts x 40 rows, gate-up
+                 2048 x 2048 and down 1024 x 2048) with valid_rows None,
+                 random and partly zero, f32 and bf16 (torch.bmm);
+  4. reference — the paged prefill + decode path (qwen2-0.5b smoke) and the
+                 MoE one-pass forward + contiguous decode steps
+                 (olmoe-1b-7b smoke) on the card against the same paths on
+                 the CPU (plain versions, which the CPU tests hold against
+                 the JAX package);
   5. engine    — the full-width qwen2-0.5b paged engine (24 layers, random
                  weights from a seed) through repro_torch.launch.serve's own
                  run function: 16 requests of 128-256 tokens after a shared
                  64-token prefix, 64 new tokens each, 8 slots, 4 prefill
                  lanes, decode horizon 8, block 16, max_len 1024, float32.
-                 Both kernels must launch in this run and the plain versions
-                 must not run;
-  6. profile   — torch.profiler over a shorter run at the same widths:
-                 device busy share and device time by kernel.
+                 Both paged kernels must launch in this run and the plain
+                 versions must not run;
+  6. profile   — torch.profiler over a shorter qwen2 run at the same
+                 widths (the engine's run only; its weights are drawn
+                 before the window opens): device busy share and device
+                 time by kernel;
+  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
+                 contiguous engine (16 layers, 64 experts top-8, ~6.9 B
+                 float32 weights from a seed) through the same run function:
+                 8 requests of 64-128 tokens, 64 new tokens each, 4 slots,
+                 decode horizon 8, max_len 256. Every layer of every prefill
+                 must launch the flash kernel (16 x prefills launches) and
+                 its plain version must not run. The grouped matmul is an op
+                 no model calls (the MoE layer contracts with einsum, as the
+                 JAX package's does): it launches 0 times on both paths.
+                 Then torch.profiler over a shorter olmoe run (4 requests,
+                 8 new tokens), as in phase 6.
 
 The last two lines are the kernels record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import gc
 import json
 import os
 import subprocess
@@ -45,8 +68,11 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 
 HQ, HKV, D, BS, MAX_LEN, SLOTS = 14, 2, 64, 16, 1024, 8
@@ -62,6 +88,11 @@ ENGINE_ARGS = ["--arch", "qwen2-0.5b", "--preset", "full", "--engine",
                "4", "--prompt-len", "256", "--shared-prefix", "64",
                "--max-new", "64", "--max-len", str(MAX_LEN),
                "--decode-horizon", "8", "--seed", "0", "--device", "cuda"]
+OLMOE_ARGS = ["--arch", "olmoe-1b-7b", "--preset", "full", "--engine",
+              "continuous", "--cache", "contiguous", "--slots", "4",
+              "--batch", "8", "--prompt-len", "128", "--max-new", "64",
+              "--max-len", "256", "--decode-horizon", "8", "--seed", "0",
+              "--device", "cuda"]
 KERNELS = {
     "paged_decode": dict(
         wrapper=ops.paged_attention, plain=pa.paged_attention_plain,
@@ -71,6 +102,10 @@ KERNELS = {
         plain=pa.paged_prefill_attention_plain,
         replaces="src/repro/kernels/paged_attention.py:154"),
 }
+CSRC = "src/repro_torch/kernels/csrc/"
+#: olmoe-1b-7b: q/k/v heads, head_dim, experts, expert capacity of a
+#: 256-token prompt (moe.capacity), d_model, expert width
+OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
 
 
 def phase(name: str) -> None:
@@ -169,21 +204,14 @@ def check_kernels(flush: torch.Tensor) -> dict:
                 for window in (0, 5):
                     args = make_case(b, c, dtype, seed=b * 131 + c + window,
                                      pad_row=b > 1)
+                    what = (f"{name} B={b} C={c} {str(dtype)[6:]} "
+                            f"window={window}")
                     out = kern["wrapper"](*args, window)
-                    exp = kern["plain"](*args, window)
-                    torch.cuda.synchronize()
-                    err = (out.float() - exp.float()).abs().max().item()
-                    tol = TOL[dtype]
-                    ok = torch.allclose(out.float(), exp.float(), atol=tol,
-                                        rtol=tol)
-                    pad_ok = b == 1 or bool((out[-1] == 0).all())
-                    print(f"{name} B={b} C={c} {str(dtype)[6:]} window="
-                          f"{window}: max_abs_err={err:.3e} (tol {tol})"
-                          f"{'' if pad_ok else ' PAD ROW NOT ZERO'}",
-                          flush=True)
-                    if not (ok and pad_ok):
-                        raise SystemExit(f"FAIL: {name} disagrees with its "
-                                         "plain version")
+                    err = _compare(what, out, kern["plain"](*args, window),
+                                   dtype)
+                    if b > 1 and not bool((out[-1] == 0).all()):
+                        raise SystemExit(f"FAIL: {what}: the all -1 table "
+                                         "row is not zero")
                     if dtype is torch.float32 and window == 0 and b > 1:
                         q, kp, vp, tables, start = args
                         ms = time_ms(lambda: kern["wrapper"](*args, 0), flush)
@@ -191,25 +219,155 @@ def check_kernels(flush: torch.Tensor) -> dict:
                                            flush)
                         lib_ms = time_ms(sdpa_call(q, kp, vp, tables, start,
                                                    c, 0), flush)
-                        bytes_ms, ops_ms = bound_terms(q, kp, tables, start,
-                                                    c, 0)
-                        bms = max(bytes_ms, ops_ms)
-                        by = "bytes" if bytes_ms >= ops_ms else "operations"
-                        rec[name] = dict(
-                            name=name, route="cuda",
-                            source="src/repro_torch/kernels/csrc/"
-                                   "paged_attention.cu",
-                            replaces=kern["replaces"], launches=0,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                            bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms,
-                            shape=dict(B=b, C=c, Hq=HQ, Hkv=HKV, D=D, BS=BS,
-                                       MB=MB, dtype="float32"))
-                        print(f"{name} B={b} C={c} float32: kernel {ms:.4f} "
-                              f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f}"
-                              f" ms, bound {bms:.5f} ms ({by}; bytes "
-                              f"{bytes_ms:.5f}, operations {ops_ms:.5f})",
-                              flush=True)
+                        rec[name] = _record(
+                            name, "paged_attention.cu", kern["replaces"],
+                            err, ms, plain_ms,
+                            *bound_terms(q, kp, tables, start, c, 0), lib_ms,
+                            dict(B=b, C=c, Hq=HQ, Hkv=HKV, D=D, BS=BS, MB=MB,
+                                 dtype="float32"))
+    return rec
+
+
+def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
+            lib_ms, shape) -> dict:
+    """The kernels-line entry of one timed case. ``launches`` is added by
+    main from the engine run of the kernel's path."""
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+          f"({by}; bytes {bytes_ms:.5f}, operations {ops_ms:.5f})",
+          flush=True)
+    return dict(name=name, route="cuda", source=CSRC + source,
+                replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by=by, library_ms=lib_ms, bound_bytes_ms=bytes_ms,
+                bound_ops_ms=ops_ms, shape=shape)
+
+
+def _compare(what: str, out, exp, dtype) -> float:
+    """Max abs error of a kernel against its plain version; exits unless
+    they agree within the dtype's tolerance."""
+    torch.cuda.synchronize()
+    err = (out.float() - exp.float()).abs().max().item()
+    tol = TOL[dtype]
+    ok = (out.shape == exp.shape and out.dtype == exp.dtype
+          and torch.allclose(out.float(), exp.float(), atol=tol, rtol=tol))
+    print(f"{what}: max_abs_err={err:.3e} (tol {tol})", flush=True)
+    if not ok:
+        raise SystemExit(f"FAIL: {what} disagrees with its plain version")
+    return err
+
+
+def flash_bound(s: int, hq: int, hkv: int, d: int, elem: int, causal: bool,
+                window: int):
+    """Least time for one flash call (B = 1): q, k, v read once and the
+    output written once over HBM bandwidth; the QK and PV flops of the
+    visible (query, key) pairs over the f32 peak. (bytes ms, ops ms)."""
+    pos = torch.arange(s)
+    vis = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        vis &= pos[:, None] >= pos[None, :]
+    if window:
+        vis &= pos[:, None] - pos[None, :] < window
+    nbytes = (2 * hq + 2 * hkv) * s * d * elem
+    flops = 4 * d * hq * int(vis.sum())
+    return 1e3 * nbytes / HBM_BPS, 1e3 * flops / F32_FLOPS
+
+
+def check_flash(flush: torch.Tensor) -> dict:
+    """The flash kernel against its plain version at olmoe-1b-7b's prefill
+    shape and at edge shapes; time the S = 256 f32 call."""
+    cases = [(128, OL_H, OL_H, OL_D, True, 0),
+             (256, OL_H, OL_H, OL_D, True, 0),
+             (128, 14, 2, 64, True, 5), (128, 14, 2, 64, False, 0),
+             (200, OL_H, OL_H, OL_D, True, 0)]
+    rec = None
+    for (s, hq, hkv, d, causal, window) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(s + hq + d)
+            q, k, v = (torch.randn(1, s, h, d, generator=g,
+                                   device="cuda").to(dtype)
+                       for h in (hq, hkv, hkv))
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            exp = fa.flash_attention_plain(q, k, v, causal, window)
+            err = _compare(f"flash S={s} Hq/Hkv={hq}/{hkv} D={d} causal="
+                           f"{causal} window={window} {str(dtype)[6:]}",
+                           out, exp, dtype)
+            if (s, hq, dtype) == (256, OL_H, torch.float32):
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                ms = time_ms(lambda: ops.flash_attention(q, k, v), flush)
+                plain_ms = time_ms(
+                    lambda: fa.flash_attention_plain(q, k, v), flush)
+                lib_ms = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), flush)
+                rec = _record(
+                    "flash_attention", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:86", err, ms,
+                    plain_ms, *flash_bound(s, hq, hkv, d, 4, True, 0), lib_ms,
+                    dict(B=1, S=s, Hq=hq, Hkv=hkv, D=d, causal=True,
+                         window=0, dtype="float32"))
+    return rec
+
+
+def gmm_bound(x, w, valid):
+    """Least time for one grouped matmul: the x rows and the weights of the
+    experts that have a valid row read once, valid_rows read and the
+    whole output written once, over HBM bandwidth; 2 K N flops per valid
+    row over the f32 peak. (bytes ms, ops ms)."""
+    g, c, k = x.shape
+    n = w.shape[2]
+    rows = (torch.full((g,), c) if valid is None
+            else valid.cpu().long().clamp(0, c))
+    elem = x.element_size()
+    nbytes = (int(rows.sum()) * k * elem + int((rows > 0).sum()) * k * n * elem
+              + g * c * n * elem + (0 if valid is None else 4 * g))
+    return (1e3 * nbytes / HBM_BPS,
+            1e3 * 2 * k * n * int(rows.sum()) / F32_FLOPS)
+
+
+def check_grouped_matmul(flush: torch.Tensor) -> dict:
+    """The grouped matmul against its plain version at olmoe-1b-7b's
+    expert shapes; time the gate-up f32 call with every row valid (the
+    einsum of moe_ffn at a 256-token prompt's capacity), and print the
+    times of the other timed cases."""
+    rec = None
+    for (k, n) in ((OL_DM, 2 * OL_F), (OL_F, OL_DM)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(k + n)
+            x = torch.randn(OL_E, OL_C, k, generator=g, device="cuda")
+            w = torch.randn(OL_E, k, n, generator=g, device="cuda") / k ** 0.5
+            x, w = x.to(dtype), w.to(dtype)
+            rand = torch.randint(0, OL_C + 1, (OL_E,), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            part = rand.clone()
+            part[::3] = 0
+            for kind, valid in (("none", None), ("random", rand),
+                                ("partly zero", part)):
+                out = ops.grouped_matmul(x, w, valid)
+                exp = gmm.grouped_matmul_plain(x, w, valid)
+                err = _compare(f"grouped_matmul [{OL_E},{OL_C},{k}]x[{OL_E},"
+                               f"{k},{n}] valid_rows={kind} "
+                               f"{str(dtype)[6:]}", out, exp, dtype)
+                if dtype is not torch.float32 or kind == "partly zero":
+                    continue
+                ms = time_ms(lambda: ops.grouped_matmul(x, w, valid), flush)
+                if (k, kind) != (OL_DM, "none"):
+                    bms = max(gmm_bound(x, w, valid))
+                    print(f"grouped_matmul K={k} N={n} valid_rows={kind} "
+                          f"f32: kernel {ms:.4f} ms, bound {bms:.5f} ms",
+                          flush=True)
+                    continue
+                plain_ms = time_ms(lambda: gmm.grouped_matmul_plain(x, w),
+                                   flush)
+                lib_ms = time_ms(lambda: torch.bmm(x, w), flush)
+                rec = _record(
+                    "grouped_matmul", "grouped_matmul.cu",
+                    "src/repro/kernels/grouped_matmul.py:48", err, ms,
+                    plain_ms, *gmm_bound(x, w, None), lib_ms,
+                    dict(G=OL_E, C=OL_C, K=k, N=n, valid_rows=None,
+                         dtype="float32"))
+            del x, w
     return rec
 
 
@@ -250,27 +408,67 @@ def paged_logits(model, params, device):
     return outs
 
 
+def moe_logits(model, params, device):
+    """One-pass MoE forward over two prompts (the contiguous prefill, flash
+    attention in every layer), its K/V written into a 3-row contiguous
+    cache, then four decode steps with per-row positions (row 2 idle and
+    frozen); returns every logits tensor on the CPU."""
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, model.cfg.vocab_size, (n,), generator=g,
+                             dtype=torch.int32) for n in (37, 20)]
+    cache = model.init_cache(3, 48, device=device)
+    outs, tok = [], torch.zeros((3, 1), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        logits, (k, v) = moe.forward(model.cfg, params, p[None].to(device),
+                                     return_cache=True)
+        cache["k"][:, i, :len(p)] = k[:, 0]
+        cache["v"][:, i, :len(p)] = v[:, 0]
+        outs.append(logits.cpu())
+        tok[i, 0] = int(logits[0, -1].argmax())
+    pos = torch.tensor([37, 20, 0], dtype=torch.int32)
+    valid = torch.tensor([True, True, False])
+    for _ in range(4):
+        logits, cache = model.decode_step(params, cache, tok.to(device),
+                                          pos.to(device),
+                                          write_valid=valid.to(device))
+        outs.append(logits[:2].cpu())
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32).cpu()
+        pos[:2] += 1
+    return outs
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(v) for v in tree]
+    return tree.cuda()
+
+
 def check_reference() -> None:
-    cfg = get_config("qwen2-0.5b", smoke=True)
+    for arch, path in (("qwen2-0.5b", paged_logits),
+                       ("olmoe-1b-7b", moe_logits)):
+        _check_reference(arch, path)
+
+
+def _check_reference(arch: str, path) -> None:
+    cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
-    gpu = {"emb": {k: v.cuda() for k, v in cpu["emb"].items()},
-           "layers": [{g: ({k: v.cuda() for k, v in d.items()}
-                           if isinstance(d, dict) else d.cuda())
-                       for g, d in lp.items()} for lp in cpu["layers"]],
-           "final_norm": cpu["final_norm"].cuda()}
+    gpu = _to_cuda(cpu)
     with torch.inference_mode():
-        ref = paged_logits(model, cpu, "cpu")
-        got = paged_logits(model, gpu, "cuda")
+        ref = path(model, cpu, "cpu")
+        got = path(model, gpu, "cuda")
     # float32 on both, different summation orders (cuBLAS vs CPU BLAS, the
-    # kernel's online softmax vs the plain version's single pass): logits
+    # kernels' online softmax vs the plain versions' single pass): logits
     # agree to ~1e-5; 1e-3 leaves margin without hiding a wrong mask.
     worst = max((a - b).abs().max().item() for a, b in zip(ref, got))
-    print(f"card vs CPU, {len(ref)} logits tensors: max_abs_diff="
-          f"{worst:.3e} (tol 1e-3)", flush=True)
+    print(f"{arch} smoke, card vs CPU, {len(ref)} logits tensors: "
+          f"max_abs_diff={worst:.3e} (tol 1e-3)", flush=True)
     if not all(torch.allclose(a, b, atol=1e-3, rtol=1e-3)
                for a, b in zip(ref, got)):
-        raise SystemExit("FAIL: the card's paged path disagrees with the CPU")
+        raise SystemExit(f"FAIL: the card's {arch} path disagrees with the "
+                         "CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -315,17 +513,83 @@ def run_engine() -> dict:
     return launches
 
 
-def profile_engine() -> None:
-    """torch.profiler over a shorter engine run at the same widths (8
-    requests, 16 new tokens): the device's busy share of the wall clock
-    and the device time by kernel."""
+def run_olmoe() -> dict:
+    """The full-width olmoe-1b-7b contiguous engine (module docstring,
+    phase 7). Returns each counted wrapper's launches in this run."""
+    args = serve_cli.build_parser().parse_args(OLMOE_ARGS)
+    counted = (ops.flash_attention, ops.paged_attention,
+               ops.paged_prefill_attention, ops.grouped_matmul)
+    plains = (fa.flash_attention_plain, pa.paged_attention_plain,
+              pa.paged_prefill_attention_plain, gmm.grouped_matmul_plain)
+    for fn in counted:
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+    torch.cuda.synchronize()
+    engine, out, stats = serve_cli.run(args)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    plain_calls = sum(fn.calls for fn in plains)
+    cfg = engine.cfg
+    vocab = cfg.vocab_size
+    for r in out:
+        if len(r.output) != args.max_new or not all(
+                0 <= t < vocab for t in r.output):
+            raise SystemExit(f"FAIL: request {r.job_id} holds {r.output}")
+    finite = all(bool(torch.isfinite(b).all())
+                 for b in engine.pool.buffers.values())
+    # every decode step reads every layer's weights (the expert einsum runs
+    # all 64 experts) and the unembedding: its least time on the card
+    step_bytes = 4 * (sum(t.numel() for lp in engine.params["layers"]
+                          for t in _leaves(lp))
+                      + engine.params["emb"]["lm_head"].numel())
+    expert_bytes = 4 * sum(lp[n].numel() for lp in engine.params["layers"]
+                           for n in ("we_gate_up", "we_down"))
+    keys = ("n_requests", "new_tokens", "wall_s", "tokens_per_s",
+            "prefill_s", "decode_s", "prefill_dispatches",
+            "decode_dispatches", "host_syncs", "steps", "decode_rows_saved",
+            "max_active", "mean_latency_s")
+    rec = {k: getattr(stats, k) for k in keys}
+    print(json.dumps({"olmoe_engine": rec, "launches": launches,
+                      "plain_calls": plain_calls, "kv_finite": finite,
+                      "decode_s_per_step": stats.decode_s / stats.steps,
+                      "decode_step_bytes_gb": step_bytes / 1e9,
+                      "expert_bytes_gb": expert_bytes / 1e9,
+                      "decode_step_floor_ms": 1e3 * step_bytes / HBM_BPS,
+                      "sample_output": out[0].output[:8]}), flush=True)
+    if not finite:
+        raise SystemExit("FAIL: non-finite values in the contiguous cache")
+    want = cfg.n_layers * stats.prefill_dispatches
+    if (stats.prefill_dispatches != args.batch
+            or launches["flash_attention"] != want or plain_calls):
+        raise SystemExit(
+            f"FAIL: flash launches {launches['flash_attention']} (want "
+            f"{want} = {cfg.n_layers} layers x {stats.prefill_dispatches} "
+            f"prefills), plain calls {plain_calls}: the olmoe prefill did "
+            "not run the flash kernel")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def profile_engine(argv, ours: str) -> None:
+    """torch.profiler over a shorter engine run at the widths of ``argv``:
+    the device's busy share of the wall clock and the device time by
+    kernel (``ours``: the name fragment of this path's kernels)."""
     from torch.profiler import ProfilerActivity, profile
-    args = serve_cli.build_parser().parse_args(
-        ENGINE_ARGS + ["--batch", "8", "--max-new", "16"])
+    args = serve_cli.build_parser().parse_args(argv)
+    engine, reqs = serve_cli.build(args)         # weights: outside the window
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, stats = serve_cli.run(args)
+        _, stats = engine.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -339,12 +603,13 @@ def profile_engine() -> None:
                            by_name.get(ev.key, (0.0, 0))[1] + ev.count)
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    ours = sum(us for k, (us, _) in by_name.items() if "paged_" in k) / 1e6
+    ours_s = sum(us for k, (us, _) in by_name.items() if ours in k) / 1e6
     print(json.dumps({"profile": {
+        "arch": args.arch, "cache": args.cache,
         "wall_s": wall, "prefill_s": stats.prefill_s,
         "decode_s": stats.decode_s, "steps": stats.steps,
         "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
-        "paged_kernels_s": ours,
+        f"{ours}kernels_s": ours_s,
         "top_kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
                         for k, (us, n) in top]}}), flush=True)
     if busy_s <= 0:
@@ -379,7 +644,10 @@ def main() -> int:
     phase("kernels")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rec = check_kernels(flush)
+    rec["flash_attention"] = check_flash(flush)
+    rec["grouped_matmul"] = check_grouped_matmul(flush)
     del flush
+    torch.cuda.empty_cache()
 
     phase("reference")
     check_reference()
@@ -390,8 +658,23 @@ def main() -> int:
         rec[name]["launches"] = n
 
     phase("profile")
-    profile_engine()
+    profile_engine(ENGINE_ARGS + ["--batch", "8", "--max-new", "16"],
+                   "paged_")
 
+    phase("olmoe")
+    gc.collect()                    # the qwen2 engines are gone: free them
+    torch.cuda.empty_cache()
+    launches = run_olmoe()
+    for name in ("flash_attention", "grouped_matmul"):
+        rec[name]["launches"] = launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_engine(OLMOE_ARGS + ["--batch", "4", "--max-new", "8"], "flash_")
+
+    unread = [name for name, r in rec.items() if "launches" not in r]
+    if unread:
+        raise SystemExit(f"FAIL: no engine run counted the launches of "
+                         f"{unread}")
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,6 +1,6 @@
 """Architecture configuration schema (a trimmed copy of ``repro.configs.base``).
 
-Only the fields the dense paged serve path reads are kept; the other
+Only the fields the dense and MoE serve paths read are kept; the other
 families' fields arrive with their slices of the port.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 class ArchConfig:
     # -- identity -----------------------------------------------------------
     arch_id: str
-    family: str                      # dense (the only family ported so far)
+    family: str                      # dense | moe (the families ported so far)
     citation: str = ""
 
     # -- transformer geometry ------------------------------------------------
@@ -34,6 +34,12 @@ class ArchConfig:
     sliding_window: int = 0          # 0 = full attention
     global_every: int = 0            # gemma3: every Nth layer is global
 
+    # -- mixture of experts --------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
     # -- numerics -------------------------------------------------------------
     dtype: str = "float32"           # activation dtype
     param_dtype: str = "float32"
@@ -50,7 +56,8 @@ class ArchConfig:
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """The reference's per-arch smoke shape: same family and code paths,
-    laptop-scale widths (2 layers, d_model 256, vocab 512)."""
+    laptop-scale widths (2 layers, d_model 256, vocab 512; MoE: 4 experts,
+    top-2, expert width 128)."""
     kw = dict(
         n_layers=2,
         d_model=256,
@@ -62,6 +69,8 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         dtype="float32",
         param_dtype="float32",
     )
+    if cfg.family == "moe":
+        kw.update(n_experts=4, top_k=2, d_ff=128)
     if cfg.sliding_window:
         kw.update(sliding_window=32)
     return cfg.replace(**kw)

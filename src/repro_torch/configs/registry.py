@@ -1,8 +1,8 @@
-"""Architecture registry for the port: the dense family only.
+"""Architecture registry for the port: the dense and MoE families.
 
 The values are copies of ``repro/configs/{qwen2_0_5b,llama3_2_1b,
-gemma3_27b,qwen2_7b}.py``. Other families of the reference registry raise
-``NotImplementedError`` until their slice of the port lands.
+gemma3_27b,qwen2_7b,olmoe_1b_7b}.py``. Other families of the reference
+registry raise ``NotImplementedError`` until their slice of the port lands.
 """
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import List
 
 from repro_torch.configs.base import ArchConfig, smoke_variant
 
-_DENSE = {
+_CONFIGS = {
     "qwen2-0.5b": ArchConfig(
         arch_id="qwen2-0.5b", family="dense", citation="arXiv:2407.10671",
         n_layers=24, d_model=896, n_heads=14, n_kv_heads=2, head_dim=64,
@@ -31,23 +31,28 @@ _DENSE = {
         arch_id="qwen2-7b", family="dense", citation="arXiv:2407.10671",
         n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
         d_ff=18944, vocab_size=152064, qkv_bias=True, rope_theta=1000000.0),
+    "olmoe-1b-7b": ArchConfig(
+        arch_id="olmoe-1b-7b", family="moe", citation="arXiv:2409.02060",
+        n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
+        d_ff=1024, vocab_size=50304, n_experts=64, top_k=8,
+        rope_theta=10000.0),
 }
 
 #: reference architectures whose families are not ported yet
-_LATER = ("whisper-large-v3", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
-          "phi-3-vision-4.2b", "zamba2-7b", "mamba2-780m")
+_LATER = ("whisper-large-v3", "phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b",
+          "zamba2-7b", "mamba2-780m")
 
-ARCH_IDS: List[str] = list(_DENSE)
+ARCH_IDS: List[str] = list(_CONFIGS)
 
 
 def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
     if arch_id in _LATER:
         raise NotImplementedError(
-            f"{arch_id!r} is not a dense architecture; its family is ported "
-            "later (ROADMAP queue A, items 6-7)")
-    if arch_id not in _DENSE:
+            f"{arch_id!r} is not ported yet: its family (or, for phi3.5-moe, "
+            "its sharded size) comes later (ROADMAP queue A, items 6-10)")
+    if arch_id not in _CONFIGS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    cfg = _DENSE[arch_id]
+    cfg = _CONFIGS[arch_id]
     if smoke:
         cfg = smoke_variant(cfg)
     if overrides:

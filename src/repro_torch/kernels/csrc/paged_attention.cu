@@ -283,8 +283,4 @@ int paged_attention_prefill(const void* q, const void* k, const void* v,
              s_blk, s_tok, s_head, window, dtype, stream);
 }
 
-const char* paged_attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 }  // extern "C"

@@ -1,5 +1,5 @@
 """Public wrappers for the port's kernels (signatures of the JAX package's
-``kernels/ops.py:64`` and ``:85``).
+``kernels/ops.py:36``, ``:64``, ``:85`` and ``:124``).
 
 The route depends only on where the tensors lie: CPU tensors take the
 plain PyTorch version, CUDA tensors launch the hand-written kernel (which
@@ -8,7 +8,24 @@ counts its kernel launches in a plain int attribute, ``launches``.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import paged_attention as _pa
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> [B, S, Hq, D]. Causal
+    and/or sliding-window (0 = none) self-attention; a non-causal S must
+    be a multiple of the JAX wrapper's block ``min(128, max(8, S))``, as
+    there (on both routes)."""
+    s = q.shape[1]
+    if not causal and s % _fa.tpu_block(s):
+        raise ValueError("non-causal flash attention requires S % block == 0")
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal, window)
+    out = _fa.flash_attention_cuda(q, k, v, causal, window)
+    flash_attention.launches += 1
+    return out
 
 
 def paged_attention(q, k_pages, v_pages, tables, pos, window: int = 0):
@@ -37,5 +54,18 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, start,
     return out
 
 
+def grouped_matmul(x, w, valid_rows=None):
+    """x: [G, C, K]; w: [G, K, N]; valid_rows: [G] int32 or None ->
+    [G, C, N] in x's dtype, f32 accumulation; rows at or past
+    ``valid_rows[g]`` come back as 0."""
+    if x.device.type == "cpu":
+        return _gmm.grouped_matmul_plain(x, w, valid_rows)
+    out = _gmm.grouped_matmul_cuda(x, w, valid_rows)
+    grouped_matmul.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 paged_attention.launches = 0
 paged_prefill_attention.launches = 0
+grouped_matmul.launches = 0

@@ -130,12 +130,6 @@ def _check(q, k_pages, v_pages, tables, start, qdim: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(code: int, what: str) -> None:
-    if code != 0:
-        msg = build.library().paged_attention_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
-
-
 def _pool_args(k_pages, window: int):
     s_blk, s_tok, s_head, _ = k_pages.stride()
     return s_blk, s_tok, s_head, int(window)
@@ -154,7 +148,7 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, pos, window: int = 0):
             q.shape[0], q.shape[1], hkv, d, bs, tables.shape[1],
             *_pool_args(k_pages, window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(code, "paged_attention_decode")
+    build.raise_on(code, "paged_attention_decode")
     return out
 
 
@@ -171,5 +165,5 @@ def paged_prefill_cuda(q, k_pages, v_pages, tables, start, window: int = 0):
             q.shape[0], q.shape[1], q.shape[2], hkv, d, bs, tables.shape[1],
             *_pool_args(k_pages, window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(code, "paged_attention_prefill")
+    build.raise_on(code, "paged_attention_prefill")
     return out

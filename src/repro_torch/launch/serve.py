@@ -1,9 +1,16 @@
-"""Serving driver for the port: the paged continuous-batching engine.
+"""Serving CLI for the port: static or continuous batching over the
+contiguous or the paged cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --preset full --engine continuous --cache paged --slots 8 \\
         --batch 16 --prompt-len 256 --shared-prefix 64 --max-new 64 \\
         --max-len 1024 --decode-horizon 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --preset full --engine continuous --cache contiguous --slots 4 \\
+        --batch 8 --prompt-len 128 --max-new 16 --max-len 256
+
+The defaults are the reference CLI's (``repro/launch/serve.py``):
+``--engine static --cache contiguous``.
 
 Weights come from the port's ``init_params`` under a ``torch.Generator``
 seeded with ``--seed`` (nothing is downloaded); the request set is the
@@ -50,12 +57,14 @@ def make_requests(cfg, n: int, prompt_len: int, max_new: int,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Paged continuous-batching serving on the port.")
+        description="Static or continuous batching on the port, over the "
+                    "contiguous or the paged KV cache.")
     ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCH_IDS)
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
-    ap.add_argument("--engine", default="continuous",
+    ap.add_argument("--engine", default="static",
                     choices=["static", "continuous"])
-    ap.add_argument("--cache", default="paged", choices=["paged"])
+    ap.add_argument("--cache", default="contiguous",
+                    choices=["contiguous", "paged"])
     ap.add_argument("--batch", type=int, default=8,
                     help="number of requests in the set")
     ap.add_argument("--slots", type=int, default=4,
@@ -84,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args) -> Tuple[ServeEngine, List[ServeRequest], ServeStats]:
-    """Build the engine and the request set from ``args`` and serve it."""
+def build(args) -> Tuple[ServeEngine, List[ServeRequest]]:
+    """The engine (weights drawn on its device) and the request set that
+    ``args`` describe."""
     cfg = get_config(args.arch, smoke=args.preset == "smoke")
     reqs = make_requests(cfg, args.batch, args.prompt_len, args.max_new,
                          args.arrival_rate, seed=args.seed,
@@ -97,6 +107,12 @@ def run(args) -> Tuple[ServeEngine, List[ServeRequest], ServeStats]:
         n_blocks=args.blocks or None, prefill_lanes=args.prefill_lanes,
         decode_horizon=args.decode_horizon, device=args.device,
         seed=args.seed)
+    return engine, reqs
+
+
+def run(args) -> Tuple[ServeEngine, List[ServeRequest], ServeStats]:
+    """Build the engine and the request set from ``args`` and serve it."""
+    engine, reqs = build(args)
     out, stats = engine.run(reqs)
     return engine, out, stats
 

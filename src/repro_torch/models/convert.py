@@ -4,6 +4,10 @@
 leaf already a numpy array (``jax.tree_util.tree_map(np.asarray, params)``)
 and maps each leaf one to one onto the port's layout: the layer-stacked
 ``[L, ...]`` leaves of ``params["layers"]`` become one dict per layer.
+That covers both families the port has: the dense layer's
+``attn`` / ``mlp`` / norms, and the MoE layer's ``attn``, ``router``
+``[L, D, E]``, expert weights ``we_gate_up`` ``[L, E, D, 2F]`` and
+``we_down`` ``[L, E, F, D]`` and norms, each sliced per layer.
 It never imports jax.
 """
 from __future__ import annotations
@@ -28,7 +32,8 @@ def _map(tree, fn):
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """JAX dense-family params (numpy leaves) -> port params on ``device``."""
+    """JAX dense- or MoE-family params (numpy leaves) -> port params on
+    ``device``."""
     n_layers = {a.shape[0] for a in _leaves(tree["layers"])}
     if len(n_layers) != 1:
         raise ValueError(f"layer leaves disagree on depth: {n_layers}")

@@ -1,10 +1,11 @@
-"""Core layers of the dense family, ported from ``repro/models/layers.py``:
-RMSNorm, RoPE, GQA attention with QKV bias, SwiGLU MLP, tied embeddings,
-and the paged decode-attention backend.
+"""Core layers of the attention families, ported from
+``repro/models/layers.py``: RMSNorm, RoPE, GQA attention with QKV bias (no
+cache, contiguous cache, paged cache), SwiGLU MLP, tied embeddings.
 
 Layers are plain functions over dicts of tensors, as in the reference; the
-sharding constraints of the reference are dropped (one device). Paged KV
-writes go into the pool in place instead of returning a new pool.
+sharding constraints of the reference are dropped (one device). KV writes,
+paged or contiguous, go into the cache in place instead of returning a new
+cache.
 """
 from __future__ import annotations
 
@@ -174,11 +175,103 @@ def paged_decode_attention(cfg, q, k, v, pkv: PagedKV, positions, window: int,
                                         positions[:, 0].contiguous(), window)
 
 
-def decode_positions(pos) -> torch.Tensor:
-    """[B, 1] position matrix for a decode step from per-slot positions
-    ``pos`` [B] (the reference also takes one scalar for every row; the
-    port's only caller, the paged engine, always has per-slot positions)."""
+def decode_positions(b: int, pos, device) -> torch.Tensor:
+    """[B, 1] position matrix for a decode step on ``device``. ``pos`` is
+    an int (every row at the same position) or an int32 [B] tensor
+    (per-slot positions, continuous batching)."""
+    if not torch.is_tensor(pos) or pos.dim() == 0:
+        return torch.full((b, 1), int(pos), dtype=torch.int32, device=device)
     return pos.to(torch.int32)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Contiguous decode cache
+# ---------------------------------------------------------------------------
+def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
+    """Write one decode step's k/v [B, 1, H, D] into one layer's cache
+    [B, S, H, D] at ``cache_pos`` (an int for every row, or an int32 [B]
+    tensor of per-row positions), in place. Returns (ck, cv, k_pos, cpos)
+    with k_pos [Sk] / cpos scalar for a shared position, k_pos [1, Sk] /
+    cpos [B, 1] for per-row positions — the mask is ``k_pos <= cpos``.
+
+    ``valid`` ([B] bool, per-row positions only) drops rows from the write:
+    a frozen row of a multi-step decode horizon must stop writing KV. Torch
+    has no ``mode="drop"`` scatter, so the write is *masked*: a dropped row
+    writes back the value its cache row already holds at ``pos`` (positions
+    of frozen rows are always inside the cache), which keeps the write free
+    of host syncs and leaves the row untouched.
+    """
+    k_pos = torch.arange(ck.shape[1], device=ck.device)
+    if not torch.is_tensor(cache_pos) or cache_pos.dim() == 0:
+        p = int(cache_pos)
+        ck[:, p:p + 1] = k.to(ck.dtype)
+        cv[:, p:p + 1] = v.to(cv.dtype)
+        return ck, cv, k_pos, p
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    pos = cache_pos.long()
+    new_k, new_v = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+    if valid is not None:
+        keep = valid[:, None, None]
+        new_k = torch.where(keep, new_k, ck[rows, pos])
+        new_v = torch.where(keep, new_v, cv[rows, pos])
+    ck[rows, pos] = new_k
+    cv[rows, pos] = new_v
+    return ck, cv, k_pos[None, :], pos[:, None]
+
+
+def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
+              kv_cache=None, cache_pos=None, kv_valid=None,
+              flash: bool = True):
+    """Full attention layer (``repro/models/layers.py:418-486``).
+
+    Modes:
+      * no cache (training / one-pass prefill): attend over x itself;
+        causal attention runs ``ops.flash_attention`` (the hand-written
+        kernel on CUDA tensors, its plain version on the CPU); the
+        post-RoPE ``(k, v)`` is returned to seed a cache.
+      * contiguous decode: ``kv_cache=(ck, cv)`` one layer's [B, S, Hkv, D]
+        cache; the current token's k/v is written at ``cache_pos`` (in
+        place) and attention spans the cache under the per-row mask.
+      * paged: ``kv_cache`` a ``PagedKV`` — the paged backend
+        (``paged_decode_attention``).
+    ``kv_valid`` masks K/V writes: [B, C] chunk validity for paged prefill
+    lanes, or a [B, 1] per-row freeze mask for decode. Cross attention
+    (encdec) comes with its family. ``flash=False`` keeps the no-cache
+    branch on plain ``mha``, as the reference's dense forward does
+    (``transformer.py:107``). Returns (out, new_kv_cache).
+    """
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if isinstance(kv_cache, PagedKV):
+        out = paged_decode_attention(cfg, q, k, v, kv_cache, positions,
+                                     window, valid=kv_valid)
+        return out.reshape(b, s, -1) @ p["wo"], (kv_cache.k, kv_cache.v)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        ck, cv, k_pos, cpos = update_kv_cache(
+            ck, cv, k, v, cache_pos,
+            valid=kv_valid[:, 0] if kv_valid is not None else None)
+        valid = k_pos <= cpos
+        if window:
+            valid &= k_pos > cpos - window
+        # [1, Sk] shared-position mask, or [B, 1, 1, Sk] per-row mask
+        mask = valid[None, :] if valid.dim() == 1 else valid[:, None, None, :]
+        out = mha(q, ck, cv, mask)
+        return out.reshape(b, s, -1) @ p["wo"], (ck, cv)
+    if causal and flash:
+        out = kops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        pos = torch.arange(s, device=x.device)
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
+        if causal:
+            mask &= pos[:, None] >= pos[None, :]
+        if window:
+            mask &= pos[:, None] - pos[None, :] < window
+        out = mha(q, k, v, mask)
+    return out.reshape(b, s, -1) @ p["wo"], (k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@
 Parameters are a dict with a list of per-layer dicts (the reference stacks
 them along a leading axis for ``lax.scan``; here the scan is a Python loop).
 Gemma3's local:global pattern is a per-layer window list (0 = global).
-The paged cache is a ``PagedCache`` whose pools the decode and prefill
-steps update in place.
+The contiguous cache is a ``{"k", "v"}`` dict of ``[L, B, S, Hkv, D]``
+tensors and the paged cache a ``PagedCache``; the decode and prefill steps
+update either in place.
 """
 from __future__ import annotations
 
@@ -56,46 +57,82 @@ def layer_windows(cfg) -> List[int]:
 # ---------------------------------------------------------------------------
 # layer body
 # ---------------------------------------------------------------------------
-def _layer(cfg, p, x, positions, window: int, kv_cache=None, kv_valid=None):
+def _layer(cfg, p, x, positions, window: int, kv_cache=None, cache_pos=None,
+           kv_valid=None):
+    """One decoder layer -> (x, new_kv_cache). Attention takes the layer's
+    window (``transformer.py:69-109``): the paged backend for a
+    ``PagedKV``, contiguous decode for a ``(ck, cv)`` cache, else causal
+    self-attention over x through plain ``mha`` — the dense forward never
+    reaches the flash kernel (``transformer.py:107``)."""
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + _attention_dyn_window(cfg, p["attn"], h, positions, window,
-                                  kv_cache, kv_valid)
+    attn_out, new_cache = L.attention(p["attn"], cfg, h, positions,
+                                      window=window, kv_cache=kv_cache,
+                                      cache_pos=cache_pos, kv_valid=kv_valid,
+                                      flash=False)
+    x = x + attn_out
     h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h)
-
-
-def _attention_dyn_window(cfg, p, x, positions, window: int, kv_cache=None,
-                          kv_valid=None):
-    """Attention with a per-layer window: the paged backend when a
-    ``PagedKV`` is threaded in, else causal self-attention over x."""
-    b, s, _ = x.shape
-    q, k, v = L._qkv(p, cfg, x)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    if kv_cache is not None:
-        out = L.paged_decode_attention(cfg, q, k, v, kv_cache, positions,
-                                       window, valid=kv_valid)
-    else:
-        pos = torch.arange(s, device=x.device)
-        mask = pos[:, None] >= pos[None, :]
-        if window:
-            mask &= pos[:, None] - pos[None, :] < window
-        out = L.mha(q, k, v, mask)
-    return out.reshape(b, s, -1) @ p["wo"]
+    return x + L.mlp(p["mlp"], h), new_cache
 
 
 # ---------------------------------------------------------------------------
-# forward (one pass over a full sequence: the reference for chunked paths)
+# forward (one pass over a full sequence: training, one-pass prefill, and the
+# reference for chunked paths)
 # ---------------------------------------------------------------------------
-def forward(cfg, params, tokens):
-    """tokens: [B, S] int -> logits [B, S, V]."""
+def forward(cfg, params, tokens, return_cache: bool = False):
+    """tokens: [B, S] int -> logits [B, S, V] (and, with ``return_cache``,
+    the per-layer post-RoPE (k, v) stacked ``[L, B, S, Hkv, D]``)."""
     x = L.embed(params["emb"], cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    caches = []
     for p, w in zip(params["layers"], layer_windows(cfg)):
-        x = _layer(cfg, p, x, positions, w)
+        x, kv = _layer(cfg, p, x, positions, w)
+        if return_cache:
+            caches.append(kv)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params["emb"], cfg, x)
+    logits = L.unembed(params["emb"], cfg, x)
+    if return_cache:
+        return logits, stack_caches(caches)
+    return logits
+
+
+def stack_caches(caches):
+    """Per-layer [(k, v)] -> (k, v) stacked ``[L, B, S, Hkv, D]``."""
+    return (torch.stack([k for k, _ in caches]),
+            torch.stack([v for _, v in caches]))
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_len: int, dtype=None,
+               device="cuda") -> dict:
+    """One ``[L, batch, max_len, Hkv, D]`` K and V row per slot (a dict
+    ``{"k", "v"}``, the reference's pytree). ``device="meta"`` gives the
+    shapes without allocating (``serve/cache.py``'s batch-axis probes)."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(cfg, params, cache: dict, tokens, pos,
+                write_valid: Optional[torch.Tensor] = None):
+    """One contiguous decode step (cache updated in place). tokens: [B, 1];
+    pos: an int (every row at the same position) or int32 [B] (per-row
+    positions, continuous batching); write_valid: [B] bool or None — False
+    rows compute but write no KV (frozen rows of a decode horizon; needs
+    per-row pos). Returns (logits [B, 1, V], cache)."""
+    x = L.embed(params["emb"], cfg, tokens)
+    positions = L.decode_positions(x.shape[0], pos, x.device)
+    kv_valid = None if write_valid is None else write_valid[:, None]
+    for i, (p, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
+        x, _ = _layer(cfg, p, x, positions, w,
+                      kv_cache=(cache["k"][i], cache["v"][i]),
+                      cache_pos=pos, kv_valid=kv_valid)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["emb"], cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +202,8 @@ def paged_prefill_chunk(cfg, params, cache: PagedCache, tokens, start, tables,
     b, c, _ = x.shape
     positions, valid, last = prefill_chunk_layout(start, n_valid, b, c)
     for i, (p, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
-        x = _layer(cfg, p, x, positions, w, kv_cache=cache.layer(i, tables),
-                   kv_valid=valid)
+        x, _ = _layer(cfg, p, x, positions, w,
+                      kv_cache=cache.layer(i, tables), kv_valid=valid)
     x = x[torch.arange(b, device=x.device), last][:, None]
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["emb"], cfg, x), cache, None
@@ -180,10 +217,10 @@ def paged_decode_step(cfg, params, cache: PagedCache, tokens, pos, tables,
     rows compute but write no KV (frozen rows of a decode horizon).
     Returns (logits [B, 1, V], cache)."""
     x = L.embed(params["emb"], cfg, tokens)
-    positions = L.decode_positions(pos)
+    positions = L.decode_positions(x.shape[0], pos, x.device)
     kv_valid = None if write_valid is None else write_valid[:, None]
     for i, (p, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
-        x = _layer(cfg, p, x, positions, w, kv_cache=cache.layer(i, tables),
-                   kv_valid=kv_valid)
+        x, _ = _layer(cfg, p, x, positions, w,
+                      kv_cache=cache.layer(i, tables), kv_valid=kv_valid)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["emb"], cfg, x), cache

@@ -1,0 +1,116 @@
+"""Pooled decode cache with per-slot alloc/free (``repro/serve/cache.py``).
+
+One padded cache (the model's ``init_cache(n_slots, max_len)`` dict of
+tensors) is shared by all in-flight requests; each request owns one *slot*
+— one index along the batch axis of every leaf. Requests of different
+lengths coexist because each slot keeps its own write position (the
+per-row ``pos`` of ``decode_step``) and the decode mask spans ``[0, pos]``
+per row.
+
+The batch axis need not be the same dimension in every leaf, so the pool
+infers each leaf's once, by diffing the shapes of two ``init_cache``
+probes with different batch sizes built on ``device="meta"`` (no memory —
+the counterpart of the reference's ``jax.eval_shape``). ``write`` replaces
+an entire slot row in place, so a recycled slot never sees its previous
+tenant's state. The elastic ``shrink`` / ``expand`` of the reference come
+with elastic serving (ROADMAP queue A, item 8).
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import torch
+
+
+def _batch_axis(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Index of the (single) differing dimension between two probes."""
+    diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+    if len(diff) != 1:
+        raise ValueError(f"cannot locate batch axis: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)}")
+    return diff[0]
+
+
+class CachePool:
+    """Slot-managed decode cache over a model's ``init_cache`` dict.
+
+    Slots are recycled FIFO: freed slots go to the back of the free queue,
+    so a request never lands in the most recently vacated row.
+    """
+
+    def __init__(self, model, n_slots: int, max_len: int, device="cuda"):
+        self.model = model
+        self.n_slots = n_slots
+        self.max_len = max_len
+        probe_a = model.init_cache(3, max_len, device="meta")
+        probe_b = model.init_cache(5, max_len, device="meta")
+        self.batch_axes = {name: _batch_axis(probe_a[name], probe_b[name])
+                           for name in probe_a}
+        self.buffers = model.init_cache(n_slots, max_len, device=device)
+        self._free = deque(range(n_slots))
+        self._in_use: set = set()
+
+    # -- slot management -----------------------------------------------------
+    def alloc(self) -> Optional[int]:
+        """Claim a slot; None when the pool is full."""
+        if not self._free:
+            return None
+        slot = self._free.popleft()
+        self._in_use.add(slot)
+        return slot
+
+    def free(self, slot: int) -> None:
+        if slot not in self._in_use:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._in_use.remove(slot)
+        self._free.append(slot)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self):
+        return frozenset(self._in_use)
+
+    @property
+    def capacity(self) -> int:
+        """Live slot capacity (the contiguous twin of
+        ``BlockManager.n_blocks``); every slot until elastic serving can
+        revoke some."""
+        return self.n_slots
+
+    @property
+    def utilization(self) -> float:
+        return len(self._in_use) / max(self.capacity, 1)
+
+    # -- buffer access ---------------------------------------------------------
+    def write(self, slot: int, row_cache: dict) -> None:
+        """Install a batch-1 cache dict (same ``max_len``) into ``slot``, in
+        place. A row whose non-batch dimensions or dtype disagree with the
+        pool (a ``max_len`` mismatch, most commonly) is rejected — a short
+        row broadcast across a longer slot would corrupt the decode mask's
+        invariants."""
+        if slot not in self._in_use:
+            raise ValueError(f"slot {slot} is not allocated")
+        for name, buf in self.buffers.items():
+            ax = self.batch_axes[name]
+            row = row_cache[name]
+            expect = buf.shape[:ax] + (1,) + buf.shape[ax + 1:]
+            if tuple(row.shape) != tuple(expect):
+                raise ValueError(
+                    f"row cache leaf shape {tuple(row.shape)} does not match "
+                    f"the pool's slot shape {tuple(expect)} (max_len "
+                    "mismatch?)")
+            if row.dtype != buf.dtype:
+                raise ValueError(f"row cache dtype {row.dtype} does not "
+                                 f"match the pool's {buf.dtype}")
+        for name, buf in self.buffers.items():
+            buf.select(self.batch_axes[name], slot).copy_(
+                row_cache[name].select(self.batch_axes[name], 0))
+
+    def read_slot(self, slot: int) -> dict:
+        """The slot's cache row as a batch-1 dict (tests / debugging)."""
+        return {name: buf.narrow(self.batch_axes[name], slot, 1)
+                for name, buf in self.buffers.items()}

@@ -1,31 +1,43 @@
-"""Paged continuous-batching serve engine (``repro/serve/engine.py``,
-``cache="paged"``, greedy decoding).
+"""Continuous-batching serve engine (``repro/serve/engine.py``, greedy
+decoding) over either cache backend.
 
 The loop is the reference's, boundary for boundary, so its counters match
 it exactly:
 
-  * admission: ``ContinuousScheduler`` over a ``BlockManager`` (watermark
-    admission by free blocks, prefix-cache hits, deferral);
-  * prefill: prompts run in ``block_size`` chunks, up to ``prefill_lanes``
-    joining requests per ``[P, block_size]`` dispatch (one dispatch per
-    chunk-round, padded lanes masked), starting past each request's
-    prefix-cache hits; the finishing lanes' first tokens are picked on the
-    device and fetched once per round;
+  * admission: ``ContinuousScheduler`` over a ``CachePool`` (contiguous:
+    one max_len row per slot, admission by free slot) or a
+    ``BlockManager`` (paged: watermark admission by free blocks,
+    prefix-cache hits, deferral);
+  * prefill, contiguous: one forward pass per admitted request at its
+    exact prompt length, capturing every layer's K/V (``return_cache``),
+    padded to max_len and written into the request's slot; the first token
+    is picked on the device and fetched (one host sync per request);
+  * prefill, paged: prompts run in ``block_size`` chunks, up to
+    ``prefill_lanes`` joining requests per ``[P, block_size]`` dispatch
+    (one dispatch per chunk-round, padded lanes masked), starting past each
+    request's prefix-cache hits; the finishing lanes' first tokens are
+    picked on the device and fetched once per round;
   * decode: one *horizon* per boundary runs up to ``decode_horizon`` steps
-    of ``paged_decode_step`` with token selection (argmax), token feedback,
-    per-row ``pos`` advance and budget/EOS stop masks all on the device —
-    a Python loop where the reference scans — and fetches only the
-    ``[W, h]`` int32 token block, so ``host_syncs`` keeps its meaning;
+    of ``decode_step`` / ``paged_decode_step`` with token selection
+    (argmax), token feedback, per-row ``pos`` advance and budget/EOS stop
+    masks all on the device — a Python loop where the reference scans —
+    and fetches only the ``[W, h]`` int32 token block, so ``host_syncs``
+    keeps its meaning;
   * compaction: the horizon runs over the live slots bucketed to a power
-    of two (``_bucket``), ``h`` is a power of two (``_pick_h``), and
-    ``_ensure_growth`` shrinks ``h`` before it preempts.
+    of two (``_bucket``) — the contiguous bucket gathers its cache rows
+    with ``index_select`` and scatters them back with ``index_copy_``, the
+    paged bucket gathers only its block tables — ``h`` is a power of two
+    (``_pick_h``), and paged ``_ensure_growth`` shrinks ``h`` before it
+    preempts.
 
 Between horizons the decode state (``_DecodeState``) stays on the device
 and takes delta updates at admission, growth and eviction only.
 
-Sampling (``temperature > 0``), the contiguous cache, tenants, fault
-injection, elastic reshapes, sharding, tracing and profiling are ported
-later and raise ``NotImplementedError`` naming their ROADMAP item.
+The contiguous backend serves the dense and MoE families, the paged one
+the dense family (paged MoE comes with ROADMAP queue A, item 6). Sampling
+(``temperature > 0``), tenants, fault injection, elastic reshapes,
+sharding, tracing and profiling are ported later and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,12 +49,16 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import Model, build_model
 from repro_torch.obs.metrics import RunObs
+from repro_torch.serve.cache import CachePool
 from repro_torch.serve.paged import BlockManager
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
+
+CACHE_BACKENDS = ("contiguous", "paged")
 
 #: engine options of the reference that later slices port, by ROADMAP
 #: queue A item
@@ -114,17 +130,18 @@ class _PrefillLane:
 
 class _DecodeState:
     """Device-resident decode state: last token, per-row ``pos``, per-row
-    freeze position ``stop`` (a row is live while ``pos < stop``), and the
-    block tables. The host writes deltas only, at admission, growth and
-    eviction."""
+    freeze position ``stop`` (a row is live while ``pos < stop``), and —
+    paged only — the block tables. The host writes deltas only, at
+    admission, growth and eviction."""
 
-    def __init__(self, n_slots: int, max_blocks: int, device):
+    def __init__(self, n_slots: int, max_blocks: Optional[int], device):
         self.device = device
         i32 = dict(dtype=torch.int32, device=device)
         self.tok = torch.zeros((n_slots, 1), **i32)
         self.pos = torch.zeros((n_slots,), **i32)
         self.stop = torch.zeros((n_slots,), **i32)
-        self.tables = torch.full((n_slots, max_blocks), -1, **i32)
+        self.tables = (torch.full((n_slots, max_blocks), -1, **i32)
+                       if max_blocks else None)
 
     def _idx(self, slots) -> torch.Tensor:
         return torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
@@ -150,18 +167,20 @@ class _DecodeState:
 
 
 class ServeEngine:
-    """Paged serving engine for the dense family (greedy decoding).
+    """Serving engine for the dense and MoE families (greedy decoding).
 
     ``n_slots=None`` sizes the pool to the request set (static batching);
     a fixed ``n_slots`` turns on continuous batching. ``decode_horizon=K``
     runs up to K decode steps per dispatch; any K gives the same tokens.
     ``device`` holds the weights, the pools and the decode state; CUDA
     runs the hand-written attention kernels, the CPU their plain versions.
+    ``cache="contiguous"`` (the default, as in the reference) gives every
+    slot a max_len cache row; ``cache="paged"`` the block pool.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, max_len: int = 256,
                  n_slots: Optional[int] = None, policy: str = "fcfs",
-                 cache: str = "paged", block_size: int = 16,
+                 cache: str = "contiguous", block_size: int = 16,
                  n_blocks: Optional[int] = None, watermark: float = 0.05,
                  temperature: float = 0.0, prefill_lanes: int = 4,
                  prefix_cache: bool = True, decode_horizon: int = 8,
@@ -174,10 +193,13 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"{name}= is not ported yet (ROADMAP queue A, item "
                     f"{_LATER[name]})")
-        if cache != "paged":
+        if cache not in CACHE_BACKENDS:
+            raise ValueError(f"unknown cache backend {cache!r}; "
+                             f"known: {CACHE_BACKENDS}")
+        if cache == "paged" and cfg.family != "dense":
             raise NotImplementedError(
-                "cache='contiguous' is not ported yet (ROADMAP queue A, "
-                "item 5); the port serves the paged cache")
+                f"cache='paged' for the {cfg.family} family is ported later "
+                "(ROADMAP queue A, item 6); it serves cache='contiguous'")
         if temperature > 0:
             raise NotImplementedError(
                 "sampled decoding is not ported yet (ROADMAP queue A, item "
@@ -188,6 +210,7 @@ class ServeEngine:
         self.max_len = max_len
         self.n_slots = n_slots
         self.policy = policy
+        self.cache_kind = cache
         self.block_size = block_size
         self.n_blocks = n_blocks
         self.watermark = watermark
@@ -195,12 +218,26 @@ class ServeEngine:
         self.prefix_cache = bool(prefix_cache)
         self.decode_horizon = max(int(decode_horizon), 1)
         self.eos_token = None if eos_token is None else int(eos_token)
-        #: the most recent run's block pool (audit surface)
-        self.pool: Optional[BlockManager] = None
+        #: the most recent run's cache pool (audit surface)
+        self.pool = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
         self.params = params
+        self._horizon = (self._paged_horizon if cache == "paged"
+                         else self._contiguous_horizon)
+
+    # -- prefill (contiguous) -------------------------------------------------
+    def _prefill(self, tokens):
+        """One-pass attention prefill via the ``return_cache`` hook
+        (``engine.py:455-468``): tokens [1, S] -> (last logits [1, 1, V],
+        cache dict with every leaf padded to max_len). The recurrent
+        families' prefill (a decode-step scan) comes with them (ROADMAP
+        queue A, item 7); ``build_model`` refuses them until then."""
+        logits, (k, v) = self.model.module.forward(self.cfg, self.params,
+                                                   tokens, return_cache=True)
+        pad = (0, 0, 0, 0, 0, self.max_len - tokens.shape[1])  # [L,B,S,H,D]
+        return logits[:, -1:], {"k": F.pad(k, pad), "v": F.pad(v, pad)}
 
     # -- the engine loop ---------------------------------------------------------
     def run(self, requests: List[ServeRequest]
@@ -211,7 +248,10 @@ class ServeEngine:
         c = RunObs()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            self._run_paged(reqs, n_slots, c)
+            if self.cache_kind == "paged":
+                self._run_paged(reqs, n_slots, c)
+            else:
+                self._run_contiguous(reqs, n_slots, c)
         wall = time.perf_counter() - t0
         return reqs, self._stats(reqs, c, n_slots, wall)
 
@@ -268,8 +308,12 @@ class ServeEngine:
         m = c.metrics
         m.set("queue_depth", len(sched.waiting))
         m.set("active", len(sched.active))
-        m.set("occupancy", (1.0 - pool.free_blocks / pool.n_blocks
-                            if pool.n_blocks else 0.0))
+        if self.cache_kind == "paged":
+            occ = (1.0 - pool.free_blocks / pool.n_blocks
+                   if pool.n_blocks else 0.0)
+        else:
+            occ = len(sched.active) / pool.capacity if pool.capacity else 0.0
+        m.set("occupancy", occ)
         m.sample(sched.step)
 
     def _evict(self, sched, state: _DecodeState, c: RunObs):
@@ -290,39 +334,97 @@ class ServeEngine:
         h = max(1, min(self.decode_horizon, rem))
         nxt = sched.next_arrival()
         if (nxt is not None and nxt > sched.step
-                and any(sched.pool.can_admit(len(r.prompt))
-                        for r in sched.waiting)):
+                and self._could_admit_arrival(sched)):
             h = max(1, min(h, int(math.ceil(nxt - sched.step))))
         return _pow2_floor(h)
 
-    def _horizon(self, pool: BlockManager, state: _DecodeState, idx, h: int,
-                 full: bool) -> torch.Tensor:
-        """Up to ``h`` decode steps on the device over the bucket ``idx``:
-        greedy selection, token feedback, per-row pos advance and stop
-        masks; frozen rows keep (token, pos), write no KV and emit -1.
-        Returns the [W, h] int32 token block (still on the device)."""
-        if full:
-            t, p, s, tb = state.tok, state.pos, state.stop, state.tables
-        else:
-            ix = torch.as_tensor(idx, device=self.device)
-            t, p, s, tb = state.tok[ix], state.pos[ix], state.stop[ix], \
-                state.tables[ix]
+    @staticmethod
+    def _could_admit_arrival(sched) -> bool:
+        """Whether shortening the horizon for the next arrival could pay
+        off: free slots (contiguous) or watermark-clearing blocks (paged)
+        for some waiting request."""
+        pool = sched.pool
+        if hasattr(pool, "can_admit"):
+            return any(pool.can_admit(len(r.prompt)) for r in sched.waiting)
+        return pool.n_free > 0
+
+    # -- decode horizons ------------------------------------------------------
+    def _scan_horizon(self, step_fn, t, p, s, h: int):
+        """The shared horizon loop (a Python loop where the reference
+        scans): up to ``h`` steps of ``step_fn(t, p, active) -> logits``
+        with greedy selection, token feedback, per-row pos advance and the
+        budget/EOS stop masks, all on the device. A row is live while
+        ``p < s``; frozen rows keep (token, pos), write no KV and emit -1.
+        Returns (t, p, s, token block [W, h])."""
         emitted = []
         for _ in range(h):
             active = p < s
-            logits, _ = self.model.paged_decode_step(
-                self.params, pool.buffers, t, p, tb, write_valid=active)
+            logits = step_fn(t, p, active)
             nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
             emitted.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
             t = torch.where(active[:, None], nxt[:, None], t)
             p = p + active.to(torch.int32)
             if self.eos_token is not None:
                 s = torch.where(active & (nxt == self.eos_token), p, s)
-        if full:
+        return t, p, s, torch.stack(emitted, dim=1)
+
+    @staticmethod
+    def _put_rows(state: _DecodeState, ix, t, p, s) -> None:
+        """Scatter a bucket's (token, pos, stop) back (ix None: full)."""
+        if ix is None:
             state.tok, state.pos, state.stop = t, p, s
         else:
             state.tok[ix], state.pos[ix], state.stop[ix] = t, p, s
-        return torch.stack(emitted, dim=1)
+
+    def _paged_horizon(self, pool: BlockManager, state: _DecodeState, idx,
+                       h: int, full: bool) -> torch.Tensor:
+        """Up to ``h`` paged decode steps over the bucket ``idx``: the
+        bucket gathers tokens, positions, stops and block tables only
+        (compaction through the tables is free). Returns the [W, h] int32
+        token block (still on the device)."""
+        if full:
+            ix, tb = None, state.tables
+            t, p, s = state.tok, state.pos, state.stop
+        else:
+            ix = torch.as_tensor(idx, device=self.device)
+            tb = state.tables[ix]
+            t, p, s = state.tok[ix], state.pos[ix], state.stop[ix]
+
+        def step(t, p, active):
+            return self.model.paged_decode_step(
+                self.params, pool.buffers, t, p, tb, write_valid=active)[0]
+
+        t, p, s, blk = self._scan_horizon(step, t, p, s, h)
+        self._put_rows(state, ix, t, p, s)
+        return blk
+
+    def _contiguous_horizon(self, pool: CachePool, state: _DecodeState, idx,
+                            h: int, full: bool) -> torch.Tensor:
+        """Up to ``h`` contiguous decode steps over the bucket ``idx``
+        (``engine.py:539-598``): gather the bucket's cache rows along each
+        leaf's batch axis with ``index_select`` (unless ``full``: every
+        slot decodes, idle rows frozen and inert), decode with
+        ``write_valid`` = the live rows, and scatter the rows back with
+        ``index_copy_``. Returns the [W, h] int32 token block."""
+        if full:
+            ix, sub = None, pool.buffers
+            t, p, s = state.tok, state.pos, state.stop
+        else:
+            ix = torch.as_tensor(idx, device=self.device)
+            sub = {name: buf.index_select(pool.batch_axes[name], ix)
+                   for name, buf in pool.buffers.items()}
+            t, p, s = state.tok[ix], state.pos[ix], state.stop[ix]
+
+        def step(t, p, active):
+            return self.model.decode_step(self.params, sub, t, p,
+                                          write_valid=active)[0]
+
+        t, p, s, blk = self._scan_horizon(step, t, p, s, h)
+        if ix is not None:
+            for name, buf in pool.buffers.items():
+                buf.index_copy_(pool.batch_axes[name], ix, sub[name])
+        self._put_rows(state, ix, t, p, s)
+        return blk
 
     def _decode_boundary(self, sched, pool, state, c, n_slots,
                          h) -> List[int]:
@@ -380,7 +482,55 @@ class ServeEngine:
             c.inc("util_acc", sum(1 for m in counts if m > k) / n_slots)
         return counts
 
-    # -- prefill -----------------------------------------------------------------
+    # -- contiguous loop ------------------------------------------------------
+    def _run_contiguous(self, reqs, n_slots, c: RunObs):
+        """The contiguous engine loop (``engine.py:1362-1438``): evict,
+        admit, one exact-length prefill per admitted request (its cache row
+        written into its slot, its first token picked on the device), then
+        one decode horizon per boundary."""
+        self.pool = pool = CachePool(self.model, n_slots, self.max_len,
+                                     device=self.device)
+        sched = ContinuousScheduler(pool, self.policy)
+        for i, r in enumerate(reqs):
+            r.job_id = i
+            sched.submit(r)
+        state = _DecodeState(n_slots, None, self.device)
+
+        while sched.has_work:
+            self._evict(sched, state, c)
+            sched.admit()
+            admitted = sched.drain_prefill()
+            t0 = time.perf_counter()
+            for r in admitted:
+                tokens = torch.as_tensor(np.asarray(r.prompt, np.int32),
+                                         device=self.device)[None, :]
+                logits, row = self._prefill(tokens)
+                c.inc("prefill_dispatches")
+                pool.write(r.slot, row)
+                tok = int(logits[0, -1].argmax())   # the one id fetch
+                c.inc("host_syncs")
+                r.output.append(tok)
+                if self.eos_token is not None and tok == self.eos_token:
+                    r.finished_early = True
+            if admitted:
+                c.inc("prefill_s", time.perf_counter() - t0)
+                state.set_rows(
+                    [r.slot for r in admitted],
+                    [r.output[-1] for r in admitted],
+                    [len(r.prompt) for r in admitted],
+                    [len(r.prompt) + r.max_new_tokens - 1 for r in admitted])
+            self._evict(sched, state, c)  # satisfied by prefill alone / EOS
+            if not sched.active:
+                nxt = sched.next_arrival()
+                if nxt is None:
+                    break
+                sched.step = max(sched.step + 1, int(math.ceil(nxt)))
+                continue
+            h = self._pick_h(sched, sorted(sched.active))
+            self._decode_boundary(sched, pool, state, c, n_slots, h)
+        self._evict(sched, state, c)
+
+    # -- prefill (paged) ------------------------------------------------------
     def _batched_paged_prefill(self, pool: BlockManager, reqs,
                                c: RunObs) -> None:
         """Prefill the joining requests through up to ``prefill_lanes``

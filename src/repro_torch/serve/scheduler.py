@@ -66,8 +66,10 @@ class ServeRequest:
 
 
 class ContinuousScheduler:
-    """Admission + eviction over a paged ``BlockManager``, ordered by a
-    queue policy (a registered name or a ``Policy`` instance)."""
+    """Admission + eviction over a pool — a contiguous ``CachePool``
+    (admission by free slot) or a paged ``BlockManager`` (admission by
+    free blocks) — ordered by a queue policy (a registered name or a
+    ``Policy`` instance)."""
 
     def __init__(self, pool, policy="fcfs"):
         if isinstance(policy, Policy):
@@ -87,7 +89,12 @@ class ContinuousScheduler:
         self.step: int = 0
 
     def submit(self, req: ServeRequest) -> None:
-        self.pool.validate_request(req)
+        if hasattr(self.pool, "validate_request"):
+            self.pool.validate_request(req)      # paged: blocks + table span
+        elif len(req.prompt) + req.max_new_tokens > self.pool.max_len:
+            raise ValueError(
+                f"request needs {len(req.prompt) + req.max_new_tokens} cache "
+                f"positions but the pool holds {self.pool.max_len}")
         self.waiting.append(req)
 
     @property
@@ -99,7 +106,7 @@ class ContinuousScheduler:
 
     def admit(self) -> List[ServeRequest]:
         """Admit policy-ordered admissible requests while the pool has room
-        (free blocks above the watermark and a free slot)."""
+        (a free slot; paged: also free blocks above the watermark)."""
         ready = [r for r in self.waiting if r.arrival_time <= self.step]
         now = time.perf_counter()
         for r in ready:
@@ -107,11 +114,12 @@ class ContinuousScheduler:
                 r.t_arrived = now
         admitted = []
         for req in self.policy.order(ready, float(self.step)):
-            slot = self.pool.alloc_for(req)
+            slot = (self.pool.alloc_for(req)
+                    if hasattr(self.pool, "alloc_for") else self.pool.alloc())
             if slot is None:
                 # a prefix-cache deferral (donor still prefilling) parks
                 # only that request; pool exhaustion ends the scan.
-                if self.pool.deferred_last_alloc:
+                if getattr(self.pool, "deferred_last_alloc", False):
                     continue
                 break
             req.slot = slot

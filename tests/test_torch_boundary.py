@@ -11,9 +11,9 @@ import pytest
 
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import convert, transformer
+from repro_torch.models import convert, moe, transformer
 from repro_torch.models.api import Model
-from repro_torch.serve import BlockManager, ServeEngine
+from repro_torch.serve import BlockManager, CachePool, ServeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -44,7 +44,11 @@ def test_import_leaves_jax_and_reference_out():
         "             or m.startswith('repro.'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n")
+        "assert len(names) >= 24, names\n"
+        "for n in ('repro_torch.models.moe', 'repro_torch.serve.cache',\n"
+        "          'repro_torch.kernels.flash_attention',\n"
+        "          'repro_torch.kernels.grouped_matmul'):\n"
+        "    assert n in names, n\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -75,6 +79,14 @@ def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
+@pytest.mark.parametrize("fn", [
+    transformer.init_cache, moe.init_params, Model.init_cache,
+    CachePool.__init__],
+    ids=lambda f: f"{f.__module__.split('.')[-1]}.{f.__qualname__}")
+def test_contiguous_and_moe_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_cli_defaults_to_cuda():
     assert serve_cli.build_parser().parse_args([]).device == "cuda"
 
@@ -82,6 +94,20 @@ def test_cli_defaults_to_cuda():
 def test_kernel_wrappers_count_launches():
     assert isinstance(ops.paged_attention.launches, int)
     assert isinstance(ops.paged_prefill_attention.launches, int)
+    assert isinstance(ops.flash_attention.launches, int)
+    assert isinstance(ops.grouped_matmul.launches, int)
+
+
+def test_every_csrc_source_is_built():
+    """``build.py`` compiles every CUDA source under csrc/ and declares the
+    argument types of every C entry point the wrappers call."""
+    from repro_torch.kernels import build
+    names = {p.name for p in build.sources()}
+    assert {"paged_attention.cu", "flash_attention.cu", "grouped_matmul.cu",
+            "errors.cu"} <= names
+    assert set(build.ARGTYPES) == {
+        "paged_attention_decode", "paged_attention_prefill",
+        "flash_attention_forward", "grouped_matmul_forward"}
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -6,11 +6,14 @@ runs on a machine that has only the port's dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances are tests/test_kernels.py's: 2e-5 in f32, 2e-2 in bf16.
+Tolerances are tests/test_kernels.py's: 2e-5 in f32, 2e-2 in bf16 (the
+grouped matmul's inputs are scaled so its outputs are of order one).
 """
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 
@@ -88,3 +91,90 @@ def test_kernels_raise_on_what_they_do_not_take(cuda_device):
         ops.paged_prefill_attention(strided, kp, vp, tables, pos)
     with pytest.raises(ValueError, match="dtype"):
         ops.paged_attention(q[:, 0].double(), kp, vp, tables, pos)
+
+
+def _flash_case(device, dtype, s, hq, hkv, d, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(1, s, hq, d, generator=g, device=device).to(dtype)
+    k = torch.randn(1, s, hkv, d, generator=g, device=device).to(dtype)
+    v = torch.randn(1, s, hkv, d, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,d,causal,window", [
+    (256, 16, 16, 128, True, 0),      # olmoe-1b-7b's prefill
+    (128, 14, 2, 64, True, 5),        # G = 7, sliding window
+    (128, 8, 2, 64, False, 0),        # non-causal
+    (200, 4, 4, 128, True, 0),        # ragged causal S
+])
+def test_flash_kernel_matches_plain(cuda_device, dtype, s, hq, hkv, d,
+                                    causal, window):
+    q, k, v = _flash_case(cuda_device, dtype, s, hq, hkv, d, s + hq + d)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    exp = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(cuda_device):
+    q, k, v = _flash_case(cuda_device, torch.float32, 64, 8, 2, 64, 3)
+    fused = torch.cat([q, k, v], dim=2)
+    qv, kv, vv = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    torch.testing.assert_close(ops.flash_attention(qv, kv, vv),
+                               fa.flash_attention_plain(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", ["none", "random", "some_empty"])
+def test_grouped_matmul_kernel_matches_plain(cuda_device, dtype, valid):
+    """olmoe-1b-7b's down projection shape at a 256-token capacity (40
+    rows), narrowed to 8 experts."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(8, 40, 1024, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(8, 1024, 2048, generator=g, device=cuda_device)
+         / 32.0).to(dtype)
+    rows = None
+    if valid != "none":
+        rows = torch.randint(0, 41, (8,), generator=g, device=cuda_device,
+                             dtype=torch.int32)
+        if valid == "some_empty":
+            rows[::2] = 0
+    before = ops.grouped_matmul.launches
+    out = ops.grouped_matmul(x, w, rows)
+    exp = gmm.grouped_matmul_plain(x, w, rows)
+    torch.cuda.synchronize()
+    assert ops.grouped_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (8, 40, 2048)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if rows is not None:
+        mask = torch.arange(40, device=cuda_device)[None, :] >= rows[:, None]
+        assert (out[mask] == 0).all()
+
+
+@pytest.mark.cuda
+def test_new_kernels_raise_on_what_they_do_not_take(cuda_device):
+    q, k, v = _flash_case(cuda_device, torch.float32, 16, 4, 2, 48, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _flash_case(cuda_device, torch.float32, 16, 4, 2, 64, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q, k.double(), v)
+    x = torch.zeros(2, 8, 16, device=cuda_device)
+    w = torch.zeros(2, 16, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        ops.grouped_matmul(x, w, torch.zeros(2, dtype=torch.int64,
+                                             device=cuda_device))
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.grouped_matmul(strided, w)

@@ -170,7 +170,7 @@ def _run_both(case, pallas=False):
         _requests(JaxRequest, case))
     engine = ServeEngine(get_config(ARCH, smoke=True),
                          params=params_from_jax(tree, device="cpu"),
-                         device="cpu", **kw)
+                         cache="paged", device="cpu", **kw)
     out, pst = engine.run(_requests(ServeRequest, case))
     assert [r.output for r in out] == [r.output for r in ref]
     for name in ("prefill_dispatches", "decode_dispatches", "host_syncs",
@@ -200,8 +200,9 @@ def test_engine_matches_jax_engine_with_eos_stops():
     free, _ = ServeEngine(get_config(ARCH, smoke=True),
                           params=params_from_jax(_numpy_params(),
                                                  device="cpu"),
-                          device="cpu", max_len=32, n_slots=3, block_size=4,
-                          decode_horizon=8).run(_requests(ServeRequest, case))
+                          cache="paged", device="cpu", max_len=32, n_slots=3,
+                          block_size=4, decode_horizon=8).run(
+        _requests(ServeRequest, case))
     eos = free[0].output[2]
     st = _run_both(dict(case, engine=dict(decode_horizon=8, eos_token=eos)))
     assert st.new_tokens < sum(case["budgets"])
@@ -215,17 +216,23 @@ def test_engine_matches_jax_engine_with_pallas_kernels():
 
 def test_engine_rejects_unported_options():
     cfg = get_config(ARCH, smoke=True)
-    for kw in (dict(cache="contiguous"), dict(temperature=0.7),
-               dict(tenants=object()), dict(sharding=object())):
+    for kw in (dict(temperature=0.7), dict(tenants=object()),
+               dict(sharding=object())):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):           # paged MoE: item 6
+        ServeEngine(get_config("olmoe-1b-7b", smoke=True), device="cpu",
+                    cache="paged")
+    with pytest.raises(ValueError):
+        ServeEngine(cfg, device="cpu", cache="blocks")
 
 
 def test_cli_smoke_on_cpu():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--preset",
-         "smoke", "--device", "cpu", "--batch", "4", "--slots", "2",
+         "smoke", "--device", "cpu", "--engine", "continuous", "--cache",
+         "paged", "--batch", "4", "--slots", "2",
          "--prompt-len", "12", "--shared-prefix", "16", "--max-len", "64"],
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
