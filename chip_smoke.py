@@ -10,7 +10,7 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. build     — compile every CUDA source of src/repro_torch/kernels/csrc
                  (one nvcc per source, all at once) into one library under
                  build/kernels/, for sm_90a;
-  3. kernels   — hold each of the four kernels against its plain PyTorch
+  3. kernels   — hold each of the five kernels against its plain PyTorch
                  version on the card and time the kernel, the plain version
                  and a library yardstick the port never calls (each launch
                  behind an L2 flush): the paged kernels at qwen2-0.5b's serve
@@ -22,12 +22,19 @@ Phases, each printed as it runs; any failure exits non-zero:
                  f32 and bf16 (scaled_dot_product_attention); grouped matmul
                  at olmoe-1b-7b's expert shapes (64 experts x 40 rows, gate-up
                  2048 x 2048 and down 1024 x 2048) with valid_rows None,
-                 random and partly zero, f32 and bf16 (torch.bmm);
-  4. reference — the paged prefill + decode path (qwen2-0.5b smoke) and the
+                 random and partly zero, f32 and bf16 (torch.bmm); the SSD
+                 scan at mamba2-780m's forward shape ([2, 4096] tokens, 48
+                 heads of 64, state 128, chunk 256), the smoke widths, a
+                 chunk that halves (S 96), S 64 with chunk 128, a_log = -40
+                 (memoryless) and B = H = 1 (tolerance 5e-4; no PyTorch
+                 call computes it, so no library time);
+  4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
-                 (olmoe-1b-7b smoke) on the card against the same paths on
+                 (olmoe-1b-7b smoke) and the mamba2 forward + decode chain
+                 (mamba2-780m smoke) on the card against the same paths on
                  the CPU (plain versions, which the CPU tests hold against
-                 the JAX package);
+                 the JAX package); the mamba2 decode chain also against
+                 its forward's logits (2e-3);
   5. engine    — the full-width qwen2-0.5b paged engine (24 layers, random
                  weights from a seed) through repro_torch.launch.serve's own
                  run function: 16 requests of 128-256 tokens after a shared
@@ -49,7 +56,20 @@ Phases, each printed as it runs; any failure exits non-zero:
                  no model calls (the MoE layer contracts with einsum, as the
                  JAX package's does): it launches 0 times on both paths.
                  Then torch.profiler over a shorter olmoe run (4 requests,
-                 8 new tokens), as in phase 6.
+                 8 new tokens), as in phase 6;
+  8. mamba2    — with the olmoe engines freed, full-width mamba2-780m (48
+                 layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
+                 float32 weights from a seed): Model.forward and Model.loss
+                 on [2, 4096] random tokens, each launching the SSD kernel
+                 exactly 48 times (its plain version never), then 256
+                 recurrent decode steps on a [1, 256] prefix against the
+                 forward's logits there (2e-3), then torch.profiler over one
+                 more forward;
+  9. mamba2 engine — the full-width mamba2-780m contiguous engine through
+                 the same run function: 8 requests of 64-128 tokens, 32 new
+                 tokens each, 4 slots, decode horizon 8, max_len 256. Its
+                 prefill steps the recurrent state, so the SSD kernel
+                 launches 0 times here, as in the reference.
 
 The last two lines are the kernels record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -71,6 +91,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -106,6 +127,14 @@ CSRC = "src/repro_torch/kernels/csrc/"
 #: olmoe-1b-7b: q/k/v heads, head_dim, experts, expert capacity of a
 #: 256-token prompt (moe.capacity), d_model, expert width
 OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
+#: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
+#: batch and sequence
+M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
+MAMBA2_ARGS = ["--arch", "mamba2-780m", "--preset", "full", "--engine",
+               "continuous", "--cache", "contiguous", "--slots", "4",
+               "--batch", "8", "--prompt-len", "128", "--max-new", "32",
+               "--max-len", "256", "--decode-horizon", "8", "--seed", "0",
+               "--device", "cuda"]
 
 
 def phase(name: str) -> None:
@@ -233,8 +262,9 @@ def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
     """The kernels-line entry of one timed case. ``launches`` is added by
     main from the engine run of the kernel's path."""
     by = "bytes" if bytes_ms >= ops_ms else "operations"
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+          f"library {lib}, bound {max(bytes_ms, ops_ms):.5f} ms "
           f"({by}; bytes {bytes_ms:.5f}, operations {ops_ms:.5f})",
           flush=True)
     return dict(name=name, route="cuda", source=CSRC + source,
@@ -244,15 +274,20 @@ def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
                 bound_ops_ms=ops_ms, shape=shape)
 
 
-def _compare(what: str, out, exp, dtype) -> float:
+def _compare(what: str, out, exp, dtype, tol=None) -> float:
     """Max abs error of a kernel against its plain version; exits unless
-    they agree within the dtype's tolerance."""
+    they agree within the tolerance (the dtype's unless given)."""
     torch.cuda.synchronize()
-    err = (out.float() - exp.float()).abs().max().item()
-    tol = TOL[dtype]
+    diff = (out.float() - exp.float()).abs()
+    err = diff.max().item()
+    tol = tol or TOL[dtype]
+    # allclose's test |out - exp| <= tol + tol |exp|: its worst ratio
+    worst = (diff / (tol + tol * exp.float().abs())).max().item()
     ok = (out.shape == exp.shape and out.dtype == exp.dtype
           and torch.allclose(out.float(), exp.float(), atol=tol, rtol=tol))
-    print(f"{what}: max_abs_err={err:.3e} (tol {tol})", flush=True)
+    print(f"{what}: max_abs_err={err:.3e}, max |exp|="
+          f"{exp.float().abs().max().item():.3e} (atol = rtol = {tol}; "
+          f"worst ratio to the bound {worst:.3f})", flush=True)
     if not ok:
         raise SystemExit(f"FAIL: {what} disagrees with its plain version")
     return err
@@ -371,6 +406,72 @@ def check_grouped_matmul(flush: torch.Tensor) -> dict:
     return rec
 
 
+def ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int):
+    """Least time for one SSD scan: x, a, B and C read once and y written
+    once over HBM bandwidth; the visible work per (row, chunk) — causal
+    scores (2 N per pair j <= i), scores times x (2 P per pair), the
+    inter-chunk term and the state update (2 Q N P each) — over the f32
+    peak. (bytes ms, ops ms)."""
+    nbytes = 4 * b * s * h * (2 * p + 2 * n + 1)
+    pairs = q * (q + 1) // 2
+    flops = b * h * (s // q) * (2 * pairs * (n + p) + 4 * q * n * p)
+    return 1e3 * nbytes / HBM_BPS, 1e3 * flops / F32_FLOPS
+
+
+def ssd_case(b: int, s: int, h: int, p: int, n: int, seed: int):
+    """The JAX kernel test's inputs (tests/test_kernels.py:126-130): x
+    normal, decays -softplus(normal), B and C normal at half scale."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device="cuda")
+    a = -torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=g, device="cuda"))
+    bm = torch.randn(b, s, h, n, generator=g, device="cuda") * 0.5
+    cm = torch.randn(b, s, h, n, generator=g, device="cuda") * 0.5
+    return x, a, bm, cm
+
+
+def check_ssd(flush: torch.Tensor) -> dict:
+    """The SSD scan against its plain version at mamba2-780m's forward shape
+    and at edge shapes (tolerance 5e-4, tests/test_kernels.py:134's); time
+    the full-width call."""
+    cases = [  # (B, S, H, P, N, chunk, what)
+        (M2_B, M2_S, M2_H, M2_P, M2_N, M2_Q, "mamba2-780m forward"),
+        (2, 256, 16, 32, 16, 32, "smoke widths"),
+        (2, 96, 4, M2_P, M2_N, M2_Q, "S 96: the chunk halves to 32"),
+        (2, 64, 4, M2_P, M2_N, 128, "S 64 with chunk 128"),
+        (2, 128, 8, M2_P, M2_N, 64, "a_log = -40 (memoryless)"),
+        (1, 512, 1, M2_P, M2_N, M2_Q, "B = H = 1"),
+    ]
+    rec = None
+    for (b, s, h, p, n, chunk, what) in cases:
+        x, a, bm, cm = ssd_case(b, s, h, p, n, s + h + n)
+        if "memoryless" in what:
+            a = torch.full_like(a, -40.0)
+        q = chunk
+        while s % q:
+            q //= 2
+        out = ops.ssd_scan(x, a, bm, cm, chunk=chunk)
+        err = _compare(f"ssd_scan [{b},{s},{h},{p}] N={n} chunk={chunk} "
+                       f"(q={q}; {what})", out,
+                       ssd.ssd_scan_plain(x, a, bm, cm, chunk=q),
+                       torch.float32, tol=5e-4)
+        if "memoryless" in what:
+            want = (cm * bm).sum(-1, keepdim=True) * x
+            _compare(f"ssd_scan {what} against (C.B) x", out, want,
+                     torch.float32, tol=5e-4)
+        if what.startswith("mamba2"):
+            ms = time_ms(lambda: ops.ssd_scan(x, a, bm, cm, chunk=q), flush)
+            plain_ms = time_ms(
+                lambda: ssd.ssd_scan_plain(x, a, bm, cm, chunk=q), flush,
+                reps=10)
+            rec = _record(
+                "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:66",
+                err, ms, plain_ms, *ssd_bound(b, s, h, p, n, q), None,
+                dict(B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"))
+        del x, a, bm, cm, out
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # reference: the card against the CPU at the smoke shape
 # ---------------------------------------------------------------------------
@@ -437,6 +538,22 @@ def moe_logits(model, params, device):
     return outs
 
 
+def mamba2_logits(model, params, device):
+    """The mamba2 forward over two 64-token rows (two chunks of 32: the scan
+    kernel on the card), then the recurrent decode chain over the same
+    tokens; returns every logits tensor on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 64), generator=g,
+                         dtype=torch.int32)
+    outs = [model.forward(params, {"tokens": toks.to(device)}).cpu()]
+    cache = model.init_cache(2, 64, device=device)
+    for t in range(64):
+        logits, cache = model.decode_step(params, cache,
+                                          toks[:, t:t + 1].to(device), t)
+        outs.append(logits.cpu())
+    return outs
+
+
 def _to_cuda(tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(v) for k, v in tree.items()}
@@ -447,11 +564,21 @@ def _to_cuda(tree):
 
 def check_reference() -> None:
     for arch, path in (("qwen2-0.5b", paged_logits),
-                       ("olmoe-1b-7b", moe_logits)):
-        _check_reference(arch, path)
+                       ("olmoe-1b-7b", moe_logits),
+                       ("mamba2-780m", mamba2_logits)):
+        got = _check_reference(arch, path)
+    # the decode chain against the forward on the card (the check of
+    # tests/test_smoke_archs.py:82-95)
+    full, steps = got[0], torch.cat(got[1:], dim=1)
+    gap = (steps - full).abs().max().item()
+    print(f"mamba2-780m smoke on the card, 64 decode steps vs forward: "
+          f"max_abs_diff={gap:.3e} (tol 2e-3)", flush=True)
+    if not torch.allclose(steps, full, atol=2e-3, rtol=1e-5):
+        raise SystemExit("FAIL: the mamba2 decode chain disagrees with its "
+                         "forward on the card")
 
 
-def _check_reference(arch: str, path) -> None:
+def _check_reference(arch: str, path) -> list:
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -469,6 +596,7 @@ def _check_reference(arch: str, path) -> None:
                for a, b in zip(ref, got)):
         raise SystemExit(f"FAIL: the card's {arch} path disagrees with the "
                          "CPU")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -582,14 +710,28 @@ def profile_engine(argv, ours: str) -> None:
     """torch.profiler over a shorter engine run at the widths of ``argv``:
     the device's busy share of the wall clock and the device time by
     kernel (``ours``: the name fragment of this path's kernels)."""
-    from torch.profiler import ProfilerActivity, profile
     args = serve_cli.build_parser().parse_args(argv)
     engine, reqs = serve_cli.build(args)         # weights: outside the window
+    runs = []
+    rec = profile_call(lambda: runs.append(engine.run(reqs)[1]), ours)
+    stats = runs[0]
+    print(json.dumps({"profile": {
+        "arch": args.arch, "cache": args.cache, "prefill_s": stats.prefill_s,
+        "decode_s": stats.decode_s, "steps": stats.steps, **rec}}),
+        flush=True)
+
+
+def profile_call(fn, ours: str) -> dict:
+    """torch.profiler over one call of ``fn``: its wall clock, the device's
+    busy seconds and share, the device time of the kernels whose names hold
+    ``ours``, and the top kernels by device time. Fails if the profiler saw
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, stats = engine.run(reqs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -604,16 +746,124 @@ def profile_engine(argv, ours: str) -> None:
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     ours_s = sum(us for k, (us, _) in by_name.items() if ours in k) / 1e6
-    print(json.dumps({"profile": {
-        "arch": args.arch, "cache": args.cache,
-        "wall_s": wall, "prefill_s": stats.prefill_s,
-        "decode_s": stats.decode_s, "steps": stats.steps,
-        "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
-        f"{ours}kernels_s": ours_s,
-        "top_kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
-                        for k, (us, n) in top]}}), flush=True)
     if busy_s <= 0:
         raise SystemExit("FAIL: the profiler saw no device time")
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall, f"{ours}kernels_s": ours_s,
+            "top_kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
+                            for k, (us, n) in top]}
+
+
+def run_mamba2() -> int:
+    """Full-width mamba2-780m forward and loss on [2, 4096] tokens, then the
+    recurrent decode chain on a [1, 256] prefix against the forward's
+    logits, then a profiled forward (module docstring, phase 8). Returns
+    the SSD kernel's launches in one forward."""
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params["emb"])) + sum(
+        t.numel() for lp in params["layers"] for t in _leaves(lp))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (M2_B, M2_S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    labels = torch.randint(0, cfg.vocab_size, (M2_B, M2_S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    rec = {"params": n_params, "tokens": M2_B * M2_S}
+    with torch.inference_mode():
+        model.forward(params, {"tokens": toks[:, :M2_Q]})       # warm-up
+        launches = {}
+        for name, fn in (("forward", lambda: model.forward(
+                             params, {"tokens": toks})),
+                         ("loss", lambda: model.loss(
+                             params, {"tokens": toks, "labels": labels}))):
+            ops.ssd_scan.launches = 0
+            ssd.ssd_scan_plain.calls = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = ops.ssd_scan.launches
+            if launches[name] != cfg.n_layers or ssd.ssd_scan_plain.calls:
+                raise SystemExit(
+                    f"FAIL: mamba2 {name}: ssd_scan launches "
+                    f"{launches[name]} (want {cfg.n_layers}), plain calls "
+                    f"{ssd.ssd_scan_plain.calls}")
+            if not bool(torch.isfinite(out).all()):
+                raise SystemExit(f"FAIL: mamba2 {name} is not finite")
+            rec[f"{name}_ms"] = 1e3 * wall
+            rec[f"{name}_tokens_per_s"] = M2_B * M2_S / wall
+            if name == "forward":
+                if tuple(out.shape) != (M2_B, M2_S, cfg.vocab_size):
+                    raise SystemExit(f"FAIL: logits {tuple(out.shape)}")
+                prefix = out[0, :M2_Q].clone()
+            else:
+                rec["loss"] = out.item()
+            del out
+        # the recurrent path at the published widths against the kernel's
+        cache = model.init_cache(1, M2_Q, device="cuda")
+        gap = 0.0
+        t0 = time.perf_counter()
+        for t in range(M2_Q):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:1, t:t + 1], t)
+            gap = max(gap, (logits[0, 0] - prefix[t]).abs().max().item())
+            if not torch.allclose(logits[0, 0], prefix[t], atol=2e-3,
+                                  rtol=1e-5):
+                raise SystemExit(f"FAIL: mamba2 decode step {t} differs from "
+                                 f"the forward by {gap:.3e} (tol 2e-3)")
+        rec["decode_steps"] = M2_Q
+        rec["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / M2_Q
+        rec["decode_vs_forward_max_abs_diff"] = gap
+        rec["launches_per_forward"] = launches
+        print(json.dumps({"mamba2_forward": rec}), flush=True)
+        prof = profile_call(lambda: model.forward(params, {"tokens": toks}),
+                            "ssd_scan_")
+        print(json.dumps({"profile": {"arch": cfg.arch_id,
+                                      "call": "forward [2, 4096]", **prof}}),
+              flush=True)
+    return launches["forward"]
+
+
+def run_mamba2_engine() -> None:
+    """The full-width mamba2-780m contiguous engine (module docstring,
+    phase 9); the SSD kernel must not launch."""
+    args = serve_cli.build_parser().parse_args(MAMBA2_ARGS)
+    ops.ssd_scan.launches = 0
+    ssd.ssd_scan_plain.calls = 0
+    torch.cuda.synchronize()
+    engine, out, stats = serve_cli.run(args)
+    torch.cuda.synchronize()
+    vocab = engine.cfg.vocab_size
+    for r in out:
+        if len(r.output) != args.max_new or not all(
+                0 <= t < vocab for t in r.output):
+            raise SystemExit(f"FAIL: request {r.job_id} holds {r.output}")
+    finite = all(bool(torch.isfinite(b).all())
+                 for b in engine.pool.buffers.values())
+    keys = ("n_requests", "new_tokens", "wall_s", "tokens_per_s",
+            "prefill_s", "decode_s", "prefill_dispatches",
+            "decode_dispatches", "host_syncs", "steps", "decode_rows_saved",
+            "max_active", "mean_latency_s")
+    prompt_tokens = sum(len(r.prompt) for r in out)
+    print(json.dumps({"mamba2_engine": {k: getattr(stats, k) for k in keys},
+                      "prompt_tokens": prompt_tokens,
+                      "prefill_ms_per_token":
+                          1e3 * stats.prefill_s / prompt_tokens,
+                      "decode_s_per_step": stats.decode_s / stats.steps,
+                      "ssd_scan_launches": ops.ssd_scan.launches,
+                      "ssd_scan_plain_calls": ssd.ssd_scan_plain.calls,
+                      "state_finite": finite,
+                      "sample_output": out[0].output[:8]}), flush=True)
+    print("ssd_scan launched 0 times in the mamba2 engine: serving prefills "
+          "by stepping the recurrent state, as the reference does", flush=True)
+    if not finite:
+        raise SystemExit("FAIL: non-finite values in the recurrent state")
+    if ops.ssd_scan.launches or ssd.ssd_scan_plain.calls or \
+            stats.prefill_dispatches != args.batch:
+        raise SystemExit("FAIL: the mamba2 engine ran the SSD scan or missed "
+                         "a prefill")
 
 
 def main() -> int:
@@ -646,6 +896,7 @@ def main() -> int:
     rec = check_kernels(flush)
     rec["flash_attention"] = check_flash(flush)
     rec["grouped_matmul"] = check_grouped_matmul(flush)
+    rec["ssd_scan"] = check_ssd(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -670,6 +921,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     profile_engine(OLMOE_ARGS + ["--batch", "4", "--max-new", "8"], "flash_")
+
+    phase("mamba2")
+    gc.collect()                    # the olmoe engines are gone: free them
+    torch.cuda.empty_cache()
+    rec["ssd_scan"]["launches"] = run_mamba2()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("mamba2 engine")
+    run_mamba2_engine()
 
     unread = [name for name, r in rec.items() if "launches" not in r]
     if unread:

@@ -1,6 +1,6 @@
 """Architecture configuration schema (a trimmed copy of ``repro.configs.base``).
 
-Only the fields the dense and MoE serve paths read are kept; the other
+Only the fields the dense, MoE and SSM paths read are kept; the other
 families' fields arrive with their slices of the port.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 class ArchConfig:
     # -- identity -----------------------------------------------------------
     arch_id: str
-    family: str                      # dense | moe (the families ported so far)
+    family: str                      # dense | moe | ssm (the families ported so far)
     citation: str = ""
 
     # -- transformer geometry ------------------------------------------------
@@ -40,6 +40,14 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
 
+    # -- state-space (mamba2 / SSD) ------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    ssm_groups: int = 1
+
     # -- numerics -------------------------------------------------------------
     dtype: str = "float32"           # activation dtype
     param_dtype: str = "float32"
@@ -50,6 +58,14 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -57,7 +73,7 @@ class ArchConfig:
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """The reference's per-arch smoke shape: same family and code paths,
     laptop-scale widths (2 layers, d_model 256, vocab 512; MoE: 4 experts,
-    top-2, expert width 128)."""
+    top-2, expert width 128; SSM: state 16, head dim 32, chunk 32)."""
     kw = dict(
         n_layers=2,
         d_model=256,
@@ -71,6 +87,8 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     )
     if cfg.family == "moe":
         kw.update(n_experts=4, top_k=2, d_ff=128)
+    if cfg.family == "ssm":
+        kw.update(ssm_state=16, ssm_headdim=32, ssm_chunk=32)
     if cfg.sliding_window:
         kw.update(sliding_window=32)
     return cfg.replace(**kw)

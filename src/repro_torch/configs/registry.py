@@ -1,7 +1,7 @@
-"""Architecture registry for the port: the dense and MoE families.
+"""Architecture registry for the port: the dense, MoE and SSM families.
 
 The values are copies of ``repro/configs/{qwen2_0_5b,llama3_2_1b,
-gemma3_27b,qwen2_7b,olmoe_1b_7b}.py``. Other families of the reference
+gemma3_27b,qwen2_7b,olmoe_1b_7b,mamba2_780m}.py``. Other families of the reference
 registry raise ``NotImplementedError`` until their slice of the port lands.
 """
 from __future__ import annotations
@@ -36,11 +36,15 @@ _CONFIGS = {
         n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
         d_ff=1024, vocab_size=50304, n_experts=64, top_k=8,
         rope_theta=10000.0),
+    "mamba2-780m": ArchConfig(
+        arch_id="mamba2-780m", family="ssm", citation="arXiv:2405.21060",
+        n_layers=48, d_model=1536, d_ff=0, vocab_size=50280, ssm_state=128,
+        ssm_expand=2, ssm_headdim=64, ssm_chunk=256, tie_embeddings=True),
 }
 
 #: reference architectures whose families are not ported yet
 _LATER = ("whisper-large-v3", "phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b",
-          "zamba2-7b", "mamba2-780m")
+          "zamba2-7b")
 
 ARCH_IDS: List[str] = list(_CONFIGS)
 

@@ -1,5 +1,5 @@
 """Public wrappers for the port's kernels (signatures of the JAX package's
-``kernels/ops.py:36``, ``:64``, ``:85`` and ``:124``).
+``kernels/ops.py:36``, ``:64``, ``:85``, ``:107`` and ``:124``).
 
 The route depends only on where the tensors lie: CPU tensors take the
 plain PyTorch version, CUDA tensors launch the hand-written kernel (which
@@ -8,9 +8,12 @@ counts its kernel launches in a plain int attribute, ``launches``.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -54,6 +57,24 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, start,
     return out
 
 
+def ssd_scan(xdt, a_log, B, C, chunk: int = 128):
+    """xdt: [B, S, H, P]; a_log: [B, S, H]; B, C: [B, S, H, N] -> y
+    [B, S, H, P], always float32. Each input is cast to float32; the chunk
+    halves until it divides S, as in the JAX wrapper. The CUDA kernel has
+    no backward pass and raises when grad mode is on and an input requires
+    grad."""
+    s = xdt.shape[1]
+    q = chunk
+    while s % q != 0:
+        q //= 2
+    args = [t.to(torch.float32).contiguous() for t in (xdt, a_log, B, C)]
+    if xdt.device.type == "cpu":
+        return _ssd.ssd_scan_plain(*args, chunk=q)
+    out = _ssd.ssd_scan_cuda(*args, chunk=q)
+    ssd_scan.launches += 1
+    return out
+
+
 def grouped_matmul(x, w, valid_rows=None):
     """x: [G, C, K]; w: [G, K, N]; valid_rows: [G] int32 or None ->
     [G, C, N] in x's dtype, f32 accumulation; rows at or past
@@ -68,4 +89,5 @@ def grouped_matmul(x, w, valid_rows=None):
 flash_attention.launches = 0
 paged_attention.launches = 0
 paged_prefill_attention.launches = 0
+ssd_scan.launches = 0
 grouped_matmul.launches = 0

@@ -1,0 +1,148 @@
+"""Mamba2 SSD chunked scan: the CUDA launcher and its plain PyTorch version.
+
+Ports ``ssd_scan_bhsp`` of the JAX package's ``kernels/ssd_scan.py``
+(wrapper ``kernels/ops.py:107``):
+
+  * ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` (design and bound in
+    its header);
+  * ``ssd_scan_plain`` is the same function in plain PyTorch, with the
+    arithmetic of the model's ``mamba2.ssd_chunked``
+    (``repro/models/mamba2.py:102-159``): the intra-chunk dual form, the
+    chunk states, the inter-chunk recurrence (a Python loop over chunks
+    where the reference scans) and its ``_best_chunk`` rule.
+
+Layout is the JAX wrapper's: xdt ``[B, S, H, P]`` (dt-scaled inputs),
+a_log ``[B, S, H]`` (log decay), B and C ``[B, S, H, N]``, all float32;
+y ``[B, S, H, P]`` float32. The kernel reads that layout in place (the
+JAX wrapper's transposes to ``[B H, S, *]`` are not needed). It has no
+backward pass, as the Pallas kernel has none; ``kernels/ops.py`` routes
+by device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+#: csrc/ssd_scan.cu: rows of a tile, its padded n-major row, P columns per
+#: CTA, and the most dynamic shared memory a block may take (227 KB)
+_T, _TP, _PT, _MAX_SMEM = 64, 68, 32, 232448
+
+
+def best_chunk(s: int) -> int:
+    """The largest of 256, 128, ..., 1 that divides ``s``
+    (``mamba2._best_chunk``)."""
+    for q in (256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if s % q == 0:
+            return q
+    return 1
+
+
+def ssd_scan_plain(xdt, a_log, B, C, chunk: int = 256):
+    """Plain version: xdt [B, S, H, P], a_log [B, S, H], B/C [B, S, H, N]
+    (float32) -> y [B, S, H, P] float32."""
+    ssd_scan_plain.calls += 1
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    q = chunk if (s % chunk == 0 and s >= chunk) else best_chunk(s)
+    nc = s // q
+    x = xdt.reshape(b, nc, q, h, p)
+    a = a_log.reshape(b, nc, q, h)
+    Bm = B.reshape(b, nc, q, h, n)
+    Cm = C.reshape(b, nc, q, h, n)
+
+    lc = torch.cumsum(a, dim=2)                      # [b,nc,q,h] within chunk
+    l_last = lc[:, :, -1:, :]                        # total chunk decay
+
+    # intra-chunk (dual / attention form); the clamp precedes the mask
+    scores = torch.einsum("bcihn,bcjhn->bchij", Cm, Bm)
+    li = lc.permute(0, 1, 3, 2)                      # [b,nc,h,q]
+    decay = torch.exp(torch.clamp(li[..., :, None] - li[..., None, :],
+                                  max=0.0))
+    idx = torch.arange(q, device=xdt.device)
+    mask = idx[:, None] >= idx[None, :]
+    m = torch.where(mask, scores * decay, torch.zeros_like(scores))
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", m, x)
+
+    # chunk states: S_c = sum_j exp(l_last - l_j) B_j (x) xdt_j
+    w = torch.exp(l_last - lc)                       # [b,nc,q,h]
+    states = torch.einsum("bcjhn,bcjh,bcjhp->bchnp", Bm, w, x)
+
+    # inter-chunk recurrence T_c = gamma_c T_{c-1} + S_c; chunk c reads the
+    # state entering it
+    gamma = torch.exp(l_last[:, :, 0, :])            # [b,nc,h]
+    t = torch.zeros((b, h, n, p), dtype=xdt.dtype, device=xdt.device)
+    t_in = []
+    for c in range(nc):
+        t_in.append(t)
+        t = gamma[:, c, :, None, None] * t + states[:, c]
+    t_in = torch.stack(t_in, dim=1)                  # [b,nc,h,n,p]
+
+    y_inter = torch.einsum("bcihn,bcih,bchnp->bcihp", Cm, torch.exp(lc),
+                           t_in)
+    return (y_intra + y_inter).reshape(b, s, h, p)
+
+
+#: calls of the plain version, so a device run can show it never ran there
+ssd_scan_plain.calls = 0
+
+
+def smem_bytes(n: int, q: int) -> int:
+    """Dynamic shared memory of one launch (``smem_floats`` in the
+    source)."""
+    return 4 * (2 * n * _TP + _T * _PT + _T * _T + n * _PT + _T
+                + (q + 3) // 4 * 4)
+
+
+def _check(xdt, a_log, B, C, q: int) -> None:
+    """Raise on anything the kernel does not take."""
+    if xdt.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{xdt.device}")
+    ts = (("xdt", xdt), ("a_log", a_log), ("B", B), ("C", C))
+    if torch.is_grad_enabled() and any(t.requires_grad for _, t in ts):
+        raise RuntimeError(
+            "ssd_scan's CUDA kernel has no backward pass (the JAX kernel has "
+            "none either): call it under torch.no_grad() or "
+            "torch.inference_mode(), or with inputs that do not require grad")
+    for name, t in ts:
+        if t.device != xdt.device:
+            raise ValueError(f"{name} is on {t.device}, xdt on {xdt.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} dtype {t.dtype}: the kernel takes "
+                             "float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xdt.dim() != 4 or 0 in xdt.shape:
+        raise ValueError(f"need xdt [B, S, H, P], got {tuple(xdt.shape)}")
+    b, s, h, _ = xdt.shape
+    if tuple(a_log.shape) != (b, s, h) or B.dim() != 4 or \
+            tuple(B.shape[:3]) != (b, s, h) or B.shape != C.shape or \
+            B.shape[3] == 0:
+        raise ValueError(f"need a_log [B, S, H] and B, C [B, S, H, N] for "
+                         f"xdt {tuple(xdt.shape)}, got {tuple(a_log.shape)} "
+                         f"/ {tuple(B.shape)} / {tuple(C.shape)}")
+    if q <= 0 or s % q:
+        raise ValueError(f"chunk {q} does not divide S = {s}")
+    if smem_bytes(B.shape[3], q) > _MAX_SMEM:
+        raise ValueError(f"state size N = {B.shape[3]} with chunk {q} needs "
+                         f"{smem_bytes(B.shape[3], q)} bytes of shared "
+                         f"memory, over the {_MAX_SMEM} a block may take")
+
+
+def ssd_scan_cuda(xdt, a_log, B, C, chunk: int = 128):
+    """Launch the kernel with chunk ``min(chunk, S)`` (which must divide
+    S): xdt [B, S, H, P], a_log [B, S, H], B/C [B, S, H, N], float32 and
+    contiguous -> y [B, S, H, P] float32."""
+    b, s, h, p = xdt.shape
+    q = min(chunk, s)
+    _check(xdt, a_log, B, C, q)
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=xdt.device)
+    lib = build.library()
+    with torch.cuda.device(xdt.device):
+        code = lib.ssd_scan_forward(
+            xdt.data_ptr(), a_log.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), b, s, h, p, B.shape[3], q,
+            torch.cuda.current_stream(xdt.device).cuda_stream)
+    build.raise_on(code, "ssd_scan_forward")
+    return y

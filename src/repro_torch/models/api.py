@@ -1,9 +1,9 @@
-"""Model facade (``repro/models/api.py:40-111``) for the dense and MoE
+"""Model facade (``repro/models/api.py:40-111``) for the dense, MoE and SSM
 families.
 
 ``build_model(cfg)`` returns a ``Model`` with the reference's entry points:
-``init``, ``forward``, ``init_cache``, ``decode_step`` and, for the dense
-family, ``init_paged_cache``, ``paged_prefill_chunk``,
+``init``, ``loss``, ``forward``, ``init_cache``, ``decode_step`` and, for
+the dense family, ``init_paged_cache``, ``paged_prefill_chunk``,
 ``paged_prefill_state`` and ``paged_decode_step`` (the MoE family's paged
 entry points come with the paged-MoE engine, ROADMAP queue A, item 6).
 Parameters are passed explicitly, as in the reference, so one set of
@@ -18,9 +18,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import moe, transformer
+from repro_torch.models import mamba2, moe, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "ssm": mamba2}
 
 
 class Model(nn.Module):
@@ -38,11 +38,22 @@ class Model(nn.Module):
     def forward(self, params, batch) -> torch.Tensor:
         return self.module.forward(self.cfg, params, batch["tokens"])
 
+    def loss(self, params, batch) -> torch.Tensor:
+        """The training objective on ``batch`` (tokens, labels, optional
+        loss_mask)."""
+        return self.module.loss_fn(self.cfg, params, batch)
+
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    device="cuda") -> dict:
         return self.module.init_cache(self.cfg, batch, max_len, dtype, device)
 
     def decode_step(self, params, cache, tokens, pos, write_valid=None):
+        # write_valid (the frozen-row KV-write mask of a decode horizon)
+        # exists for the attention families; recurrent state has no
+        # positional write to mask, so the plain signature is kept there
+        if write_valid is None:
+            return self.module.decode_step(self.cfg, params, cache, tokens,
+                                           pos)
         return self.module.decode_step(self.cfg, params, cache, tokens, pos,
                                        write_valid=write_valid)
 
@@ -78,5 +89,5 @@ def build_model(cfg: ArchConfig) -> Model:
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
             f"family {cfg.family!r} is ported later (ROADMAP queue A, item "
-            "7); the port covers the dense and MoE families")
+            "7); the port covers the dense, MoE and SSM families")
     return Model(cfg)

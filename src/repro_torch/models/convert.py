@@ -4,10 +4,12 @@
 leaf already a numpy array (``jax.tree_util.tree_map(np.asarray, params)``)
 and maps each leaf one to one onto the port's layout: the layer-stacked
 ``[L, ...]`` leaves of ``params["layers"]`` become one dict per layer.
-That covers both families the port has: the dense layer's
-``attn`` / ``mlp`` / norms, and the MoE layer's ``attn``, ``router``
+That covers the three families the port has: the dense layer's
+``attn`` / ``mlp`` / norms, the MoE layer's ``attn``, ``router``
 ``[L, D, E]``, expert weights ``we_gate_up`` ``[L, E, D, 2F]`` and
-``we_down`` ``[L, E, F, D]`` and norms, each sliced per layer.
+``we_down`` ``[L, E, F, D]`` and norms, and the mamba2 layer's
+``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``,
+``gate_norm``, ``out_proj`` and ``norm``, each sliced per layer.
 It never imports jax.
 """
 from __future__ import annotations
@@ -32,8 +34,8 @@ def _map(tree, fn):
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """JAX dense- or MoE-family params (numpy leaves) -> port params on
-    ``device``."""
+    """JAX dense-, MoE- or SSM-family params (numpy leaves) -> port params
+    on ``device``."""
     n_layers = {a.shape[0] for a in _leaves(tree["layers"])}
     if len(n_layers) != 1:
         raise ValueError(f"layer leaves disagree on depth: {n_layers}")

@@ -1,6 +1,6 @@
-"""Core layers of the attention families, ported from
-``repro/models/layers.py``: RMSNorm, RoPE, GQA attention with QKV bias (no
-cache, contiguous cache, paged cache), SwiGLU MLP, tied embeddings.
+"""Core layers, ported from ``repro/models/layers.py``: RMSNorm, RoPE, GQA
+attention with QKV bias (no cache, contiguous cache, paged cache), SwiGLU
+MLP, tied embeddings, the cross-entropy loss.
 
 Layers are plain functions over dicts of tensors, as in the reference; the
 sharding constraints of the reference are dropped (one device). KV writes,
@@ -315,3 +315,16 @@ def unembed(p, cfg, x):
     if cfg.tie_embeddings:
         return x @ p["tok_emb"].T
     return x @ p["lm_head"]
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token cross entropy in f32. labels: int [B, S]; mask
+    (optional) weights each position."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

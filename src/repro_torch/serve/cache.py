@@ -7,10 +7,13 @@ lengths coexist because each slot keeps its own write position (the
 per-row ``pos`` of ``decode_step``) and the decode mask spans ``[0, pos]``
 per row.
 
-The batch axis need not be the same dimension in every leaf, so the pool
-infers each leaf's once, by diffing the shapes of two ``init_cache``
-probes with different batch sizes built on ``device="meta"`` (no memory —
-the counterpart of the reference's ``jax.eval_shape``). ``write`` replaces
+The attention families' cache is ``{"k", "v"}`` of ``[L, B, S, Hkv, D]``;
+the SSM family's is ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, N, P]}``
+(conv in ``cfg.dtype``, ssm in float32). The batch axis need not be the
+same dimension in every leaf, so the pool infers each leaf's once, by
+diffing the shapes of two ``init_cache`` probes with different batch
+sizes built on ``device="meta"`` (no memory — the counterpart of the
+reference's ``jax.eval_shape``). ``write`` replaces
 an entire slot row in place, so a recycled slot never sees its previous
 tenant's state. The elastic ``shrink`` / ``expand`` of the reference come
 with elastic serving (ROADMAP queue A, item 8).

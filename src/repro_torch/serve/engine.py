@@ -10,8 +10,10 @@ it exactly:
     prefix-cache hits, deferral);
   * prefill, contiguous: one forward pass per admitted request at its
     exact prompt length, capturing every layer's K/V (``return_cache``),
-    padded to max_len and written into the request's slot; the first token
-    is picked on the device and fetched (one host sync per request);
+    padded to max_len and written into the request's slot — or, for the
+    recurrent (SSM) family, one ``decode_step`` per prompt position from a
+    fresh state; the first token is picked on the device and fetched (one
+    host sync per request);
   * prefill, paged: prompts run in ``block_size`` chunks, up to
     ``prefill_lanes`` joining requests per ``[P, block_size]`` dispatch
     (one dispatch per chunk-round, padded lanes masked), starting past each
@@ -33,8 +35,9 @@ it exactly:
 Between horizons the decode state (``_DecodeState``) stays on the device
 and takes delta updates at admission, growth and eviction only.
 
-The contiguous backend serves the dense and MoE families, the paged one
-the dense family (paged MoE comes with ROADMAP queue A, item 6). Sampling
+The contiguous backend serves the dense, MoE and SSM families, the paged
+one the dense family (paged MoE comes with ROADMAP queue A, item 6; the
+recurrent state is O(1) per slot and has nothing to page). Sampling
 (``temperature > 0``), tenants, fault injection, elastic reshapes,
 sharding, tracing and profiling are ported later and raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -59,6 +62,9 @@ from repro_torch.serve.paged import BlockManager
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
 
 CACHE_BACKENDS = ("contiguous", "paged")
+#: families whose layers attend over a KV cache: one-pass prefill, a
+#: write-masked decode horizon, a pageable cache (``engine.py:98``)
+_ATTN_FAMILIES = ("dense", "moe")
 
 #: engine options of the reference that later slices port, by ROADMAP
 #: queue A item
@@ -167,7 +173,8 @@ class _DecodeState:
 
 
 class ServeEngine:
-    """Serving engine for the dense and MoE families (greedy decoding).
+    """Serving engine for the dense, MoE and SSM families (greedy
+    decoding).
 
     ``n_slots=None`` sizes the pool to the request set (static batching);
     a fixed ``n_slots`` turns on continuous batching. ``decode_horizon=K``
@@ -196,6 +203,10 @@ class ServeEngine:
         if cache not in CACHE_BACKENDS:
             raise ValueError(f"unknown cache backend {cache!r}; "
                              f"known: {CACHE_BACKENDS}")
+        if cache == "paged" and cfg.family not in _ATTN_FAMILIES:
+            raise ValueError(
+                f"cache='paged' needs an attention family (got "
+                f"{cfg.family!r}: recurrent state is O(1))")
         if cache == "paged" and cfg.family != "dense":
             raise NotImplementedError(
                 f"cache='paged' for the {cfg.family} family is ported later "
@@ -229,11 +240,18 @@ class ServeEngine:
 
     # -- prefill (contiguous) -------------------------------------------------
     def _prefill(self, tokens):
-        """One-pass attention prefill via the ``return_cache`` hook
-        (``engine.py:455-468``): tokens [1, S] -> (last logits [1, 1, V],
-        cache dict with every leaf padded to max_len). The recurrent
-        families' prefill (a decode-step scan) comes with them (ROADMAP
-        queue A, item 7); ``build_model`` refuses them until then."""
+        """tokens [1, S] -> (last logits [1, 1, V], a batch-1 cache dict for
+        ``pool.write``) (``engine.py:455-484``). Attention families: one
+        pass via the ``return_cache`` hook, every leaf padded to max_len.
+        Recurrent families: a fresh state stepped through the prompt, one
+        ``decode_step`` per position (a Python loop where the reference
+        scans)."""
+        if self.cfg.family not in _ATTN_FAMILIES:
+            cache = self.model.init_cache(1, self.max_len, device=self.device)
+            for t in range(tokens.shape[1]):
+                logits, cache = self.model.decode_step(
+                    self.params, cache, tokens[:, t:t + 1], t)
+            return logits, cache
         logits, (k, v) = self.model.module.forward(self.cfg, self.params,
                                                    tokens, return_cache=True)
         pad = (0, 0, 0, 0, 0, self.max_len - tokens.shape[1])  # [L,B,S,H,D]
@@ -405,7 +423,9 @@ class ServeEngine:
         leaf's batch axis with ``index_select`` (unless ``full``: every
         slot decodes, idle rows frozen and inert), decode with
         ``write_valid`` = the live rows, and scatter the rows back with
-        ``index_copy_``. Returns the [W, h] int32 token block."""
+        ``index_copy_``. Recurrent families decode without ``write_valid``:
+        their frozen rows recompute state that slot reuse overwrites.
+        Returns the [W, h] int32 token block."""
         if full:
             ix, sub = None, pool.buffers
             t, p, s = state.tok, state.pos, state.stop
@@ -415,9 +435,12 @@ class ServeEngine:
                    for name, buf in pool.buffers.items()}
             t, p, s = state.tok[ix], state.pos[ix], state.stop[ix]
 
+        masked = self.cfg.family in _ATTN_FAMILIES
+
         def step(t, p, active):
-            return self.model.decode_step(self.params, sub, t, p,
-                                          write_valid=active)[0]
+            return self.model.decode_step(
+                self.params, sub, t, p,
+                write_valid=active if masked else None)[0]
 
         t, p, s, blk = self._scan_horizon(step, t, p, s, h)
         if ix is not None:

@@ -11,7 +11,7 @@ import pytest
 
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import convert, moe, transformer
+from repro_torch.models import convert, mamba2, moe, transformer
 from repro_torch.models.api import Model
 from repro_torch.serve import BlockManager, CachePool, ServeEngine
 
@@ -44,10 +44,12 @@ def test_import_leaves_jax_and_reference_out():
         "             or m.startswith('repro.'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 26, names\n"
         "for n in ('repro_torch.models.moe', 'repro_torch.serve.cache',\n"
         "          'repro_torch.kernels.flash_attention',\n"
-        "          'repro_torch.kernels.grouped_matmul'):\n"
+        "          'repro_torch.kernels.grouped_matmul',\n"
+        "          'repro_torch.models.mamba2',\n"
+        "          'repro_torch.kernels.ssd_scan'):\n"
         "    assert n in names, n\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=300)
@@ -81,7 +83,7 @@ def test_entry_points_default_to_cuda(fn):
 
 @pytest.mark.parametrize("fn", [
     transformer.init_cache, moe.init_params, Model.init_cache,
-    CachePool.__init__],
+    CachePool.__init__, mamba2.init_params, mamba2.init_cache],
     ids=lambda f: f"{f.__module__.split('.')[-1]}.{f.__qualname__}")
 def test_contiguous_and_moe_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -96,6 +98,7 @@ def test_kernel_wrappers_count_launches():
     assert isinstance(ops.paged_prefill_attention.launches, int)
     assert isinstance(ops.flash_attention.launches, int)
     assert isinstance(ops.grouped_matmul.launches, int)
+    assert isinstance(ops.ssd_scan.launches, int)
 
 
 def test_every_csrc_source_is_built():
@@ -104,10 +107,11 @@ def test_every_csrc_source_is_built():
     from repro_torch.kernels import build
     names = {p.name for p in build.sources()}
     assert {"paged_attention.cu", "flash_attention.cu", "grouped_matmul.cu",
-            "errors.cu"} <= names
+            "ssd_scan.cu", "errors.cu"} <= names
     assert set(build.ARGTYPES) == {
         "paged_attention_decode", "paged_attention_prefill",
-        "flash_attention_forward", "grouped_matmul_forward"}
+        "flash_attention_forward", "grouped_matmul_forward",
+        "ssd_scan_forward"}
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -7,7 +7,9 @@ runs on a machine that has only the port's dependencies:
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are tests/test_kernels.py's: 2e-5 in f32, 2e-2 in bf16 (the
-grouped matmul's inputs are scaled so its outputs are of order one).
+grouped matmul's inputs are scaled so its outputs are of order one), 5e-4
+for the SSD scan (its f32 sums run over up to a 256-long chunk and the
+state, in other orders than the plain version's einsums).
 """
 import pytest
 import torch
@@ -16,6 +18,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ssd
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -178,3 +181,62 @@ def test_new_kernels_raise_on_what_they_do_not_take(cuda_device):
     assert not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         ops.grouped_matmul(strided, w)
+
+
+def _ssd_case(device, b, s, h, p, n, seed):
+    """The JAX kernel test's inputs (``tests/test_kernels.py:126-130``):
+    decays -softplus(normal), B and C at half scale."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device=device)
+    a = -torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=g, device=device))
+    B = torch.randn(b, s, h, n, generator=g, device=device) * 0.5
+    C = torch.randn(b, s, h, n, generator=g, device=device) * 0.5
+    return x, a, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 512, 4, 64, 128, 256),       # mamba2-780m's widths, 2 chunks
+    (2, 64, 16, 32, 16, 32),         # the smoke widths
+    (2, 96, 3, 64, 64, 32),          # ragged row tiles, 3 chunks
+    (1, 64, 1, 32, 16, 128),         # chunk halves to S
+    (1, 40, 2, 48, 8, 8),            # P not a multiple of 32
+])
+def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk):
+    x, a, B, C = _ssd_case(cuda_device, b, s, h, p, n, s + n)
+    before = ops.ssd_scan.launches
+    out = ops.ssd_scan(x, a, B, C, chunk=chunk)
+    q = chunk
+    while s % q:
+        q //= 2
+    exp = ssd.ssd_scan_plain(x, a, B, C, chunk=q)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    torch.testing.assert_close(out, exp, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_grad_and_bad_inputs(cuda_device):
+    """No backward pass and no fallback: an input that requires grad under
+    grad mode raises, and so does anything the kernel does not take."""
+    x, a, B, C = _ssd_case(cuda_device, 1, 64, 2, 32, 16, 0)
+    before = ops.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="backward"):
+        ops.ssd_scan(x.requires_grad_(), a, B, C, chunk=32)
+    assert ops.ssd_scan.launches == before
+    with torch.no_grad():
+        ops.ssd_scan(x, a, B, C, chunk=32)
+    assert ops.ssd_scan.launches == before + 1
+    x = x.detach()
+    with pytest.raises(ValueError, match="float32"):
+        ssd.ssd_scan_cuda(x.double(), a, B, C, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          a, B, C, chunk=32)
+    with pytest.raises(ValueError, match="divide"):
+        ssd.ssd_scan_cuda(x, a, B, C, chunk=48)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 64, 2, 1024, device=cuda_device)
+        ssd.ssd_scan_cuda(x, a, big, big, chunk=64)
