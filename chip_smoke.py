@@ -9,13 +9,20 @@ Phases, each printed as it runs; any failure exits non-zero:
                  limit, turn TF32 off;
   2. build     — compile every CUDA source of src/repro_torch/kernels/csrc
                  (one nvcc per source, all at once) into one library under
-                 build/kernels/, for sm_90a;
+                 build/kernels/, for sm_90a; print each kernel's registers,
+                 static shared memory and spills (ptxas -v), and fail unless
+                 the SASS of the flash and paged-prefill kernels holds
+                 tensor-core (HMMA) instructions (cuobjdump -sass);
   3. kernels   — hold each of the five kernels against its plain PyTorch
                  version on the card and time the kernel, the plain version
                  and a library yardstick the port never calls (each launch
                  behind an L2 flush): the paged kernels at qwen2-0.5b's serve
                  shapes (f32 and bf16, window 0 and 5, an all -1 table row;
-                 torch's scaled_dot_product_attention on the gathered K/V);
+                 torch's scaled_dot_product_attention on the gathered K/V),
+                 then the paged prefill at every split width (1, 2, 4, 8
+                 and 64 table columns a split) at the engine's starts and at
+                 a long context (starts near 1000, the table full at MB 64),
+                 each beside SDPA;
                  flash attention at olmoe-1b-7b's prefill shape
                  ([1, S, 16, 128], S 128 and 256, causal) and at edge shapes
                  (14/2 heads at D 64, window 5, non-causal, ragged S 200),
@@ -101,8 +108,9 @@ MB = MAX_LEN // BS
 NB = SLOTS * MB
 #: tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-#: H100 SXM data-sheet peaks (bytes/s; f32 FLOP/s outside the tensor cores)
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+#: H100 SXM data-sheet peaks: HBM bytes/s; f32 FLOP/s outside the tensor
+#: cores; dense TF32 and bf16 FLOP/s on them
+HBM_BPS, F32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
 ENGINE_ARGS = ["--arch", "qwen2-0.5b", "--preset", "full", "--engine",
                "continuous", "--cache", "paged", "--slots", str(SLOTS),
                "--batch", "16", "--block-size", str(BS), "--prefill-lanes",
@@ -142,16 +150,61 @@ def phase(name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# build reports
+# ---------------------------------------------------------------------------
+#: the kernels redesigned for the tensor cores: their SASS must hold HMMA
+MMA_KERNELS = ("flash_attention_kernel", "paged_prefill_kernel")
+
+
+def print_ptxas(report: str) -> None:
+    """One line per kernel of ``nvcc -Xptxas -v``: registers, static shared
+    memory, stack and spills (the attention kernels' dynamic shared memory
+    is in their sources: attention_mma.cuh smem_bytes)."""
+    entry = spill = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line:
+            print(f"ptxas {entry}: {line.split(':', 1)[1].strip()}; "
+                  f"{spill}", flush=True)
+            entry = None
+
+
+def check_tensor_cores(lib) -> None:
+    """cuobjdump -sass of the built library: count the tensor-core (HMMA)
+    instructions of each redesigned kernel; fail if one has none."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    for name in MMA_KERNELS:
+        found = {f: n for f, n in counts.items() if name in f}
+        print(f"HMMA instructions in {name}: {found}", flush=True)
+        if not found or min(found.values()) == 0:
+            raise SystemExit(f"FAIL: {name} runs no tensor-core instruction")
+
+
+# ---------------------------------------------------------------------------
 # kernel inputs, bound, timing
 # ---------------------------------------------------------------------------
-def make_case(b: int, c: int, dtype, seed: int, pad_row: bool):
+def make_case(b: int, c: int, dtype, seed: int, pad_row: bool,
+              lo: int = 192, hi: int = 384):
     """Inputs at the serve path's shapes: a [NB, BS, Hkv, D] pool, rows at
-    positions 192..383 (prompt + decode of the engine phase) holding
-    distinct scattered blocks, optionally a last all -1 (padding) row."""
+    positions lo..hi-1 (default 192..383: prompt + decode of the engine
+    phase) holding distinct scattered blocks, optionally a last all -1
+    (padding) row."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     kp = torch.randn(NB, BS, HKV, D, generator=g, device="cuda").to(dtype)
     vp = torch.randn(NB, BS, HKV, D, generator=g, device="cuda").to(dtype)
-    start = torch.randint(192, 384 - c, (b,), generator=g, device="cuda",
+    start = torch.randint(lo, hi - c, (b,), generator=g, device="cuda",
                           dtype=torch.int32)
     perm = torch.randperm(NB, generator=g, device="cuda").to(torch.int32)
     tables = torch.full((b, MB), -1, dtype=torch.int32, device="cuda")
@@ -162,11 +215,23 @@ def make_case(b: int, c: int, dtype, seed: int, pad_row: bool):
     return (q[:, 0] if c == 1 else q), kp, vp, tables, start
 
 
-def bound_terms(q, kp, tables, start, c: int, window: int):
+def ops_ms(flops: int, dtype, mma: bool) -> float:
+    """Least time of ``flops`` at the rate of the units that run them: the
+    f32 peak outside the tensor cores, or (``mma``) the tensor cores as the
+    redesigned kernels use them, three TF32 passes for f32 and one pass for
+    bf16."""
+    if not mma:
+        return 1e3 * flops / F32_FLOPS
+    if dtype is torch.float32:
+        return 1e3 * 3 * flops / TF32_FLOPS
+    return 1e3 * flops / BF16_FLOPS
+
+
+def bound_terms(q, kp, tables, start, c: int, window: int, mma: bool):
     """Least time for this call's work: every needed byte read once (q,
     the K/V blocks some query sees, tables, positions) and the output
     written once, over HBM bandwidth; the QK and PV flops of the visible
-    (query, key) pairs over the f32 peak. Returns (bytes ms, ops ms)."""
+    (query, key) pairs at ``ops_ms``'s rate. Returns (bytes ms, ops ms)."""
     elem = q.element_size()
     tab, st = tables.cpu().numpy(), start.cpu().numpy()
     nbytes = 2 * q.numel() * elem + tables.numel() * 4 + start.numel() * 4
@@ -184,12 +249,18 @@ def bound_terms(q, kp, tables, start, c: int, window: int):
                 qpos = s0 + qi
                 lo = qpos - window + 1 if window else 0
                 pairs += max(0, min(qpos, k0 + BS - 1) - max(lo, k0) + 1)
-    return 1e3 * nbytes / HBM_BPS, 1e3 * 4 * D * HQ * pairs / F32_FLOPS
+    return (1e3 * nbytes / HBM_BPS,
+            ops_ms(4 * D * HQ * pairs, q.dtype, mma))
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 50) -> float:
+def time_ms(fn, flush: torch.Tensor, reps: int = 50,
+            hold: bool = True) -> float:
     """Median CUDA-event time of ``fn`` with the L2 flushed before each
-    launch."""
+    launch. A ~0.1 ms device spin before the start event keeps the stream
+    busy while the host enqueues ``fn``, so the events time the device
+    work alone. With ``hold`` False (PR 11-13's method) the Python
+    wrapper's enqueue cost falls inside the events whenever it exceeds the
+    flush."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -197,11 +268,35 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 50) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for s, e in ev:
         flush.zero_()
+        if hold:
+            torch.cuda._sleep(200_000)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return sorted(s.elapsed_time(e) for s, e in ev)[reps // 2]
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host wall time per call of enqueuing ``fn`` (the wrapper's checks,
+    allocations and launches), with the stream held by a ~10 ms device
+    spin so that no call waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / reps
+
+
+def wrapper_times(fn, flush: torch.Tensor) -> dict:
+    """The times of one kernel wrapper besides ``time_ms``'s: the events
+    without the hold (PR 11-13's method) and the host's enqueue cost."""
+    return dict(unheld_ms=time_ms(fn, flush, hold=False),
+                host_ms=host_ms(fn))
 
 
 def sdpa_call(q, kp, vp, tables, start, c: int, window: int):
@@ -248,30 +343,79 @@ def check_kernels(flush: torch.Tensor) -> dict:
                                            flush)
                         lib_ms = time_ms(sdpa_call(q, kp, vp, tables, start,
                                                    c, 0), flush)
+                        mma = name == "paged_prefill"
                         rec[name] = _record(
                             name, "paged_attention.cu", kern["replaces"],
                             err, ms, plain_ms,
-                            *bound_terms(q, kp, tables, start, c, 0), lib_ms,
+                            *bound_terms(q, kp, tables, start, c, 0, mma),
+                            lib_ms,
                             dict(B=b, C=c, Hq=HQ, Hkv=HKV, D=D, BS=BS, MB=MB,
-                                 dtype="float32"))
+                                 dtype="float32"),
+                            bound_terms(q, kp, tables, start, c, 0,
+                                        False)[1] if mma else None,
+                            wrapper_times(lambda: kern["wrapper"](*args, 0),
+                                          flush))
     return rec
 
 
+def check_prefill_splits(flush: torch.Tensor) -> None:
+    """The paged prefill at the engine's shape (starts 192-368) and at a long
+    context (starts 960-1007: the table full at MB 64), each split width
+    (``pa.SPLIT_KEYS``, set here and restored) against the plain version and
+    timed beside SDPA on the gathered K/V: how the split walk scales, and
+    the measurement behind SPLIT_KEYS."""
+    keys = pa.SPLIT_KEYS
+    try:
+        for what, lo, hi in (("engine", 192, 384), ("long context", 960,
+                                                     MAX_LEN)):
+            args = make_case(4, 16, torch.float32, seed=lo, pad_row=False,
+                             lo=lo, hi=hi)
+            q, kp, vp, tables, start = args
+            exp = pa.paged_prefill_attention_plain(*args)
+            lib_ms = time_ms(sdpa_call(q, kp, vp, tables, start, 16, 0),
+                             flush)
+            bound = max(bound_terms(q, kp, tables, start, 16, 0, True))
+            for cols in (1, 2, 4, 8, MB):
+                pa.SPLIT_KEYS = cols * BS
+                n = pa.split_plan(MB, BS)[1]
+                run = lambda: pa.paged_prefill_cuda(*args, 0)  # noqa: E731
+                _compare(f"paged_prefill {what} {cols} columns a split",
+                         run(), exp, torch.float32)
+                ms = time_ms(run, flush)
+                print(f"paged_prefill {what} starts {sorted(start.tolist())}"
+                      f" {cols} columns a split ({n} splits, {4 * HKV * n} "
+                      f"CTAs): kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                      f"kernel / library {ms / lib_ms:.3f}, bound "
+                      f"{bound:.5f} ms", flush=True)
+    finally:
+        pa.SPLIT_KEYS = keys
+
+
 def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
-            lib_ms, shape) -> dict:
+            lib_ms, shape, f32_simt_ms=None, times=None) -> dict:
     """The kernels-line entry of one timed case. ``launches`` is added by
-    main from the engine run of the kernel's path."""
+    main from the engine run of the kernel's path. For a tensor-core kernel
+    ``f32_simt_ms`` is its operations at the f32 peak outside the tensor
+    cores, printed and kept for reference; ``times`` holds
+    ``wrapper_times``'s readings."""
     by = "bytes" if bytes_ms >= ops_ms else "operations"
-    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib}, bound {max(bytes_ms, ops_ms):.5f} ms "
-          f"({by}; bytes {bytes_ms:.5f}, operations {ops_ms:.5f})",
+    lib = ("none" if lib_ms is None else
+           f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.3f})")
+    ref = ("" if f32_simt_ms is None else
+           f", at the f32 peak outside the tensor cores {f32_simt_ms:.5f}")
+    more = "".join(f", {k} {v:.4f}" for k, v in (times or {}).items())
+    print(f"{name} {shape}: kernel {ms:.4f} ms{more}, plain {plain_ms:.4f} "
+          f"ms, library {lib}, bound {max(bytes_ms, ops_ms):.5f} ms "
+          f"({by}; bytes {bytes_ms:.5f}, operations {ops_ms:.5f}{ref})",
           flush=True)
-    return dict(name=name, route="cuda", source=CSRC + source,
-                replaces=replaces, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by=by, library_ms=lib_ms, bound_bytes_ms=bytes_ms,
-                bound_ops_ms=ops_ms, shape=shape)
+    rec = dict(name=name, route="cuda", source=CSRC + source,
+               replaces=replaces, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by=by, library_ms=lib_ms, bound_bytes_ms=bytes_ms,
+               bound_ops_ms=ops_ms, shape=shape, **(times or {}))
+    if f32_simt_ms is not None:
+        rec["bound_ops_f32_simt_ms"] = f32_simt_ms
+    return rec
 
 
 def _compare(what: str, out, exp, dtype, tol=None) -> float:
@@ -293,20 +437,21 @@ def _compare(what: str, out, exp, dtype, tol=None) -> float:
     return err
 
 
-def flash_bound(s: int, hq: int, hkv: int, d: int, elem: int, causal: bool,
-                window: int):
+def flash_bound(s: int, hq: int, hkv: int, d: int, dtype, causal: bool,
+                window: int, mma: bool = True):
     """Least time for one flash call (B = 1): q, k, v read once and the
     output written once over HBM bandwidth; the QK and PV flops of the
-    visible (query, key) pairs over the f32 peak. (bytes ms, ops ms)."""
+    visible (query, key) pairs at ``ops_ms``'s rate. (bytes ms, ops ms)."""
     pos = torch.arange(s)
     vis = torch.ones((s, s), dtype=torch.bool)
     if causal:
         vis &= pos[:, None] >= pos[None, :]
     if window:
         vis &= pos[:, None] - pos[None, :] < window
+    elem = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * hq + 2 * hkv) * s * d * elem
     flops = 4 * d * hq * int(vis.sum())
-    return 1e3 * nbytes / HBM_BPS, 1e3 * flops / F32_FLOPS
+    return 1e3 * nbytes / HBM_BPS, ops_ms(flops, dtype, mma)
 
 
 def check_flash(flush: torch.Tensor) -> dict:
@@ -328,8 +473,16 @@ def check_flash(flush: torch.Tensor) -> dict:
             err = _compare(f"flash S={s} Hq/Hkv={hq}/{hkv} D={d} causal="
                            f"{causal} window={window} {str(dtype)[6:]}",
                            out, exp, dtype)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if (s, hq, dtype) == (128, OL_H, torch.float32):
+                ms = time_ms(lambda: ops.flash_attention(q, k, v), flush)
+                lib_ms = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), flush)
+                print(f"flash_attention S=128 f32: kernel {ms:.4f} ms, SDPA "
+                      f"{lib_ms:.4f} ms, kernel / library "
+                      f"{ms / lib_ms:.3f}", flush=True)
             if (s, hq, dtype) == (256, OL_H, torch.float32):
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 ms = time_ms(lambda: ops.flash_attention(q, k, v), flush)
                 plain_ms = time_ms(
                     lambda: fa.flash_attention_plain(q, k, v), flush)
@@ -339,9 +492,13 @@ def check_flash(flush: torch.Tensor) -> dict:
                 rec = _record(
                     "flash_attention", "flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:86", err, ms,
-                    plain_ms, *flash_bound(s, hq, hkv, d, 4, True, 0), lib_ms,
+                    plain_ms, *flash_bound(s, hq, hkv, d, dtype, True, 0),
+                    lib_ms,
                     dict(B=1, S=s, Hq=hq, Hkv=hkv, D=d, causal=True,
-                         window=0, dtype="float32"))
+                         window=0, dtype="float32"),
+                    flash_bound(s, hq, hkv, d, dtype, True, 0, False)[1],
+                    wrapper_times(lambda: ops.flash_attention(q, k, v),
+                                  flush))
     return rec
 
 
@@ -748,8 +905,12 @@ def profile_call(fn, ours: str) -> dict:
     ours_s = sum(us for k, (us, _) in by_name.items() if ours in k) / 1e6
     if busy_s <= 0:
         raise SystemExit("FAIL: the profiler saw no device time")
+    mine = sorted(((k, us, n) for k, (us, n) in by_name.items() if ours in k),
+                  key=lambda x: -x[1])
     return {"wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall, f"{ours}kernels_s": ours_s,
+            f"{ours}kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
+                               for k, us, n in mine],
             "top_kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
                             for k, (us, n) in top]}
 
@@ -886,14 +1047,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib, ptxas = build.build()
     print(f"{lib} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in ptxas.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(line.strip(), flush=True)
+    print_ptxas(ptxas)
+    check_tensor_cores(lib)
     build.library()
 
     phase("kernels")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rec = check_kernels(flush)
+    check_prefill_splits(flush)
     rec["flash_attention"] = check_flash(flush)
     rec["grouped_matmul"] = check_grouped_matmul(flush)
     rec["ssd_scan"] = check_ssd(flush)

@@ -4,8 +4,8 @@ Every source under ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` — one ``nvcc -c`` per source, all started together — and the
 objects are linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
-repository root (git-ignored), named by a hash of every source and the
-flags, so a second run loads it without rebuilding. Nothing here runs at
+repository root (git-ignored), named by a hash of every source, header and
+the flags, so a second run loads it without rebuilding. Nothing here runs at
 import time: a machine without ``nvcc`` can import the package.
 """
 from __future__ import annotations
@@ -31,8 +31,10 @@ ARGTYPES = {
     # csrc/paged_attention.cu
     "paged_attention_decode":
         [_VOID_P] * 6 + [_INT] * 6 + [_I64] * 3 + [_INT, _INT, _VOID_P],
+    # prefill: q, k, v, tables, start, out, part_acc, part_ml; B, C, Hq,
+    # Hkv, D, BS, MB, cols_per_split; the pool strides; window, dtype, stream
     "paged_attention_prefill":
-        [_VOID_P] * 6 + [_INT] * 7 + [_I64] * 3 + [_INT, _INT, _VOID_P],
+        [_VOID_P] * 8 + [_INT] * 8 + [_I64] * 3 + [_INT, _INT, _VOID_P],
     # csrc/flash_attention.cu: q, k, v, out; B, S, Hq, Hkv, D; the three
     # (batch, seq, head) strides of q, k and v; causal, window, dtype, stream
     "flash_attention_forward":
@@ -62,12 +64,16 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build() -> Tuple[Path, str]:
     """Compile the kernels unless a build of these exact sources exists.
     Returns (library path, ptxas report — "" when the build was cached)."""
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
         h.update(s.name.encode() + b"\0" + s.read_bytes())
     lib = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
     if lib.exists():

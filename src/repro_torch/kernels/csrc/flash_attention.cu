@@ -12,7 +12,8 @@
 // kernel's edge rules (m_safe = 0 while m <= -1e30 / 2, alpha = 0 from that
 // state, probabilities zeroed outside the mask, l == 0 -> 1), so a row that
 // sees no key outputs 0. The output [B, S, Hq, D] is contiguous, in q's
-// dtype; f32 and bf16 inputs, f32 arithmetic throughout.
+// dtype; f32 and bf16 inputs, f32 softmax and accumulation (bf16 inputs
+// multiply P rounded to bf16 by V, as flash attention does).
 //
 // The TPU kernel pads S to its 128-row block and flattens heads into
 // [BH, S, D]; this kernel reads the native layout and masks the ragged end
@@ -24,27 +25,34 @@
 // What bounds it on this card. At olmoe-1b-7b's prefill (B 1, S 128-256,
 // 16 heads, D 128, causal) one call moves ~8 MB (q, k, v, out once each:
 // ~2.5 us at 3.35 TB/s) and does ~0.27 GFLOP of visible (query, key) pairs
-// (~4 us at 67 TFLOP/s f32, H100 SXM data sheet): compute-bound on paper,
-// at a few microseconds either way, so in practice bound by latency and
-// by how many SMs the grid fills.
+// (~4 us at the 67 TFLOP/s f32 peak, H100 SXM data sheet; three TF32
+// passes on the tensor cores, 3 x 0.27 GFLOP over 495 TFLOP/s, ~1.6 us):
+// a few microseconds either way, so in practice bound by latency, by how
+// many SMs the grid fills and by the longest causal chain.
 //
-// What the design does about it.
-//   * The TPU's sequential key-block grid axis, which carries (m, l, acc)
-//     in VMEM, becomes a loop over 32-key tiles inside one CTA per
-//     (b * Hq + h, 32-row query tile): 128 CTAs at S = 256 for the H100's
-//     132 SMs. Nothing is carried between CTAs.
-//   * Tiles the TPU skips are skipped before they are read: with causal,
-//     tiles wholly past the query tile's last row; with a window, tiles
-//     wholly before its first row's window.
-//   * D = 128 f32 tiles (Q 32 x 128, K 32 x 129 padded, V 32 x 128) take
-//     48.5 KB of shared memory, over the 48 KB static limit: dynamic shared
+// What the design does about it (attention_mma.cuh has the shared parts).
+//   * Both products on the tensor cores with mma.sync: three TF32 passes
+//     for f32 inputs, one bf16 pass for bf16.
+//   * One CTA of 8 warps per (b * Hq + h, 32-row query tile): 128 CTAs at
+//     olmoe's S 256 for 132 SMs. The TPU's sequential key-block grid axis
+//     becomes a loop over 64-key tiles, (m, l, acc) in registers; nothing
+//     is carried between CTAs. Each 16-row group has four warps, one for
+//     each 16-key quarter of every tile, which quarters the longest causal
+//     chain (the last group's walk along the diagonal) and gives each SM
+//     sub-partition two warps; the quarters merge their states through
+//     shared memory at the end. The query-tile index is reversed, so the
+//     heaviest causal tiles start first.
+//   * K/V tiles arrive by 16-byte cp.async into two buffers (the next tile
+//     loads while this one computes) when every row is 16-byte aligned,
+//     else by plain loads into the same buffers; keys past S are zeros.
+//   * Tiles the TPU skips are never read: with causal, tiles wholly past
+//     the query tile's last row; with a window, tiles wholly before its
+//     first row's window. Within a tile a warp stops at the last n8 tile
+//     its own rows can see; where its rows see all of its keys it skips
+//     the mask.
+//   * Shared memory: f32 D 128 takes 164.5 KB (Q fragments split into hi
+//     and lo 32 KB, two K/V buffers 132 KB), one CTA an SM; dynamic shared
 //     memory with cudaFuncSetAttribute.
-//   * One warp per query row (4 rows a warp): lane t scores key t of the
-//     tile against the row (K rows padded to D + 1 floats, so the 32 lanes
-//     hit 32 banks), the warp reduces max and sum with shuffles, and each
-//     lane owns D / 32 output columns, so the f32 accumulator of a warp is
-//     4 x D / 32 registers a lane.
-// This is the simple first kernel: no wgmma, no TMA, no split over keys.
 //
 // Interface: plain C, loaded with ctypes. The entry returns
 // cudaGetLastError() after the launch; the Python wrapper raises on non-0.
@@ -52,20 +60,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int WARPS = 8;
+using attn::BK;
+using attn::NEG_INF;
+constexpr int GROUPS = 2;              // 16-row groups a CTA
+constexpr int KSPLIT = 4;              // warps a group: each a key quarter
+constexpr int WARPS = GROUPS * KSPLIT;
 constexpr int THREADS = WARPS * 32;
-constexpr int RPW = 4;               // query rows per warp
-constexpr int BQ = WARPS * RPW;      // query rows per CTA
-constexpr int BK = 32;               // keys per tile: one per lane
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int BQ = GROUPS * 16;        // query rows per CTA
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -73,18 +79,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
 }
 
 struct Args {
@@ -97,110 +91,146 @@ struct Args {
   long long kb, ks, kh;
   long long vb, vs, vh;
   int causal, window;
+  int async;              // every K/V row 16-byte aligned: cp.async
   float scale;
 };
 
+// Warp w owns rows 16 (w % GROUPS) .. + 15 of the query tile and keys
+// 16 (w / GROUPS) .. + 15 of every 64-key tile; the KSPLIT warps of a
+// group merge their online-softmax states through shared memory at the end.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
-  constexpr int DPL = D / 32;        // output columns per lane
-  extern __shared__ float smem[];
-  float* qsm = smem;                 // [BQ][D]
-  float* ksm = qsm + BQ * D;         // [BK][D + 1]
-  float* vsm = ksm + BK * (D + 1);   // [BK][D]
+  constexpr int LD = attn::ld_kv<T, D>();
+  constexpr int NJ = BK / 8 / KSPLIT;          // n8 key tiles a warp a tile
+  extern __shared__ uint4 smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp % GROUPS, part = warp / GROUPS;
+  uint4* qf = smem + grp * attn::qfrag_u4<T, D>();
+  T* kv = reinterpret_cast<T*>(smem + GROUPS * attn::qfrag_u4<T, D>());
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = a.S;
   const T* q = static_cast<const T*>(a.q) + (size_t)b * a.qb +
                (size_t)h * a.qh;
   const T* k = static_cast<const T*>(a.k) + (size_t)b * a.kb +
                (size_t)hk * a.kh;
   const T* v = static_cast<const T*>(a.v) + (size_t)b * a.vb +
                (size_t)hk * a.vh;
-  const int rows = min(BQ, a.S - q0);
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qsm[i] = r < rows ? to_f32(q[(size_t)(q0 + r) * a.qs + d]) : 0.f;
-  }
+  const int q_last = min(q0 + BQ, S) - 1;
+  int kt_lo = 0, kt_hi = (S + BK - 1) / BK;
+  if (a.causal) kt_hi = min(kt_hi, q_last / BK + 1);
+  if (a.window > 0) kt_lo = max(0, q0 - a.window + 1) / BK;
 
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
-  }
+  auto load = [&](int kt, int buf) {
+    T* kd = kv + buf * 2 * BK * LD;
+    const int k0 = kt * BK;
+    attn::load_tile<T, D, THREADS>(kd, [&](int i) -> const T* {
+      return k0 + i < S ? k + (size_t)(k0 + i) * a.ks : nullptr;
+    }, a.async, k);
+    attn::load_tile<T, D, THREADS>(kd + BK * LD, [&](int i) -> const T* {
+      return k0 + i < S ? v + (size_t)(k0 + i) * a.vs : nullptr;
+    }, a.async, v);
+    attn::cp_commit();
+  };
+  load(kt_lo, 0);
 
-  const int q_last = q0 + rows - 1;
-  for (int k0 = 0; k0 < a.S; k0 += BK) {   // the TPU's key-block grid axis
-    if (a.causal && k0 > q_last) break;    // wholly past the diagonal
-    if (a.window > 0 && k0 + BK - 1 <= q0 - a.window) continue;
-    __syncthreads();                       // the previous tile is consumed
-    const int nk = min(BK, a.S - k0);
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int t = i / D, d = i % D;
-      float kv = 0.f, vv = 0.f;
-      if (t < nk) {
-        kv = to_f32(k[(size_t)(k0 + t) * a.ks + d]);
-        vv = to_f32(v[(size_t)(k0 + t) * a.vs + d]);
-      }
-      ksm[t * (D + 1) + d] = kv;
-      vsm[t * D + d] = vv;
-    }
+  const int wr0 = q0 + grp * 16;                       // this warp's rows
+  const int wr_last = min(wr0 + 15, S - 1);
+  if (part == 0)                       // read by every part after a barrier
+    attn::stage_q<T, D>(qf, [&](int r) -> const T* {
+      return wr0 + r < S ? q + (size_t)(wr0 + r) * a.qs : nullptr;
+    });
+
+  attn::WarpState<T, D> st;
+  st.init();
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int buf = (kt - kt_lo) & 1;
+    if (kt + 1 < kt_hi) load(kt + 1, buf ^ 1);
+    else attn::cp_commit();
+    attn::cp_wait_one();
     __syncthreads();
+    const int k0 = kt * BK + 8 * NJ * part;            // this warp's keys
+    int jmax = wr0 < S && k0 < S ? min(NJ, (S - k0 + 7) / 8) : 0;
+    if (a.causal) jmax = wr_last < k0 ? 0 : min(jmax, (wr_last - k0) / 8 + 1);
+    const T* kd = kv + buf * 2 * BK * LD;
+    auto vis = [&](int r, int key) {
+      const int qpos = wr0 + g + 8 * r, kpos = kt * BK + key;
+      return kpos < S && (!a.causal || kpos <= qpos) &&
+             (a.window == 0 || qpos - kpos < a.window);
+    };
+    // every (row, key) pair visible: no mask (warp-uniform)
+    const int k1 = k0 + 8 * NJ - 1;
+    const bool full = jmax == NJ && k1 < S && (!a.causal || k1 <= wr0) &&
+                      (a.window == 0 || wr_last - k0 < a.window);
+    if (full)
+      st.template step<NJ, false>(qf, kd, kd + BK * LD, NJ * part, NJ,
+                                  a.scale, vis);
+    else if (jmax > 0)
+      st.template step<NJ, true>(qf, kd, kd + BK * LD, NJ * part, jmax,
+                                 a.scale, vis);
+    __syncthreads();                  // this buffer is free for kt + 2
+  }
 
+  // the other parts' states through shared memory (the K/V buffers are
+  // free now), [group][part - 1][value][lane]: a warp's accesses
+  // consecutive
+  constexpr int NV = D / 2 + 4;                        // values a lane
+  float* red = reinterpret_cast<float*>(kv) + lane;
+  auto slot = [&](int p) {
+    return red + (grp * (KSPLIT - 1) + p - 1) * NV * 32;
+  };
+  if (part > 0) {
+    float* x = slot(part);
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int rl = warp + i * WARPS;
-      if (rl < rows) {                     // warp-uniform
-        const int qpos = q0 + rl, kpos = k0 + lane;
-        const bool ok = kpos < a.S && (!a.causal || kpos <= qpos) &&
-                        (a.window == 0 || qpos - kpos < a.window);
-        const float* qr = qsm + rl * D;
-        const float* kr = ksm + lane * (D + 1);
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        const float s = ok ? dot * a.scale : NEG_INF;
-        const float m_cur = fmaxf(m[i], warp_max(s));
-        const float m_safe = m_cur <= NEG_INF / 2 ? 0.f : m_cur;
-        const float pr = ok ? expf(s - m_safe) : 0.f;
-        const float alpha = m[i] <= NEG_INF / 2 ? 0.f : expf(m[i] - m_safe);
-        l[i] = alpha * l[i] + warp_sum(pr);
-        m[i] = m_cur;
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[i][e] *= alpha;
-#pragma unroll 8
-        for (int t = 0; t < BK; ++t) {
-          const float pt = __shfl_sync(FULL, pr, t);
+      for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = st.o[n][e];
 #pragma unroll
-          for (int e = 0; e < DPL; ++e)
-            acc[i][e] = fmaf(pt, vsm[t * D + lane + 32 * e], acc[i][e]);
-        }
-      }
+    for (int r = 0; r < 2; ++r) {
+      x[(D / 2 + r) * 32] = st.m[r];
+      x[(D / 2 + 2 + r) * 32] = st.l[r];
     }
+  }
+  __syncthreads();
+  if (part > 0) return;
+  for (int p = 1; p < KSPLIT; ++p) {
+    const float* x = slot(p);
+    float o2[D / 8][4], m2[2], l2[2];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o2[n][e] = x[(4 * n + e) * 32];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m2[r] = x[(D / 2 + r) * 32];
+      l2[r] = x[(D / 2 + 2 + r) * 32];
+    }
+    st.merge(o2, m2, l2);
   }
 
   T* out = static_cast<T*>(a.out);
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int rl = warp + i * WARPS;
-    if (rl < rows) {
-      const float denom = l[i] == 0.f ? 1.f : l[i];
-      T* o = out + (((size_t)b * a.S + q0 + rl) * a.Hq + h) * D;
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = wr0 + g + 8 * r;
+    if (qpos < S) {
+      const float inv = 1.f / (st.l[r] == 0.f ? 1.f : st.l[r]);
+      T* o = out + (((size_t)b * S + qpos) * a.Hq + h) * D + 2 * t;
 #pragma unroll
-      for (int e = 0; e < DPL; ++e)
-        o[lane + 32 * e] = from_f32<T>(acc[i][e] / denom);
+      for (int n = 0; n < D / 8; ++n) {
+        o[8 * n] = from_f32<T>(st.o[n][2 * r] * inv);
+        o[8 * n + 1] = from_f32<T>(st.o[n][2 * r + 1] * inv);
+      }
     }
   }
 }
 
 template <typename T, int D>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ * D + BK * (D + 1) + BK * D) * sizeof(float);
+  constexpr size_t smem = attn::smem_bytes<T, D, GROUPS>();
   auto kern = flash_attention_kernel<T, D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -237,8 +267,13 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
       (long long)B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
+  // cp.async needs every K/V row 16-byte aligned
+  const long long el = dtype == 0 ? 4 : 2, al = 16 / el;
+  const int async = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
+                    kb % al == 0 && ks % al == 0 && kh % al == 0 &&
+                    vb % al == 0 && vs % al == 0 && vh % al == 0;
   Args a{q, k, v, out, S, Hq, Hq / Hkv, qb, qs, qh, kb, ks, kh, vb, vs, vh,
-         causal, window, 1.f / sqrtf((float)D)};
+         causal, window, async, 1.f / sqrtf((float)D)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, B, D, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, s);

@@ -30,6 +30,20 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys a split of the prefill's table walk covers: 2 columns at block 16,
+#: the fastest width at the qwen2-0.5b engine's shape (PERF.md, split width)
+SPLIT_KEYS = 32
+
+
+def split_plan(mb: int, bs: int):
+    """(columns per split cps, number of splits) of the prefill kernel's
+    table walk over ``mb`` columns of ``bs`` keys: split s owns columns
+    [s cps, min(mb, (s + 1) cps)). A fixed number of columns per split, so
+    the plan needs only host-known shapes (never ``start``)."""
+    if SPLIT_KEYS < 1:
+        raise ValueError(f"SPLIT_KEYS must be >= 1, got {SPLIT_KEYS}")
+    cps = max(1, SPLIT_KEYS // bs)
+    return cps, max(1, -(-mb // cps))
 
 
 def paged_kv_gather(k_pages, v_pages, tables):
@@ -128,6 +142,10 @@ def _check(q, k_pages, v_pages, tables, start, qdim: int) -> None:
                     ("tables", tables), ("start", start)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "copy it 16 bytes at a time)")
 
 
 def _pool_args(k_pages, window: int):
@@ -153,17 +171,29 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, pos, window: int = 0):
 
 
 def paged_prefill_cuda(q, k_pages, v_pages, tables, start, window: int = 0):
-    """Launch the prefill kernel: q [B, C, Hq, D] -> same (q's dtype)."""
+    """Launch the prefill kernel: q [B, C, Hq, D] -> same (q's dtype). The
+    table walk is split by ``split_plan``; with more than one split the
+    partials go to f32 scratch allocated here and a second kernel merges
+    them (both launched by one C call)."""
     _check(q, k_pages, v_pages, tables, start, 4)
     out = torch.empty_like(q)
     lib = build.library()
     _, bs, hkv, d = k_pages.shape
+    b, c, hq, _ = q.shape
+    mb = tables.shape[1]
+    cps, nsplit = split_plan(mb, bs)
+    acc = ml = None
+    if nsplit > 1:
+        rows = nsplit * b * hq * c            # nsplit x B x Hkv x (C G) rows
+        acc = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+        ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = lib.paged_attention_prefill(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-            q.shape[0], q.shape[1], q.shape[2], hkv, d, bs, tables.shape[1],
-            *_pool_args(k_pages, window), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            None if acc is None else acc.data_ptr(),
+            None if ml is None else ml.data_ptr(),
+            b, c, hq, hkv, d, bs, mb, cps, *_pool_args(k_pages, window),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "paged_attention_prefill")
     return out

@@ -96,25 +96,32 @@ def test_kernels_raise_on_what_they_do_not_take(cuda_device):
         ops.paged_attention(q[:, 0].double(), kp, vp, tables, pos)
 
 
-def _flash_case(device, dtype, s, hq, hkv, d, seed):
+def _flash_case(device, dtype, s, hq, hkv, d, seed, b=1):
     g = torch.Generator(device=device).manual_seed(seed)
-    q = torch.randn(1, s, hq, d, generator=g, device=device).to(dtype)
-    k = torch.randn(1, s, hkv, d, generator=g, device=device).to(dtype)
-    v = torch.randn(1, s, hkv, d, generator=g, device=device).to(dtype)
+    q = torch.randn(b, s, hq, d, generator=g, device=device).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=g, device=device).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=g, device=device).to(dtype)
     return q, k, v
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,hq,hkv,d,causal,window", [
-    (256, 16, 16, 128, True, 0),      # olmoe-1b-7b's prefill
-    (128, 14, 2, 64, True, 5),        # G = 7, sliding window
-    (128, 8, 2, 64, False, 0),        # non-causal
-    (200, 4, 4, 128, True, 0),        # ragged causal S
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window", [
+    (1, 256, 16, 16, 128, True, 0),   # olmoe-1b-7b's prefill
+    (1, 128, 14, 2, 64, True, 5),     # G = 7, sliding window
+    (1, 128, 8, 2, 64, False, 0),     # non-causal
+    (1, 200, 4, 4, 128, True, 0),     # ragged causal S
+    (1, 1, 4, 4, 64, True, 0),        # one row, one key
+    (2, 15, 14, 2, 32, True, 0),      # a tile that is mostly padding
+    (1, 64, 8, 1, 128, True, 0),      # G = 8
+    (1, 512, 7, 1, 64, True, 0),      # G = 7, eight key tiles
+    (1, 200, 8, 1, 128, True, 5),     # ragged S with a window
+    (2, 64, 4, 4, 32, False, 0),      # non-causal, D 32
+    (1, 512, 2, 2, 128, False, 0),    # non-causal, eight key tiles
 ])
-def test_flash_kernel_matches_plain(cuda_device, dtype, s, hq, hkv, d,
+def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, hq, hkv, d,
                                     causal, window):
-    q, k, v = _flash_case(cuda_device, dtype, s, hq, hkv, d, s + hq + d)
+    q, k, v = _flash_case(cuda_device, dtype, s, hq, hkv, d, s + hq + d, b)
     before = ops.flash_attention.launches
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     exp = fa.flash_attention_plain(q, k, v, causal, window)
@@ -133,6 +140,89 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     torch.testing.assert_close(ops.flash_attention(qv, kv, vv),
                                fa.flash_attention_plain(q, k, v),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_unaligned_views(cuda_device, dtype):
+    """Rows that are not 16-byte aligned (head_dim + 1 floats apart, one
+    element in) take the kernel's plain-load path: same result."""
+    q, k, v = _flash_case(cuda_device, dtype, 100, 4, 2, 64, 4)
+    views = []
+    for t in (q, k, v):
+        wide = torch.zeros(*t.shape[:3], 65, dtype=dtype, device=cuda_device)
+        wide[..., 1:] = t
+        views.append(wide[..., 1:])
+    assert views[1].stride(1) % 4
+    torch.testing.assert_close(
+        ops.flash_attention(*views).float(),
+        fa.flash_attention_plain(q, k, v).float(), atol=TOL[dtype],
+        rtol=TOL[dtype])
+
+
+def _paged_sweep_case(device, dtype, c, hq, hkv, bs, mb, d, seed):
+    """Three rows: row 0 with a -1 hole mid-table (a column its chunk could
+    see), row 1 full, row 2 all -1. q is scaled by 2 so each row's
+    probabilities vary strongly across keys: a P fragment in the wrong
+    column order moves the output far past the tolerance."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, nb = 3, 2 * mb + 4
+    kp = torch.randn(nb, bs, hkv, d, generator=g, device=device).to(dtype)
+    vp = torch.randn(nb, bs, hkv, d, generator=g, device=device).to(dtype)
+    perm = torch.randperm(nb, generator=g, device=device).to(torch.int32)
+    hi = mb * bs - c
+    start = torch.randint(0, hi + 1, (b,), generator=g, device=device,
+                          dtype=torch.int32)
+    start[0] = hi                        # the last column in use
+    tables = torch.full((b, mb), -1, dtype=torch.int32, device=device)
+    for i in range(b - 1):
+        n = (int(start[i]) + c - 1) // bs + 1
+        tables[i, :n] = perm[i * mb:i * mb + n]
+    if mb > 2:
+        tables[0, mb // 2] = -1
+    q = (2 * torch.randn(b, c, hq, d, generator=g, device=device)).to(dtype)
+    return q, kp, vp, tables, start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 5, 40])
+@pytest.mark.parametrize("c,hq,hkv,bs,mb,d", [
+    (16, 14, 2, 16, 64, 64),     # qwen2-0.5b's engine shape
+    (1, 14, 2, 16, 64, 64),      # C = 1
+    (7, 7, 1, 8, 65, 64),        # C = 7, G = 7, block 8, MB = 65
+    (32, 4, 4, 32, 64, 128),     # C = 32, G = 1, block 32
+    (16, 2, 2, 16, 1, 32),       # MB = 1: one split, direct output
+    (32, 14, 2, 8, 65, 64),      # 224 rows: two row groups
+    (16, 8, 1, 16, 64, 128),     # G = 8 at D 128
+])
+def test_prefill_kernel_sweep(cuda_device, dtype, window, c, hq, hkv, bs,
+                              mb, d):
+    q, kp, vp, tables, start = _paged_sweep_case(
+        cuda_device, dtype, c, hq, hkv, bs, mb, d, c * 7 + bs + mb + window)
+    before = ops.paged_prefill_attention.launches
+    out = ops.paged_prefill_attention(q, kp, vp, tables, start, window)
+    exp = pa.paged_prefill_attention_plain(q, kp, vp, tables, start, window)
+    torch.cuda.synchronize()
+    assert ops.paged_prefill_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 2, 4, 64])
+def test_prefill_split_widths_agree(cuda_device, monkeypatch, cols):
+    """Every width of the split table walk gives the plain result (1 column
+    a split up to the whole table, which writes the output directly)."""
+    q, kp, vp, tables, start = _paged_sweep_case(
+        cuda_device, torch.float32, 16, 14, 2, 16, 64, 64, cols)
+    monkeypatch.setattr(pa, "SPLIT_KEYS", cols * kp.shape[1])
+    out = pa.paged_prefill_cuda(q, kp, vp, tables, start, 0)
+    exp = pa.paged_prefill_attention_plain(q, kp, vp, tables, start, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda

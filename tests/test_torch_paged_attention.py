@@ -131,3 +131,179 @@ def test_non_cpu_tensors_go_to_the_kernel_or_raise():
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_attention(q, kp, kp, tables, pos)
     assert pa.paged_attention_plain.calls == calls
+
+
+# ---------------------------------------------------------------------------
+# The prefill kernel's design on the CPU: three TF32 passes, a split walk
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    u = x.contiguous().view(torch.int32)
+    mag = ((u & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | (u & -0x80000000)).view(torch.float32)
+
+
+def _mm(a, b, passes):
+    """a @ b as mma.sync computes it: one TF32 pass or three (lo.hi +
+    hi.lo + hi.hi), each product summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _split_ranges(mb, bs):
+    """The table-column range [j0, j1) of each split of the launcher's plan,
+    as the kernel takes them (``split_plan``'s docstring)."""
+    cps, n = pa.split_plan(mb, bs)
+    return [(s * cps, min(mb, (s + 1) * cps)) for s in range(n)]
+
+
+def _prefill_parts(q, kp, vp, tables, start, window, cols, passes=0):
+    """The kernel's algorithm: the plain arithmetic restricted to table
+    columns [j0, j1) gives one partial (m, l, acc) per row of q [B, C, Hq,
+    D]; products in f32 (passes 0) or through ``_mm``. Rows come out as
+    [B, Hkv, C G] in the kernel's r = c G + g order."""
+    b, c, hq, d = q.shape
+    bs, hkv = kp.shape[1], kp.shape[2]
+    g = hq // hkv
+    j0, j1 = cols
+    kg, vg, k_pos, assigned = pa.paged_kv_gather(kp, vp, tables)
+    q_pos = start.long()[:, None] + torch.arange(c)[None, :]
+    vis = (assigned[:, None, :] & (k_pos <= q_pos[:, :, None])
+           & (k_pos >= j0 * bs) & (k_pos < j1 * bs))
+    if window:
+        vis &= k_pos > q_pos[:, :, None] - window
+    qr = q.reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, c * g, d)
+    mask = vis.repeat_interleave(g, dim=1)[:, None]      # [B, 1, CG, K]
+    kh, vh = kg.transpose(1, 2), vg.transpose(1, 2)      # [B, Hkv, K, D]
+    mm = (lambda x, y: x @ y) if passes == 0 else (
+        lambda x, y: _mm(x, y, passes))
+    s = mm(qr, kh.transpose(-1, -2)) / np.sqrt(d)
+    s = s.masked_fill(~mask, pa.NEG_INF)
+    m = s.amax(-1)
+    m_safe = torch.where(m <= pa.NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.exp(s - m_safe[..., None]) * mask
+    return m, p.sum(-1), mm(p, vh)
+
+
+def _merge(parts, q):
+    """The merge kernel: partials rescaled to their common max, summed,
+    l == 0 -> 1 after the merge; back to q's [B, C, Hq, D]."""
+    b, c, hq, d = q.shape
+    ms = torch.stack([m for m, _, _ in parts])
+    ls = torch.stack([l for _, l, _ in parts])
+    live = ls > 0
+    big = ms.masked_fill(~live, pa.NEG_INF).amax(0)
+    w = torch.where(live, torch.exp(ms - big), torch.zeros_like(ms))
+    acc = sum(wi[..., None] * torch.where(li[..., None] > 0, a, 0.0)
+              for wi, li, (_, _, a) in zip(w, ls, parts))
+    L = (w * ls).sum(0)
+    out = acc / torch.where(L == 0, torch.ones_like(L), L)[..., None]
+    hkv = out.shape[1]
+    return out.reshape(b, hkv, c, hq // hkv, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, c, hq, d)
+
+
+def _split_case(seed):
+    """Four rows over a 12-column table of 4-key blocks, chunk 6, G 3:
+    row 0 has a -1 hole inside a split range, row 1 is all -1, row 2 is
+    full, and row 3's chunk sits on -1 columns after a real prefix, so
+    with a small window its rows see no key at all (output 0, not NaN)."""
+    rng = np.random.default_rng(seed)
+    nb, bs, hkv, d, mb, c, hq = 40, 4, 2, 32, 12, 6, 6
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    q = torch.from_numpy(2 * rng.standard_normal((4, c, hq, d))
+                         .astype(np.float32))
+    perm = rng.permutation(nb).astype(np.int32)
+    tables = np.full((4, mb), -1, np.int32)
+    tables[0, :11] = perm[:11]
+    tables[0, 5] = -1
+    tables[2, :] = perm[11:23]
+    tables[3, :5] = perm[23:28]              # positions 20-31 unassigned
+    start = torch.tensor([36, 20, 42, 24], dtype=torch.int32)
+    return q, kp, vp, torch.from_numpy(tables), start
+
+
+@pytest.mark.parametrize("window", [0, 3, 9])
+@pytest.mark.parametrize("cols", [1, 2, 4, 12])
+def test_split_walk_merges_to_the_plain_result(monkeypatch, cols, window):
+    """Splitting the table walk into column ranges of 1, 2, 4 and MB
+    columns (the launcher's plan) and merging the partials gives
+    ``paged_prefill_attention_plain``'s result: -1 holes inside a range,
+    an all -1 row, a window that empties whole splits, and rows with no
+    visible key, which come out 0."""
+    q, kp, vp, tables, start = _split_case(cols + window)
+    monkeypatch.setattr(pa, "SPLIT_KEYS", cols * kp.shape[1])
+    ranges = _split_ranges(tables.shape[1], kp.shape[1])
+    parts = [_prefill_parts(q, kp, vp, tables, start, window, r)
+             for r in ranges]
+    got = _merge(parts, q)
+    exp = pa.paged_prefill_attention_plain(q, kp, vp, tables, start, window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, exp, atol=2e-5, rtol=2e-5)
+    assert (got[1] == 0).all()
+    if window == 3:
+        assert (got[3] == 0).all()           # no row of the chunk sees a key
+    if window and cols == 1:
+        empty = sum(bool((l == 0).all()) for _, l, _ in parts)
+        assert empty >= len(parts) // 2     # the window emptied whole splits
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_three_tf32_passes_keep_f32_accuracy(passes):
+    """At the engine's prefill shape ([4, 16] chunks, 14 q heads over 2 kv
+    heads, D 64, block 16, starts 192-368) three TF32 passes stay within
+    the f32 tolerance of the plain version; one pass does not."""
+    rng = np.random.default_rng(7)
+    nb, bs, hkv, d, mb, c, hq = 120, 16, 2, 64, 64, 16, 14
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((4, c, hq, d))
+                         .astype(np.float32))
+    start = torch.tensor([192, 250, 301, 368], dtype=torch.int32)
+    tables = torch.full((4, mb), -1, dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(nb).astype(np.int32))
+    for i in range(4):
+        n = (int(start[i]) + c - 1) // bs + 1
+        tables[i, :n] = perm[i * 30:i * 30 + n]
+    exp = pa.paged_prefill_attention_plain(q, kp, vp, tables, start)
+    got = _merge([_prefill_parts(q, kp, vp, tables, start, 0, (0, mb),
+                                 passes)], q)
+    close = torch.allclose(got, exp, atol=2e-5, rtol=2e-5)
+    assert close == (passes == 3), (passes, (got - exp).abs().max().item())
+
+
+@pytest.mark.parametrize("mb", [1, 3, 64, 65])
+def test_split_plan_covers_every_column_once(monkeypatch, mb):
+    """The launcher's plan (fixed columns per split, host-known MB only)
+    covers each table column exactly once, in order, with no empty range,
+    at the default SPLIT_KEYS and at splits of 1, 2, 4 and MB columns (and
+    fewer keys than a block); at qwen2-0.5b's engine shape it gives more
+    CTAs than B x Hkv."""
+    if mb == 64:
+        assert 4 * 2 * pa.split_plan(mb, 16)[1] > 4 * 2
+    for bs in (1, 8, 16, 32):
+        for keys in (pa.SPLIT_KEYS, 1, bs, 2 * bs, 4 * bs, mb * bs):
+            monkeypatch.setattr(pa, "SPLIT_KEYS", keys)
+            cps, n = pa.split_plan(mb, bs)
+            ranges = _split_ranges(mb, bs)
+            assert len(ranges) == n
+            assert all(j0 < j1 for j0, j1 in ranges)
+            covered = [j for j0, j1 in ranges for j in range(j0, j1)]
+            assert covered == list(range(mb))
+
+
+def test_split_plan_rejects_empty_splits(monkeypatch):
+    """A split width below one key is refused, not taken for the default."""
+    monkeypatch.setattr(pa, "SPLIT_KEYS", 0)
+    with pytest.raises(ValueError, match="SPLIT_KEYS"):
+        pa.split_plan(64, 16)
