@@ -11,8 +11,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  (one nvcc per source, all at once) into one library under
                  build/kernels/, for sm_90a; print each kernel's registers,
                  static shared memory and spills (ptxas -v), and fail unless
-                 the SASS of the flash and paged-prefill kernels holds
-                 tensor-core (HMMA) instructions (cuobjdump -sass);
+                 the SASS of the flash, paged-prefill, grouped-matmul and
+                 the SSD scan's state and chunk kernels holds tensor-core
+                 (HMMA) instructions (cuobjdump -sass);
   3. kernels   — hold each of the five kernels against its plain PyTorch
                  version on the card and time the kernel, the plain version
                  and a library yardstick the port never calls (each launch
@@ -29,12 +30,14 @@ Phases, each printed as it runs; any failure exits non-zero:
                  f32 and bf16 (scaled_dot_product_attention); grouped matmul
                  at olmoe-1b-7b's expert shapes (64 experts x 40 rows, gate-up
                  2048 x 2048 and down 1024 x 2048) with valid_rows None,
-                 random and partly zero, f32 and bf16 (torch.bmm); the SSD
+                 random and partly zero, f32 and bf16, each all-valid case
+                 timed beside torch.bmm; the SSD
                  scan at mamba2-780m's forward shape ([2, 4096] tokens, 48
                  heads of 64, state 128, chunk 256), the smoke widths, a
                  chunk that halves (S 96), S 64 with chunk 128, a_log = -40
                  (memoryless) and B = H = 1 (tolerance 5e-4; no PyTorch
-                 call computes it, so no library time);
+                 call computes it, so no library time), the full-width time
+                 printed beside the SIMT kernel's it replaced;
   4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
                  (olmoe-1b-7b smoke) and the mamba2 forward + decode chain
@@ -138,6 +141,10 @@ OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
 #: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
 #: batch and sequence
 M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
+#: the SSD scan's time at that shape before its tensor-core redesign (one
+#: CTA per row and 32 columns of P walking the chunks in order, SIMT f32;
+#: NVIDIA H100 80GB HBM3, 700 W, this script's kernels phase)
+SIMT_SSD_MS = 4.7081
 MAMBA2_ARGS = ["--arch", "mamba2-780m", "--preset", "full", "--engine",
                "continuous", "--cache", "contiguous", "--slots", "4",
                "--batch", "8", "--prompt-len", "128", "--max-new", "32",
@@ -153,7 +160,9 @@ def phase(name: str) -> None:
 # build reports
 # ---------------------------------------------------------------------------
 #: the kernels redesigned for the tensor cores: their SASS must hold HMMA
-MMA_KERNELS = ("flash_attention_kernel", "paged_prefill_kernel")
+MMA_KERNELS = ("flash_attention_kernel", "paged_prefill_kernel",
+               "grouped_matmul_kernel", "ssd_scan_state_kernel",
+               "ssd_scan_chunk_kernel")
 
 
 def print_ptxas(report: str) -> None:
@@ -502,11 +511,11 @@ def check_flash(flush: torch.Tensor) -> dict:
     return rec
 
 
-def gmm_bound(x, w, valid):
+def gmm_bound(x, w, valid, mma: bool = True):
     """Least time for one grouped matmul: the x rows and the weights of the
     experts that have a valid row read once, valid_rows read and the
     whole output written once, over HBM bandwidth; 2 K N flops per valid
-    row over the f32 peak. (bytes ms, ops ms)."""
+    row at ``ops_ms``'s rate. (bytes ms, ops ms)."""
     g, c, k = x.shape
     n = w.shape[2]
     rows = (torch.full((g,), c) if valid is None
@@ -515,14 +524,15 @@ def gmm_bound(x, w, valid):
     nbytes = (int(rows.sum()) * k * elem + int((rows > 0).sum()) * k * n * elem
               + g * c * n * elem + (0 if valid is None else 4 * g))
     return (1e3 * nbytes / HBM_BPS,
-            1e3 * 2 * k * n * int(rows.sum()) / F32_FLOPS)
+            ops_ms(2 * k * n * int(rows.sum()), x.dtype, mma))
 
 
 def check_grouped_matmul(flush: torch.Tensor) -> dict:
     """The grouped matmul against its plain version at olmoe-1b-7b's
-    expert shapes; time the gate-up f32 call with every row valid (the
-    einsum of moe_ffn at a 256-token prompt's capacity), and print the
-    times of the other timed cases."""
+    expert shapes; time every case with all rows valid (the einsum of
+    moe_ffn at a 256-token prompt's capacity) beside torch.bmm, f32 and
+    bf16, gate-up and down, and the f32 random-rows cases; the gate-up f32
+    call is the kernels-line entry."""
     rec = None
     for (k, n) in ((OL_DM, 2 * OL_F), (OL_F, OL_DM)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -541,38 +551,46 @@ def check_grouped_matmul(flush: torch.Tensor) -> dict:
                 err = _compare(f"grouped_matmul [{OL_E},{OL_C},{k}]x[{OL_E},"
                                f"{k},{n}] valid_rows={kind} "
                                f"{str(dtype)[6:]}", out, exp, dtype)
-                if dtype is not torch.float32 or kind == "partly zero":
+                if kind == "partly zero" or (
+                        kind == "random" and dtype is not torch.float32):
                     continue
                 ms = time_ms(lambda: ops.grouped_matmul(x, w, valid), flush)
-                if (k, kind) != (OL_DM, "none"):
-                    bms = max(gmm_bound(x, w, valid))
-                    print(f"grouped_matmul K={k} N={n} valid_rows={kind} "
-                          f"f32: kernel {ms:.4f} ms, bound {bms:.5f} ms",
-                          flush=True)
+                bms = max(gmm_bound(x, w, valid))
+                what = f"grouped_matmul K={k} N={n} {str(dtype)[6:]}"
+                if kind == "random":
+                    print(f"{what} valid_rows=random: kernel {ms:.4f} ms, "
+                          f"bound {bms:.5f} ms", flush=True)
+                    continue
+                lib_ms = time_ms(lambda: torch.bmm(x, w), flush)
+                print(f"{what}: kernel {ms:.4f} ms, torch.bmm {lib_ms:.4f} "
+                      f"ms, kernel / bmm {ms / lib_ms:.3f}, bound "
+                      f"{bms:.5f} ms", flush=True)
+                if (k, dtype) != (OL_DM, torch.float32):
                     continue
                 plain_ms = time_ms(lambda: gmm.grouped_matmul_plain(x, w),
                                    flush)
-                lib_ms = time_ms(lambda: torch.bmm(x, w), flush)
                 rec = _record(
                     "grouped_matmul", "grouped_matmul.cu",
                     "src/repro/kernels/grouped_matmul.py:48", err, ms,
                     plain_ms, *gmm_bound(x, w, None), lib_ms,
                     dict(G=OL_E, C=OL_C, K=k, N=n, valid_rows=None,
-                         dtype="float32"))
+                         dtype="float32"),
+                    gmm_bound(x, w, None, mma=False)[1])
             del x, w
     return rec
 
 
-def ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int):
+def ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
+              mma: bool = True):
     """Least time for one SSD scan: x, a, B and C read once and y written
     once over HBM bandwidth; the visible work per (row, chunk) — causal
     scores (2 N per pair j <= i), scores times x (2 P per pair), the
-    inter-chunk term and the state update (2 Q N P each) — over the f32
-    peak. (bytes ms, ops ms)."""
+    inter-chunk term and the state update (2 Q N P each) — at ``ops_ms``'s
+    rate for f32. (bytes ms, ops ms)."""
     nbytes = 4 * b * s * h * (2 * p + 2 * n + 1)
     pairs = q * (q + 1) // 2
     flops = b * h * (s // q) * (2 * pairs * (n + p) + 4 * q * n * p)
-    return 1e3 * nbytes / HBM_BPS, 1e3 * flops / F32_FLOPS
+    return 1e3 * nbytes / HBM_BPS, ops_ms(flops, torch.float32, mma)
 
 
 def ssd_case(b: int, s: int, h: int, p: int, n: int, seed: int):
@@ -621,10 +639,14 @@ def check_ssd(flush: torch.Tensor) -> dict:
             plain_ms = time_ms(
                 lambda: ssd.ssd_scan_plain(x, a, bm, cm, chunk=q), flush,
                 reps=10)
+            print(f"ssd_scan {what}: kernel {ms:.4f} ms against the "
+                  f"{SIMT_SSD_MS} ms of the SIMT kernel it replaced "
+                  f"({SIMT_SSD_MS / ms:.2f}x)", flush=True)
             rec = _record(
                 "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:66",
                 err, ms, plain_ms, *ssd_bound(b, s, h, p, n, q), None,
-                dict(B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"))
+                dict(B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"),
+                ssd_bound(b, s, h, p, n, q, mma=False)[1])
         del x, a, bm, cm, out
     return rec
 

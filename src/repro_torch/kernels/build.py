@@ -42,8 +42,9 @@ ARGTYPES = {
     # csrc/grouped_matmul.cu: x, w, valid_rows (NULL = all), out; G, C, K,
     # N, dtype, stream
     "grouped_matmul_forward": [_VOID_P] * 4 + [_INT] * 5 + [_VOID_P],
-    # csrc/ssd_scan.cu: x, a, B, C, y; B, S, H, P, N, Q, stream
-    "ssd_scan_forward": [_VOID_P] * 5 + [_INT] * 6 + [_VOID_P],
+    # csrc/ssd_scan.cu: x, a, B, C, y, chunk states, chunk decays; B, S, H,
+    # P, N, Q, stream
+    "ssd_scan_forward": [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -2,29 +2,16 @@
 // kernels (flash_attention.cu, paged_attention.cu) for Hopper (sm_90a).
 //
 // One warp owns 16 query rows and walks key tiles of BK = 64 keys staged
-// in shared memory. Both products run on the tensor cores through
-// mma.sync (inline PTX):
-//   * f32 inputs: m16n8k8 TF32 with three passes. Each f32 operand x is
-//     split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna, round to
-//     nearest on the 10-bit mantissa) and a product is
-//     lo.hi' + hi.lo' + hi.hi', which keeps f32 accuracy (one TF32 pass is
-//     ~1e-3 off at these shapes; tests/test_torch_flash_attention.py and
-//     test_torch_paged_attention.py emulate both on the CPU).
-//   * bf16 inputs: m16n8k16 bf16 with f32 accumulation, one pass.
-//
-// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8/k16"),
-// lane = 4 g + t:
-//   accumulator m16n8: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-//   tf32 A m16k8:      a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
-//   tf32 B k8n8:       b0 (t, g), b1 (t+4, g)
-//   bf16 A m16k16:     pairs (g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
-//   bf16 B k16n8:      pairs (2t.., g), (2t+8.., g)
+// in shared memory. Both products run on the tensor cores through the
+// mma.sync primitives of mma.cuh (three TF32 passes for f32 inputs, one
+// bf16 pass for bf16; its header has the fragment layouts). One TF32 pass
+// is ~1e-3 off at these shapes; tests/test_torch_flash_attention.py and
+// test_torch_paged_attention.py emulate both on the CPU.
 // Handing P (an accumulator) to P.V: for bf16 the accumulator pairs of two
-// n8 tiles are exactly the A pairs of one k16 step. For tf32 they are not
-// (A holds columns t and t+4, the accumulator 2t and 2t+1), so the k index
-// of the k8 step is permuted instead of the data: A column t stands for key
-// 2t and column t+4 for key 2t+1, and the B fragment is read from V rows 2t
-// and 2t+1 to match. The sum over k is the same; no shuffle, no staging.
+// n8 tiles are exactly the A pairs of one k16 step. For tf32 they are not,
+// so the k index of the k8 step is permuted (mma.cuh): A column t stands
+// for key 2t and column t+4 for key 2t+1, and the B fragment is read from
+// V rows 2t and 2t+1 to match.
 //
 // Shared memory. K and V tiles are [BK][LD] in the input type, rows padded
 // (f32 LD = D + 4, bf16 LD = D + 8) so every fragment load of a warp hits
@@ -44,19 +31,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace attn {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 64;                 // keys per tile: 8 n8 tiles
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__host__ __device__ constexpr bool is_f32() { return sizeof(T) == 4; }
+using tc::cp_async16;
+using tc::cp_commit;
+using tc::cp_wait_one;
+using tc::is_f32;
+using tc::ldsm_x4_trans;
+using tc::mma3;
+using tc::mma_bf16;
+using tc::pack_bf16;
+using tc::split;
+using tc::to_f32;
 
 // Row stride of a K/V tile in elements.
 template <typename T, int D>
@@ -74,78 +66,6 @@ template <typename T, int D, int W>
 __host__ __device__ constexpr size_t smem_bytes() {
   return (size_t)W * qfrag_u4<T, D>() * 16 +
          (size_t)2 * 2 * BK * ld_kv<T, D>() * sizeof(T) + 2 * BK * sizeof(int);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in three TF32 passes; b given as f32 and split here.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma_tf32(c, al, h0, h1);
-  mma_tf32(c, ah, l0, l1);
-  mma_tf32(c, ah, h0, h1);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices, transposed: the B fragments of two n8 tiles.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared; zeros when src is null (src-size 0 reads
-// nothing; `any` is a valid global address for the instruction).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           const void* any) {
-  const void* from = src ? src : any;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_addr(dst)),
-               "l"(from), "r"(src ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::);
-}
-__device__ __forceinline__ void cp_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // Copy BK rows of D elements into a [BK][LD] tile; row i comes from

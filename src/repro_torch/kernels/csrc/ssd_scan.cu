@@ -1,7 +1,9 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a).
+// Mamba2 SSD chunked scan for Hopper (sm_90a), chunk-parallel on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/ssd_scan.py:
-//   ssd_scan_kernel <- ssd_scan_bhsp (body _kernel)
+//   ssd_scan_state_kernel, ssd_scan_pass_kernel, ssd_scan_chunk_kernel
+//   <- ssd_scan_bhsp (body _kernel)
 //
 // What it computes. For every (batch b, head h) row of x [B, S, H, P]
 // (dt-scaled inputs), a [B, S, H] (log decay), B and C [B, S, H, N], all
@@ -19,53 +21,67 @@
 //
 // What bounds it on this card. At mamba2-780m's forward on [2, 4096]
 // tokens (B H = 96 rows, S 4096, P 64, N 128, Q 256, 16 chunks) the
-// inputs and the output move 605 MB (0.181 ms at 3.35 TB/s) and the
-// visible work is 21.0 MFLOP per (row, chunk): the causal scores, the
-// scores times x, the inter-chunk term and the state update, 32.3 GFLOP
-// in all (0.482 ms at 67 TFLOP/s f32, H100 SXM data sheet). The
-// operations bound it.
+// inputs and the output move 605 MB (0.181 ms at 3.35 TB/s); the visible
+// work is 32.3 GFLOP (causal scores, scores times x, the inter-chunk term
+// and the state update), which three TF32 passes on the tensor cores run
+// in 0.196 ms (495 TFLOP/s, H100 SXM data sheet). Operations and bytes
+// bound it alike; what this design reads besides (B and x twice, the chunk
+// states four times) puts its own traffic near 1.3 GB.
 //
-// What the design does about it.
-//   * The TPU walks the chunks as its sequential grid axis and carries the
-//     state in VMEM scratch. Here one CTA owns one (b, h) row and a tile of
-//     32 columns of P (one per lane) and loops over the chunks in order;
-//     its state tile [N, 32] stays in shared memory for the whole row.
-//     Columns of P are independent, so the grid is (B H, P / 32): 192
-//     CTAs at the shape above, two resident per SM (109 KB of shared
-//     memory and 256 threads each). The scores and decays are recomputed
-//     in each P tile.
-//   * One chunk does not fit in shared memory (at Q 256 and N 128 one
-//     chunk of B is 128 KB and the score block 256 KB), so the chunk is
-//     walked in 64-row tiles of C against 64-column tiles of B with j <= i
-//     only: tiles wholly above the diagonal are never read or computed.
-//     C and B tiles are staged n-major (rows padded to 68 floats against
-//     bank conflicts) so a thread reads one float4 of each per n for its
-//     4 x 4 block of scores.
-//   * The inter-chunk term reads the state from before the chunk; the
-//     update waits behind a barrier until every warp has read it, and then
-//     rides on the last row tile's walk over all the B and x tiles of the
-//     chunk, so B and x are not read a second time for it. Each thread
-//     owns fixed entries of the state, so the update needs no atomics.
-//   * lc is an inclusive warp scan of the chunk's decays, kept in shared
-//     memory.
-// This is the simple first kernel: SIMT f32 FMAs, no tensor cores (wgmma),
-// no TMA, no double buffering. With one group every head reads the same B
-// and C (the wrapper repeats them, as the JAX one does); reading them once
-// per group is left for later.
+// What the design does about it. The TPU walks the chunks as a sequential
+// grid axis with the state in VMEM; here the recurrence is taken apart, as
+// the plain version computes it, and only its elementwise middle is
+// sequential:
+//   1. ssd_scan_state_kernel, one CTA (8 warps) per (row, chunk, 128 state
+//      rows): lc by a warp scan, then the chunk's own state
+//      s_c = (B .* exp(lc_last - lc))^T x, [N, P] over the chunk's Q
+//      positions in 64-position tiles, and gamma_c = exp(lc_last). Each
+//      warp owns an m16 tile of state rows. The last chunk's state is never
+//      read, so it is not computed.
+//   2. ssd_scan_pass_kernel, one thread per (row, state entry): walks the
+//      chunks in order, t = gamma_c t + s_c, and overwrites s_c with t: the
+//      state entering chunk c + 1.
+//   3. ssd_scan_chunk_kernel, one CTA (8 warps) per (row, chunk, 64-row
+//      tile of Q), heaviest tile of a chunk first and the tiles of a chunk
+//      adjacent in the grid so they share B and x in L2. Four row groups of
+//      16 rows, two warps each: a warp takes every other key n8 tile (and
+//      every other n8 tile of P for the inter term), so the diagonal tile's
+//      visible keys fall to both alike, and the pair's sums meet in shared
+//      memory at the end. A warp adds (C .* exp(lc)) t_in, then walks the
+//      key tiles j <= i: scores C_i B_j^T, decayed and masked in
+//      registers, handed to the product with x_j by the k-index
+//      permutation of mma.cuh. Key n8 tiles wholly above the diagonal are
+//      skipped; full key tiles run a branch-free instantiation.
+// At the forward's shape that is 1440 + 3072 + 6144 CTAs, against 192
+// before. Every product runs on mma.sync m16n8k8 TF32 in three passes
+// (lo.hi + hi.lo + hi.hi), f32 accuracy, split by tc::split_int (hi
+// rounded by integer arithmetic, lo truncated by the tensor cores). The x tile, which every warp reads as its B operand, is
+// split into hi / lo planes once in shared memory. Tiles arrive by 16-byte
+// cp.async into rows padded so each fragment load of a warp hits 32
+// distinct banks.
 //
-// Interface: plain C, loaded with ctypes. The entry returns
-// cudaGetLastError() after the launch; the Python wrapper raises on non-0.
+// Shapes: P % 8 == 0 and P <= 64 (a warp holds all of P), N % 8 == 0, any
+// Q that divides S, and the chunk kernel's shared memory (chunk_smem) at
+// most 227 KB: 101 KB at N 128, P 64, Q 256 (two CTAs an SM; the state
+// kernel 71 KB, three). P = 64 runs instantiations with P's tile count
+// fixed. With one group every head reads the same B and C (the wrapper
+// repeats them, as the JAX one does); reading them once per group is left
+// for later.
+//
+// Interface: plain C, loaded with ctypes. The entry launches the three
+// kernels on one stream and returns cudaGetLastError() after each launch;
+// the Python wrapper raises on non-0.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int T = 64;              // rows of a C tile, columns of a B tile
-constexpr int TP = T + 4;          // n-major tile row, padded
-constexpr int PT = 32;             // columns of P per CTA: one per lane
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RPW = T / WARPS;     // rows of y per warp
+constexpr int T = 64;                // positions of a tile
+constexpr int NB = 128;              // state rows a state-kernel CTA
+constexpr int NP8 = 8;               // n8 tiles of P at most (P <= 64)
+constexpr int STATE_THREADS = 256, CHUNK_THREADS = 256, PASS_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a block may take
 
@@ -75,224 +91,477 @@ struct Args {
   const float* b;   // [B, S, H, N]
   const float* c;   // [B, S, H, N]
   float* y;         // [B, S, H, P]
-  int S, H, P, N, Q;
+  float* st;        // [B H, nc - 1, N, P]: chunk states, then entering states
+  float* gam;       // [B H, nc - 1]: exp(lc_last) of each chunk
+  int S, H, P, N, Q, nc;
 };
 
-size_t smem_floats(int N, int Q) {
-  return 2 * (size_t)N * TP + T * PT + T * T + (size_t)N * PT + T +
-         ((size_t)Q + 3) / 4 * 4;
+int round4(int q) { return (q + 3) / 4 * 4; }
+
+// B tile [T][min(N, NB) + 8], x tile as hi and lo planes [T][P + 8] each,
+// exp(lc_last - lc) [T], lc [Q]
+size_t state_smem(int N, int P, int Q) {
+  const int nw = N < NB ? N : NB;
+  return 4 * ((size_t)T * (nw + 8) + 2 * (size_t)T * (P + 8) + T +
+              round4(Q));
 }
 
-__global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(Args g) {
+// C tile [T][N + 4]; then t_in [N][P + 8], later the B tile [T][N + 4] and
+// the x tile's hi and lo planes [T][P + 4] each; lc [Q]
+size_t chunk_smem(int N, int P, int Q) {
+  const size_t tin = (size_t)N * (P + 8);
+  const size_t tiles = (size_t)T * (N + 4) + 2 * (size_t)T * (P + 4);
+  return 4 * ((size_t)T * (N + 4) + (tin > tiles ? tin : tiles) + round4(Q));
+}
+
+// c += a . b in three TF32 passes, b given as f32 and split here
+__device__ __forceinline__ void mma3f(float (&c)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], float b0,
+                                      float b1) {
+  uint32_t h0, l0, h1, l1;
+  tc::split_int(b0, h0, l0);
+  tc::split_int(b1, h1, l1);
+  tc::mma3(c, ah, al, h0, h1, l0, l1);
+}
+
+// lc = inclusive cumsum of the chunk's decays, by warp 0: the decays are
+// loaded all at once (independent loads, in flight together), then each
+// lane sums a run of the chunk and the runs' totals are scanned across the
+// warp.
+__device__ __forceinline__ void chunk_lc(const float* a, int64_t row0, int H,
+                                         int c0, int Q, float* lc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 8
+  for (int k = lane; k < Q; k += 32) lc[k] = a[row0 + (int64_t)(c0 + k) * H];
+  __syncwarp();
+  const int per = (Q + 31) / 32, lo = lane * per;
+  float run = 0.f;
+  for (int k = 0; k < per && lo + k < Q; ++k) {
+    run += lc[lo + k];
+    lc[lo + k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const float off = incl - run;
+  for (int k = 0; k < per && lo + k < Q; ++k) lc[lo + k] += off;
+}
+
+// T rows of `cols` floats from src (row stride `stride` floats) into a
+// [T][ld] tile by 16-byte cp.async; rows at or past `rows` are zero. src,
+// cols and stride are multiples of 4 floats. (r, u) walks the tile's
+// 16-byte chunks by nthreads without a division per chunk.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
+                                          int64_t stride, int rows, int cols,
+                                          int nthreads) {
+  const int ch = cols / 4, dr = nthreads / ch, du = nthreads % ch;
+  int r = threadIdx.x / ch, u = threadIdx.x % ch;
+  for (; r < T; r += dr, u += du) {
+    if (u >= ch) {
+      u -= ch;
+      ++r;
+      if (r >= T) break;
+    }
+    tc::cp_async16(dst + r * ld + 4 * u,
+                   r < rows ? src + r * stride + 4 * u : nullptr, src);
+  }
+}
+
+// Split the [T][P] tile held in `lo` (rows of ld floats) in place into its
+// TF32 hi (into `hi`) and lo parts, as bits, once for every warp that reads
+// it as the B operand.
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int ld,
+                                           int P, int nthreads) {
+  const int ch = P / 4, dr = nthreads / ch, du = nthreads % ch;
+  int r = threadIdx.x / ch, u = threadIdx.x % ch;
+  for (; r < T; r += dr, u += du) {
+    if (u >= ch) {
+      u -= ch;
+      ++r;
+      if (r >= T) break;
+    }
+    const int o = r * ld + 4 * u;
+    const float4 v = *reinterpret_cast<const float4*>(lo + o);
+    uint4 h, l;
+    tc::split_int(v.x, h.x, l.x);
+    tc::split_int(v.y, h.y, l.y);
+    tc::split_int(v.z, h.z, l.z);
+    tc::split_int(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+template <int NPT>   // n8 tiles of P: 8, or 0 for P / 8 at run time
+__global__ void __launch_bounds__(STATE_THREADS)
+ssd_scan_state_kernel(Args g) {
   extern __shared__ __align__(16) float smem[];
-  const int N = g.N, Q = g.Q, P = g.P, H = g.H;
-  float* ct = smem;              // [N][TP]  C tile, n-major
-  float* bt = ct + N * TP;       // [N][TP]  B tile, n-major
-  float* xs = bt + N * TP;       // [T][PT]  x tile
-  float* ms = xs + T * PT;       // [T][T]   masked, decayed scores
-  float* st = ms + T * T;        // [N][PT]  carried state
-  float* wj = st + N * PT;       // [T]      exp(lc_last - lc_j)
-  float* lc = wj + T;            // [Q]      cumulative log decay
+  const int N = g.N, P = g.P, Q = g.Q, H = g.H, nc1 = g.nc - 1;
+  const int nb = (N + NB - 1) / NB;
+  const int blk = blockIdx.x % nb, rc = blockIdx.x / nb;
+  const int c = rc % nc1, r = rc / nc1;
+  const int n0 = blk * NB, nw = min(NB, N - n0);   // state rows here
+  const int LDB = min(N, NB) + 8, LDX = P + 8;
+  float* bt = smem;                  // [T][LDB]  B tile, positions x n
+  float* xh = bt + T * LDB;          // [T][LDX]  x tile, TF32 hi bits
+  float* xl = xh + T * LDX;          // [T][LDX]  ... and lo bits
+  float* wj = xl + T * LDX;          // [T]       exp(lc_last - lc_j)
+  float* lc = wj + T;                // [Q]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid >> 4, tx = tid & 15;          // 4 x 4 score block
-  const int bi = blockIdx.x / H, h = blockIdx.x % H;
-  const int p0 = blockIdx.y * PT, p = p0 + lane;
-  // index of sequence position s of this (b, h) row in the [B, S, H] grid
+  const int gr = lane >> 2, t = lane & 3;
+  const int bi = r / H, h = r % H, c0 = c * Q;
   const int64_t row0 = (int64_t)bi * g.S * H + h;
+  auto load = [&](int j0) {          // B and x rows j0.. of the chunk
+    const int jn = min(T, Q - j0);
+    const int64_t pos = row0 + (int64_t)(c0 + j0) * H;
+    load_rows(bt, LDB, g.b + pos * N + n0, (int64_t)H * N, jn, nw,
+              STATE_THREADS);
+    load_rows(xl, LDX, g.x + pos * P, (int64_t)H * P, jn, P, STATE_THREADS);
+    tc::cp_commit();
+  };
+  load(0);                           // in flight while lc is summed
+  if (warp == 0) chunk_lc(g.a, row0, H, c0, Q, lc);
+  __syncthreads();
+  const float l_last = lc[Q - 1];
 
-  for (int e = tid; e < N * PT; e += THREADS) st[e] = 0.f;
-  const int nt = (Q + T - 1) / T;
-
-  for (int c0 = 0; c0 < g.S; c0 += Q) {
-    // lc: each lane of warp 0 sums a run of the chunk, then the runs'
-    // totals are scanned across the warp
-    if (warp == 0) {
-      const int per = (Q + 31) / 32, lo = lane * per;
-      float run = 0.f;
-      for (int k = 0; k < per && lo + k < Q; ++k) {
-        run += g.a[row0 + (int64_t)(c0 + lo + k) * H];
-        lc[lo + k] = run;
-      }
-      float incl = run;
+  const int np8 = NPT ? NPT : P / 8, m = warp * 16;  // m16 tile of n
+  float acc[NP8][4];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(FULL, incl, o);
-        if (lane >= o) incl += v;
+  for (int n = 0; n < NP8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j0 = 0; j0 < Q; j0 += T) {
+    const int jn = min(T, Q - j0);
+    if (j0 > 0) load(j0);
+    if (tid < T) wj[tid] = tid < jn ? expf(l_last - lc[j0 + tid]) : 0.f;
+    tc::cp_wait<0>();
+    __syncthreads();
+    split_tile(xh, xl, LDX, P, STATE_THREADS);
+    __syncthreads();
+    if (m < nw) {
+      // s[n, p] += sum_j (B_jn w_j) x_jp: A = (B .* w)^T, B operand = x
+      for (int kk = 0; kk < (jn + 7) / 8; ++kk) {
+        const int j = kk * 8 + t;
+        const float w0 = wj[j], w1 = wj[j + 4];
+        const float* br = bt + j * LDB + m + gr;
+        const bool lo_ok = m + gr < nw, hi_ok = m + gr + 8 < nw;
+        const float v[4] = {lo_ok ? br[0] * w0 : 0.f,
+                            hi_ok ? br[8] * w0 : 0.f,
+                            lo_ok ? br[4 * LDB] * w1 : 0.f,
+                            hi_ok ? br[4 * LDB + 8] * w1 : 0.f};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tc::split_int(v[e], ah[e], al[e]);
+        const int o = j * LDX + gr;
+#pragma unroll
+        for (int n = 0; n < NP8; ++n)
+          if (n < np8)
+            tc::mma3(acc[n], ah, al, bits(xh[o + 8 * n]),
+                     bits(xh[o + 4 * LDX + 8 * n]), bits(xl[o + 8 * n]),
+                     bits(xl[o + 4 * LDX + 8 * n]));
       }
-      const float off = incl - run;
-      for (int k = 0; k < per && lo + k < Q; ++k) lc[lo + k] += off;
     }
     __syncthreads();
-    const float l_last = lc[Q - 1];
+  }
 
-    for (int it = 0; it < nt; ++it) {
-      const int i0 = it * T;
-      for (int e = tid; e < T * N; e += THREADS) {
-        const int ii = e / N, n = e - ii * N, i = i0 + ii;
-        ct[n * TP + ii] =
-            i < Q ? g.c[(row0 + (int64_t)(c0 + i) * H) * N + n] : 0.f;
-      }
-      __syncthreads();
+  if (m < nw) {
+    float* out = g.st + (((int64_t)r * nc1 + c) * N + n0) * P;
+#pragma unroll
+    for (int n = 0; n < NP8; ++n) {
+      if (n >= np8) continue;
+      const int p = 8 * n + 2 * t;
+      if (m + gr < nw)
+        *reinterpret_cast<float2*>(out + (int64_t)(m + gr) * P + p) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (m + gr + 8 < nw)
+        *reinterpret_cast<float2*>(out + (int64_t)(m + gr + 8) * P + p) =
+            make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  if (tid == 0 && blk == 0) g.gam[(int64_t)r * nc1 + c] = expf(l_last);
+}
 
-      // inter-chunk term: (C_i exp(lc_i)) . St, the state entering the chunk
-      float y[RPW];
+// t = gamma_c t + s_c over the chunks of one row, in order; s_c is
+// overwritten with t, the state entering chunk c + 1. Four chunks' loads
+// are issued before their chain.
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_scan_pass_kernel(float* st, const float* gam, int nc1, int NP) {
+  const int r = blockIdx.x, e = blockIdx.y * PASS_THREADS + threadIdx.x;
+  if (e >= NP) return;
+  float* s = st + (int64_t)r * nc1 * NP + e;
+  const float* gm = gam + (int64_t)r * nc1;
+  float t = 0.f;
+  for (int c = 0; c < nc1; c += 4) {
+    float v[4];
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) y[r] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float4 lo4 =
-            *reinterpret_cast<const float4*>(&ct[n * TP + warp * RPW]);
-        const float4 hi4 =
-            *reinterpret_cast<const float4*>(&ct[n * TP + warp * RPW + 4]);
-        const float s = st[n * PT + lane];
-        const float cv[RPW] = {lo4.x, lo4.y, lo4.z, lo4.w,
-                               hi4.x, hi4.y, hi4.z, hi4.w};
+    for (int u = 0; u < 4; ++u)
+      v[u] = c + u < nc1 ? s[(int64_t)(c + u) * NP] : 0.f;
 #pragma unroll
-        for (int r = 0; r < RPW; ++r) y[r] = fmaf(cv[r], s, y[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int i = i0 + warp * RPW + r;
-        y[r] = i < Q ? y[r] * expf(lc[i]) : 0.f;
-      }
-
-      // the last row tile walks every B / x tile of the chunk: the state
-      // update rides on it, once every warp has read the old state
-      const bool last = it == nt - 1;
-      if (last) {
-        __syncthreads();
-        const float gamma = expf(l_last);
-        for (int n = warp; n < N; n += WARPS) st[n * PT + lane] *= gamma;
-      }
-
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * T;
-        for (int e = tid; e < T * N; e += THREADS) {
-          const int jj = e / N, n = e - jj * N, j = j0 + jj;
-          bt[n * TP + jj] =
-              j < Q ? g.b[(row0 + (int64_t)(c0 + j) * H) * N + n] : 0.f;
-        }
-        for (int e = tid; e < T * PT; e += THREADS) {
-          const int jj = e / PT, pp = e - jj * PT, j = j0 + jj;
-          xs[e] = (j < Q && p0 + pp < P)
-                      ? g.x[(row0 + (int64_t)(c0 + j) * H) * P + p0 + pp]
-                      : 0.f;
-        }
-        if (last && tid < T) {
-          const int j = j0 + tid;
-          wj[tid] = j < Q ? expf(l_last - lc[j]) : 0.f;
-        }
-        __syncthreads();
-
-        // scores C_i . B_j for this thread's 4 x 4 block, decayed, masked
-        float acc[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          const float4 c4 =
-              *reinterpret_cast<const float4*>(&ct[n * TP + ty * 4]);
-          const float4 b4 =
-              *reinterpret_cast<const float4*>(&bt[n * TP + tx * 4]);
-          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              acc[r][q] = fmaf(cv[r], bv[q], acc[r][q]);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + ty * 4 + r;
-          float m[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int j = j0 + tx * 4 + q;
-            m[q] = 0.f;
-            if (i < Q && j < Q) {
-              const float decay = expf(fminf(lc[i] - lc[j], 0.f));
-              m[q] = j <= i ? acc[r][q] * decay : 0.f;
-            }
-          }
-          *reinterpret_cast<float4*>(&ms[(ty * 4 + r) * T + tx * 4]) =
-              make_float4(m[0], m[1], m[2], m[3]);
-        }
-        __syncthreads();
-
-        // y_i += sum_j m_ij x_j
-        for (int jj = 0; jj < T; jj += 4) {
-          const float x0 = xs[jj * PT + lane], x1 = xs[(jj + 1) * PT + lane];
-          const float x2 = xs[(jj + 2) * PT + lane];
-          const float x3 = xs[(jj + 3) * PT + lane];
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            const float4 m4 = *reinterpret_cast<const float4*>(
-                &ms[(warp * RPW + r) * T + jj]);
-            y[r] = fmaf(m4.x, x0, y[r]);
-            y[r] = fmaf(m4.y, x1, y[r]);
-            y[r] = fmaf(m4.z, x2, y[r]);
-            y[r] = fmaf(m4.w, x3, y[r]);
-          }
-        }
-        // St[n, p] += sum_j B_jn w_j x_jp over this tile
-        if (last) {
-          for (int n = warp; n < N; n += WARPS) {
-            float s = st[n * PT + lane];
-            for (int jj = 0; jj < T; jj += 4) {
-              const float4 b4 =
-                  *reinterpret_cast<const float4*>(&bt[n * TP + jj]);
-              const float4 w4 = *reinterpret_cast<const float4*>(&wj[jj]);
-              s = fmaf(b4.x * w4.x, xs[jj * PT + lane], s);
-              s = fmaf(b4.y * w4.y, xs[(jj + 1) * PT + lane], s);
-              s = fmaf(b4.z * w4.z, xs[(jj + 2) * PT + lane], s);
-              s = fmaf(b4.w * w4.w, xs[(jj + 3) * PT + lane], s);
-            }
-            st[n * PT + lane] = s;
-          }
-        }
-        __syncthreads();
-      }
-
-      if (p < P) {
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          const int i = i0 + warp * RPW + r;
-          if (i < Q) g.y[(row0 + (int64_t)(c0 + i) * H) * P + p] = y[r];
-        }
+    for (int u = 0; u < 4; ++u) {
+      if (c + u < nc1) {
+        t = gm[c + u] * t + v[u];
+        s[(int64_t)(c + u) * NP] = t;
       }
     }
   }
+}
+
+// Where a chunk-kernel warp works: 16 rows of the tile (row group rg) and
+// half `hf` of the key n8 tiles (2 q + hf) and of P's n8 tiles for the
+// inter-chunk term (2 q + hf), so that the diagonal's visible key tiles
+// fall to both halves alike.
+struct Lane {
+  int rg, hf, gr, t, ia, ib;   // ia, ib: this lane's two rows in the chunk
+};
+
+// One key tile for a warp: scores of its rows against its key n8 tiles
+// (JM: all 8 of the tile are visible, or 0 for the first `jmax`), decayed
+// and masked in registers, then their product with x_j added to y.
+template <int NPT, int JM>
+__device__ __forceinline__ void key_tile(float (&y)[NP8][4], const Lane& L,
+                                         const float* cs, const float* bs,
+                                         const float* xh, const float* xl,
+                                         const float* lc, int N, int LDC,
+                                         int LDX, int np8, int jmax, int Q,
+                                         int j0) {
+  const int jm = JM ? JM : jmax;
+  float s[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) s[q][0] = s[q][1] = s[q][2] = s[q][3] = 0.f;
+  const float* cr = cs + (L.rg * 16 + L.gr) * LDC + L.t;
+  const float* br = bs + L.gr * LDC + L.t;
+  // not unrolled: at the 128-register cap of two CTAs an SM, unrolling it
+  // spills
+#pragma unroll 1
+  for (int k = 0; k < N; k += 8) {
+    const float v[4] = {cr[k], cr[8 * LDC + k], cr[k + 4],
+                        cr[8 * LDC + k + 4]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tc::split_int(v[e], ah[e], al[e]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 2 * q + L.hf;
+      if (j < jm) mma3f(s[q], ah, al, br[8 * j * LDC + k], br[8 * j * LDC + k + 4]);
+    }
+  }
+  // decay (clamped) and causal mask, in registers
+  const float la = L.ia < Q ? lc[L.ia] : 0.f, lb = L.ib < Q ? lc[L.ib] : 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = 2 * q + L.hf;
+    if (j >= jm) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? L.ia : L.ib;
+      const int jj = j0 + 8 * j + 2 * L.t + (e & 1);
+      const float li = e < 2 ? la : lb;
+      s[q][e] = jj <= i && i < Q ? s[q][e] * expf(fminf(li - lc[jj], 0.f))
+                                 : 0.f;
+    }
+  }
+  // y += M x_j: A column t is key 2t, column t + 4 key 2t + 1
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = 2 * q + L.hf;
+    if (j >= jm) continue;
+    uint32_t ah[4], al[4];
+    tc::split_int(s[q][0], ah[0], al[0]);
+    tc::split_int(s[q][2], ah[1], al[1]);
+    tc::split_int(s[q][1], ah[2], al[2]);
+    tc::split_int(s[q][3], ah[3], al[3]);
+    const int o = (8 * j + 2 * L.t) * LDX + L.gr;
+#pragma unroll
+    for (int n = 0; n < NP8; ++n)
+      if (n < np8)
+        tc::mma3(y[n], ah, al, bits(xh[o + 8 * n]), bits(xh[o + LDX + 8 * n]),
+                 bits(xl[o + 8 * n]), bits(xl[o + LDX + 8 * n]));
+  }
+}
+
+template <int NPT>
+__global__ void __launch_bounds__(CHUNK_THREADS, 2)
+ssd_scan_chunk_kernel(Args g) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N, P = g.P, Q = g.Q, H = g.H, nc = g.nc;
+  const int nt = (Q + T - 1) / T;
+  const int it = nt - 1 - blockIdx.x % nt, rc = blockIdx.x / nt;
+  const int c = rc % nc, r = rc / nc;
+  const int LDC = N + 4, LDT = P + 8, LDX = P + 4;
+  float* cs = smem;                  // [T][LDC]  C tile, rows i
+  float* ts = cs + T * LDC;          // [N][LDT]  t_in ...
+  float* bs = ts;                    // [T][LDC]  ... then B tile, keys j,
+  float* xh = bs + T * LDC;          // [T][LDX]  x tile, TF32 hi bits
+  float* xl = xh + T * LDX;          // [T][LDX]  ... and lo bits
+  float* lc = ts + max(N * LDT, T * LDC + 2 * T * LDX);   // [Q]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bi = r / H, h = r % H, c0 = c * Q, i0 = it * T;
+  const int in = min(T, Q - i0);     // rows of this tile
+  const int64_t row0 = (int64_t)bi * g.S * H + h;
+  const int64_t pos_i = row0 + (int64_t)(c0 + i0) * H;
+  Lane L;
+  L.rg = warp & 3;
+  L.hf = warp >> 2;
+  L.gr = lane >> 2;
+  L.t = lane & 3;
+  L.ia = i0 + L.rg * 16 + L.gr;
+  L.ib = L.ia + 8;
+
+  load_rows(cs, LDC, g.c + pos_i * N, (int64_t)H * N, in, N, CHUNK_THREADS);
+  if (c > 0) {                       // the state entering this chunk
+    const float* tin = g.st + ((int64_t)r * (nc - 1) + c - 1) * N * P;
+    const int ch = P / 4;
+    for (int i = tid; i < N * ch; i += CHUNK_THREADS) {
+      const int n = i / ch, u = (i % ch) * 4;
+      tc::cp_async16(ts + n * LDT + u, tin + (int64_t)n * P + u, tin);
+    }
+  }
+  tc::cp_commit();
+  if (warp == 0) chunk_lc(g.a, row0, H, c0, Q, lc);
+  tc::cp_wait<0>();
+  __syncthreads();
+
+  const int np8 = NPT ? NPT : P / 8;
+  const bool busy = L.rg * 16 < in;
+  float y[NP8][4];
+#pragma unroll
+  for (int n = 0; n < NP8; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
+
+  // inter-chunk term: (C_i exp(lc_i)) . t_in, this half's n8 tiles of P
+  if (c > 0 && busy) {
+    const float ea = L.ia < Q ? expf(lc[L.ia]) : 0.f;
+    const float eb = L.ib < Q ? expf(lc[L.ib]) : 0.f;
+    const float* cr = cs + (L.rg * 16 + L.gr) * LDC + L.t;
+#pragma unroll 2
+    for (int k = 0; k < N; k += 8) {
+      const float v[4] = {cr[k] * ea, cr[8 * LDC + k] * eb, cr[k + 4] * ea,
+                          cr[8 * LDC + k + 4] * eb};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc::split_int(v[e], ah[e], al[e]);
+      const float* tr = ts + (k + L.t) * LDT + L.gr;
+      // n runs at compile time (y stays in registers); the half at run time
+#pragma unroll
+      for (int n = 0; n < NP8; ++n)
+        if ((n & 1) == L.hf && n < np8)
+          mma3f(y[n], ah, al, tr[8 * n], tr[4 * LDT + 8 * n]);
+    }
+  }
+  __syncthreads();                   // t_in's room becomes the B / x tiles
+
+  for (int jt = 0; jt <= it; ++jt) {
+    const int j0 = jt * T, jn = min(T, Q - j0);
+    const int64_t pos_j = row0 + (int64_t)(c0 + j0) * H;
+    load_rows(bs, LDC, g.b + pos_j * N, (int64_t)H * N, jn, N, CHUNK_THREADS);
+    load_rows(xl, LDX, g.x + pos_j * P, (int64_t)H * P, jn, P,
+              CHUNK_THREADS);
+    tc::cp_commit();
+    tc::cp_wait<0>();
+    __syncthreads();
+    split_tile(xh, xl, LDX, P, CHUNK_THREADS);
+    __syncthreads();
+    if (busy) {
+      // key n8 tiles the tile's rows can see: on the diagonal tile keys
+      // past the row group's last row are skipped
+      int jmax = min(8, (jn + 7) / 8);
+      if (jt == it) jmax = min(jmax, 2 * L.rg + 2);
+      if (jmax == 8)
+        key_tile<NPT, 8>(y, L, cs, bs, xh, xl, lc, N, LDC, LDX, np8, 8, Q,
+                         j0);
+      else
+        key_tile<NPT, 0>(y, L, cs, bs, xh, xl, lc, N, LDC, LDX, np8, jmax, Q,
+                         j0);
+    }
+    __syncthreads();
+  }
+
+  // the two halves' sums: the second half hands its y over shared memory
+  float* ys = ts;                    // [T][P]
+  const int ra = L.rg * 16 + L.gr, rb = ra + 8;
+  if (L.hf == 1 && busy) {
+#pragma unroll
+    for (int n = 0; n < NP8; ++n) {
+      if (n >= np8) continue;
+      const int p = 8 * n + 2 * L.t;
+      *reinterpret_cast<float2*>(ys + ra * P + p) = make_float2(y[n][0], y[n][1]);
+      *reinterpret_cast<float2*>(ys + rb * P + p) = make_float2(y[n][2], y[n][3]);
+    }
+  }
+  __syncthreads();
+  if (L.hf == 1 || !busy) return;
+#pragma unroll
+  for (int n = 0; n < NP8; ++n) {
+    if (n >= np8) continue;
+    const int p = 8 * n + 2 * L.t;
+    const float2 ua = *reinterpret_cast<const float2*>(ys + ra * P + p);
+    const float2 ub = *reinterpret_cast<const float2*>(ys + rb * P + p);
+    if (ra < in)
+      *reinterpret_cast<float2*>(g.y + (row0 + (int64_t)(c0 + L.ia) * H) * P +
+                                 p) = make_float2(y[n][0] + ua.x,
+                                                  y[n][1] + ua.y);
+    if (rb < in)
+      *reinterpret_cast<float2*>(g.y + (row0 + (int64_t)(c0 + L.ib) * H) * P +
+                                 p) = make_float2(y[n][2] + ub.x,
+                                                  y[n][3] + ub.y);
+  }
+}
+
+int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The wrapper refuses shapes whose shared memory (smem_floats) passes
-// 227 KB before it launches. Returns a cudaError_t (0 = launched).
+// st [B H, S / Q - 1, N, P] and gam [B H, S / Q - 1] are f32 scratch the
+// caller allocates (unused, and may be NULL, when S == Q). The wrapper
+// refuses the shapes this rejects before it launches. Returns a
+// cudaError_t (0 = launched).
 int ssd_scan_forward(const void* x, const void* a, const void* b,
-                     const void* c, void* y, int B, int S, int H, int P,
-                     int N, int Q, void* stream) {
+                     const void* c, void* y, void* st, void* gam, int B,
+                     int S, int H, int P, int N, int Q, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0 ||
-      S % Q != 0 || (int64_t)B * H > 0x7fffffff || (P + PT - 1) / PT > 65535)
+      S % Q != 0 || P % 8 != 0 || P > 8 * NP8 || N % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(N, Q) * sizeof(float);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int nc = S / Q, nt = (Q + T - 1) / T, nb = (N + NB - 1) / NB;
+  const int64_t rows = (int64_t)B * H;
+  if (rows * nc * nt > 0x7fffffff || rows * nc * nb > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const size_t ssm = state_smem(N, P, Q), csm = chunk_smem(N, P, Q);
+  if (ssm > MAX_SMEM || csm > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // P = 64 (mamba2's head dim) runs with its n8 tiles fixed at compile time
+  const bool p64 = P == 64;
+  void (*state)(Args) =
+      p64 ? ssd_scan_state_kernel<8> : ssd_scan_state_kernel<0>;
+  void (*chunk)(Args) =
+      p64 ? ssd_scan_chunk_kernel<8> : ssd_scan_chunk_kernel<0>;
+  int e = set_smem((const void*)state, ssm);
+  if (e == 0) e = set_smem((const void*)chunk, csm);
+  if (e != 0) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args g{static_cast<const float*>(x), static_cast<const float*>(a),
          static_cast<const float*>(b), static_cast<const float*>(c),
-         static_cast<float*>(y), S, H, P, N, Q};
-  const dim3 grid(B * H, (P + PT - 1) / PT);
-  ssd_scan_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      g);
+         static_cast<float*>(y), static_cast<float*>(st),
+         static_cast<float*>(gam), S, H, P, N, Q, nc};
+  if (nc > 1) {
+    state<<<(unsigned)(rows * (nc - 1) * nb), STATE_THREADS, ssm, s>>>(g);
+    if ((e = (int)cudaGetLastError()) != 0) return e;
+    const dim3 grid((unsigned)rows, (N * P + PASS_THREADS - 1) / PASS_THREADS);
+    ssd_scan_pass_kernel<<<grid, PASS_THREADS, 0, s>>>(g.st, g.gam, nc - 1,
+                                                       N * P);
+    if ((e = (int)cudaGetLastError()) != 0) return e;
+  }
+  chunk<<<(unsigned)(rows * nc * nt), CHUNK_THREADS, csm, s>>>(g);
   return (int)cudaGetLastError();
 }
 

@@ -24,9 +24,9 @@ import torch
 
 from repro_torch.kernels import build
 
-#: csrc/ssd_scan.cu: rows of a tile, its padded n-major row, P columns per
-#: CTA, and the most dynamic shared memory a block may take (227 KB)
-_T, _TP, _PT, _MAX_SMEM = 64, 68, 32, 232448
+#: csrc/ssd_scan.cu: positions of a tile, state rows of a state-kernel CTA,
+#: the widest P, and the most dynamic shared memory a block may take (227 KB)
+_T, _NB, _PMAX, _MAX_SMEM = 64, 128, 64, 232448
 
 
 def best_chunk(s: int) -> int:
@@ -87,11 +87,14 @@ def ssd_scan_plain(xdt, a_log, B, C, chunk: int = 256):
 ssd_scan_plain.calls = 0
 
 
-def smem_bytes(n: int, q: int) -> int:
-    """Dynamic shared memory of one launch (``smem_floats`` in the
-    source)."""
-    return 4 * (2 * n * _TP + _T * _PT + _T * _T + n * _PT + _T
-                + (q + 3) // 4 * 4)
+def smem_bytes(n: int, p: int, q: int) -> int:
+    """Dynamic shared memory of the larger of the state and chunk kernels
+    (``state_smem`` and ``chunk_smem`` in the source)."""
+    lc = (q + 3) // 4 * 4
+    state = _T * (min(n, _NB) + 8) + 2 * _T * (p + 8) + _T + lc
+    chunk = (_T * (n + 4) + max(n * (p + 8), _T * (n + 4) + 2 * _T * (p + 4))
+             + lc)
+    return 4 * max(state, chunk)
 
 
 def _check(xdt, a_log, B, C, q: int) -> None:
@@ -124,10 +127,17 @@ def _check(xdt, a_log, B, C, q: int) -> None:
                          f"/ {tuple(B.shape)} / {tuple(C.shape)}")
     if q <= 0 or s % q:
         raise ValueError(f"chunk {q} does not divide S = {s}")
-    if smem_bytes(B.shape[3], q) > _MAX_SMEM:
-        raise ValueError(f"state size N = {B.shape[3]} with chunk {q} needs "
-                         f"{smem_bytes(B.shape[3], q)} bytes of shared "
+    n, p = B.shape[3], xdt.shape[3]
+    if p % 8 or p > _PMAX or n % 8:
+        raise ValueError(f"the kernel takes P a multiple of 8 up to {_PMAX} "
+                         f"and N a multiple of 8, got P = {p}, N = {n}")
+    if smem_bytes(n, p, q) > _MAX_SMEM:
+        raise ValueError(f"state size N = {n} with P = {p} and chunk {q} "
+                         f"needs {smem_bytes(n, p, q)} bytes of shared "
                          f"memory, over the {_MAX_SMEM} a block may take")
+    for name, t in (("xdt", xdt), ("B", B), ("C", C)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def ssd_scan_cuda(xdt, a_log, B, C, chunk: int = 128):
@@ -137,12 +147,18 @@ def ssd_scan_cuda(xdt, a_log, B, C, chunk: int = 128):
     b, s, h, p = xdt.shape
     q = min(chunk, s)
     _check(xdt, a_log, B, C, q)
+    n, nc = B.shape[3], s // q
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=xdt.device)
+    # the chunk states (then the states entering each chunk) and decays
+    states = torch.empty((b * h, nc - 1, n, p), dtype=torch.float32,
+                         device=xdt.device)
+    gamma = torch.empty((b * h, nc - 1), dtype=torch.float32,
+                        device=xdt.device)
     lib = build.library()
     with torch.cuda.device(xdt.device):
         code = lib.ssd_scan_forward(
             xdt.data_ptr(), a_log.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), b, s, h, p, B.shape[3], q,
-            torch.cuda.current_stream(xdt.device).cuda_stream)
+            y.data_ptr(), states.data_ptr(), gamma.data_ptr(), b, s, h, p, n,
+            q, torch.cuda.current_stream(xdt.device).cuda_stream)
     build.raise_on(code, "ssd_scan_forward")
     return y

@@ -255,6 +255,40 @@ def test_grouped_matmul_kernel_matches_plain(cuda_device, dtype, valid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,k,n,valid", [
+    (1, 256, 256, "none"),        # one row: one m16 tile, 15 rows masked
+    (8, 512, 384, "random"),      # olmoe-1b-7b's decode capacity
+    (40, 2048, 256, "random"),    # its prefill capacity: three m16 tiles
+    (65, 512, 256, "random"),     # two row tiles, the second of one row
+    (128, 256, 320, "none"),      # two full row tiles, a ragged N tile
+    (40, 100, 72, "random"),      # ragged K and N on 16-byte rows (f32)
+    (40, 37, 50, "random"),       # rows not 16-byte aligned: plain loads
+    (40, 512, 256, "empty"),      # every expert empty
+])
+def test_grouped_matmul_kernel_shapes(cuda_device, dtype, c, k, n, valid):
+    g = torch.Generator(device=cuda_device).manual_seed(c + k + n)
+    x = torch.randn(4, c, k, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(4, k, n, generator=g, device=cuda_device)
+         / k ** 0.5).to(dtype)
+    rows = None
+    if valid == "random":
+        rows = torch.randint(0, c + 1, (4,), generator=g, device=cuda_device,
+                             dtype=torch.int32)
+    elif valid == "empty":
+        rows = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    out = ops.grouped_matmul(x, w, rows)
+    exp = gmm.grouped_matmul_plain(x, w, rows)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (4, c, n)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if rows is not None:
+        mask = torch.arange(c, device=cuda_device)[None, :] >= rows[:, None]
+        assert (out[mask] == 0).all()
+
+
+@pytest.mark.cuda
 def test_new_kernels_raise_on_what_they_do_not_take(cuda_device):
     q, k, v = _flash_case(cuda_device, torch.float32, 16, 4, 2, 48, 0)
     with pytest.raises(ValueError, match="head_dim"):
@@ -330,3 +364,63 @@ def test_ssd_scan_kernel_refuses_grad_and_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         big = torch.zeros(1, 64, 2, 1024, device=cuda_device)
         ssd.ssd_scan_cuda(x, a, big, big, chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 256, 3, 64, 128, 256),       # one chunk: no state, no pass
+    (2, 512, 2, 64, 128, 256),       # two chunks
+    (1, 17 * 64, 2, 64, 128, 64),    # 17 chunks of one tile each
+    (2, 17 * 32, 4, 32, 16, 32),     # 17 chunks at P 32 / N 16
+])
+def test_ssd_scan_kernel_chunk_counts(cuda_device, b, s, h, p, n, chunk):
+    x, a, B, C = _ssd_case(cuda_device, b, s, h, p, n, s + p)
+    out = ops.ssd_scan(x, a, B, C, chunk=chunk)
+    exp = ssd.ssd_scan_plain(x, a, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, exp, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_raise_on_shapes_they_do_not_take(cuda_device):
+    """The SSD kernels hold all of P in a warp (P a multiple of 8, at most
+    64) and step N by 8; the grouped matmul takes one dtype for x and w."""
+    for p, n in ((12, 16), (128, 16), (32, 12)):
+        x, a, B, C = _ssd_case(cuda_device, 1, 64, 2, p, n, 0)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ssd.ssd_scan_cuda(x, a, B, C, chunk=32)
+    x = torch.zeros(2, 8, 16, device=cuda_device)
+    w = torch.zeros(2, 16, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.grouped_matmul(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="need x"):
+        ops.grouped_matmul(x, w[:, :8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ssd_scan", "grouped_matmul"])
+def test_kernels_launch_on_the_current_stream(cuda_device, op):
+    """On a side stream whose input is written only after a long device
+    spin, every kernel must run behind that write: a launch on any other
+    stream would read the zeros the input held before."""
+    if op == "ssd_scan":
+        args = list(_ssd_case(cuda_device, 2, 1024, 4, 64, 128, 5))
+        fn = lambda *t: ops.ssd_scan(*t, chunk=256)          # noqa: E731
+        plain = lambda *t: ssd.ssd_scan_plain(*t, chunk=256)  # noqa: E731
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        args = [torch.randn(8, 40, 1024, generator=g, device=cuda_device),
+                torch.randn(8, 1024, 512, generator=g, device=cuda_device)
+                / 32.0]
+        fn, plain = ops.grouped_matmul, gmm.grouped_matmul_plain
+    exp = plain(*args)
+    late = torch.zeros_like(args[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        late.copy_(args[0])
+        out = fn(late, *args[1:])
+    side.synchronize()
+    tol = 5e-4 if op == "ssd_scan" else TOL[torch.float32]
+    torch.testing.assert_close(out, exp, atol=tol, rtol=tol)

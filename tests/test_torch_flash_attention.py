@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from tests._torch_tf32 import mm
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -114,37 +115,18 @@ def test_strided_inputs_give_the_contiguous_result():
 # ---------------------------------------------------------------------------
 # The CUDA kernel's arithmetic: three TF32 passes on the tensor cores
 # ---------------------------------------------------------------------------
-def _tf32(x):
-    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
-    from zero, as ``cvt.rna.tf32.f32`` rounds."""
-    u = x.contiguous().view(torch.int32)
-    mag = ((u & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return (mag | (u & -0x80000000)).view(torch.float32)
-
-
-def _mm(a, b, passes):
-    """a @ b as the kernel's mma.sync computes it: one TF32 pass, or three
-    (lo.hi + hi.lo + hi.hi of x = hi + lo, hi = tf32(x), lo = tf32(x - hi)),
-    each product summed in f32."""
-    ah, bh = _tf32(a), _tf32(b)
-    if passes == 1:
-        return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
-
-
 def _emulated_flash(q, k, v, passes):
-    """Causal attention with both products through ``_mm``: q [B, S, Hq,
+    """Causal attention with both products through ``mm``: q [B, S, Hq,
     D], k/v [B, S, Hkv, D] -> [B, S, Hq, D]."""
     g = q.shape[2] // k.shape[2]
     qh = q.transpose(1, 2)
     kh, vh = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
-    s = _mm(qh, kh.transpose(-1, -2), passes) / np.sqrt(q.shape[-1])
+    s = mm(qh, kh.transpose(-1, -2), passes) / np.sqrt(q.shape[-1])
     pos = torch.arange(q.shape[1])
     mask = pos[:, None] >= pos[None, :]
     s = s.masked_fill(~mask, fa.NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
-    out = _mm(p, vh, passes) / p.sum(-1, keepdim=True)
+    out = mm(p, vh, passes) / p.sum(-1, keepdim=True)
     return out.transpose(1, 2)
 
 

@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from tests._torch_tf32 import mm
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -136,24 +137,6 @@ def test_non_cpu_tensors_go_to_the_kernel_or_raise():
 # ---------------------------------------------------------------------------
 # The prefill kernel's design on the CPU: three TF32 passes, a split walk
 # ---------------------------------------------------------------------------
-def _tf32(x):
-    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
-    from zero, as ``cvt.rna.tf32.f32`` rounds."""
-    u = x.contiguous().view(torch.int32)
-    mag = ((u & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return (mag | (u & -0x80000000)).view(torch.float32)
-
-
-def _mm(a, b, passes):
-    """a @ b as mma.sync computes it: one TF32 pass or three (lo.hi +
-    hi.lo + hi.hi), each product summed in f32."""
-    ah, bh = _tf32(a), _tf32(b)
-    if passes == 1:
-        return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
-
-
 def _split_ranges(mb, bs):
     """The table-column range [j0, j1) of each split of the launcher's plan,
     as the kernel takes them (``split_plan``'s docstring)."""
@@ -180,14 +163,14 @@ def _prefill_parts(q, kp, vp, tables, start, window, cols, passes=0):
         b, hkv, c * g, d)
     mask = vis.repeat_interleave(g, dim=1)[:, None]      # [B, 1, CG, K]
     kh, vh = kg.transpose(1, 2), vg.transpose(1, 2)      # [B, Hkv, K, D]
-    mm = (lambda x, y: x @ y) if passes == 0 else (
-        lambda x, y: _mm(x, y, passes))
-    s = mm(qr, kh.transpose(-1, -2)) / np.sqrt(d)
+    prod = (lambda x, y: x @ y) if passes == 0 else (
+        lambda x, y: mm(x, y, passes))
+    s = prod(qr, kh.transpose(-1, -2)) / np.sqrt(d)
     s = s.masked_fill(~mask, pa.NEG_INF)
     m = s.amax(-1)
     m_safe = torch.where(m <= pa.NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.exp(s - m_safe[..., None]) * mask
-    return m, p.sum(-1), mm(p, vh)
+    return m, p.sum(-1), prod(p, vh)
 
 
 def _merge(parts, q):

@@ -8,6 +8,10 @@ is held against that version on the card (``tests/test_torch_cuda_kernels.py``
 and ``chip_smoke.py``). Tolerance 5e-4, the JAX kernel test's
 (``tests/test_kernels.py:134``): chunked and sequential sums of up to 256
 f32 terms in different orders.
+
+The CUDA route's decomposition (chunk states, the pass over chunks, 64-row
+output tiles) with its arithmetic (three TF32 passes per product) is
+emulated here and held against the JAX kernel too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ from repro.kernels import ref as jref
 from repro.models.mamba2 import ssd_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from tests._torch_tf32 import mm
 
 TOL = dict(atol=5e-4, rtol=5e-4)
 
@@ -97,3 +102,68 @@ def test_plain_version_counts_calls():
     _port(x, a, B, C, 32)
     assert ssd.ssd_scan_plain.calls == before + 1
     assert ops.ssd_scan.launches == launches      # the CPU launches nothing
+
+
+# ---------------------------------------------------------------------------
+# The CUDA route's decomposition and arithmetic
+# ---------------------------------------------------------------------------
+def _prod(a, b):
+    """A product of the kernels: three TF32 passes, lo truncated."""
+    return mm(a, b, 3, lo_trunc=True)
+
+
+def _emulated_kernels(x, a, B, C, q):
+    """y as csrc/ssd_scan.cu's three kernels compute it, every product
+    through three TF32 passes (lo truncated, as the kernels hand it over):
+    (1) each chunk's own state (B .* exp(lc_last - lc))^T x over
+    64-position tiles and its decay;
+    (2) the pass t = gamma_c t + s_c over the chunks; (3) per 64-row tile of
+    a chunk, (C .* exp(lc)) t_in plus the masked, decayed scores of the key
+    tiles at or below the diagonal (tiles above it skipped) times x."""
+    b, s, h, p = x.shape
+    n, nc, T = B.shape[-1], s // q, 64
+    rows = lambda t: t.transpose(1, 2).reshape(b * h, nc, q, -1)   # noqa
+    xr, br, cr = rows(x), rows(B), rows(C)
+    lc = torch.cumsum(rows(a[..., None])[..., 0], -1)           # [bh, nc, q]
+    l_last = lc[..., -1:]
+    wj = torch.exp(l_last - lc)
+    states = torch.zeros(b * h, nc, n, p)
+    for j0 in range(0, q, T):
+        bw = br[:, :, j0:j0 + T] * wj[:, :, j0:j0 + T, None]
+        states = states + _prod(bw.transpose(-1, -2), xr[:, :, j0:j0 + T])
+    gamma = torch.exp(l_last[..., 0])
+    t, t_in = torch.zeros(b * h, n, p), []
+    for c in range(nc):
+        t_in.append(t)
+        t = gamma[:, c, None, None] * t + states[:, c]
+    t_in = torch.stack(t_in, 1)
+    y = torch.zeros(b * h, nc, q, p)
+    for i0 in range(0, q, T):
+        ci, li = cr[:, :, i0:i0 + T], lc[:, :, i0:i0 + T]
+        acc = _prod(ci * torch.exp(li)[..., None], t_in)
+        ii = torch.arange(i0, i0 + ci.shape[2])
+        for j0 in range(0, i0 + 1, T):
+            lj = lc[:, :, j0:j0 + T]
+            jj = torch.arange(j0, j0 + lj.shape[2])
+            sc = _prod(ci, br[:, :, j0:j0 + T].transpose(-1, -2))
+            decay = torch.exp(torch.clamp(li[..., :, None] - lj[..., None, :],
+                                          max=0.0))
+            m = torch.where(jj[None, :] <= ii[:, None], sc * decay, 0.0)
+            acc = acc + _prod(m, xr[:, :, j0:j0 + T])
+        y[:, :, i0:i0 + T] = acc
+    return y.reshape(b, h, s, p).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 256, 4, 32, 16, 32),      # the smoke widths: P 32, N 16, chunk 32
+    (1, 512, 2, 64, 128, 256),    # mamba2-780m's widths, two chunks
+    (1, 96, 2, 32, 16, 256),      # the chunk halves to 32: three chunks
+])
+def test_kernel_decomposition_matches_jax(b, s, h, p, n, chunk):
+    x, a, B, C = _inputs(b, s, h, p, n, s + p + n)
+    q = chunk
+    while s % q:
+        q //= 2
+    got = _emulated_kernels(*(torch.from_numpy(t) for t in (x, a, B, C)), q)
+    exp = np.asarray(jops.ssd_scan(x, a, B, C, chunk=chunk))
+    np.testing.assert_allclose(got.numpy(), exp, **TOL)

@@ -48,18 +48,15 @@ def device_us(fn, flush, reps: int = 20) -> dict:
     return out
 
 
-def main() -> int:
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+def load(root: str):
+    """(the checkout's chip_smoke module, this checkout's): the first
+    supplies the kernels and inputs, the second the timing functions (they
+    use torch alone; its repro_torch imports resolve to the checkout's,
+    loaded first). Builds the checkout's kernels."""
     sys.path.insert(0, root)
     import chip_smoke as cs            # the checkout's kernels and inputs
     timing = cs
     if os.path.realpath(root) != os.path.realpath(HERE):
-        # this checkout's timing functions (they use torch alone; the
-        # module's repro_torch imports resolve to the checkout's, loaded
-        # above)
         spec = importlib.util.spec_from_file_location(
             "chip_smoke_timing", os.path.join(HERE, "chip_smoke.py"))
         timing = importlib.util.module_from_spec(spec)
@@ -68,6 +65,25 @@ def main() -> int:
         sys.path[:] = path
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.build.build()
+    return cs, timing
+
+
+def time_cases(cases: dict, timing, flush) -> dict:
+    """Each case's held and un-held event times, host enqueue time and
+    profiler device time per kernel."""
+    return {name: {"ms": timing.time_ms(fn, flush),
+                   "unheld_ms": timing.time_ms(fn, flush, hold=False),
+                   "host_ms": timing.host_ms(fn),
+                   "device_us": device_us(fn, flush)}
+            for name, fn in cases.items()}
+
+
+def main() -> int:
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    cs, timing = load(root)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     cases = {}
     for s in (128, 256):
@@ -87,14 +103,9 @@ def main() -> int:
     cases["sdpa gathered [4, 16]"] = cs.sdpa_call(*args, 16, 0)
     dargs = cs.make_case(8, 1, torch.float32, seed=8, pad_row=True)
     cases["paged_decode W=8"] = lambda: cs.ops.paged_attention(*dargs, 0)
-    rec = {name: {"ms": timing.time_ms(fn, flush),
-                  "unheld_ms": timing.time_ms(fn, flush, hold=False),
-                  "host_ms": timing.host_ms(fn),
-                  "device_us": device_us(fn, flush)}
-           for name, fn in cases.items()}
     print(json.dumps({"checkout": root,
                       "device": torch.cuda.get_device_name(0),
-                      "kernels": rec}))
+                      "kernels": time_cases(cases, timing, flush)}))
     return 0
 
 
