@@ -11,19 +11,20 @@ Phases, each printed as it runs; any failure exits non-zero:
                  (one nvcc per source, all at once) into one library under
                  build/kernels/, for sm_90a; print each kernel's registers,
                  static shared memory and spills (ptxas -v), and fail unless
-                 the SASS of the flash, paged-prefill, grouped-matmul and
-                 the SSD scan's state and chunk kernels holds tensor-core
-                 (HMMA) instructions (cuobjdump -sass);
+                 the SASS of the flash, paged-decode, paged-prefill,
+                 grouped-matmul and the SSD scan's state and chunk kernels
+                 holds tensor-core (HMMA) instructions (cuobjdump -sass);
   3. kernels   — hold each of the five kernels against its plain PyTorch
                  version on the card and time the kernel, the plain version
                  and a library yardstick the port never calls (each launch
                  behind an L2 flush): the paged kernels at qwen2-0.5b's serve
                  shapes (f32 and bf16, window 0 and 5, an all -1 table row;
                  torch's scaled_dot_product_attention on the gathered K/V),
-                 then the paged prefill at every split width (1, 2, 4, 8
-                 and 64 table columns a split) at the engine's starts and at
-                 a long context (starts near 1000, the table full at MB 64),
-                 each beside SDPA;
+                 then the paged decode and prefill at every split width
+                 (1, 2, 4, 8, 16 and 64 table columns a split; f32 timed, f32
+                 and bf16 with an all -1 row checked) at the engine's
+                 positions and at a long context (positions near 1000, the
+                 table full at MB 64), each beside SDPA;
                  flash attention at olmoe-1b-7b's prefill shape
                  ([1, S, 16, 128], S 128 and 256, causal) and at edge shapes
                  (14/2 heads at D 64, window 5, non-causal, ragged S 200),
@@ -160,7 +161,8 @@ def phase(name: str) -> None:
 # build reports
 # ---------------------------------------------------------------------------
 #: the kernels redesigned for the tensor cores: their SASS must hold HMMA
-MMA_KERNELS = ("flash_attention_kernel", "paged_prefill_kernel",
+MMA_KERNELS = ("flash_attention_kernel", "paged_decode_kernel",
+               "paged_prefill_kernel",
                "grouped_matmul_kernel", "ssd_scan_state_kernel",
                "ssd_scan_chunk_kernel")
 
@@ -352,52 +354,66 @@ def check_kernels(flush: torch.Tensor) -> dict:
                                            flush)
                         lib_ms = time_ms(sdpa_call(q, kp, vp, tables, start,
                                                    c, 0), flush)
-                        mma = name == "paged_prefill"
                         rec[name] = _record(
                             name, "paged_attention.cu", kern["replaces"],
                             err, ms, plain_ms,
-                            *bound_terms(q, kp, tables, start, c, 0, mma),
+                            *bound_terms(q, kp, tables, start, c, 0, True),
                             lib_ms,
                             dict(B=b, C=c, Hq=HQ, Hkv=HKV, D=D, BS=BS, MB=MB,
                                  dtype="float32"),
                             bound_terms(q, kp, tables, start, c, 0,
-                                        False)[1] if mma else None,
+                                        False)[1],
                             wrapper_times(lambda: kern["wrapper"](*args, 0),
                                           flush))
     return rec
 
 
-def check_prefill_splits(flush: torch.Tensor) -> None:
-    """The paged prefill at the engine's shape (starts 192-368) and at a long
-    context (starts 960-1007: the table full at MB 64), each split width
-    (``pa.SPLIT_KEYS``, set here and restored) against the plain version and
-    timed beside SDPA on the gathered K/V: how the split walk scales, and
-    the measurement behind SPLIT_KEYS."""
-    keys = pa.SPLIT_KEYS
+def check_splits(flush: torch.Tensor, name: str) -> None:
+    """The paged kernel ``name`` (decode: W 8 slots; prefill: [4, 16]
+    chunks) at the engine's positions (192-383) and at a long context
+    (960-1023: the table full at MB 64), at each split width (the module
+    constant ``DECODE_SPLIT_KEYS`` or ``SPLIT_KEYS``, set here and restored)
+    against the plain version in f32 and, with a last all -1 row that must
+    come out zero, in f32 and bf16; the f32 call timed beside SDPA on the
+    gathered K/V and the bound: the measurement behind the constant."""
+    decode = name == "paged_decode"
+    attr = "DECODE_SPLIT_KEYS" if decode else "SPLIT_KEYS"
+    b, c = (SLOTS, 1) if decode else (4, 16)
+    cuda = pa.paged_attention_cuda if decode else pa.paged_prefill_cuda
+    plain = KERNELS[name]["plain"]
+    keys = getattr(pa, attr)
     try:
         for what, lo, hi in (("engine", 192, 384), ("long context", 960,
                                                      MAX_LEN)):
-            args = make_case(4, 16, torch.float32, seed=lo, pad_row=False,
+            args = make_case(b, c, torch.float32, seed=lo, pad_row=False,
                              lo=lo, hi=hi)
+            padded = [make_case(b, c, dtype, seed=lo + 1, pad_row=True,
+                                lo=lo, hi=hi)
+                      for dtype in (torch.float32, torch.bfloat16)]
             q, kp, vp, tables, start = args
-            exp = pa.paged_prefill_attention_plain(*args)
-            lib_ms = time_ms(sdpa_call(q, kp, vp, tables, start, 16, 0),
-                             flush)
-            bound = max(bound_terms(q, kp, tables, start, 16, 0, True))
-            for cols in (1, 2, 4, 8, MB):
-                pa.SPLIT_KEYS = cols * BS
-                n = pa.split_plan(MB, BS)[1]
-                run = lambda: pa.paged_prefill_cuda(*args, 0)  # noqa: E731
-                _compare(f"paged_prefill {what} {cols} columns a split",
-                         run(), exp, torch.float32)
+            exp = plain(*args)
+            lib_ms = time_ms(sdpa_call(q, kp, vp, tables, start, c, 0), flush)
+            bound = max(bound_terms(q, kp, tables, start, c, 0, True))
+            for cols in (1, 2, 4, 8, 16, MB):
+                setattr(pa, attr, cols * BS)
+                n = pa.split_plan(MB, BS, cols * BS)[1]
+                run = lambda: cuda(*args, 0)  # noqa: E731
+                what_cols = f"{name} {what} {cols} columns a split"
+                _compare(what_cols, run(), exp, torch.float32)
+                for pad in padded:
+                    dtype = pad[0].dtype
+                    out = cuda(*pad, 0)
+                    what_pad = f"{what_cols} {str(dtype)[6:]}, all -1 last row"
+                    _compare(what_pad, out, plain(*pad), dtype)
+                    if not bool((out[-1] == 0).all()):
+                        raise SystemExit(f"FAIL: {what_pad} is not zero")
                 ms = time_ms(run, flush)
-                print(f"paged_prefill {what} starts {sorted(start.tolist())}"
-                      f" {cols} columns a split ({n} splits, {4 * HKV * n} "
-                      f"CTAs): kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-                      f"kernel / library {ms / lib_ms:.3f}, bound "
-                      f"{bound:.5f} ms", flush=True)
+                print(f"{what_cols}, starts {sorted(start.tolist())} ({n} "
+                      f"splits, {b * HKV * n} CTAs): kernel {ms:.4f} ms, "
+                      f"SDPA {lib_ms:.4f} ms, kernel / library "
+                      f"{ms / lib_ms:.3f}, bound {bound:.5f} ms", flush=True)
     finally:
-        pa.SPLIT_KEYS = keys
+        setattr(pa, attr, keys)
 
 
 def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
@@ -1076,7 +1092,8 @@ def main() -> int:
     phase("kernels")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rec = check_kernels(flush)
-    check_prefill_splits(flush)
+    check_splits(flush, "paged_decode")
+    check_splits(flush, "paged_prefill")
     rec["flash_attention"] = check_flash(flush)
     rec["grouped_matmul"] = check_grouped_matmul(flush)
     rec["ssd_scan"] = check_ssd(flush)

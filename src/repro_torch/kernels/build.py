@@ -28,9 +28,11 @@ _VOID_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: argument types of every C entry point; every pointer and the stream are
 #: c_void_p so no address is truncated to 32 bits.
 ARGTYPES = {
-    # csrc/paged_attention.cu
+    # csrc/paged_attention.cu. Decode: q, k, v, tables, pos, out, part_acc,
+    # part_ml; B, Hq, Hkv, D, BS, MB, cols_per_split; the pool strides;
+    # window, dtype, stream
     "paged_attention_decode":
-        [_VOID_P] * 6 + [_INT] * 6 + [_I64] * 3 + [_INT, _INT, _VOID_P],
+        [_VOID_P] * 8 + [_INT] * 7 + [_I64] * 3 + [_INT, _INT, _VOID_P],
     # prefill: q, k, v, tables, start, out, part_acc, part_ml; B, C, Hq,
     # Hkv, D, BS, MB, cols_per_split; the pool strides; window, dtype, stream
     "paged_attention_prefill":

@@ -1,9 +1,12 @@
-// Tensor-core building blocks of the flash and paged-prefill attention
-// kernels (flash_attention.cu, paged_attention.cu) for Hopper (sm_90a).
+// Tensor-core building blocks of the flash and paged (decode and prefill)
+// attention kernels (flash_attention.cu, paged_attention.cu) for Hopper
+// (sm_90a).
 //
 // One warp owns 16 query rows and walks key tiles of BK = 64 keys staged
-// in shared memory. Both products run on the tensor cores through the
-// mma.sync primitives of mma.cuh (three TF32 passes for f32 inputs, one
+// in shared memory, all of each tile's keys or a share of them; warps that
+// share rows fold their states together at the end (merge_parts). Both
+// products run on the tensor cores through the mma.sync primitives of
+// mma.cuh (three TF32 passes for f32 inputs, one
 // bf16 pass for bf16; its header has the fragment layouts). One TF32 pass
 // is ~1e-3 off at these shapes; tests/test_torch_flash_attention.py and
 // test_torch_paged_attention.py emulate both on the CPU.
@@ -312,6 +315,48 @@ struct WarpState {
         o[n][2 * r] = a1 * o[n][2 * r] + a2 * o2[n][2 * r];
         o[n][2 * r + 1] = a1 * o[n][2 * r + 1] + a2 * o2[n][2 * r + 1];
       }
+    }
+  }
+
+  // Floats a lane hands over in merge_parts: its o, m and l.
+  static constexpr int NV = D / 2 + 4;
+
+  // The KSPLIT warps of a row group (parts 0 .. KSPLIT - 1) hold the same
+  // 16 rows over different keys: parts 1.. hand their states to part 0
+  // through `red`, (KSPLIT - 1) NV 32 floats of shared memory free for
+  // reuse, laid out [part - 1][value][lane] so a warp's accesses are
+  // consecutive; part 0 folds them in (merge). Every thread of the CTA
+  // calls it (one __syncthreads); afterwards only part 0's state counts.
+  template <int KSPLIT>
+  __device__ __forceinline__ void merge_parts(float* red, int part) {
+    red += threadIdx.x & 31;
+    if (part > 0) {
+      float* x = red + (part - 1) * NV * 32;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = o[n][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        x[(D / 2 + r) * 32] = m[r];
+        x[(D / 2 + 2 + r) * 32] = l[r];
+      }
+    }
+    __syncthreads();
+    if (part > 0) return;
+    for (int p = 1; p < KSPLIT; ++p) {
+      const float* x = red + (p - 1) * NV * 32;
+      float o2[D / 8][4], m2[2], l2[2];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o2[n][e] = x[(4 * n + e) * 32];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m2[r] = x[(D / 2 + r) * 32];
+        l2[r] = x[(D / 2 + 2 + r) * 32];
+      }
+      merge(o2, m2, l2);
     }
   }
 };

@@ -176,41 +176,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
   }
 
   // the other parts' states through shared memory (the K/V buffers are
-  // free now), [group][part - 1][value][lane]: a warp's accesses
-  // consecutive
-  constexpr int NV = D / 2 + 4;                        // values a lane
-  float* red = reinterpret_cast<float*>(kv) + lane;
-  auto slot = [&](int p) {
-    return red + (grp * (KSPLIT - 1) + p - 1) * NV * 32;
-  };
-  if (part > 0) {
-    float* x = slot(part);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = st.o[n][e];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      x[(D / 2 + r) * 32] = st.m[r];
-      x[(D / 2 + 2 + r) * 32] = st.l[r];
-    }
-  }
-  __syncthreads();
+  // free now), one region per group
+  st.template merge_parts<KSPLIT>(
+      reinterpret_cast<float*>(kv) +
+          grp * (KSPLIT - 1) * attn::WarpState<T, D>::NV * 32,
+      part);
   if (part > 0) return;
-  for (int p = 1; p < KSPLIT; ++p) {
-    const float* x = slot(p);
-    float o2[D / 8][4], m2[2], l2[2];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o2[n][e] = x[(4 * n + e) * 32];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m2[r] = x[(D / 2 + r) * 32];
-      l2[r] = x[(D / 2 + 2 + r) * 32];
-    }
-    st.merge(o2, m2, l2);
-  }
 
   T* out = static_cast<T*>(a.out);
 #pragma unroll

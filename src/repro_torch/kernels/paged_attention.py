@@ -9,10 +9,20 @@ ported here:
     chunk) -> ``paged_prefill_cuda`` / ``paged_prefill_attention_plain``.
 
 The CUDA kernels live in ``csrc/paged_attention.cu`` (design and bound in
-its header). The plain versions port ``kernels/ref.py`` — gather through the
-table, mask, softmax in f32 — with the kernels' edge rule for a row that
-sees no key: it outputs 0 (the kernel's ``l == 0 -> 1``), where the JAX
-oracle would average garbage. ``kernels/ops.py`` routes by device.
+its header). Both read a few MB of K/V and do a few MFLOP a call at the
+serve path's shapes, microseconds of work, so latency bounds them: the
+longest walk one CTA makes down a block table, and how much of the card
+the grid fills. Both split the table walk into ranges of a fixed number of
+columns (``split_plan``; ``DECODE_SPLIT_KEYS`` and ``SPLIT_KEYS`` set the
+width), one CTA per (slot, kv head, range), run both products on the
+tensor cores and merge the ranges' partial softmax states in a second
+kernel, all from one C call. The decode's 4 warps share its one m16 tile
+of q heads and each takes a quarter of every 64-key tile.
+
+The plain versions port ``kernels/ref.py`` — gather through the table,
+mask, softmax in f32 — with the kernels' edge rule for a row that sees no
+key: it outputs 0 (the kernel's ``l == 0 -> 1``), where the JAX oracle
+would average garbage. ``kernels/ops.py`` routes by device.
 
 Layouts are the JAX wrappers' (``kernels/ops.py``): q ``[B, Hq, D]``
 (decode) or ``[B, C, Hq, D]`` (prefill) with q heads grouped per kv head
@@ -33,16 +43,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: keys a split of the prefill's table walk covers: 2 columns at block 16,
 #: the fastest width at the qwen2-0.5b engine's shape (PERF.md, split width)
 SPLIT_KEYS = 32
+#: keys a split of the decode's table walk covers: 4 columns at block 16
+#: (PERF.md, split width)
+DECODE_SPLIT_KEYS = 64
 
 
-def split_plan(mb: int, bs: int):
-    """(columns per split cps, number of splits) of the prefill kernel's
-    table walk over ``mb`` columns of ``bs`` keys: split s owns columns
-    [s cps, min(mb, (s + 1) cps)). A fixed number of columns per split, so
-    the plan needs only host-known shapes (never ``start``)."""
-    if SPLIT_KEYS < 1:
-        raise ValueError(f"SPLIT_KEYS must be >= 1, got {SPLIT_KEYS}")
-    cps = max(1, SPLIT_KEYS // bs)
+def split_plan(mb: int, bs: int, keys: int | None = None):
+    """(columns per split cps, number of splits) of a kernel's table walk
+    over ``mb`` columns of ``bs`` keys, ``keys`` (default ``SPLIT_KEYS``)
+    a split: split s owns columns [s cps, min(mb, (s + 1) cps)). A fixed
+    number of columns per split, so the plan needs only host-known shapes
+    (never ``pos`` / ``start``)."""
+    keys = SPLIT_KEYS if keys is None else keys
+    if keys < 1:
+        raise ValueError(f"a split must cover >= 1 key (SPLIT_KEYS, "
+                         f"DECODE_SPLIT_KEYS), got {keys}")
+    cps = max(1, keys // bs)
     return cps, max(1, -(-mb // cps))
 
 
@@ -153,47 +169,46 @@ def _pool_args(k_pages, window: int):
     return s_blk, s_tok, s_head, int(window)
 
 
-def paged_attention_cuda(q, k_pages, v_pages, tables, pos, window: int = 0):
-    """Launch the decode kernel: q [B, Hq, D] -> [B, Hq, D] (q's dtype)."""
-    _check(q, k_pages, v_pages, tables, pos, 3)
+def _launch(entry: str, q, k_pages, v_pages, tables, start, window: int,
+            keys: int):
+    """Run the C entry ``entry`` on q [B, C, Hq, D] (decode: C is 1 and q
+    passes as [B, Hq, D]) over a table walk split by ``split_plan``; with
+    more than one split the partials go to f32 scratch allocated here and a
+    second kernel merges them (both launched by one C call)."""
     out = torch.empty_like(q)
     lib = build.library()
     _, bs, hkv, d = k_pages.shape
+    mb = tables.shape[1]
+    cps, nsplit = split_plan(mb, bs, keys)
+    acc = ml = None
+    if nsplit > 1:
+        rows = nsplit * q.numel() // d        # nsplit x B x Hkv x (C G) rows
+        scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        acc = scratch.data_ptr()              # [rows, D], then (m, l) [rows, 2]
+        ml = acc + 4 * rows * d
     with torch.cuda.device(q.device):
-        code = lib.paged_attention_decode(
+        code = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            q.shape[0], q.shape[1], hkv, d, bs, tables.shape[1],
+            tables.data_ptr(), start.data_ptr(), out.data_ptr(), acc, ml,
+            *q.shape[:-1], hkv, d, bs, mb, cps,
             *_pool_args(k_pages, window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    build.raise_on(code, "paged_attention_decode")
+    build.raise_on(code, entry)
     return out
+
+
+def paged_attention_cuda(q, k_pages, v_pages, tables, pos, window: int = 0):
+    """Launch the decode kernel: q [B, Hq, D] -> [B, Hq, D] (q's dtype),
+    the table walk split every ``DECODE_SPLIT_KEYS`` keys."""
+    _check(q, k_pages, v_pages, tables, pos, 3)
+    return _launch("paged_attention_decode", q, k_pages, v_pages, tables,
+                   pos, window, DECODE_SPLIT_KEYS)
 
 
 def paged_prefill_cuda(q, k_pages, v_pages, tables, start, window: int = 0):
-    """Launch the prefill kernel: q [B, C, Hq, D] -> same (q's dtype). The
-    table walk is split by ``split_plan``; with more than one split the
-    partials go to f32 scratch allocated here and a second kernel merges
-    them (both launched by one C call)."""
+    """Launch the prefill kernel: q [B, C, Hq, D] -> same (q's dtype), the
+    table walk split every ``SPLIT_KEYS`` keys."""
     _check(q, k_pages, v_pages, tables, start, 4)
-    out = torch.empty_like(q)
-    lib = build.library()
-    _, bs, hkv, d = k_pages.shape
-    b, c, hq, _ = q.shape
-    mb = tables.shape[1]
-    cps, nsplit = split_plan(mb, bs)
-    acc = ml = None
-    if nsplit > 1:
-        rows = nsplit * b * hq * c            # nsplit x B x Hkv x (C G) rows
-        acc = torch.empty(rows * d, dtype=torch.float32, device=q.device)
-        ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        code = lib.paged_attention_prefill(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-            None if acc is None else acc.data_ptr(),
-            None if ml is None else ml.data_ptr(),
-            b, c, hq, hkv, d, bs, mb, cps, *_pool_args(k_pages, window),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    build.raise_on(code, "paged_attention_prefill")
-    return out
+    return _launch("paged_attention_prefill", q, k_pages, v_pages, tables,
+                   start, window, SPLIT_KEYS)

@@ -227,6 +227,76 @@ def test_prefill_split_widths_agree(cuda_device, monkeypatch, cols):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 5, 40])
+@pytest.mark.parametrize("hq,hkv,bs,mb,d", [
+    (14, 2, 16, 64, 64),         # qwen2-0.5b's engine shape, G = 7
+    (4, 4, 8, 65, 32),           # G = 1, block 8, MB = 65
+    (32, 2, 32, 65, 128),        # G = 16: one full m16 tile, block 32
+    (32, 1, 16, 65, 64),         # G = 32: two row tiles
+    (64, 2, 8, 64, 128),         # G = 32 at D 128
+    (7, 1, 8, 1, 64),            # MB = 1: one split, direct output
+    (16, 1, 32, 1, 32),          # MB = 1, G = 16, D 32, block 32
+])
+def test_decode_kernel_sweep(cuda_device, dtype, window, hq, hkv, bs, mb, d):
+    """The decode kernel over head dims, block sizes, q-head groups (one
+    and two m16 row tiles) and table widths: row 0 at the last position
+    its table holds with a -1 hole mid-table, row 1 at a random one, row
+    2 all -1 (exactly zero)."""
+    q, kp, vp, tables, pos = _paged_sweep_case(
+        cuda_device, dtype, 1, hq, hkv, bs, mb, d, hq + bs + mb + window)
+    q = q[:, 0]
+    before = ops.paged_attention.launches
+    out = ops.paged_attention(q, kp, vp, tables, pos, window)
+    exp = pa.paged_attention_plain(q, kp, vp, tables, pos, window)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 2, 4, 64])
+def test_decode_split_widths_agree(cuda_device, monkeypatch, cols):
+    """Every width of the decode's split table walk gives the plain result
+    (1 column a split up to the whole table, which writes the output
+    directly)."""
+    q, kp, vp, tables, pos = _paged_sweep_case(
+        cuda_device, torch.float32, 1, 14, 2, 16, 64, 64, cols)
+    monkeypatch.setattr(pa, "DECODE_SPLIT_KEYS", cols * kp.shape[1])
+    out = pa.paged_attention_cuda(q[:, 0], kp, vp, tables, pos, 0)
+    exp = pa.paged_attention_plain(q[:, 0], kp, vp, tables, pos, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_decode_kernel_replays_in_a_cuda_graph(cuda_device):
+    """A decode call captured in a CUDA graph replays right after its
+    positions, table and q change on the device: the wrapper reads nothing
+    to the host and the kernels keep no state between calls."""
+    q, kp, vp, tables, pos = _paged_sweep_case(
+        cuda_device, torch.float32, 1, 14, 2, 16, 64, 64, 11)
+    q = q[:, 0].clone()
+    ops.paged_attention(q, kp, vp, tables, pos)          # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(q, kp, vp, tables, pos)
+    for step in range(3):
+        pos[1:] = (pos[1:] + 37 * step) % (tables.shape[1] * kp.shape[1])
+        tables[1] = torch.roll(tables[1], step)
+        q.mul_(-1.0)
+        graph.replay()
+        exp = pa.paged_attention_plain(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("valid", ["none", "random", "some_empty"])
 def test_grouped_matmul_kernel_matches_plain(cuda_device, dtype, valid):
     """olmoe-1b-7b's down projection shape at a 256-token capacity (40

@@ -290,3 +290,189 @@ def test_split_plan_rejects_empty_splits(monkeypatch):
     monkeypatch.setattr(pa, "SPLIT_KEYS", 0)
     with pytest.raises(ValueError, match="SPLIT_KEYS"):
         pa.split_plan(64, 16)
+
+
+# ---------------------------------------------------------------------------
+# The decode kernel's design on the CPU: splits, four warps' key quarters,
+# their fold, the merge and three TF32 passes
+# ---------------------------------------------------------------------------
+def _empty_state(shape, d):
+    return (torch.full(shape, pa.NEG_INF), torch.zeros(shape),
+            torch.zeros(*shape, d))
+
+
+def _step(state, q, k, v, vis, scale, passes):
+    """``WarpState::step``: one warp's keys k, v [..., K, D] of a tile for
+    rows q [..., R, D]; vis [..., R, K] (False: masked)."""
+    m, l, o = state
+    s = mm(q, k.transpose(-1, -2), passes) * scale
+    s = s.masked_fill(~vis, pa.NEG_INF)
+    m_cur = torch.maximum(m, s.amax(-1))
+    m_safe = torch.where(m_cur <= pa.NEG_INF / 2, 0.0, m_cur)
+    alpha = torch.where(m <= pa.NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+    p = torch.where(vis, torch.exp(s - m_safe[..., None]), 0.0)
+    return (m_cur, alpha * l + p.sum(-1),
+            alpha[..., None] * o + mm(p, v, passes))
+
+
+def _fold(a, b):
+    """``WarpState::merge``: another warp's state over other keys."""
+    (m1, l1, o1), (m2, l2, o2) = a, b
+    mx = torch.maximum(m1, m2)
+    ms = torch.where(mx <= pa.NEG_INF / 2, 0.0, mx)
+    a1 = torch.where(m1 <= pa.NEG_INF / 2, 0.0, torch.exp(m1 - ms))
+    a2 = torch.where(m2 <= pa.NEG_INF / 2, 0.0, torch.exp(m2 - ms))
+    return mx, a1 * l1 + a2 * l2, a1[..., None] * o1 + a2[..., None] * o2
+
+
+def _decode_kernel(q, kp, vp, tables, pos, window, passes=3):
+    """The decode kernel's arithmetic in its order, on q [B, Hq, D]: each
+    split of ``split_plan(MB, BS, DECODE_SPLIT_KEYS)`` walks its columns
+    max(1, 64 / BS) at a time as 64-key tiles; warp w of four steps keys
+    16 w .. 16 w + 15 of every tile (a tile without a visible key changes
+    no state, so the kernel's skipping it is not modelled); warps 1-3 fold
+    into warp 0; with one split that state is the output, otherwise the
+    splits' partials go through ``_merge``. Returns (output, partials)."""
+    b, hq, d = q.shape
+    bs, hkv = kp.shape[1], kp.shape[2]
+    g, mb = hq // hkv, tables.shape[1]
+    cps, nsplit = pa.split_plan(mb, bs, pa.DECODE_SPLIT_KEYS)
+    ncol = max(1, 64 // bs)
+    kg, vg, k_pos, assigned = pa.paged_kv_gather(kp, vp, tables)
+    kh, vh = kg.transpose(1, 2), vg.transpose(1, 2)      # [B, Hkv, K, D]
+    p = pos.long()[:, None]
+    vis = assigned & (k_pos <= p)                        # [B, K]
+    if window:
+        vis &= k_pos > p - window
+    qr = q.reshape(b, hkv, g, d)
+    parts = []
+    for s in range(nsplit):
+        j0, j1 = s * cps, min(mb, (s + 1) * cps)
+        warps = [_empty_state((b, hkv, g), d) for _ in range(4)]
+        for jt in range(j0, j1, ncol):
+            k0, k_end = jt * bs, min(jt + ncol, j1) * bs
+            for w in range(4):
+                keys = slice(k0 + 16 * w, min(k0 + 16 * w + 16, k_end))
+                if keys.start < k_end:
+                    v_ = vis[:, None, None, keys].expand(b, hkv, g, -1)
+                    warps[w] = _step(warps[w], qr, kh[:, :, keys],
+                                     vh[:, :, keys], v_, 1 / np.sqrt(d),
+                                     passes)
+        state = warps[0]
+        for other in warps[1:]:
+            state = _fold(state, other)
+        parts.append(state)
+    if nsplit == 1:
+        _, l, o = parts[0]
+        out = o / torch.where(l == 0, 1.0, l)[..., None]
+        return out.reshape(b, hq, d), parts
+    return _merge(parts, q[:, None])[:, 0], parts
+
+
+_JAX_DECODE = {}
+
+
+def _jax_decode(q, kp, vp, tables, pos, window):
+    """The JAX wrapper's Pallas decode kernel (interpret mode), once per
+    input set: it does not depend on the port's split width."""
+    key = (q.shape, window)
+    if key not in _JAX_DECODE:
+        _JAX_DECODE[key] = np.asarray(jops.paged_attention(
+            *(jnp.asarray(t.numpy()) for t in (q, kp, vp)),
+            tables.numpy(), pos.numpy(), window))
+    return _JAX_DECODE[key]
+
+
+def _decode_case(g):
+    """Four slots over a 20-column table of 8-key blocks, G q heads over 2
+    kv heads, D 32: row 0 has a -1 hole mid-walk and a -1 tail, row 1 is
+    all -1, row 2's table is full and its position the last, row 3's
+    position sits on -1 columns after a real prefix, so under a small
+    window it sees no key (output 0, not NaN)."""
+    rng = np.random.default_rng(g)
+    nb, bs, hkv, d, mb = 80, 8, 2, 32, 20
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    q = torch.from_numpy(2 * rng.standard_normal((4, g * hkv, d))
+                         .astype(np.float32))
+    perm = rng.permutation(nb).astype(np.int32)
+    tables = np.full((4, mb), -1, np.int32)
+    tables[0, :19] = perm[:19]
+    tables[0, 9] = -1
+    tables[2, :] = perm[19:39]
+    tables[3, :10] = perm[39:49]             # positions 80-159 unassigned
+    pos = torch.tensor([150, 40, 159, 100], dtype=torch.int32)
+    return q, kp, vp, torch.from_numpy(tables), pos
+
+
+@pytest.mark.parametrize("g", [1, 7, 16, 32])
+@pytest.mark.parametrize("window", [0, 3, 9])
+@pytest.mark.parametrize("cols", [1, 3, 8, 20])
+def test_decode_kernel_emulation_matches_plain_and_pallas(monkeypatch, cols,
+                                                          window, g):
+    """The decode kernel's split walk (1, 3, 8 and all 20 columns a split:
+    one to three 64-key tiles), its four warps' key quarters and their
+    fold, the merge and three TF32 passes give
+    ``paged_attention_plain``'s and the Pallas kernel's result: -1 holes
+    and tails, an all -1 row, a window that empties whole splits, rows
+    that see no key (0), and one or two m16 row tiles (G 1 to 32). Splits
+    past the last one a row's position reaches are empty, so the merge may
+    stop there."""
+    q, kp, vp, tables, pos = _decode_case(g)
+    bs = kp.shape[1]
+    monkeypatch.setattr(pa, "DECODE_SPLIT_KEYS", cols * bs)
+    got, parts = _decode_kernel(q, kp, vp, tables, pos, window)
+    exp = pa.paged_attention_plain(q, kp, vp, tables, pos, window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, exp, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_decode(q, kp, vp, tables, pos, window),
+                               atol=2e-5, rtol=2e-5)
+    assert (got[1] == 0).all()
+    if window == 3:
+        assert (got[3] == 0).all()           # no key visible at position 100
+    reached = pos.long() // (cols * bs) + 1
+    for s, (_, l, _) in enumerate(parts):
+        assert (l[s >= reached] == 0).all()
+    if window and cols == 1:
+        empty = sum(bool((l == 0).all()) for _, l, _ in parts)
+        assert empty >= len(parts) // 2      # the window emptied whole splits
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_decode_three_tf32_passes_keep_f32_accuracy(passes):
+    """At the engine's decode shape (8 slots, 14 q heads over 2 kv heads,
+    D 64, block 16, positions 192-383) and the default split width, three
+    TF32 passes stay within the f32 tolerance of the plain version; one
+    pass does not."""
+    rng = np.random.default_rng(11)
+    nb, bs, hkv, d, mb, hq = 240, 16, 2, 64, 64, 14
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                          .astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((8, hq, d)).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(192, 384, 8).astype(np.int32))
+    tables = torch.full((8, mb), -1, dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(nb).astype(np.int32))
+    for i in range(8):
+        n = int(pos[i]) // bs + 1
+        tables[i, :n] = perm[i * 30:i * 30 + n]
+    exp = pa.paged_attention_plain(q, kp, vp, tables, pos)
+    got, _ = _decode_kernel(q, kp, vp, tables, pos, 0, passes)
+    close = torch.allclose(got, exp, atol=2e-5, rtol=2e-5)
+    assert close == (passes == 3), (passes, (got - exp).abs().max().item())
+
+
+def test_decode_split_plan_is_its_own(monkeypatch):
+    """The decode walk's width is DECODE_SPLIT_KEYS, not the prefill's
+    SPLIT_KEYS; at qwen2-0.5b's engine shape it gives more CTAs than one
+    per (slot, kv head)."""
+    monkeypatch.setattr(pa, "SPLIT_KEYS", 1)
+    cps, n = pa.split_plan(64, 16, pa.DECODE_SPLIT_KEYS)
+    assert cps == max(1, pa.DECODE_SPLIT_KEYS // 16)
+    assert 8 * 2 * n > 8 * 2
+    with pytest.raises(ValueError, match="DECODE_SPLIT_KEYS"):
+        pa.split_plan(64, 16, 0)

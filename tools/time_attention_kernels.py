@@ -14,7 +14,9 @@ Cases, float32: flash attention at olmoe-1b-7b's prefill shape
 ([1, S, 16, 128], causal, S 128 and 256) beside torch's
 scaled_dot_product_attention; the paged prefill at qwen2-0.5b's engine
 shape ([4, 16] chunks, 14 q / 2 kv heads, D 64, block 16, MB 64) beside
-SDPA on the gathered K/V; the paged decode at W 8. For each: ``ms``, the
+SDPA on the gathered K/V; the paged decode at W 8 at the engine's
+positions (192-383) and at a long context (960-1022, the table full at MB
+64), each beside SDPA on the gathered K/V. For each: ``ms``, the
 median of 50 CUDA-event times with the stream held (``chip_smoke.time_ms``);
 ``unheld_ms``, the same without the hold (PR 11-13's method, which takes in
 the host's enqueue cost when it exceeds the L2 flush); ``host_ms``, the
@@ -101,8 +103,12 @@ def main() -> int:
     cases["paged_prefill [4, 16]"] = (
         lambda: cs.ops.paged_prefill_attention(*args, 0))
     cases["sdpa gathered [4, 16]"] = cs.sdpa_call(*args, 16, 0)
-    dargs = cs.make_case(8, 1, torch.float32, seed=8, pad_row=True)
-    cases["paged_decode W=8"] = lambda: cs.ops.paged_attention(*dargs, 0)
+    for what, lo, hi in (("", 192, 384), (" long", 960, 1024)):
+        dargs = cs.make_case(8, 1, torch.float32, seed=8, pad_row=True,
+                             lo=lo, hi=hi)
+        cases[f"paged_decode W=8{what}"] = (
+            lambda dargs=dargs: cs.ops.paged_attention(*dargs, 0))
+        cases[f"sdpa gathered W=8{what}"] = cs.sdpa_call(*dargs, 1, 0)
     print(json.dumps({"checkout": root,
                       "device": torch.cuda.get_device_name(0),
                       "kernels": time_cases(cases, timing, flush)}))
