@@ -47,27 +47,39 @@ Phases, each printed as it runs; any failure exits non-zero:
                  the JAX package); the mamba2 decode chain also against
                  its forward's logits (2e-3);
   5. engine    — the full-width qwen2-0.5b paged engine (24 layers, random
-                 weights from a seed) through repro_torch.launch.serve's own
-                 run function: 16 requests of 128-256 tokens after a shared
+                 weights from a seed) built by repro_torch.launch.serve's own
+                 build function: 16 requests of 128-256 tokens after a shared
                  64-token prefix, 64 new tokens each, 8 slots, 4 prefill
                  lanes, decode horizon 8, block 16, max_len 1024, float32.
-                 Both paged kernels must launch in this run and the plain
-                 versions must not run;
-  6. profile   — torch.profiler over a shorter qwen2 run at the same
-                 widths (the engine's run only; its weights are drawn
-                 before the window opens): device busy share and device
-                 time by kernel;
+                 Every engine phase serves its request set three times on
+                 one engine, every launch counter set to 0 before each run:
+                 "captured" (each static signature's first call eager, then
+                 captured as a CUDA graph; the main path's run, whose
+                 launches the kernels line reads), "eager" (under
+                 graphs.eager(): no graph) and "replayed" (graphs only);
+                 the three must agree in tokens, every ServeStats counter
+                 and every launch count, and each prints decode ms a step,
+                 prefill ms a dispatch and a prompt token, and tokens/s.
+                 Both paged kernels must launch and the plain versions must
+                 not run; decode horizons and prefill rounds must be graphs;
+  6. profile   — torch.profiler over a shorter qwen2 request set on the
+                 same engine (8 requests, 16 new tokens; one warm-up run
+                 outside the window), replayed and eager: device busy share
+                 and device time by kernel;
+     sampled   — a second qwen2 engine at temperature 0.8, top-k 50: 8
+                 requests, 16 new tokens, served twice (capture, then
+                 replays), which must draw the same tokens;
   7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (16 layers, 64 experts top-8, ~6.9 B
-                 float32 weights from a seed) through the same run function:
+                 float32 weights from a seed), its three runs as in phase 5:
                  8 requests of 64-128 tokens, 64 new tokens each, 4 slots,
                  decode horizon 8, max_len 256. Every layer of every prefill
-                 must launch the flash kernel (16 x prefills launches) and
-                 its plain version must not run. The grouped matmul is an op
-                 no model calls (the MoE layer contracts with einsum, as the
-                 JAX package's does): it launches 0 times on both paths.
-                 Then torch.profiler over a shorter olmoe run (4 requests,
-                 8 new tokens), as in phase 6;
+                 (eager: each prompt at its exact length) must launch the
+                 flash kernel (16 x prefills launches) and its plain version
+                 must not run. The grouped matmul is an op no model calls
+                 (the MoE layer contracts with einsum, as the JAX package's
+                 does): it launches 0 times on both paths. Then the profile
+                 of phase 6 over 4 requests, 8 new tokens;
   8. mamba2    — with the olmoe engines freed, full-width mamba2-780m (48
                  layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
                  float32 weights from a seed): Model.forward and Model.loss
@@ -76,15 +88,21 @@ Phases, each printed as it runs; any failure exits non-zero:
                  recurrent decode steps on a [1, 256] prefix against the
                  forward's logits there (2e-3), then torch.profiler over one
                  more forward;
-  9. mamba2 engine — the full-width mamba2-780m contiguous engine through
-                 the same run function: 8 requests of 64-128 tokens, 32 new
+  9. mamba2 engine — the full-width mamba2-780m contiguous engine, its three
+                 runs as in phase 5: 8 requests of 64-128 tokens, 32 new
                  tokens each, 4 slots, decode horizon 8, max_len 256. Its
-                 prefill steps the recurrent state, so the SSD kernel
-                 launches 0 times here, as in the reference.
+                 prefill replays one captured batch-1 decode step per prompt
+                 token, so the SSD kernel launches 0 times here, as in the
+                 reference. Then the profile of phase 6 over 1 request of
+                 16-32 tokens, 8 new tokens (the eager run launches hundreds
+                 of kernels a prompt token, each a profiler event); then the
+                 graphs_vs_eager summary line.
 
 The last two lines are the kernels record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -106,6 +124,7 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.serve import graphs  # noqa: E402
 
 HQ, HKV, D, BS, MAX_LEN, SLOTS = 14, 2, 64, 16, 1024, 8
 MB = MAX_LEN // BS
@@ -154,7 +173,7 @@ MAMBA2_ARGS = ["--arch", "mamba2-780m", "--preset", "full", "--engine",
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} ({time.strftime('%H:%M:%S')})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -795,37 +814,115 @@ def _check_reference(arch: str, path) -> list:
 
 
 # ---------------------------------------------------------------------------
-# engine
+# engines: captured, eager and replayed runs of one request set
 # ---------------------------------------------------------------------------
-def run_engine() -> dict:
-    args = serve_cli.build_parser().parse_args(ENGINE_ARGS)
-    for fn in (ops.paged_attention, ops.paged_prefill_attention):
-        fn.launches = 0
-    for fn in (pa.paged_attention_plain, pa.paged_prefill_attention_plain):
-        fn.calls = 0
-    torch.cuda.synchronize()
-    engine, out, stats = serve_cli.run(args)
-    torch.cuda.synchronize()
-    launches = {"paged_decode": ops.paged_attention.launches,
-                "paged_prefill": ops.paged_prefill_attention.launches}
-    plain_calls = (pa.paged_attention_plain.calls
-                   + pa.paged_prefill_attention_plain.calls)
+#: the three runs of every engine phase, in order: "captured" (the main
+#: path's run: each static signature's first call eager, then captured;
+#: the kernels line reads its launches), "eager" (under graphs.eager(): no
+#: graph at all) and "replayed" (every signature captured already)
+MODES = ("captured", "eager", "replayed")
+#: ServeStats fields that are wall-clock times; every other is a counter
+TIMES = {"wall_s", "tokens_per_s", "mean_latency_s", "prefill_s",
+         "decode_s"}
+COUNTER_NAMES = tuple(f.__name__ for f, _ in ops.COUNTERS)
+
+
+def _mode(mode: str):
+    return graphs.eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def serve_modes(engine, args, what: str) -> dict:
+    """Serve ``args``' request set on ``engine`` once per mode (``MODES``),
+    every launch counter set to 0 just before each run and read just
+    after. Fails unless the three runs give the same tokens, counters and
+    launches, and unless the replayed run captured nothing new. Prints one
+    line a run and returns {mode: dict(out, stats, launches, replays)}."""
+    res = {}
+    for mode in MODES:
+        reqs = serve_cli.requests(args)
+        ops.set_counts((0,) * len(ops.COUNTERS))
+        replays, keys = engine.graphs.replays, len(engine.graphs.keys)
+        torch.cuda.synchronize()
+        with _mode(mode):
+            out, stats = engine.run(reqs)
+        torch.cuda.synchronize()
+        launches = dict(zip(COUNTER_NAMES, ops.counts()))
+        res[mode] = dict(out=out, stats=stats, launches=launches,
+                         replays=engine.graphs.replays - replays,
+                         captured=len(engine.graphs.keys) - keys)
+        prompt_tokens = sum(len(r.prompt) for r in out)
+        print(json.dumps({"serve": what, "mode": mode, **{
+            k: getattr(stats, k) for k in (
+                "wall_s", "tokens_per_s", "prefill_s", "decode_s",
+                "prefill_dispatches", "decode_dispatches", "steps",
+                "host_syncs")},
+            "decode_ms_per_step": 1e3 * stats.decode_s / stats.steps,
+            "prefill_ms_per_dispatch":
+                1e3 * stats.prefill_s / stats.prefill_dispatches,
+            "prefill_ms_per_token": 1e3 * stats.prefill_s / prompt_tokens,
+            "graphs_captured": res[mode]["captured"],
+            "graph_replays": res[mode]["replays"],
+            "launches": {k: v for k, v in launches.items() if v}}),
+            flush=True)
+    base = res["captured"]
+    counters = [f.name for f in dataclasses.fields(base["stats"])
+                if f.name not in TIMES]
+    for mode in MODES[1:]:
+        r = res[mode]
+        if [x.output for x in r["out"]] != [x.output for x in base["out"]]:
+            raise SystemExit(f"FAIL: {what}: the {mode} run's tokens differ "
+                             "from the captured run's")
+        diff = [n for n in counters
+                if getattr(r["stats"], n) != getattr(base["stats"], n)]
+        if diff or r["launches"] != base["launches"]:
+            raise SystemExit(f"FAIL: {what}: the {mode} run differs from the "
+                             f"captured run in {diff} / launches "
+                             f"{r['launches']} vs {base['launches']}")
+    if (res["eager"]["replays"] or not base["replays"]
+            or not res["replayed"]["replays"] or res["replayed"]["captured"]):
+        raise SystemExit(f"FAIL: {what}: replays "
+                         f"{[res[m]['replays'] for m in MODES]}, captured "
+                         f"{[res[m]['captured'] for m in MODES]}")
+    print(f"{what}: captured, eager and replayed runs agree in tokens, "
+          f"{len(counters)} counters and launches; graph signatures "
+          f"{sorted(engine.graphs.keys, key=str)}", flush=True)
+    return res
+
+
+def _check_outputs(what: str, engine, out, max_new: int) -> None:
     vocab = engine.cfg.vocab_size
     for r in out:
-        if len(r.output) != args.max_new or not all(
-                0 <= t < vocab for t in r.output):
-            raise SystemExit(f"FAIL: request {r.job_id} holds {r.output}")
+        if len(r.output) != max_new or not all(0 <= t < vocab
+                                               for t in r.output):
+            raise SystemExit(f"FAIL: {what}: request {r.job_id} holds "
+                             f"{r.output}")
+
+
+def _kinds(engine) -> set:
+    return {k[0] for k in engine.graphs.keys}
+
+
+def run_engine(summary: dict) -> dict:
+    """The full-width qwen2-0.5b paged engine (module docstring, phase 5).
+    Returns each paged kernel's launches in the captured run."""
+    args = serve_cli.build_parser().parse_args(ENGINE_ARGS)
+    engine, _ = serve_cli.build(args)
+    res = serve_modes(engine, args, "qwen2-0.5b paged")
+    out, stats, counts = (res["captured"][k]
+                          for k in ("out", "stats", "launches"))
+    _check_outputs("qwen2", engine, out, args.max_new)
+    launches = {"paged_decode": counts["paged_attention"],
+                "paged_prefill": counts["paged_prefill_attention"]}
+    plain_calls = sum(v for k, v in counts.items() if k.endswith("_plain"))
     audit = engine.pool.audit()
     finite = bool(torch.isfinite(engine.pool.buffers.k_buf).all()
                   and torch.isfinite(engine.pool.buffers.v_buf).all())
-    keys = ("n_requests", "new_tokens", "wall_s", "tokens_per_s",
-            "prefill_s", "decode_s", "prefill_dispatches",
-            "decode_dispatches", "host_syncs", "steps", "preemptions",
-            "prefix_hit_rate", "decode_rows_saved", "mean_latency_s")
-    print(json.dumps({"engine": {k: getattr(stats, k) for k in keys},
-                      "launches": launches, "plain_calls": plain_calls,
-                      "audit": audit, "kv_finite": finite,
-                      "sample_output": out[0].output[:8]}), flush=True)
+    print(json.dumps({"engine": {k: getattr(stats, k) for k in (
+        "n_requests", "new_tokens", "preemptions", "prefix_hit_rate",
+        "decode_rows_saved", "mean_latency_s")},
+        "launches": launches, "plain_calls": plain_calls, "audit": audit,
+        "kv_finite": finite, "sample_output": out[0].output[:8]}),
+        flush=True)
     if not finite:
         raise SystemExit("FAIL: non-finite values in the KV pools")
     if stats.prefix_hit_rate <= 0:
@@ -833,32 +930,74 @@ def run_engine() -> dict:
     if min(launches.values()) <= 0 or plain_calls:
         raise SystemExit(f"FAIL: launches {launches}, plain calls "
                          f"{plain_calls}: the engine did not run the kernels")
+    if not {"paged", "prefill"} <= _kinds(engine):
+        raise SystemExit(f"FAIL: qwen2 graphs {engine.graphs.keys}")
+    summary["qwen2-0.5b paged"] = _summary(res)
+
+    phase("profile")
+    summary["qwen2-0.5b paged"]["busy_share"] = profile_engine(
+        engine, ENGINE_ARGS + ["--batch", "8", "--max-new", "16"], "paged_")
+    del engine, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("sampled")
+    run_sampled()
     return launches
 
 
-def run_olmoe() -> dict:
+def _summary(res: dict) -> dict:
+    """Per mode: tokens/s, decode ms a step, prefill ms a dispatch and a
+    prompt token."""
+    rec = {}
+    for mode, r in res.items():
+        st = r["stats"]
+        toks = sum(len(x.prompt) for x in r["out"])
+        rec[mode] = {"tokens_per_s": st.tokens_per_s,
+                     "decode_ms_per_step": 1e3 * st.decode_s / st.steps,
+                     "prefill_ms_per_dispatch":
+                         1e3 * st.prefill_s / st.prefill_dispatches,
+                     "prefill_ms_per_token": 1e3 * st.prefill_s / toks}
+    return rec
+
+
+def run_sampled() -> None:
+    """qwen2-0.5b paged at temperature 0.8, top-k 50, 16 new tokens: the
+    same request set twice (capture, then replays) must draw the same
+    tokens."""
+    args = serve_cli.build_parser().parse_args(ENGINE_ARGS + [
+        "--batch", "8", "--max-new", "16", "--temperature", "0.8",
+        "--top-k", "50"])
+    engine, _ = serve_cli.build(args)
+    runs = []
+    for _ in range(2):
+        out, stats = engine.run(serve_cli.requests(args))
+        runs.append([r.output for r in out])
+        _check_outputs("sampled", engine, out, args.max_new)
+    print(json.dumps({"sampled": {
+        "temperature": args.temperature, "top_k": args.top_k,
+        "tokens_per_s": stats.tokens_per_s, "graph_replays":
+            engine.graphs.replays, "sample_output": runs[0][0][:8]}}),
+        flush=True)
+    if runs[0] != runs[1] or not engine.graphs.replays:
+        raise SystemExit("FAIL: two sampled runs drew different tokens")
+    print("sampled qwen2 run repeated exactly", flush=True)
+
+
+def run_olmoe(summary: dict) -> dict:
     """The full-width olmoe-1b-7b contiguous engine (module docstring,
-    phase 7). Returns each counted wrapper's launches in this run."""
+    phase 7). Returns each counted wrapper's launches in the captured
+    run."""
     args = serve_cli.build_parser().parse_args(OLMOE_ARGS)
-    counted = (ops.flash_attention, ops.paged_attention,
-               ops.paged_prefill_attention, ops.grouped_matmul)
-    plains = (fa.flash_attention_plain, pa.paged_attention_plain,
-              pa.paged_prefill_attention_plain, gmm.grouped_matmul_plain)
-    for fn in counted:
-        fn.launches = 0
-    for fn in plains:
-        fn.calls = 0
-    torch.cuda.synchronize()
-    engine, out, stats = serve_cli.run(args)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
-    plain_calls = sum(fn.calls for fn in plains)
+    engine, _ = serve_cli.build(args)
+    res = serve_modes(engine, args, "olmoe-1b-7b contiguous")
+    out, stats, counts = (res["captured"][k]
+                          for k in ("out", "stats", "launches"))
     cfg = engine.cfg
-    vocab = cfg.vocab_size
-    for r in out:
-        if len(r.output) != args.max_new or not all(
-                0 <= t < vocab for t in r.output):
-            raise SystemExit(f"FAIL: request {r.job_id} holds {r.output}")
+    _check_outputs("olmoe", engine, out, args.max_new)
+    launches = {"flash_attention": counts["flash_attention"],
+                "grouped_matmul": counts["grouped_matmul"]}
+    plain_calls = sum(v for k, v in counts.items() if k.endswith("_plain"))
     finite = all(bool(torch.isfinite(b).all())
                  for b in engine.pool.buffers.values())
     # every decode step reads every layer's weights (the expert einsum runs
@@ -868,18 +1007,14 @@ def run_olmoe() -> dict:
                       + engine.params["emb"]["lm_head"].numel())
     expert_bytes = 4 * sum(lp[n].numel() for lp in engine.params["layers"]
                            for n in ("we_gate_up", "we_down"))
-    keys = ("n_requests", "new_tokens", "wall_s", "tokens_per_s",
-            "prefill_s", "decode_s", "prefill_dispatches",
-            "decode_dispatches", "host_syncs", "steps", "decode_rows_saved",
-            "max_active", "mean_latency_s")
-    rec = {k: getattr(stats, k) for k in keys}
-    print(json.dumps({"olmoe_engine": rec, "launches": launches,
-                      "plain_calls": plain_calls, "kv_finite": finite,
-                      "decode_s_per_step": stats.decode_s / stats.steps,
-                      "decode_step_bytes_gb": step_bytes / 1e9,
-                      "expert_bytes_gb": expert_bytes / 1e9,
-                      "decode_step_floor_ms": 1e3 * step_bytes / HBM_BPS,
-                      "sample_output": out[0].output[:8]}), flush=True)
+    print(json.dumps({"olmoe_engine": {k: getattr(stats, k) for k in (
+        "n_requests", "new_tokens", "decode_rows_saved", "max_active",
+        "mean_latency_s")}, "launches": launches,
+        "plain_calls": plain_calls, "kv_finite": finite,
+        "decode_step_bytes_gb": step_bytes / 1e9,
+        "expert_bytes_gb": expert_bytes / 1e9,
+        "decode_step_floor_ms": 1e3 * step_bytes / HBM_BPS,
+        "sample_output": out[0].output[:8]}), flush=True)
     if not finite:
         raise SystemExit("FAIL: non-finite values in the contiguous cache")
     want = cfg.n_layers * stats.prefill_dispatches
@@ -890,6 +1025,11 @@ def run_olmoe() -> dict:
             f"{want} = {cfg.n_layers} layers x {stats.prefill_dispatches} "
             f"prefills), plain calls {plain_calls}: the olmoe prefill did "
             "not run the flash kernel")
+    if "contiguous" not in _kinds(engine):
+        raise SystemExit(f"FAIL: olmoe graphs {engine.graphs.keys}")
+    summary["olmoe-1b-7b contiguous"] = _summary(res)
+    summary["olmoe-1b-7b contiguous"]["busy_share"] = profile_engine(
+        engine, OLMOE_ARGS + ["--batch", "4", "--max-new", "8"], "flash_")
     return launches
 
 
@@ -901,30 +1041,42 @@ def _leaves(tree):
         yield tree
 
 
-def profile_engine(argv, ours: str) -> None:
-    """torch.profiler over a shorter engine run at the widths of ``argv``:
-    the device's busy share of the wall clock and the device time by
-    kernel (``ours``: the name fragment of this path's kernels)."""
+def profile_engine(engine, argv, ours: str) -> dict:
+    """torch.profiler over a shorter request set (``argv``: the engine's
+    own widths) on ``engine``: one warm-up run outside the window (it
+    captures this set's signatures), then a replayed and an eager run,
+    each profiled alone. Prints the device's busy share of the wall clock
+    and the device time by kernel (``ours``: the name fragment of this
+    path's kernels); returns {mode: busy share}."""
     args = serve_cli.build_parser().parse_args(argv)
-    engine, reqs = serve_cli.build(args)         # weights: outside the window
-    runs = []
-    rec = profile_call(lambda: runs.append(engine.run(reqs)[1]), ours)
-    stats = runs[0]
-    print(json.dumps({"profile": {
-        "arch": args.arch, "cache": args.cache, "prefill_s": stats.prefill_s,
-        "decode_s": stats.decode_s, "steps": stats.steps, **rec}}),
-        flush=True)
+    print(f"profile {args.arch} ({time.strftime('%H:%M:%S')})", flush=True)
+    engine.run(serve_cli.requests(args))
+    share = {}
+    for mode in ("replayed", "eager"):
+        runs = []
+        with _mode(mode):
+            rec = profile_call(
+                lambda: runs.append(engine.run(serve_cli.requests(args))[1]),
+                ours)
+        stats = runs[0]
+        share[mode] = rec["device_busy_share"]
+        print(json.dumps({"profile": {
+            "arch": args.arch, "cache": args.cache, "mode": mode,
+            "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+            "steps": stats.steps, **rec}}), flush=True)
+    return share
 
 
 def profile_call(fn, ours: str) -> dict:
     """torch.profiler over one call of ``fn``: its wall clock, the device's
     busy seconds and share, the device time of the kernels whose names hold
     ``ours``, and the top kernels by device time. Fails if the profiler saw
-    no device time."""
+    no device time. Device activity only: every figure here is a device
+    event, and host events (one per op of an eager engine run) made the
+    profile phases most of the script's time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1025,44 +1177,39 @@ def run_mamba2() -> int:
     return launches["forward"]
 
 
-def run_mamba2_engine() -> None:
+def run_mamba2_engine(summary: dict) -> None:
     """The full-width mamba2-780m contiguous engine (module docstring,
     phase 9); the SSD kernel must not launch."""
     args = serve_cli.build_parser().parse_args(MAMBA2_ARGS)
-    ops.ssd_scan.launches = 0
-    ssd.ssd_scan_plain.calls = 0
-    torch.cuda.synchronize()
-    engine, out, stats = serve_cli.run(args)
-    torch.cuda.synchronize()
-    vocab = engine.cfg.vocab_size
-    for r in out:
-        if len(r.output) != args.max_new or not all(
-                0 <= t < vocab for t in r.output):
-            raise SystemExit(f"FAIL: request {r.job_id} holds {r.output}")
+    engine, _ = serve_cli.build(args)
+    res = serve_modes(engine, args, "mamba2-780m contiguous")
+    out, stats, counts = (res["captured"][k]
+                          for k in ("out", "stats", "launches"))
+    _check_outputs("mamba2", engine, out, args.max_new)
     finite = all(bool(torch.isfinite(b).all())
                  for b in engine.pool.buffers.values())
-    keys = ("n_requests", "new_tokens", "wall_s", "tokens_per_s",
-            "prefill_s", "decode_s", "prefill_dispatches",
-            "decode_dispatches", "host_syncs", "steps", "decode_rows_saved",
-            "max_active", "mean_latency_s")
-    prompt_tokens = sum(len(r.prompt) for r in out)
-    print(json.dumps({"mamba2_engine": {k: getattr(stats, k) for k in keys},
-                      "prompt_tokens": prompt_tokens,
-                      "prefill_ms_per_token":
-                          1e3 * stats.prefill_s / prompt_tokens,
-                      "decode_s_per_step": stats.decode_s / stats.steps,
-                      "ssd_scan_launches": ops.ssd_scan.launches,
-                      "ssd_scan_plain_calls": ssd.ssd_scan_plain.calls,
-                      "state_finite": finite,
-                      "sample_output": out[0].output[:8]}), flush=True)
+    print(json.dumps({"mamba2_engine": {k: getattr(stats, k) for k in (
+        "n_requests", "new_tokens", "decode_rows_saved", "max_active",
+        "mean_latency_s")},
+        "prompt_tokens": sum(len(r.prompt) for r in out),
+        "ssd_scan_launches": counts["ssd_scan"],
+        "ssd_scan_plain_calls": counts["ssd_scan_plain"],
+        "state_finite": finite, "sample_output": out[0].output[:8]}),
+        flush=True)
     print("ssd_scan launched 0 times in the mamba2 engine: serving prefills "
           "by stepping the recurrent state, as the reference does", flush=True)
     if not finite:
         raise SystemExit("FAIL: non-finite values in the recurrent state")
-    if ops.ssd_scan.launches or ssd.ssd_scan_plain.calls or \
+    if counts["ssd_scan"] or counts["ssd_scan_plain"] or \
             stats.prefill_dispatches != args.batch:
         raise SystemExit("FAIL: the mamba2 engine ran the SSD scan or missed "
                          "a prefill")
+    if not {"contiguous", "recurrent_step"} <= _kinds(engine):
+        raise SystemExit(f"FAIL: mamba2 graphs {engine.graphs.keys}")
+    summary["mamba2-780m contiguous"] = _summary(res)
+    summary["mamba2-780m contiguous"]["busy_share"] = profile_engine(
+        engine, MAMBA2_ARGS + ["--batch", "1", "--prompt-len", "32",
+                               "--max-new", "8"], "ssd_scan_")
 
 
 def main() -> int:
@@ -1104,23 +1251,17 @@ def main() -> int:
     check_reference()
 
     phase("engine")
-    launches = run_engine()
+    summary = {}
+    launches = run_engine(summary)  # and the profile and sampled phases
     for name, n in launches.items():
         rec[name]["launches"] = n
-
-    phase("profile")
-    profile_engine(ENGINE_ARGS + ["--batch", "8", "--max-new", "16"],
-                   "paged_")
 
     phase("olmoe")
     gc.collect()                    # the qwen2 engines are gone: free them
     torch.cuda.empty_cache()
-    launches = run_olmoe()
+    launches = run_olmoe(summary)
     for name in ("flash_attention", "grouped_matmul"):
         rec[name]["launches"] = launches[name]
-    gc.collect()
-    torch.cuda.empty_cache()
-    profile_engine(OLMOE_ARGS + ["--batch", "4", "--max-new", "8"], "flash_")
 
     phase("mamba2")
     gc.collect()                    # the olmoe engines are gone: free them
@@ -1130,7 +1271,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("mamba2 engine")
-    run_mamba2_engine()
+    run_mamba2_engine(summary)
+    phase("summary")
+    print(json.dumps({"graphs_vs_eager": summary}), flush=True)
 
     unread = [name for name, r in rec.items() if "launches" not in r]
     if unread:

@@ -4,7 +4,11 @@
 The route depends only on where the tensors lie: CPU tensors take the
 plain PyTorch version, CUDA tensors launch the hand-written kernel (which
 raises on anything it does not take — there is no fallback). Each wrapper
-counts its kernel launches in a plain int attribute, ``launches``.
+counts its kernel launches in a plain int attribute, ``launches``, and
+each plain version its calls in ``calls``. A replayed CUDA graph runs no
+Python, so ``serve/graphs.py`` reads these counters around a capture
+(``counts``), puts them back (``set_counts``) and adds the capture's
+difference on every replay (``add_counts``).
 """
 from __future__ import annotations
 
@@ -91,3 +95,29 @@ paged_attention.launches = 0
 paged_prefill_attention.launches = 0
 ssd_scan.launches = 0
 grouped_matmul.launches = 0
+
+#: every counter above, as (function, attribute)
+COUNTERS = tuple(
+    [(f, "launches") for f in (flash_attention, paged_attention,
+                               paged_prefill_attention, ssd_scan,
+                               grouped_matmul)]
+    + [(f, "calls") for f in (_fa.flash_attention_plain,
+                              _pa.paged_attention_plain,
+                              _pa.paged_prefill_attention_plain,
+                              _ssd.ssd_scan_plain,
+                              _gmm.grouped_matmul_plain)])
+
+
+def counts() -> tuple:
+    """The value of every launch and plain-call counter."""
+    return tuple(getattr(f, a) for f, a in COUNTERS)
+
+
+def set_counts(values) -> None:
+    for (f, a), v in zip(COUNTERS, values):
+        setattr(f, a, v)
+
+
+def add_counts(delta) -> None:
+    for (f, a), d in zip(COUNTERS, delta):
+        setattr(f, a, getattr(f, a) + d)

@@ -10,7 +10,11 @@ contiguous or the paged cache.
         --batch 8 --prompt-len 128 --max-new 16 --max-len 256
 
 The defaults are the reference CLI's (``repro/launch/serve.py``):
-``--engine static --cache contiguous``.
+``--engine static --cache contiguous``, greedy decoding. ``--temperature``
+and ``--top-k`` sample on per-slot lanes, ``--eos-token`` stops a request
+early, and ``--verify`` re-runs the request set on a static contiguous
+engine with ``decode_horizon=1`` and the same weights, and exits non-zero
+naming the requests whose tokens differ (greedy only).
 
 Weights come from the port's ``init_params`` under a ``torch.Generator``
 seeded with ``--seed`` (nothing is downloaded); the request set is the
@@ -83,29 +87,46 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--decode-horizon", type=int, default=8,
-                    help="decode steps per horizon dispatch")
+                    help="decode steps per captured dispatch (1 = the "
+                         "classic per-token loop)")
+    ap.add_argument("--eos-token", type=int, default=None,
+                    help="stop a request early when it emits this token id")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="open-loop arrivals per decode step (0 = all at "
                          "once)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples on per-slot lanes")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation for sampling (0 = full vocab)")
+    ap.add_argument("--verify", action="store_true",
+                    help="check outputs against a static contiguous engine "
+                         "with decode_horizon=1")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the request set")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
 
+def requests(args) -> List[ServeRequest]:
+    """The request set that ``args`` describe (the same on every call)."""
+    cfg = get_config(args.arch, smoke=args.preset == "smoke")
+    return make_requests(cfg, args.batch, args.prompt_len, args.max_new,
+                         args.arrival_rate, seed=args.seed,
+                         shared_prefix=args.shared_prefix)
+
+
 def build(args) -> Tuple[ServeEngine, List[ServeRequest]]:
     """The engine (weights drawn on its device) and the request set that
     ``args`` describe."""
     cfg = get_config(args.arch, smoke=args.preset == "smoke")
-    reqs = make_requests(cfg, args.batch, args.prompt_len, args.max_new,
-                         args.arrival_rate, seed=args.seed,
-                         shared_prefix=args.shared_prefix)
+    reqs = requests(args)
     engine = ServeEngine(
         cfg, max_len=args.max_len,
         n_slots=args.slots if args.engine == "continuous" else None,
         cache=args.cache, block_size=args.block_size,
         n_blocks=args.blocks or None, prefill_lanes=args.prefill_lanes,
-        decode_horizon=args.decode_horizon, device=args.device,
+        decode_horizon=args.decode_horizon, eos_token=args.eos_token,
+        temperature=args.temperature, top_k=args.top_k, device=args.device,
         seed=args.seed)
     return engine, reqs
 
@@ -133,10 +154,38 @@ def summary(args, engine: ServeEngine, out: List[ServeRequest],
     }
 
 
+def verify(args, engine: ServeEngine, out: List[ServeRequest]) -> List[int]:
+    """Re-run ``out``'s prompts and budgets on the classic loop — a static
+    engine, contiguous cache, ``decode_horizon=1``, the same weights
+    (``repro/launch/serve.py:405-425``). Returns the indices of the
+    requests whose tokens differ."""
+    ref_engine = ServeEngine(engine.cfg, params=engine.params,
+                             max_len=args.max_len, decode_horizon=1,
+                             eos_token=args.eos_token, device=args.device)
+    ref = [ServeRequest(r.prompt.copy(), max_new_tokens=r.max_new_tokens)
+           for r in out]
+    ref, _ = ref_engine.run(ref)
+    return [i for i, (a, b) in enumerate(zip(ref, out))
+            if a.output != b.output]
+
+
 def main(argv: Optional[List[str]] = None) -> None:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.verify and args.temperature > 0:
+        ap.error("--verify is the greedy exactness path; drop --temperature")
     engine, out, stats = run(args)
-    print(json.dumps(summary(args, engine, out, stats), indent=2))
+    record = summary(args, engine, out, stats)
+    if args.verify:
+        mismatches = verify(args, engine, out)
+        record["verified"] = not mismatches
+        if mismatches:
+            record["mismatched_requests"] = mismatches
+            print(json.dumps(record, indent=2))
+            raise SystemExit(
+                f"FAIL: request(s) {mismatches} diverged from the static "
+                "contiguous engine")
+    print(json.dumps(record, indent=2))
 
 
 if __name__ == "__main__":

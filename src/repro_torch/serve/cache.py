@@ -42,7 +42,10 @@ class CachePool:
     so a request never lands in the most recently vacated row.
     """
 
-    def __init__(self, model, n_slots: int, max_len: int, device="cuda"):
+    def __init__(self, model, n_slots: int, max_len: int, device="cuda",
+                 buffers: Optional[dict] = None):
+        """``buffers`` (the engine's, kept across runs) replaces a fresh
+        ``init_cache(n_slots, max_len)``; it must have that shape."""
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
@@ -50,7 +53,9 @@ class CachePool:
         probe_b = model.init_cache(5, max_len, device="meta")
         self.batch_axes = {name: _batch_axis(probe_a[name], probe_b[name])
                            for name in probe_a}
-        self.buffers = model.init_cache(n_slots, max_len, device=device)
+        if buffers is None:
+            buffers = model.init_cache(n_slots, max_len, device=device)
+        self.buffers = buffers
         self._free = deque(range(n_slots))
         self._in_use: set = set()
 

@@ -1,5 +1,5 @@
-"""Continuous-batching serve engine (``repro/serve/engine.py``, greedy
-decoding) over either cache backend.
+"""Continuous-batching serve engine (``repro/serve/engine.py``) over
+either cache backend.
 
 The loop is the reference's, boundary for boundary, so its counters match
 it exactly:
@@ -11,20 +11,23 @@ it exactly:
   * prefill, contiguous: one forward pass per admitted request at its
     exact prompt length, capturing every layer's K/V (``return_cache``),
     padded to max_len and written into the request's slot — or, for the
-    recurrent (SSM) family, one ``decode_step`` per prompt position from a
-    fresh state; the first token is picked on the device and fetched (one
-    host sync per request);
+    recurrent (SSM) family, one captured batch-1 ``decode_step`` replayed
+    per prompt position on a zeroed state (the reference scans); the
+    first token is picked on the device and fetched (one host sync per
+    request);
   * prefill, paged: prompts run in ``block_size`` chunks, up to
     ``prefill_lanes`` joining requests per ``[P, block_size]`` dispatch
-    (one dispatch per chunk-round, padded lanes masked), starting past each
-    request's prefix-cache hits; the finishing lanes' first tokens are
-    picked on the device and fetched once per round;
+    (one captured dispatch per chunk-round and lane width, padded lanes
+    masked), starting past each request's prefix-cache hits; every lane's
+    token is picked on the device and the finishing lanes' are fetched once
+    per round;
   * decode: one *horizon* per boundary runs up to ``decode_horizon`` steps
     of ``decode_step`` / ``paged_decode_step`` with token selection
-    (argmax), token feedback, per-row ``pos`` advance and budget/EOS stop
-    masks all on the device — a Python loop where the reference scans —
-    and fetches only the ``[W, h]`` int32 token block, so ``host_syncs``
-    keeps its meaning;
+    (``sampling.pick``), token feedback, per-row ``pos`` advance and
+    budget/EOS stop masks all on the device — one CUDA graph per static
+    ``(W, h, full)``, where the reference jits a scan — and fetches only
+    the ``[W, h]`` int32 token block, so ``host_syncs`` keeps its
+    meaning;
   * compaction: the horizon runs over the live slots bucketed to a power
     of two (``_bucket``) — the contiguous bucket gathers its cache rows
     with ``index_select`` and scatters them back with ``index_copy_``, the
@@ -35,15 +38,22 @@ it exactly:
 Between horizons the decode state (``_DecodeState``) stays on the device
 and takes delta updates at admission, growth and eviction only.
 
+The captured programs (``serve/graphs.py``'s ``GraphRunner``; the
+attention families' contiguous prefill, at each prompt's exact length,
+stays eager) read the pool and the decode state at fixed addresses, so a
+run of the same pool shape reuses the previous run's tensors, zeroed, and
+a new shape drops the graphs. ``graphs.eager()`` runs the same loop with
+no capture.
+
 The contiguous backend serves the dense, MoE and SSM families, the paged
 one the dense family (paged MoE comes with ROADMAP queue A, item 6; the
-recurrent state is O(1) per slot and has nothing to page). Sampling
-(``temperature > 0``), tenants, fault injection, elastic reshapes,
-sharding, tracing and profiling are ported later and raise
-``NotImplementedError`` naming their ROADMAP item.
+recurrent state is O(1) per slot and has nothing to page). Tenants, fault
+injection, elastic reshapes, sharding, tracing and profiling are ported
+later and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 from collections import deque
@@ -57,7 +67,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import Model, build_model
 from repro_torch.obs.metrics import RunObs
+from repro_torch.serve import sampling
 from repro_torch.serve.cache import CachePool
+from repro_torch.serve.graphs import GraphRunner
 from repro_torch.serve.paged import BlockManager
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
 
@@ -84,6 +96,13 @@ def _pow2_floor(n: int) -> int:
     while b * 2 <= n:
         b *= 2
     return b
+
+
+def _leaves(buffers) -> List[torch.Tensor]:
+    """The tensors of a pool's buffers (a cache dict or a ``PagedCache``)."""
+    if isinstance(buffers, dict):
+        return list(buffers.values())
+    return [buffers.k_buf, buffers.v_buf]
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -149,6 +168,13 @@ class _DecodeState:
         self.tables = (torch.full((n_slots, max_blocks), -1, **i32)
                        if max_blocks else None)
 
+    def reset(self) -> None:
+        """A fresh state in place (captured graphs read these tensors)."""
+        for t in (self.tok, self.pos, self.stop):
+            t.zero_()
+        if self.tables is not None:
+            self.tables.fill_(-1)
+
     def _idx(self, slots) -> torch.Tensor:
         return torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
 
@@ -173,23 +199,26 @@ class _DecodeState:
 
 
 class ServeEngine:
-    """Serving engine for the dense, MoE and SSM families (greedy
-    decoding).
+    """Serving engine for the dense, MoE and SSM families.
 
     ``n_slots=None`` sizes the pool to the request set (static batching);
     a fixed ``n_slots`` turns on continuous batching. ``decode_horizon=K``
     runs up to K decode steps per dispatch; any K gives the same tokens.
+    ``temperature=0`` decodes greedily; above it each slot samples on its
+    own lane (``sampling.pick``: ``top_k`` truncation, ``sample_seed``).
     ``device`` holds the weights, the pools and the decode state; CUDA
-    runs the hand-written attention kernels, the CPU their plain versions.
-    ``cache="contiguous"`` (the default, as in the reference) gives every
-    slot a max_len cache row; ``cache="paged"`` the block pool.
+    runs the hand-written attention kernels inside captured graphs, the CPU
+    their plain versions. ``cache="contiguous"`` (the default, as in the
+    reference) gives every slot a max_len cache row; ``cache="paged"`` the
+    block pool.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, max_len: int = 256,
                  n_slots: Optional[int] = None, policy: str = "fcfs",
                  cache: str = "contiguous", block_size: int = 16,
                  n_blocks: Optional[int] = None, watermark: float = 0.05,
-                 temperature: float = 0.0, prefill_lanes: int = 4,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0, prefill_lanes: int = 4,
                  prefix_cache: bool = True, decode_horizon: int = 8,
                  eos_token: Optional[int] = None, device="cuda",
                  seed: int = 0, **later):
@@ -211,10 +240,6 @@ class ServeEngine:
             raise NotImplementedError(
                 f"cache='paged' for the {cfg.family} family is ported later "
                 "(ROADMAP queue A, item 6); it serves cache='contiguous'")
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding is not ported yet (ROADMAP queue A, item "
-                "4); the port decodes greedily")
         self.cfg = cfg
         self.model: Model = build_model(cfg)
         self.device = torch.device(device)
@@ -229,6 +254,12 @@ class ServeEngine:
         self.prefix_cache = bool(prefix_cache)
         self.decode_horizon = max(int(decode_horizon), 1)
         self.eos_token = None if eos_token is None else int(eos_token)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.sample_seed = int(sample_seed)
+        self._pick = functools.partial(
+            sampling.pick, temperature=self.temperature, top_k=self.top_k,
+            seed=self.sample_seed)
         #: the most recent run's cache pool (audit surface)
         self.pool = None
         if params is None:
@@ -237,21 +268,54 @@ class ServeEngine:
         self.params = params
         self._horizon = (self._paged_horizon if cache == "paged"
                          else self._contiguous_horizon)
+        #: the captured programs (one per static signature)
+        self.graphs = GraphRunner(self.device)
+        #: (signature, pool buffers, decode state) of the last run
+        self._kept = None
+        #: the recurrent prefill's batch-1 state (read by its graph)
+        self._row = None
+
+    def _reuse(self, sig, alloc):
+        """The pool buffers and decode state of a run: the last run's,
+        zeroed in place, when ``sig`` (the pool's shape) matches — the
+        captured graphs read them at fixed addresses — else ``alloc()``'s,
+        and the graphs go with the old tensors."""
+        if self._kept is not None and self._kept[0] == sig:
+            _, buffers, state = self._kept
+            for buf in _leaves(buffers):
+                buf.zero_()
+            state.reset()
+            return buffers, state
+        self.graphs.reset()
+        self._kept = None
+        buffers, state = alloc()
+        self._kept = (sig, buffers, state)
+        return buffers, state
 
     # -- prefill (contiguous) -------------------------------------------------
     def _prefill(self, tokens):
         """tokens [1, S] -> (last logits [1, 1, V], a batch-1 cache dict for
         ``pool.write``) (``engine.py:455-484``). Attention families: one
-        pass via the ``return_cache`` hook, every leaf padded to max_len.
-        Recurrent families: a fresh state stepped through the prompt, one
-        ``decode_step`` per position (a Python loop where the reference
-        scans)."""
+        pass via the ``return_cache`` hook at the prompt's exact length
+        (eager), every leaf padded to max_len. Recurrent families: a
+        zeroed batch-1 state stepped through the prompt, one replay of the
+        captured ``decode_step`` per position (the reference scans); the
+        state is the engine's until the next prefill."""
         if self.cfg.family not in _ATTN_FAMILIES:
-            cache = self.model.init_cache(1, self.max_len, device=self.device)
+            if self._row is None:
+                self._row = self.model.init_cache(1, self.max_len,
+                                                  device=self.device)
+            row = self._row
+            for buf in row.values():
+                buf.zero_()
+
+            def step(tok):
+                return self.model.decode_step(self.params, row, tok, 0)[0]
+
             for t in range(tokens.shape[1]):
-                logits, cache = self.model.decode_step(
-                    self.params, cache, tokens[:, t:t + 1], t)
-            return logits, cache
+                logits = self.graphs(("recurrent_step",), step,
+                                     tokens[:, t:t + 1])
+            return logits, row
         logits, (k, v) = self.model.module.forward(self.cfg, self.params,
                                                    tokens, return_cache=True)
         pad = (0, 0, 0, 0, 0, self.max_len - tokens.shape[1])  # [L,B,S,H,D]
@@ -367,18 +431,20 @@ class ServeEngine:
         return pool.n_free > 0
 
     # -- decode horizons ------------------------------------------------------
-    def _scan_horizon(self, step_fn, t, p, s, h: int):
-        """The shared horizon loop (a Python loop where the reference
-        scans): up to ``h`` steps of ``step_fn(t, p, active) -> logits``
-        with greedy selection, token feedback, per-row pos advance and the
-        budget/EOS stop masks, all on the device. A row is live while
-        ``p < s``; frozen rows keep (token, pos), write no KV and emit -1.
-        Returns (t, p, s, token block [W, h])."""
+    def _scan_horizon(self, step_fn, t, p, s, idx, step0, h: int):
+        """The shared horizon loop (a Python loop, captured whole, where
+        the reference scans): up to ``h`` steps of ``step_fn(t, p, active)
+        -> logits`` with token selection (``self._pick`` on lane ``idx``,
+        the bucket's slot ids, at step ``step0 + k``), token feedback,
+        per-row pos advance and the budget/EOS stop masks, all on the
+        device. A row is live while ``p < s``; frozen rows keep (token,
+        pos), write no KV and emit -1. Returns (t, p, s, token block
+        [W, h])."""
         emitted = []
-        for _ in range(h):
+        for k in range(h):
             active = p < s
             logits = step_fn(t, p, active)
-            nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+            nxt = self._pick(logits[:, -1], idx, step0 + k)
             emitted.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
             t = torch.where(active[:, None], nxt[:, None], t)
             p = p + active.to(torch.int32)
@@ -388,38 +454,42 @@ class ServeEngine:
 
     @staticmethod
     def _put_rows(state: _DecodeState, ix, t, p, s) -> None:
-        """Scatter a bucket's (token, pos, stop) back (ix None: full)."""
+        """Write a bucket's (token, pos, stop) back into the state's own
+        tensors (ix None: full)."""
         if ix is None:
-            state.tok, state.pos, state.stop = t, p, s
+            state.tok.copy_(t)
+            state.pos.copy_(p)
+            state.stop.copy_(s)
         else:
             state.tok[ix], state.pos[ix], state.stop[ix] = t, p, s
 
     def _paged_horizon(self, pool: BlockManager, state: _DecodeState, idx,
-                       h: int, full: bool) -> torch.Tensor:
-        """Up to ``h`` paged decode steps over the bucket ``idx``: the
-        bucket gathers tokens, positions, stops and block tables only
-        (compaction through the tables is free). Returns the [W, h] int32
-        token block (still on the device)."""
+                       step0, h: int, full: bool) -> torch.Tensor:
+        """Up to ``h`` paged decode steps over the bucket ``idx`` (int64
+        slot ids on the device; ``step0`` the scheduler step, an int64
+        device scalar): the bucket gathers tokens, positions, stops and
+        block tables only (compaction through the tables is free). Returns
+        the [W, h] int32 token block (still on the device)."""
         if full:
             ix, tb = None, state.tables
             t, p, s = state.tok, state.pos, state.stop
         else:
-            ix = torch.as_tensor(idx, device=self.device)
-            tb = state.tables[ix]
+            ix, tb = idx, state.tables[idx]
             t, p, s = state.tok[ix], state.pos[ix], state.stop[ix]
 
         def step(t, p, active):
             return self.model.paged_decode_step(
                 self.params, pool.buffers, t, p, tb, write_valid=active)[0]
 
-        t, p, s, blk = self._scan_horizon(step, t, p, s, h)
+        t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
         self._put_rows(state, ix, t, p, s)
         return blk
 
     def _contiguous_horizon(self, pool: CachePool, state: _DecodeState, idx,
-                            h: int, full: bool) -> torch.Tensor:
+                            step0, h: int, full: bool) -> torch.Tensor:
         """Up to ``h`` contiguous decode steps over the bucket ``idx``
-        (``engine.py:539-598``): gather the bucket's cache rows along each
+        (``engine.py:539-598``; ``idx`` and ``step0`` as in
+        ``_paged_horizon``): gather the bucket's cache rows along each
         leaf's batch axis with ``index_select`` (unless ``full``: every
         slot decodes, idle rows frozen and inert), decode with
         ``write_valid`` = the live rows, and scatter the rows back with
@@ -430,7 +500,7 @@ class ServeEngine:
             ix, sub = None, pool.buffers
             t, p, s = state.tok, state.pos, state.stop
         else:
-            ix = torch.as_tensor(idx, device=self.device)
+            ix = idx
             sub = {name: buf.index_select(pool.batch_axes[name], ix)
                    for name, buf in pool.buffers.items()}
             t, p, s = state.tok[ix], state.pos[ix], state.stop[ix]
@@ -442,7 +512,7 @@ class ServeEngine:
                 self.params, sub, t, p,
                 write_valid=active if masked else None)[0]
 
-        t, p, s, blk = self._scan_horizon(step, t, p, s, h)
+        t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
         if ix is not None:
             for name, buf in pool.buffers.items():
                 buf.index_copy_(pool.batch_axes[name], ix, sub[name])
@@ -469,7 +539,10 @@ class ServeEngine:
             idx = np.asarray(act + idle[:bc - len(act)], np.int64)
             rows = list(range(len(act)))     # compacted row order
         t0 = time.perf_counter()
-        blk = self._horizon(pool, state, idx, h, full)
+        blk = self.graphs(
+            (self.cache_kind, len(idx), h, full),
+            lambda ix, step0: self._horizon(pool, state, ix, step0, h, full),
+            torch.from_numpy(idx), torch.tensor(int(sched.step)))
         c.inc("decode_dispatches")
         blk = blk.cpu().numpy()              # the one [W, h] int32 fetch
         c.inc("host_syncs")
@@ -511,13 +584,17 @@ class ServeEngine:
         admit, one exact-length prefill per admitted request (its cache row
         written into its slot, its first token picked on the device), then
         one decode horizon per boundary."""
+        dev = self.device
+        buffers, state = self._reuse(
+            ("contiguous", n_slots),
+            lambda: (self.model.init_cache(n_slots, self.max_len, device=dev),
+                     _DecodeState(n_slots, None, dev)))
         self.pool = pool = CachePool(self.model, n_slots, self.max_len,
-                                     device=self.device)
+                                     device=dev, buffers=buffers)
         sched = ContinuousScheduler(pool, self.policy)
         for i, r in enumerate(reqs):
             r.job_id = i
             sched.submit(r)
-        state = _DecodeState(n_slots, None, self.device)
 
         while sched.has_work:
             self._evict(sched, state, c)
@@ -530,7 +607,9 @@ class ServeEngine:
                 logits, row = self._prefill(tokens)
                 c.inc("prefill_dispatches")
                 pool.write(r.slot, row)
-                tok = int(logits[0, -1].argmax())   # the one id fetch
+                lane = torch.tensor([r.slot], device=dev)
+                tok = int(self._pick(logits[:, -1], lane,
+                                     ~int(sched.step))[0])  # one id fetch
                 c.inc("host_syncs")
                 r.output.append(tok)
                 if self.eos_token is not None and tok == self.eos_token:
@@ -554,17 +633,25 @@ class ServeEngine:
         self._evict(sched, state, c)
 
     # -- prefill (paged) ------------------------------------------------------
-    def _batched_paged_prefill(self, pool: BlockManager, reqs,
+    def _batched_paged_prefill(self, pool: BlockManager, reqs, step: int,
                                c: RunObs) -> None:
         """Prefill the joining requests through up to ``prefill_lanes``
         lanes in lockstep chunk-rounds (one ``[P, block_size]`` dispatch per
-        round). A lane starts past its prefix-cache hits, commits each
-        completed full block to the prefix cache, and on its final chunk
-        takes its first token; the freed lane refills from the queue."""
+        round, captured once per lane width ``P``). A lane starts past its
+        prefix-cache hits, commits each completed full block to the prefix
+        cache, and on its final chunk takes its first token (picked on
+        lane = its slot at step ``~step``); the freed lane refills from the
+        queue."""
         if not reqs:
             return
         bs, mb = pool.block_size, pool.max_blocks
-        dev = self.device
+
+        def round_ids(tokens, starts, n_valid, tables, lanes, step):
+            logits = self.model.paged_prefill_chunk(
+                self.params, pool.buffers, tokens, starts, tables,
+                n_valid=n_valid)[0]
+            return self._pick(logits[:, -1], lanes, step)
+
         queue = deque(reqs)
         lanes: List[_PrefillLane] = []
         while queue or lanes:
@@ -578,17 +665,17 @@ class ServeEngine:
             starts = np.zeros((w,), np.int32)
             nv = np.zeros((w,), np.int32)
             tables = np.full((w, mb), -1, np.int32)
+            slots = np.zeros((w,), np.int64)
             for i, ln in enumerate(lanes):
                 n = min(bs, len(ln.prompt) - ln.ptr)
                 tokens[i, :n] = ln.prompt[ln.ptr:ln.ptr + n]
                 starts[i], nv[i] = ln.ptr, n
                 tables[i] = pool.tables[ln.req.slot]
-            logits, _, _ = self.model.paged_prefill_chunk(
-                self.params, pool.buffers,
-                torch.as_tensor(tokens, device=dev),
-                torch.as_tensor(starts, device=dev),
-                torch.as_tensor(tables, device=dev),
-                n_valid=torch.as_tensor(nv, device=dev))
+                slots[i] = ln.req.slot
+            ids = self.graphs(("prefill", w), round_ids,
+                              *map(torch.from_numpy,
+                                   (tokens, starts, nv, tables, slots)),
+                              torch.tensor(~step))
             c.inc("prefill_dispatches")
             done_idx: List[int] = []
             live: List[_PrefillLane] = []
@@ -602,8 +689,7 @@ class ServeEngine:
                 else:
                     live.append(ln)
             if done_idx:
-                sel = torch.as_tensor(done_idx, device=dev)
-                toks = logits[sel, -1].argmax(dim=-1).cpu().numpy()
+                toks = ids.cpu().numpy()[done_idx]   # the one id fetch
                 c.inc("host_syncs")
                 for t, i in zip(toks, done_idx):
                     lanes[i].req.output.append(int(t))
@@ -646,17 +732,24 @@ class ServeEngine:
             sched.preempt(victim)
 
     def _run_paged(self, reqs, n_slots, c: RunObs):
+        dev = self.device
+        mb = -(-self.max_len // self.block_size)
+        nb = self.n_blocks if self.n_blocks is not None else n_slots * mb
+        buffers, state = self._reuse(
+            ("paged", n_slots, nb),
+            lambda: (self.model.init_paged_cache(nb, self.block_size,
+                                                 device=dev),
+                     _DecodeState(n_slots, mb, dev)))
         self.pool = pool = BlockManager(self.model, n_slots, self.max_len,
                                         block_size=self.block_size,
-                                        n_blocks=self.n_blocks,
+                                        n_blocks=nb,
                                         watermark=self.watermark,
                                         prefix_cache=self.prefix_cache,
-                                        device=self.device)
+                                        device=dev, buffers=buffers)
         sched = ContinuousScheduler(pool, self.policy)
         for i, r in enumerate(reqs):
             r.job_id = i
             sched.submit(r)
-        state = _DecodeState(n_slots, pool.max_blocks, self.device)
         pos_np = np.zeros((n_slots,), np.int64)
         stop_np = np.zeros((n_slots,), np.int64)
         peak_report = pool.report()
@@ -667,7 +760,8 @@ class ServeEngine:
             admitted = sched.drain_prefill()
             if admitted:
                 t0 = time.perf_counter()
-                self._batched_paged_prefill(pool, admitted, c)
+                self._batched_paged_prefill(pool, admitted,
+                                            int(sched.step), c)
                 c.inc("prefill_s", time.perf_counter() - t0)
                 for r in admitted:
                     pos_np[r.slot] = len(r.prompt)

@@ -51,7 +51,9 @@ class BlockManager:
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  watermark: float = 0.05, dtype=None,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, device="cuda", buffers=None):
+        """``buffers`` (the engine's ``PagedCache``, kept across runs)
+        replaces a fresh ``init_paged_cache(n_blocks, block_size)``."""
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
@@ -60,8 +62,10 @@ class BlockManager:
         self.n_blocks = (n_blocks if n_blocks is not None
                          else n_slots * self.max_blocks)
         self.watermark_blocks = math.ceil(watermark * self.n_blocks)
-        self.buffers = model.init_paged_cache(self.n_blocks, block_size,
-                                              dtype, device=device)
+        if buffers is None:
+            buffers = model.init_paged_cache(self.n_blocks, block_size, dtype,
+                                             device=device)
+        self.buffers = buffers
         self._free_blocks = deque(range(self.n_blocks))
         self._free_slots = deque(range(n_slots))
         self._in_use: set = set()

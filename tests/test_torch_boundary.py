@@ -49,7 +49,8 @@ def test_import_leaves_jax_and_reference_out():
         "          'repro_torch.kernels.flash_attention',\n"
         "          'repro_torch.kernels.grouped_matmul',\n"
         "          'repro_torch.models.mamba2',\n"
-        "          'repro_torch.kernels.ssd_scan'):\n"
+        "          'repro_torch.kernels.ssd_scan',\n"
+        "          'repro_torch.serve.graphs', 'repro_torch.serve.sampling'):\n"
         "    assert n in names, n\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=300)

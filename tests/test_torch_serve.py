@@ -216,8 +216,7 @@ def test_engine_matches_jax_engine_with_pallas_kernels():
 
 def test_engine_rejects_unported_options():
     cfg = get_config(ARCH, smoke=True)
-    for kw in (dict(temperature=0.7), dict(tenants=object()),
-               dict(sharding=object())):
+    for kw in (dict(tenants=object()), dict(sharding=object())):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError):           # paged MoE: item 6
