@@ -62,13 +62,25 @@ Phases, each printed as it runs; any failure exits non-zero:
                  prefill ms a dispatch and a prompt token, and tokens/s.
                  Both paged kernels must launch and the plain versions must
                  not run; decode horizons and prefill rounds must be graphs;
-  6. profile   — torch.profiler over a shorter qwen2 request set on the
-                 same engine (8 requests, 16 new tokens; one warm-up run
-                 outside the window), replayed and eager: device busy share
-                 and device time by kernel;
+  6. profile   — torch.profiler over the same request set on the same
+                 engine, replayed and eager: device busy share (of the
+                 profiled run's wall clock and of the unprofiled run's of
+                 phase 5: the profiler slows the host) and device time by
+                 kernel. Each profiled run zeroes the launch counters first
+                 and fails unless the profiler saw as many events of each
+                 hand-written kernel (and of the paged merge) as the
+                 counters imply: under replay that is what shows the
+                 graphs ran the kernels. A marker kernel ends each window
+                 and must be seen (events lost at the end of a window
+                 would go unnoticed otherwise). The profiler loses events
+                 now and then: a window that lost any is printed as
+                 discarded and the run profiled again, four times at most;
      sampled   — a second qwen2 engine at temperature 0.8, top-k 50: 8
-                 requests, 16 new tokens, served twice (capture, then
-                 replays), which must draw the same tokens;
+                 requests of 128-256 tokens after the prefix, 16 new
+                 tokens, served three times (capture, then replays), which
+                 must draw the same tokens; between its replays the greedy
+                 engine serves the same set, and the prefill ms a round and
+                 decode ms a step of both print;
   7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (16 layers, 64 experts top-8, ~6.9 B
                  float32 weights from a seed), its three runs as in phase 5:
@@ -79,7 +91,7 @@ Phases, each printed as it runs; any failure exits non-zero:
                  must not run. The grouped matmul is an op no model calls
                  (the MoE layer contracts with einsum, as the JAX package's
                  does): it launches 0 times on both paths. Then the profile
-                 of phase 6 over 4 requests, 8 new tokens;
+                 of phase 6 over the same requests;
   8. mamba2    — with the olmoe engines freed, full-width mamba2-780m (48
                  layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
                  float32 weights from a seed): Model.forward and Model.loss
@@ -93,10 +105,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  tokens each, 4 slots, decode horizon 8, max_len 256. Its
                  prefill replays one captured batch-1 decode step per prompt
                  token, so the SSD kernel launches 0 times here, as in the
-                 reference. Then the profile of phase 6 over 1 request of
-                 16-32 tokens, 8 new tokens (the eager run launches hundreds
-                 of kernels a prompt token, each a profiler event); then the
-                 graphs_vs_eager summary line.
+                 reference. Then the profile of phase 6 over the same
+                 requests (~2000 kernel launches a step, ~1.7 M a run);
+                 then the graphs_vs_eager summary line.
 
 The last two lines are the kernels record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -140,6 +151,8 @@ ENGINE_ARGS = ["--arch", "qwen2-0.5b", "--preset", "full", "--engine",
                "4", "--prompt-len", "256", "--shared-prefix", "64",
                "--max-new", "64", "--max-len", str(MAX_LEN),
                "--decode-horizon", "8", "--seed", "0", "--device", "cuda"]
+#: the sampled phase's request set
+SAMPLED_ARGS = ENGINE_ARGS + ["--batch", "8", "--max-new", "16"]
 OLMOE_ARGS = ["--arch", "olmoe-1b-7b", "--preset", "full", "--engine",
               "continuous", "--cache", "contiguous", "--slots", "4",
               "--batch", "8", "--prompt-len", "128", "--max-new", "64",
@@ -936,13 +949,13 @@ def run_engine(summary: dict) -> dict:
 
     phase("profile")
     summary["qwen2-0.5b paged"]["busy_share"] = profile_engine(
-        engine, ENGINE_ARGS + ["--batch", "8", "--max-new", "16"], "paged_")
+        engine, args, res, "paged_")
+
+    phase("sampled")
+    summary["qwen2-0.5b paged"]["sampled_vs_greedy"] = run_sampled(engine)
     del engine, res
     gc.collect()
     torch.cuda.empty_cache()
-
-    phase("sampled")
-    run_sampled()
     return launches
 
 
@@ -961,27 +974,45 @@ def _summary(res: dict) -> dict:
     return rec
 
 
-def run_sampled() -> None:
-    """qwen2-0.5b paged at temperature 0.8, top-k 50, 16 new tokens: the
-    same request set twice (capture, then replays) must draw the same
-    tokens."""
-    args = serve_cli.build_parser().parse_args(ENGINE_ARGS + [
-        "--batch", "8", "--max-new", "16", "--temperature", "0.8",
-        "--top-k", "50"])
+def _per_step(stats) -> dict:
+    return {"prefill_ms_per_round":
+                1e3 * stats.prefill_s / stats.prefill_dispatches,
+            "decode_ms_per_step": 1e3 * stats.decode_s / stats.steps}
+
+
+def run_sampled(greedy) -> dict:
+    """qwen2-0.5b paged at temperature 0.8, top-k 50 on ``SAMPLED_ARGS``'
+    request set: a new engine serves it three times (capture, then
+    replays), which must draw the same tokens. Between its replays the
+    greedy engine ``greedy`` serves the same set (after a run that captures
+    its signatures), so the sampled pick's cost a prefill round and a
+    decode step shows beside greedy's in one call. Returns the replayed
+    runs' times, per kind."""
+    args = serve_cli.build_parser().parse_args(SAMPLED_ARGS + [
+        "--temperature", "0.8", "--top-k", "50"])
+    greedy_args = serve_cli.build_parser().parse_args(SAMPLED_ARGS)
     engine, _ = serve_cli.build(args)
-    runs = []
-    for _ in range(2):
-        out, stats = engine.run(serve_cli.requests(args))
-        runs.append([r.output for r in out])
-        _check_outputs("sampled", engine, out, args.max_new)
+    greedy.run(serve_cli.requests(greedy_args))
+    runs, times = [], {"sampled": [], "greedy": []}
+    for kind in ("sampled", "sampled", "greedy", "sampled", "greedy"):
+        if kind == "sampled":
+            out, stats = engine.run(serve_cli.requests(args))
+            runs.append([r.output for r in out])
+            _check_outputs("sampled", engine, out, args.max_new)
+        else:
+            out, stats = greedy.run(serve_cli.requests(greedy_args))
+        if len(runs) > 1 or kind == "greedy":      # not the capturing run
+            times[kind].append(_per_step(stats))
     print(json.dumps({"sampled": {
         "temperature": args.temperature, "top_k": args.top_k,
-        "tokens_per_s": stats.tokens_per_s, "graph_replays":
-            engine.graphs.replays, "sample_output": runs[0][0][:8]}}),
-        flush=True)
-    if runs[0] != runs[1] or not engine.graphs.replays:
-        raise SystemExit("FAIL: two sampled runs drew different tokens")
+        "requests": args.batch, "max_new": args.max_new,
+        "prefill_dispatches": stats.prefill_dispatches, "steps": stats.steps,
+        "graph_replays": engine.graphs.replays,
+        "sample_output": runs[0][0][:8], **times}}), flush=True)
+    if any(r != runs[0] for r in runs) or not engine.graphs.replays:
+        raise SystemExit("FAIL: three sampled runs drew different tokens")
     print("sampled qwen2 run repeated exactly", flush=True)
+    return times
 
 
 def run_olmoe(summary: dict) -> dict:
@@ -1029,7 +1060,7 @@ def run_olmoe(summary: dict) -> dict:
         raise SystemExit(f"FAIL: olmoe graphs {engine.graphs.keys}")
     summary["olmoe-1b-7b contiguous"] = _summary(res)
     summary["olmoe-1b-7b contiguous"]["busy_share"] = profile_engine(
-        engine, OLMOE_ARGS + ["--batch", "4", "--max-new", "8"], "flash_")
+        engine, args, res, "flash_")
     return launches
 
 
@@ -1041,39 +1072,130 @@ def _leaves(tree):
         yield tree
 
 
-def profile_engine(engine, argv, ours: str) -> dict:
-    """torch.profiler over a shorter request set (``argv``: the engine's
-    own widths) on ``engine``: one warm-up run outside the window (it
-    captures this set's signatures), then a replayed and an eager run,
-    each profiled alone. Prints the device's busy share of the wall clock
-    and the device time by kernel (``ours``: the name fragment of this
-    path's kernels); returns {mode: busy share}."""
-    args = serve_cli.build_parser().parse_args(argv)
+#: profiled windows a run may take before incomplete ones fail it
+#: (``profile_complete``)
+PROFILE_ATTEMPTS = 4
+#: each hand-written kernel's name fragment in a profile, and the launch
+#: counter whose launches it is (the paged merge: see ``implied_events``)
+KERNEL_EVENTS = {"flash_attention_kernel": "flash_attention",
+                 "paged_decode_kernel": "paged_attention",
+                 "paged_prefill_kernel": "paged_prefill_attention",
+                 "grouped_matmul_kernel": "grouped_matmul",
+                 "ssd_scan_chunk_kernel": "ssd_scan"}
+
+
+def implied_events(engine, counts: dict) -> dict:
+    """The device events of each hand-written kernel that the launch
+    counters ``counts`` imply on ``engine``: one a launch, and one merge
+    after each paged launch whose table walk is split (the split plan
+    depends only on the pool's table width and block size)."""
+    want = {frag: counts[name] for frag, name in KERNEL_EVENTS.items()}
+    mb = getattr(engine.pool, "max_blocks", 0)
+
+    def split(keys):
+        return int(mb > 0 and pa.split_plan(mb, engine.block_size,
+                                            keys)[1] > 1)
+
+    want["paged_merge_kernel"] = (
+        counts["paged_attention"] * split(pa.DECODE_SPLIT_KEYS)
+        + counts["paged_prefill_attention"] * split(pa.SPLIT_KEYS))
+    return want
+
+
+def profile_engine(engine, args, res: dict, ours: str) -> dict:
+    """torch.profiler over the engine phase's own request set (``args``) on
+    ``engine``, whose signatures ``serve_modes`` captured: a replayed and an
+    eager run, each profiled alone with every launch counter set to 0 just
+    before. A window counts only when the profiler saw, of each
+    hand-written kernel, the launches that the counters say
+    (``implied_events``; under replay the counters are the capture's
+    launches added back per replay, so this is what shows that a replay ran
+    the kernels); else the run is profiled again (``profile_complete``),
+    and fails after four. Fails too if the replayed run captured anything. The profiler slows the host (it records every launch),
+    so the busy share is given twice: the device's busy seconds over the
+    profiled run's wall clock, and over the wall clock of the unprofiled run
+    of the same mode in ``res`` (same requests, same kernels). Prints the
+    device time by kernel (``ours``: the name fragment of this path's
+    kernels); returns {mode: both shares}."""
     print(f"profile {args.arch} ({time.strftime('%H:%M:%S')})", flush=True)
-    engine.run(serve_cli.requests(args))
     share = {}
     for mode in ("replayed", "eager"):
-        runs = []
+        runs, keys = [], len(engine.graphs.keys)
+
+        def serve():
+            ops.set_counts((0,) * len(ops.COUNTERS))
+            runs.append(engine.run(serve_cli.requests(args)))
+
+        def missing(rec):
+            counts = dict(zip(COUNTER_NAMES, ops.counts()))
+            want = implied_events(engine, counts)
+            seen = {frag: sum(n for name, n in rec["events"].items()
+                              if frag in name) for frag in want}
+            rec["kernel_events"] = {k: v for k, v in seen.items() if v}
+            if seen != want:
+                return (f"kernel events {seen}, the launch counters imply "
+                        f"{want}")
+            return None
+
         with _mode(mode):
-            rec = profile_call(
-                lambda: runs.append(engine.run(serve_cli.requests(args))[1]),
-                ours)
-        stats = runs[0]
-        share[mode] = rec["device_busy_share"]
+            rec = profile_complete(serve, ours, missing)
+        del rec["events"]
+        out, stats = runs[-1]
+        share[mode] = {
+            "profiled_wall": rec["device_busy_share"],
+            "unprofiled_wall":
+                rec["device_busy_s"] / res[mode]["stats"].wall_s}
         print(json.dumps({"profile": {
             "arch": args.arch, "cache": args.cache, "mode": mode,
+            "requests": args.batch, "slots": args.slots,
+            "prompt_tokens": sum(len(r.prompt) for r in out),
             "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
-            "steps": stats.steps, **rec}}), flush=True)
+            "prefill_dispatches": stats.prefill_dispatches,
+            "steps": stats.steps, "max_active": stats.max_active,
+            "unprofiled_wall_s": res[mode]["stats"].wall_s,
+            "busy_share_of_unprofiled_wall": share[mode]["unprofiled_wall"],
+            **rec}}), flush=True)
+        if len(engine.graphs.keys) != keys:
+            raise SystemExit(f"FAIL: {args.arch} {mode}: the profiled run "
+                             "captured new signatures")
     return share
 
 
+def profile_complete(fn, ours: str, missing=lambda rec: None) -> dict:
+    """``profile_call(fn, ours)`` until a window holds every event of its
+    run: the marker seen and ``missing(rec)`` (what else the run's events
+    must show) None. The profiler loses events now and then, at a window's
+    end or inside it (``tools/profiler_probe.py``); an incomplete window is
+    discarded, with a line saying why, and the run profiled again. Fails
+    after ``PROFILE_ATTEMPTS`` incomplete windows in a row: a loss that
+    repeats is the program's, not the profiler's."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        rec = profile_call(fn, ours)
+        why = (missing(rec) if rec.pop("marker_seen")
+               else "the marker kernel was lost")
+        if why is None:
+            rec["attempt"] = attempt
+            return rec
+        print(json.dumps({"profile_discarded": {
+            "attempt": attempt, "device_events": rec["device_events"],
+            "why": why}}), flush=True)
+    raise SystemExit(f"FAIL: {PROFILE_ATTEMPTS} profiles in a row were "
+                     f"incomplete: {why}")
+
+
 def profile_call(fn, ours: str) -> dict:
-    """torch.profiler over one call of ``fn``: its wall clock, the device's
-    busy seconds and share, the device time of the kernels whose names hold
-    ``ours``, and the top kernels by device time. Fails if the profiler saw
-    no device time. Device activity only: every figure here is a device
-    event, and host events (one per op of an eager engine run) made the
-    profile phases most of the script's time."""
+    """torch.profiler over one call of ``fn``, device activity only: its
+    wall clock, the device's busy seconds (the union of its kernel, copy
+    and fill intervals) and share, the device time of the kernels whose
+    names hold ``ours``, the top kernels by device time, and the number of
+    events by name (``events``). The raw events are read directly: an
+    eager engine run makes hundreds of thousands, and one Python object
+    each (``key_averages``) made the profile phases most of the script's
+    time. A marker kernel follows ``fn`` inside the window; ``marker_seen``
+    says whether the profiler kept it, so whether it lost events at the
+    window's end (the window stays open 0.1 s past the marker: closed at
+    once, it dropped the marker more often). Fails if there was no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1081,28 +1203,44 @@ def profile_call(fn, ours: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        torch.cuda._sleep(1000)                 # the marker: spin_kernel
+        torch.cuda.synchronize()
+        time.sleep(0.1)   # the window must close after the marker's end
+    spans, by_name, marker = [], {}, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        by_name[ev.key] = (by_name.get(ev.key, (0.0, 0))[0] + us,
-                           by_name.get(ev.key, (0.0, 0))[1] + ev.count)
-    busy_s = sum(us for us, _ in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    ours_s = sum(us for k, (us, _) in by_name.items() if ours in k) / 1e6
+        name = ev.name()
+        if "spin_kernel" in name:
+            marker += 1
+            continue
+        a, b = ev.start_ns(), ev.end_ns()
+        spans.append((a, b))
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + (b - a) / 1e3, n + 1)
+    busy_ns, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_ns += b - a
+            end = b
+        elif b > end:
+            busy_ns += b - end
+            end = b
+    busy_s = busy_ns / 1e9
     if busy_s <= 0:
         raise SystemExit("FAIL: the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     mine = sorted(((k, us, n) for k, (us, n) in by_name.items() if ours in k),
                   key=lambda x: -x[1])
     return {"wall_s": wall, "device_busy_s": busy_s,
-            "device_busy_share": busy_s / wall, f"{ours}kernels_s": ours_s,
+            "device_busy_share": busy_s / wall, "device_events": len(spans),
+            "marker_seen": marker > 0,
+            f"{ours}kernels_s": sum(us for _, us, _ in mine) / 1e6,
             f"{ours}kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
                                for k, us, n in mine],
             "top_kernels": [{"name": k[:80], "s": us / 1e6, "count": n}
-                            for k, (us, n) in top]}
+                            for k, (us, n) in top],
+            "events": {k: n for k, (_, n) in by_name.items()}}
 
 
 def run_mamba2() -> int:
@@ -1169,8 +1307,9 @@ def run_mamba2() -> int:
         rec["decode_vs_forward_max_abs_diff"] = gap
         rec["launches_per_forward"] = launches
         print(json.dumps({"mamba2_forward": rec}), flush=True)
-        prof = profile_call(lambda: model.forward(params, {"tokens": toks}),
-                            "ssd_scan_")
+        prof = profile_complete(
+            lambda: model.forward(params, {"tokens": toks}), "ssd_scan_")
+        del prof["events"]
         print(json.dumps({"profile": {"arch": cfg.arch_id,
                                       "call": "forward [2, 4096]", **prof}}),
               flush=True)
@@ -1208,8 +1347,7 @@ def run_mamba2_engine(summary: dict) -> None:
         raise SystemExit(f"FAIL: mamba2 graphs {engine.graphs.keys}")
     summary["mamba2-780m contiguous"] = _summary(res)
     summary["mamba2-780m contiguous"]["busy_share"] = profile_engine(
-        engine, MAMBA2_ARGS + ["--batch", "1", "--prompt-len", "32",
-                               "--max-new", "8"], "ssd_scan_")
+        engine, args, res, "ssd_scan_")
 
 
 def main() -> int:

@@ -42,10 +42,7 @@ class CachePool:
     so a request never lands in the most recently vacated row.
     """
 
-    def __init__(self, model, n_slots: int, max_len: int, device="cuda",
-                 buffers: Optional[dict] = None):
-        """``buffers`` (the engine's, kept across runs) replaces a fresh
-        ``init_cache(n_slots, max_len)``; it must have that shape."""
+    def __init__(self, model, n_slots: int, max_len: int, device="cuda"):
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
@@ -53,11 +50,18 @@ class CachePool:
         probe_b = model.init_cache(5, max_len, device="meta")
         self.batch_axes = {name: _batch_axis(probe_a[name], probe_b[name])
                            for name in probe_a}
-        if buffers is None:
-            buffers = model.init_cache(n_slots, max_len, device=device)
-        self.buffers = buffers
+        self.buffers = model.init_cache(n_slots, max_len, device=device)
         self._free = deque(range(n_slots))
         self._in_use: set = set()
+
+    def reset(self) -> None:
+        """Empty the pool in place: every slot free, every buffer zeroed.
+        The tensors keep their addresses (the engine's captured graphs read
+        them)."""
+        for buf in self.buffers.values():
+            buf.zero_()
+        self._free = deque(range(self.n_slots))
+        self._in_use = set()
 
     # -- slot management -----------------------------------------------------
     def alloc(self) -> Optional[int]:

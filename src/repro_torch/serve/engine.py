@@ -41,9 +41,9 @@ and takes delta updates at admission, growth and eviction only.
 The captured programs (``serve/graphs.py``'s ``GraphRunner``; the
 attention families' contiguous prefill, at each prompt's exact length,
 stays eager) read the pool and the decode state at fixed addresses, so a
-run of the same pool shape reuses the previous run's tensors, zeroed, and
-a new shape drops the graphs. ``graphs.eager()`` runs the same loop with
-no capture.
+run with the same slot count reuses the previous run's pool and state,
+reset in place, and another slot count drops the graphs.
+``graphs.eager()`` runs the same loop with no capture.
 
 The contiguous backend serves the dense, MoE and SSM families, the paged
 one the dense family (paged MoE comes with ROADMAP queue A, item 6; the
@@ -96,13 +96,6 @@ def _pow2_floor(n: int) -> int:
     while b * 2 <= n:
         b *= 2
     return b
-
-
-def _leaves(buffers) -> List[torch.Tensor]:
-    """The tensors of a pool's buffers (a cache dict or a ``PagedCache``)."""
-    if isinstance(buffers, dict):
-        return list(buffers.values())
-    return [buffers.k_buf, buffers.v_buf]
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -260,8 +253,10 @@ class ServeEngine:
         self._pick = functools.partial(
             sampling.pick, temperature=self.temperature, top_k=self.top_k,
             seed=self.sample_seed)
-        #: the most recent run's cache pool (audit surface)
+        #: the most recent run's cache pool (audit surface) and decode
+        #: state, kept for the next run of the same slot count
         self.pool = None
+        self._state: Optional[_DecodeState] = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
@@ -270,27 +265,36 @@ class ServeEngine:
                          else self._contiguous_horizon)
         #: the captured programs (one per static signature)
         self.graphs = GraphRunner(self.device)
-        #: (signature, pool buffers, decode state) of the last run
-        self._kept = None
         #: the recurrent prefill's batch-1 state (read by its graph)
         self._row = None
 
-    def _reuse(self, sig, alloc):
-        """The pool buffers and decode state of a run: the last run's,
-        zeroed in place, when ``sig`` (the pool's shape) matches — the
-        captured graphs read them at fixed addresses — else ``alloc()``'s,
-        and the graphs go with the old tensors."""
-        if self._kept is not None and self._kept[0] == sig:
-            _, buffers, state = self._kept
-            for buf in _leaves(buffers):
-                buf.zero_()
-            state.reset()
-            return buffers, state
+    def _pool_and_state(self, n_slots: int):
+        """The run's pool and decode state: the last run's, reset in place,
+        when it had ``n_slots`` slots (the pool's shape follows from that
+        and the engine's fixed options) — the captured graphs read their
+        tensors at fixed addresses — else new ones, and the graphs go with
+        the old tensors."""
+        if self.pool is not None and self.pool.n_slots == n_slots:
+            self.pool.reset()
+            self._state.reset()
+            return self.pool, self._state
         self.graphs.reset()
-        self._kept = None
-        buffers, state = alloc()
-        self._kept = (sig, buffers, state)
-        return buffers, state
+        self.pool = self._state = None       # free the old tensors first
+        if self.cache_kind == "paged":
+            pool = BlockManager(self.model, n_slots, self.max_len,
+                                block_size=self.block_size,
+                                n_blocks=self.n_blocks,
+                                watermark=self.watermark,
+                                prefix_cache=self.prefix_cache,
+                                device=self.device)
+            max_blocks = pool.max_blocks
+        else:
+            pool = CachePool(self.model, n_slots, self.max_len,
+                             device=self.device)
+            max_blocks = None
+        self.pool, self._state = pool, _DecodeState(n_slots, max_blocks,
+                                                    self.device)
+        return self.pool, self._state
 
     # -- prefill (contiguous) -------------------------------------------------
     def _prefill(self, tokens):
@@ -585,12 +589,7 @@ class ServeEngine:
         written into its slot, its first token picked on the device), then
         one decode horizon per boundary."""
         dev = self.device
-        buffers, state = self._reuse(
-            ("contiguous", n_slots),
-            lambda: (self.model.init_cache(n_slots, self.max_len, device=dev),
-                     _DecodeState(n_slots, None, dev)))
-        self.pool = pool = CachePool(self.model, n_slots, self.max_len,
-                                     device=dev, buffers=buffers)
+        pool, state = self._pool_and_state(n_slots)
         sched = ContinuousScheduler(pool, self.policy)
         for i, r in enumerate(reqs):
             r.job_id = i
@@ -732,20 +731,7 @@ class ServeEngine:
             sched.preempt(victim)
 
     def _run_paged(self, reqs, n_slots, c: RunObs):
-        dev = self.device
-        mb = -(-self.max_len // self.block_size)
-        nb = self.n_blocks if self.n_blocks is not None else n_slots * mb
-        buffers, state = self._reuse(
-            ("paged", n_slots, nb),
-            lambda: (self.model.init_paged_cache(nb, self.block_size,
-                                                 device=dev),
-                     _DecodeState(n_slots, mb, dev)))
-        self.pool = pool = BlockManager(self.model, n_slots, self.max_len,
-                                        block_size=self.block_size,
-                                        n_blocks=nb,
-                                        watermark=self.watermark,
-                                        prefix_cache=self.prefix_cache,
-                                        device=dev, buffers=buffers)
+        pool, state = self._pool_and_state(n_slots)
         sched = ContinuousScheduler(pool, self.policy)
         for i, r in enumerate(reqs):
             r.job_id = i

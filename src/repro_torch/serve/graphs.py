@@ -14,7 +14,8 @@ static output and one ``torch.cuda.CUDAGraph``.
     executes nothing). The call returns the eager outputs.
   * Later calls: the inputs are copied into the static buffers, the graph
     replays, and the call returns the graph's static output — valid until
-    the next call of the same key, so read it first.
+    the next call of the same key, so read it first. The ``fn`` of a later
+    call is not used: the graph holds the first call's.
 
 The function must read its other tensors (weights, pools, decode state)
 at fixed addresses: a caller that reallocates them calls ``reset``. All
@@ -25,9 +26,13 @@ the capture's difference is added on every replay: a captured run counts
 the launches an eager run counts.
 
 There is no fallback: on a CUDA device a capture or replay that fails
-raises. On the CPU there is nothing to capture: every call runs the
-function through the same static buffers and copies its output into the
-static output, so the CPU tests exercise the copy-in and copy-out.
+raises. On the CPU there is nothing to capture: every call runs the first
+call's function through the same static buffers and copies its output
+into the static output, so the CPU tests exercise the copy-in and
+copy-out. The CPU also holds the function to the fixed-address contract:
+each call records the storages its ops read that it did not allocate, and
+a later call that reads one the first call did not raises — on the card
+its replay would have read the old tensor.
 ``eager()`` switches the runners off (the counterpart of
 ``jax.disable_jit()``): calls run the function on their own inputs.
 """
@@ -37,6 +42,8 @@ import contextlib
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.kernels import ops
 
@@ -55,14 +62,38 @@ def eager():
         _eager_depth -= 1
 
 
-class _Entry:
-    """One key's static inputs, static output and graph (None on the CPU),
-    and the kernel launches one replay makes."""
-    __slots__ = ("inputs", "output", "graph", "counts")
+class _Reads(TorchDispatchMode):
+    """The storages (data pointers) that the ops run inside the context
+    read and that none of them allocated."""
 
-    def __init__(self, inputs, output, graph, counts):
-        self.inputs, self.output = inputs, output
-        self.graph, self.counts = graph, counts
+    def __init__(self):
+        super().__init__()
+        self.read, self._made = set(), set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is not torch.ops.aten.lift_fresh.default:  # torch.tensor()
+            for t in tree_leaves((args, kwargs)):
+                if isinstance(t, torch.Tensor):
+                    ptr = t.untyped_storage().data_ptr()
+                    if ptr and ptr not in self._made:
+                        self.read.add(ptr)
+        out = func(*args, **(kwargs or {}))
+        self._made.update(t.untyped_storage().data_ptr()
+                          for t in tree_leaves(out)
+                          if isinstance(t, torch.Tensor))
+        return out
+
+
+class _Entry:
+    """One key's static inputs, static output and first function; on
+    CUDA its graph and the kernel launches one replay makes, on the CPU the
+    storages its first call read."""
+    __slots__ = ("inputs", "output", "fn", "graph", "counts", "reads")
+
+    def __init__(self, inputs, output, fn, graph=None, counts=None,
+                 reads=None):
+        self.inputs, self.output, self.fn = inputs, output, fn
+        self.graph, self.counts, self.reads = graph, counts, reads
 
 
 class GraphRunner:
@@ -97,7 +128,14 @@ class GraphRunner:
         for buf, x in zip(entry.inputs, inputs):
             buf.copy_(x)
         if entry.graph is None:
-            entry.output.copy_(fn(*entry.inputs))
+            with _Reads() as reads:
+                out = entry.fn(*entry.inputs)
+            if reads.read - entry.reads:
+                raise RuntimeError(
+                    f"graph {key!r} read {len(reads.read - entry.reads)} "
+                    "tensor(s) its first call did not: a tensor it reads was "
+                    "rebound since, and a replay would read the old one")
+            entry.output.copy_(out)
         else:
             entry.graph.replay()
             ops.add_counts(entry.counts)
@@ -108,10 +146,13 @@ class GraphRunner:
         static = tuple(torch.empty(x.shape, dtype=x.dtype,
                                    device=self.device).copy_(x)
                        for x in inputs)
-        out = fn(*static)
         if self.device.type != "cuda":
-            self._entries[key] = _Entry(static, out.clone(), None, None)
+            with _Reads() as reads:
+                out = fn(*static)
+            self._entries[key] = _Entry(static, out.clone(), fn,
+                                        reads=reads.read)
             return out
+        out = fn(*static)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -122,5 +163,5 @@ class GraphRunner:
             delta = tuple(a - b for a, b in zip(ops.counts(), before))
         finally:
             ops.set_counts(before)
-        self._entries[key] = _Entry(static, output, graph, delta)
+        self._entries[key] = _Entry(static, output, fn, graph, delta)
         return out

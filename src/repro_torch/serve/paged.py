@@ -51,9 +51,7 @@ class BlockManager:
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  watermark: float = 0.05, dtype=None,
-                 prefix_cache: bool = False, device="cuda", buffers=None):
-        """``buffers`` (the engine's ``PagedCache``, kept across runs)
-        replaces a fresh ``init_paged_cache(n_blocks, block_size)``."""
+                 prefix_cache: bool = False, device="cuda"):
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
@@ -62,23 +60,26 @@ class BlockManager:
         self.n_blocks = (n_blocks if n_blocks is not None
                          else n_slots * self.max_blocks)
         self.watermark_blocks = math.ceil(watermark * self.n_blocks)
-        if buffers is None:
-            buffers = model.init_paged_cache(self.n_blocks, block_size, dtype,
-                                             device=device)
-        self.buffers = buffers
-        self._free_blocks = deque(range(self.n_blocks))
-        self._free_slots = deque(range(n_slots))
-        self._in_use: set = set()
-        self.tables = np.full((n_slots, self.max_blocks), -1, np.int32)
-        self._lengths = np.zeros((n_slots,), np.int64)  # tokens owned
-        # -- prefix cache ----------------------------------------------------
+        self.buffers = model.init_paged_cache(self.n_blocks, block_size,
+                                              dtype, device=device)
         self.prefix_cache = prefix_cache
+        self._clear()
+
+    def _clear(self) -> None:
+        """Every block and slot free, the tables -1, the prefix cache
+        empty."""
+        self._free_blocks = deque(range(self.n_blocks))
+        self._free_slots = deque(range(self.n_slots))
+        self._in_use: set = set()
+        self.tables = np.full((self.n_slots, self.max_blocks), -1, np.int32)
+        self._lengths = np.zeros((self.n_slots,), np.int64)  # tokens owned
+        # -- prefix cache ----------------------------------------------------
         self._entries: Dict[int, _PrefixEntry] = {}       # hash -> entry
         self._evictable: "OrderedDict[int, None]" = OrderedDict()  # FIFO
         #: per-slot chain of (hash | None, owned) for the prompt's full
         #: blocks; None marks a private block (hash already owned elsewhere)
         self._chains: Dict[int, List[Tuple[Optional[int], bool]]] = {}
-        self._cached_tokens = np.zeros((n_slots,), np.int64)
+        self._cached_tokens = np.zeros((self.n_slots,), np.int64)
         self.prefix_blocks_total = 0   # full+partial prompt blocks allocated
         self.prefix_blocks_hit = 0     # of those, served from the cache
         #: True iff the last alloc_for returned None because a donor was
@@ -86,6 +87,14 @@ class BlockManager:
         self.deferred_last_alloc = False
         #: slots whose table row changed since the last ``drain_dirty``
         self._dirty_slots: set = set()
+
+    def reset(self) -> None:
+        """Empty the pool in place: the pools zeroed, the host bookkeeping
+        rebuilt. The pool tensors keep their addresses (the engine's
+        captured graphs read them)."""
+        self.buffers.k_buf.zero_()
+        self.buffers.v_buf.zero_()
+        self._clear()
 
     # -- block math ----------------------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:

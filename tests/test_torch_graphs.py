@@ -7,8 +7,10 @@ JAX engine.
 For the four serving paths (paged dense, contiguous dense, contiguous MoE,
 recurrent) greedy tokens and every ``ServeStats`` counter equal the JAX
 engine's, a second ``run`` on the same engine (the pool's tensors kept and
-zeroed, the static signatures reused) equals the first, and a run under
-``graphs.eager()`` equals both. Weights: the JAX init via numpy, qwen2's
+reset, the static signatures reused) equals the first, and a run under
+``graphs.eager()`` equals both. A later call runs the first call's
+function and raises when it reads a tensor rebound since (on the card a
+replay would read the old one). Weights: the JAX init via numpy, qwen2's
 layer matrices scaled by 3 (at init scale its smoke model repeats one
 token).
 """
@@ -115,7 +117,7 @@ def test_runner_path_matches_jax_engine(path):
     assert (("recurrent_step",) in keys) == (arch == "mamba2-780m")
     assert any(k[3] for k in keys if k[0] == cache)         # a full bucket
     assert any(not k[3] for k in keys if k[0] == cache)     # a compacted one
-    ptrs = [t.data_ptr() for t in engine._kept[1].values()] \
+    ptrs = [t.data_ptr() for t in engine.pool.buffers.values()] \
         if cache == "contiguous" else [engine.pool.buffers.k_buf.data_ptr()]
 
     assert _run(engine) == (toks, counters)
@@ -144,6 +146,44 @@ def test_new_pool_shape_drops_the_graphs():
     engine.n_slots = 3
     assert _run(engine) == first
     assert sorted(engine.graphs.keys) == sorted(keys)
+
+
+@pytest.mark.parametrize("rebind", ["state.tok", "pool.buffers"])
+def test_rebound_tensor_raises_on_the_cpu(rebind):
+    """A tensor the captured programs read, rebound between runs (a new
+    decode-state token row, a new pool leaf), would go stale on the card:
+    a replay reads the old address. The CPU runner raises on it."""
+    arch = "qwen2-0.5b"
+    engine = ServeEngine(get_config(arch, smoke=True),
+                         params=params_from_jax(_numpy_params(arch),
+                                                device="cpu"),
+                         device="cpu", **_kw("contiguous"))
+    _run(engine)
+    if rebind == "state.tok":
+        engine._state.tok = torch.zeros_like(engine._state.tok)
+    else:
+        engine.pool.buffers["k"] = engine.pool.buffers["k"].clone()
+    with pytest.raises(RuntimeError, match="rebound"):
+        _run(engine)
+
+
+def test_runner_keeps_the_first_function():
+    """A later call runs the first call's function, as a replay would, and
+    raises when it reads a tensor the first call did not."""
+    runner = graphs.GraphRunner("cpu")
+    held = {"w": torch.tensor([1.0, 2.0])}
+
+    def first(x):
+        return x * held["w"]
+
+    assert runner("k", first, torch.tensor([3.0, 3.0])).tolist() == [3, 6]
+    other = runner("k", lambda x: x + 100, torch.tensor([1.0, 1.0]))
+    assert other.tolist() == [1, 2]
+    held["w"].mul_(2)                     # in place: same storage
+    assert runner("k", first, torch.tensor([1.0, 1.0])).tolist() == [2, 4]
+    held["w"] = torch.tensor([5.0, 5.0])  # rebound: a new storage
+    with pytest.raises(RuntimeError, match="rebound"):
+        runner("k", first, torch.tensor([1.0, 1.0]))
 
 
 def test_runner_copies_in_and_out():
