@@ -24,10 +24,16 @@ Phases, each printed as it runs; any failure exits non-zero:
                  (1, 2, 4, 8, 16 and 64 table columns a split; f32 timed, f32
                  and bf16 with an all -1 row checked) at the engine's
                  positions and at a long context (positions near 1000, the
-                 table full at MB 64), each beside SDPA;
+                 table full at MB 64), each beside SDPA; the paged decode
+                 and prefill at the olmoe-1b-7b and phi-3-vision-4.2b paged
+                 engines' shapes (16/16 heads of 128 and 32/32 heads of 96,
+                 G 1; f32 and bf16, window 0 and 5, an all -1 row; the f32
+                 call timed beside its plain version, SDPA and its bound);
                  flash attention at olmoe-1b-7b's prefill shape
-                 ([1, S, 16, 128], S 128 and 256, causal) and at edge shapes
-                 (14/2 heads at D 64, window 5, non-causal, ragged S 200),
+                 ([1, S, 16, 128], S 128 and 256, causal), at
+                 phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96],
+                 causal, timed) and at edge shapes (14/2 heads at D 64,
+                 window 5, non-causal, ragged S 200, D 96 with window 5),
                  f32 and bf16 (scaled_dot_product_attention); grouped matmul
                  at olmoe-1b-7b's expert shapes (64 experts x 40 rows, gate-up
                  2048 x 2048 and down 1024 x 2048) with valid_rows None,
@@ -92,15 +98,41 @@ Phases, each printed as it runs; any failure exits non-zero:
                  (the MoE layer contracts with einsum, as the JAX package's
                  does): it launches 0 times on both paths. Then the profile
                  of phase 6 over the same requests;
-  8. mamba2    — with the olmoe engines freed, full-width mamba2-780m (48
-                 layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
+  8. olmoe paged — the full-width olmoe-1b-7b paged engine on the same
+                 weights: 8 requests of 64-128 tokens after a shared
+                 32-token prefix (two full blocks), 64 new tokens each, 4
+                 slots, 4 prefill lanes, horizon 8, block 16, max_len 256;
+                 its three runs as in phase 5 (both paged kernels, no plain
+                 version, no flash), one profiled replayed run; then the
+                 prefix cache against cold runs: gated at one slot and one
+                 lane (16 new tokens; the same shapes in both runs), where
+                 a block-aligned hit that resumes the expert counts must
+                 give the cold tokens bit for bit, and reported at the
+                 phase's 4 slots (another schedule: tokens may part at
+                 near-ties of f32 logits); then each prompt's first-step
+                 logits, chunked through the paged prefill, against a one-pass
+                 forward (the contiguous engine's prefill): first-token
+                 agreement and the largest logit gap, reported, not gated;
+  9. phi-3-vision — with the olmoe engines freed, full-width
+                 phi-3-vision-4.2b (32 layers, d_model 3072, 32 heads of 96,
+                 ~4.2 B float32 weights from a seed): Model.forward on
+                 [1, 1024] tokens with [1, 576, 3072] patch embeddings
+                 (flash in all 32 layers, its plain version never) against
+                 the same forward with the plain version in the kernel's
+                 place (1e-3), Model.loss; then its paged engine on the same
+                 weights (text-only, as in the reference): 8 requests of
+                 128-256 tokens, 32 new tokens each, 4 slots, 4 lanes,
+                 horizon 8, block 16, max_len 512, its three runs and a
+                 profiled replayed run as in phase 8;
+ 10. mamba2    — with the phi-3-vision engine freed, full-width
+                 mamba2-780m (48 layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
                  float32 weights from a seed): Model.forward and Model.loss
                  on [2, 4096] random tokens, each launching the SSD kernel
                  exactly 48 times (its plain version never), then 256
                  recurrent decode steps on a [1, 256] prefix against the
                  forward's logits there (2e-3), then torch.profiler over one
                  more forward;
-  9. mamba2 engine — the full-width mamba2-780m contiguous engine, its three
+ 11. mamba2 engine — the full-width mamba2-780m contiguous engine, its three
                  runs as in phase 5: 8 requests of 64-128 tokens, 32 new
                  tokens each, 4 slots, decode horizon 8, max_len 256. Its
                  prefill replays one captured batch-1 decode step per prompt
@@ -109,7 +141,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  requests (~2000 kernel launches a step, ~1.7 M a run);
                  then the graphs_vs_eager summary line.
 
-The last two lines are the kernels record and
+The last two lines are the kernels record (one entry per TPU kernel, its
+launches summed over the paths that run it, by path in
+``launches_by_path``, the new engines' shapes in ``other_shapes``) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -133,7 +167,7 @@ from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import layers, moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serve import graphs  # noqa: E402
 
@@ -171,6 +205,14 @@ CSRC = "src/repro_torch/kernels/csrc/"
 #: olmoe-1b-7b: q/k/v heads, head_dim, experts, expert capacity of a
 #: 256-token prompt (moe.capacity), d_model, expert width
 OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
+#: phi-3-vision-4.2b: q = kv heads, head_dim; the forward phase's
+#: sequence (576 patch positions, then text) and patch count
+PHI_H, PHI_D, PHI_S, PHI_P = 32, 96, 1024, 576
+#: the paged engines' kernel shapes: (path, Hq = Hkv, D, MB, slots, the
+#: positions the engine's requests span)
+PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_D, 256 // BS, 4, 96, 224),
+                ("phi-3-vision-4.2b paged", PHI_H, PHI_D, 512 // BS, 4, 128,
+                 288))
 #: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
 #: batch and sequence
 M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
@@ -178,6 +220,20 @@ M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
 #: CTA per row and 32 columns of P walking the chunks in order, SIMT f32;
 #: NVIDIA H100 80GB HBM3, 700 W, this script's kernels phase)
 SIMT_SSD_MS = 4.7081
+#: the olmoe paged engine's request set: 8 requests of 64-128 tokens after
+#: a shared 32-token prefix (two full blocks)
+OLMOE_PAGED_ARGS = ["--arch", "olmoe-1b-7b", "--preset", "full", "--engine",
+                    "continuous", "--cache", "paged", "--slots", "4",
+                    "--batch", "8", "--block-size", str(BS),
+                    "--prefill-lanes", "4", "--prompt-len", "128",
+                    "--shared-prefix", "32", "--max-new", "64", "--max-len",
+                    "256", "--decode-horizon", "8", "--seed", "0",
+                    "--device", "cuda"]
+PHI3_ARGS = ["--arch", "phi-3-vision-4.2b", "--preset", "full", "--engine",
+             "continuous", "--cache", "paged", "--slots", "4", "--batch",
+             "8", "--block-size", str(BS), "--prefill-lanes", "4",
+             "--prompt-len", "256", "--max-new", "32", "--max-len", "512",
+             "--decode-horizon", "8", "--seed", "0", "--device", "cuda"]
 MAMBA2_ARGS = ["--arch", "mamba2-780m", "--preset", "full", "--engine",
                "continuous", "--cache", "contiguous", "--slots", "4",
                "--batch", "8", "--prompt-len", "128", "--max-new", "32",
@@ -239,22 +295,24 @@ def check_tensor_cores(lib) -> None:
 # kernel inputs, bound, timing
 # ---------------------------------------------------------------------------
 def make_case(b: int, c: int, dtype, seed: int, pad_row: bool,
-              lo: int = 192, hi: int = 384):
-    """Inputs at the serve path's shapes: a [NB, BS, Hkv, D] pool, rows at
-    positions lo..hi-1 (default 192..383: prompt + decode of the engine
-    phase) holding distinct scattered blocks, optionally a last all -1
-    (padding) row."""
+              lo: int = 192, hi: int = 384, shape=None):
+    """Inputs at a paged engine's shapes (``shape`` = (Hq, Hkv, D, MB, NB);
+    default qwen2-0.5b's): a [NB, BS, Hkv, D] pool, rows at positions
+    lo..hi-1 (default 192..383: prompt + decode of the engine phase)
+    holding distinct scattered blocks, optionally a last all -1 (padding)
+    row."""
+    hq, hkv, d, mb, nb = shape or (HQ, HKV, D, MB, NB)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    kp = torch.randn(NB, BS, HKV, D, generator=g, device="cuda").to(dtype)
-    vp = torch.randn(NB, BS, HKV, D, generator=g, device="cuda").to(dtype)
+    kp = torch.randn(nb, BS, hkv, d, generator=g, device="cuda").to(dtype)
+    vp = torch.randn(nb, BS, hkv, d, generator=g, device="cuda").to(dtype)
     start = torch.randint(lo, hi - c, (b,), generator=g, device="cuda",
                           dtype=torch.int32)
-    perm = torch.randperm(NB, generator=g, device="cuda").to(torch.int32)
-    tables = torch.full((b, MB), -1, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(nb, generator=g, device="cuda").to(torch.int32)
+    tables = torch.full((b, mb), -1, dtype=torch.int32, device="cuda")
     for i in range(b - 1 if pad_row else b):
         n = (int(start[i]) + c - 1) // BS + 1
-        tables[i, :n] = perm[i * MB:i * MB + n]
-    q = torch.randn(b, c, HQ, D, generator=g, device="cuda").to(dtype)
+        tables[i, :n] = perm[i * mb:i * mb + n]
+    q = torch.randn(b, c, hq, d, generator=g, device="cuda").to(dtype)
     return (q[:, 0] if c == 1 else q), kp, vp, tables, start
 
 
@@ -276,24 +334,25 @@ def bound_terms(q, kp, tables, start, c: int, window: int, mma: bool):
     written once, over HBM bandwidth; the QK and PV flops of the visible
     (query, key) pairs at ``ops_ms``'s rate. Returns (bytes ms, ops ms)."""
     elem = q.element_size()
+    _, bs, hkv, d = kp.shape
     tab, st = tables.cpu().numpy(), start.cpu().numpy()
     nbytes = 2 * q.numel() * elem + tables.numel() * 4 + start.numel() * 4
     pairs = 0
     for b in range(tab.shape[0]):
         s0 = int(st[b])
-        for j in range(MB):
-            k0 = j * BS
+        for j in range(tab.shape[1]):
+            k0 = j * bs
             if tab[b, j] < 0 or k0 > s0 + c - 1:
                 continue
-            if window and k0 + BS - 1 <= s0 - window:
+            if window and k0 + bs - 1 <= s0 - window:
                 continue
-            nbytes += 2 * BS * HKV * D * elem
+            nbytes += 2 * bs * hkv * d * elem
             for qi in range(c):
                 qpos = s0 + qi
                 lo = qpos - window + 1 if window else 0
-                pairs += max(0, min(qpos, k0 + BS - 1) - max(lo, k0) + 1)
+                pairs += max(0, min(qpos, k0 + bs - 1) - max(lo, k0) + 1)
     return (1e3 * nbytes / HBM_BPS,
-            ops_ms(4 * D * HQ * pairs, q.dtype, mma))
+            ops_ms(4 * d * q.shape[-2] * pairs, q.dtype, mma))
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 50,
@@ -347,7 +406,7 @@ def sdpa_call(q, kp, vp, tables, start, c: int, window: int):
     same mask: the library yardstick (gather and mask built outside)."""
     kg, vg, k_pos, assigned = pa.paged_kv_gather(kp, vp, tables)
     qq = (q[:, None] if c == 1 else q).transpose(1, 2)           # [B,Hq,C,D]
-    g = HQ // HKV
+    g = q.shape[-2] // kp.shape[2]
     kk = kg.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
     vv = vg.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
     q_pos = (start.long()[:, None]
@@ -448,6 +507,51 @@ def check_splits(flush: torch.Tensor, name: str) -> None:
         setattr(pa, attr, keys)
 
 
+#: the kernels line's keys of a timed case that ``other_shapes`` keeps
+SHAPE_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "max_abs_err")
+
+
+def check_engine_shapes(flush: torch.Tensor, rec: dict) -> None:
+    """The paged kernels at the shapes of the olmoe-1b-7b and
+    phi-3-vision-4.2b paged engines (one q head a kv head: G 1; head_dim
+    128 and 96): f32 and bf16, window 0 and 5, a last all -1 row that must
+    come out zero, against the plain versions; the f32 window-0 call timed
+    beside its plain version, SDPA on the gathered K/V and its bound, kept
+    in the kernel's ``other_shapes``."""
+    for path, hq, d, mb, slots, lo, hi in PAGED_SHAPES:
+        shape = (hq, hq, d, mb, slots * mb)
+        for name, kern in KERNELS.items():
+            b, c = (slots, 1) if name == "paged_decode" else (slots, BS)
+            for dtype in (torch.float32, torch.bfloat16):
+                for window in (0, 5):
+                    args = make_case(b, c, dtype, seed=hq + d + window,
+                                     pad_row=True, lo=lo, hi=hi, shape=shape)
+                    what = (f"{name} {path} shape B={b} C={c} Hq=Hkv={hq} "
+                            f"D={d} {str(dtype)[6:]} window={window}")
+                    out = kern["wrapper"](*args, window)
+                    _compare(what, out, kern["plain"](*args, window), dtype)
+                    if not bool((out[-1] == 0).all()):
+                        raise SystemExit(f"FAIL: {what}: the all -1 table "
+                                         "row is not zero")
+            args = make_case(b, c, torch.float32, seed=hq + d, pad_row=False,
+                             lo=lo, hi=hi, shape=shape)
+            q, kp, vp, tables, start = args
+            err = _compare(f"{name} {path} shape, f32, all rows",
+                           kern["wrapper"](*args, 0), kern["plain"](*args, 0),
+                           torch.float32)
+            r = _record(
+                name, "paged_attention.cu", kern["replaces"], err,
+                time_ms(lambda: kern["wrapper"](*args, 0), flush),
+                time_ms(lambda: kern["plain"](*args, 0), flush),
+                *bound_terms(q, kp, tables, start, c, 0, True),
+                time_ms(sdpa_call(q, kp, vp, tables, start, c, 0), flush),
+                dict(path=path, B=b, C=c, Hq=hq, Hkv=hq, D=d, BS=BS, MB=mb,
+                     positions=[lo, hi], dtype="float32"))
+            rec[name].setdefault("other_shapes", []).append(
+                {k: r[k] for k in SHAPE_KEYS})
+
+
 def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
             lib_ms, shape, f32_simt_ms=None, times=None) -> dict:
     """The kernels-line entry of one timed case. ``launches`` is added by
@@ -513,11 +617,15 @@ def flash_bound(s: int, hq: int, hkv: int, d: int, dtype, causal: bool,
 
 def check_flash(flush: torch.Tensor) -> dict:
     """The flash kernel against its plain version at olmoe-1b-7b's prefill
-    shape and at edge shapes; time the S = 256 f32 call."""
+    shape, at phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96]) and
+    at edge shapes; time the S = 256 f32 call (and, in ``other_shapes``,
+    phi-3-vision's)."""
     cases = [(128, OL_H, OL_H, OL_D, True, 0),
              (256, OL_H, OL_H, OL_D, True, 0),
              (128, 14, 2, 64, True, 5), (128, 14, 2, 64, False, 0),
-             (200, OL_H, OL_H, OL_D, True, 0)]
+             (200, OL_H, OL_H, OL_D, True, 0),
+             (PHI_S, PHI_H, PHI_H, PHI_D, True, 0),
+             (200, PHI_H, PHI_H, PHI_D, True, 5)]
     rec = None
     for (s, hq, hkv, d, causal, window) in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -556,6 +664,22 @@ def check_flash(flush: torch.Tensor) -> dict:
                     flash_bound(s, hq, hkv, d, dtype, True, 0, False)[1],
                     wrapper_times(lambda: ops.flash_attention(q, k, v),
                                   flush))
+            if (s, d, dtype) == (PHI_S, PHI_D, torch.float32):
+                phi = _record(
+                    "flash_attention", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:86", err,
+                    time_ms(lambda: ops.flash_attention(q, k, v), flush),
+                    time_ms(lambda: fa.flash_attention_plain(q, k, v), flush,
+                            reps=10),
+                    *flash_bound(s, hq, hkv, d, dtype, True, 0),
+                    time_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True),
+                            flush),
+                    dict(path="phi-3-vision-4.2b forward", B=1, S=s, Hq=hq,
+                         Hkv=hkv, D=d, causal=True, window=0,
+                         dtype="float32"))
+    rec["other_shapes"] = [{k: phi[k] for k in SHAPE_KEYS}]
     return rec
 
 
@@ -916,44 +1040,17 @@ def _kinds(engine) -> set:
 
 
 def run_engine(summary: dict) -> dict:
-    """The full-width qwen2-0.5b paged engine (module docstring, phase 5).
-    Returns each paged kernel's launches in the captured run."""
+    """The full-width qwen2-0.5b paged engine (module docstring, phases 5
+    and 6): ``run_paged_engine`` with a replayed and an eager profile,
+    then the sampled phase. Returns each paged kernel's launches in the
+    captured run."""
     args = serve_cli.build_parser().parse_args(ENGINE_ARGS)
-    engine, _ = serve_cli.build(args)
-    res = serve_modes(engine, args, "qwen2-0.5b paged")
-    out, stats, counts = (res["captured"][k]
-                          for k in ("out", "stats", "launches"))
-    _check_outputs("qwen2", engine, out, args.max_new)
-    launches = {"paged_decode": counts["paged_attention"],
-                "paged_prefill": counts["paged_prefill_attention"]}
-    plain_calls = sum(v for k, v in counts.items() if k.endswith("_plain"))
-    audit = engine.pool.audit()
-    finite = bool(torch.isfinite(engine.pool.buffers.k_buf).all()
-                  and torch.isfinite(engine.pool.buffers.v_buf).all())
-    print(json.dumps({"engine": {k: getattr(stats, k) for k in (
-        "n_requests", "new_tokens", "preemptions", "prefix_hit_rate",
-        "decode_rows_saved", "mean_latency_s")},
-        "launches": launches, "plain_calls": plain_calls, "audit": audit,
-        "kv_finite": finite, "sample_output": out[0].output[:8]}),
-        flush=True)
-    if not finite:
-        raise SystemExit("FAIL: non-finite values in the KV pools")
-    if stats.prefix_hit_rate <= 0:
-        raise SystemExit("FAIL: the shared prefix never hit the cache")
-    if min(launches.values()) <= 0 or plain_calls:
-        raise SystemExit(f"FAIL: launches {launches}, plain calls "
-                         f"{plain_calls}: the engine did not run the kernels")
-    if not {"paged", "prefill"} <= _kinds(engine):
-        raise SystemExit(f"FAIL: qwen2 graphs {engine.graphs.keys}")
-    summary["qwen2-0.5b paged"] = _summary(res)
-
-    phase("profile")
-    summary["qwen2-0.5b paged"]["busy_share"] = profile_engine(
-        engine, args, res, "paged_")
-
+    what = "qwen2-0.5b paged"
+    engine, _, launches = run_paged_engine(summary, args, what, None,
+                                           modes=("replayed", "eager"))
     phase("sampled")
-    summary["qwen2-0.5b paged"]["sampled_vs_greedy"] = run_sampled(engine)
-    del engine, res
+    summary[what]["sampled_vs_greedy"] = run_sampled(engine)
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1015,10 +1112,10 @@ def run_sampled(greedy) -> dict:
     return times
 
 
-def run_olmoe(summary: dict) -> dict:
+def run_olmoe(summary: dict):
     """The full-width olmoe-1b-7b contiguous engine (module docstring,
-    phase 7). Returns each counted wrapper's launches in the captured
-    run."""
+    phase 7). Returns each counted wrapper's launches in the captured run
+    and the engine's weights."""
     args = serve_cli.build_parser().parse_args(OLMOE_ARGS)
     engine, _ = serve_cli.build(args)
     res = serve_modes(engine, args, "olmoe-1b-7b contiguous")
@@ -1061,12 +1158,239 @@ def run_olmoe(summary: dict) -> dict:
     summary["olmoe-1b-7b contiguous"] = _summary(res)
     summary["olmoe-1b-7b contiguous"]["busy_share"] = profile_engine(
         engine, args, res, "flash_")
+    return launches, engine.params
+
+
+def run_paged_engine(summary: dict, args, what: str, params,
+                     modes=("replayed",)) -> tuple:
+    """A full-width paged engine on ``params`` (weights drawn from the seed
+    when None; phases 5, 8 and 9): its three runs (``serve_modes``), its
+    checks (outputs, finite pools, a shared prefix hit, both paged kernels
+    launched and no plain version, no flash, decode horizons and prefill
+    rounds as graphs) and profiled runs of ``modes``. Returns (the engine,
+    its three runs' results, each paged kernel's launches in the captured
+    run)."""
+    engine, _ = serve_cli.build(args, params=params)
+    res = serve_modes(engine, args, what)
+    out, stats, counts = (res["captured"][k]
+                          for k in ("out", "stats", "launches"))
+    _check_outputs(what, engine, out, args.max_new)
+    launches = {"paged_decode": counts["paged_attention"],
+                "paged_prefill": counts["paged_prefill_attention"]}
+    plain_calls = sum(v for k, v in counts.items() if k.endswith("_plain"))
+    finite = bool(torch.isfinite(engine.pool.buffers.k_buf).all()
+                  and torch.isfinite(engine.pool.buffers.v_buf).all())
+    # a decode step reads every weight but the (untied) embedding table
+    emb = engine.params["emb"]
+    step_bytes = 4 * (sum(t.numel() for t in _leaves(engine.params))
+                      - ("lm_head" in emb) * emb["tok_emb"].numel())
+    print(json.dumps({"paged_engine": {"what": what, **{
+        k: getattr(stats, k) for k in (
+            "n_requests", "new_tokens", "preemptions", "prefix_hit_rate",
+            "decode_rows_saved", "max_active", "mean_latency_s")}},
+        "prompt_tokens": sum(len(r.prompt) for r in out),
+        "launches": launches, "plain_calls": plain_calls,
+        "flash_launches": counts["flash_attention"],
+        "audit": engine.pool.audit(), "kv_finite": finite,
+        "decode_step_bytes_gb": step_bytes / 1e9,
+        "decode_step_floor_ms": 1e3 * step_bytes / HBM_BPS,
+        "sample_output": out[0].output[:8]}), flush=True)
+    if not finite:
+        raise SystemExit(f"FAIL: {what}: non-finite values in the KV pools")
+    if args.shared_prefix and stats.prefix_hit_rate <= 0:
+        raise SystemExit(f"FAIL: {what}: the shared prefix never hit")
+    if (min(launches.values()) <= 0 or plain_calls
+            or counts["flash_attention"]):
+        raise SystemExit(f"FAIL: {what}: launches {launches}, plain calls "
+                         f"{plain_calls}, flash {counts['flash_attention']}: "
+                         "the engine did not run the paged kernels alone")
+    if not {"paged", "prefill"} <= _kinds(engine):
+        raise SystemExit(f"FAIL: {what} graphs {engine.graphs.keys}")
+    summary[what] = _summary(res)
+    phase("profile")
+    summary[what]["busy_share"] = profile_engine(engine, args, res, "paged_",
+                                                 modes)
+    return engine, res, launches
+
+
+def run_olmoe_paged(summary: dict, params) -> dict:
+    """The full-width olmoe-1b-7b paged engine on the contiguous engine's
+    weights (module docstring, phase 8). Returns each paged kernel's
+    launches in the captured run."""
+    args = serve_cli.build_parser().parse_args(OLMOE_PAGED_ARGS)
+    what = "olmoe-1b-7b paged"
+    engine, res, launches = run_paged_engine(summary, args, what, params)
+    out = res["captured"]["out"]
+    summary[what]["prefix_cache"] = prefix_resume(
+        params, out, res["captured"]["stats"])
+    summary[what]["vs_contiguous"] = first_step_gap(engine, out)
     return launches
 
 
+def _run_args(argv, params):
+    """Serve ``argv``'s request set once on a new engine over ``params``."""
+    args = serve_cli.build_parser().parse_args(argv)
+    engine, _ = serve_cli.build(args, params=params)
+    return engine.run(serve_cli.requests(args))
+
+
+def prefix_resume(params, out, stats) -> dict:
+    """Prefix-cache hits that resume the expert counts against cold runs.
+    Exact (gated): one slot and one prefill lane, 16 new tokens, with and
+    without the prefix cache — every chunk, round and decode step has the
+    same shapes in both runs, so a block-aligned hit that resumes the
+    counts gives the cold run's tokens bit for bit. Reported: the phase's
+    own run (``out``, ``stats``: 4 slots, 4 lanes) against the same
+    options without
+    the prefix cache, whose schedule differs (deferrals behind a donor,
+    other lane and decode widths) and so its f32 GEMMs' shapes: tokens may
+    part where two logits nearly tie (the request and the first token
+    that differs)."""
+    cold, cold_stats = _run_args(OLMOE_PAGED_ARGS + ["--no-prefix-cache"],
+                                 params)
+    parted = {r.job_id: next(i for i, (a, b) in enumerate(
+                  zip(r.output, c.output)) if a != b)
+              for r, c in zip(out, cold) if r.output != c.output}
+    one = OLMOE_PAGED_ARGS + ["--slots", "1", "--prefill-lanes", "1",
+                              "--max-new", "16"]
+    warm, warm_stats = _run_args(one, params)
+    exact, exact_stats = _run_args(one + ["--no-prefix-cache"], params)
+    same = sum(a.output == b.output for a, b in zip(warm, exact))
+    rec = {"four_slots": {"identical_requests": len(out) - len(parted),
+                          "requests": len(out),
+                          "first_differing_token": parted,
+                          "prefill_dispatches": [
+                              stats.prefill_dispatches,
+                              cold_stats.prefill_dispatches]},
+           "one_slot": {"identical_requests": same, "requests": len(warm),
+                        "prefix_hit_rate": warm_stats.prefix_hit_rate,
+                        "prefill_dispatches": [
+                            warm_stats.prefill_dispatches,
+                            exact_stats.prefill_dispatches]}}
+    print(json.dumps({"olmoe_paged_prefix_cache_on_vs_off": rec}),
+          flush=True)
+    if (same != len(warm) or warm_stats.prefix_blocks_hit <= 0
+            or exact_stats.prefix_blocks_hit or cold_stats.prefix_blocks_hit):
+        raise SystemExit(f"FAIL: olmoe paged, one slot: with the prefix "
+                         f"cache {same} of {len(warm)} requests give the "
+                         "cold run's tokens")
+    return rec
+
+
+def first_step_gap(engine, out) -> dict:
+    """The paged engine's first tokens (``out``) against a one-pass MoE
+    forward over each prompt (flash attention: the contiguous engine's
+    prefill), and the largest gap between that forward's last logits and
+    the block-chunked paged prefill's over the same prompt (one lane,
+    counts carried, the engine's static capacity). Reported, not gated:
+    the kernels differ."""
+    cfg, params, model = engine.cfg, engine.params, engine.model
+    bs, agree, gap = engine.block_size, 0, 0.0
+    with torch.inference_mode():
+        for r in out:
+            n = len(r.prompt)
+            prompt = torch.as_tensor(r.prompt, dtype=torch.int32,
+                                     device="cuda")
+            one_pass = moe.forward(cfg, params, prompt[None])[0, -1]
+            nblk = -(-n // bs)
+            cache = model.init_paged_cache(nblk, bs, device="cuda")
+            tables = torch.arange(nblk, dtype=torch.int32,
+                                  device="cuda")[None]
+            state = model.paged_prefill_state(1, "cuda")
+            caps = torch.tensor([moe.capacity(cfg, n)], dtype=torch.int32,
+                                device="cuda")
+            for s0 in range(0, n, bs):
+                k = min(bs, n - s0)
+                tok = torch.zeros((1, bs), dtype=torch.int32, device="cuda")
+                tok[0, :k] = prompt[s0:s0 + k]
+                logits, cache, state = model.paged_prefill_chunk(
+                    params, cache, tok,
+                    torch.tensor([s0], dtype=torch.int32, device="cuda"),
+                    tables, state, engine.max_len,
+                    n_valid=torch.tensor([k], dtype=torch.int32,
+                                         device="cuda"),
+                    cap_rows=caps)
+            gap = max(gap, (logits[0, -1] - one_pass).abs().max().item())
+            agree += int(one_pass.argmax()) == r.output[0]
+    rec = {"first_token_agreement": agree, "requests": len(out),
+           "max_first_step_logit_gap": gap}
+    print(json.dumps({"olmoe_paged_vs_contiguous": rec}), flush=True)
+    return rec
+
+
+def run_phi3(summary: dict) -> dict:
+    """Full-width phi-3-vision-4.2b (module docstring, phase 9): forward and
+    loss on [1, 1024] tokens with [1, 576, 3072] patch embeddings (flash in
+    all 32 layers) against the same forward with the flash kernel's plain
+    version in its place, then the paged engine on the same weights.
+    Returns {"forward": flash launches, "paged": paged launches}."""
+    cfg = get_config("phi-3-vision-4.2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, PHI_S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks,
+             "labels": torch.randint(0, cfg.vocab_size, (1, PHI_S),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32),
+             "patch_embeds": 0.02 * torch.randn(1, PHI_P, cfg.d_model,
+                                                generator=g, device="cuda")}
+    rec = {"params": sum(t.numel() for t in _leaves(params)),
+           "tokens": PHI_S, "patches": PHI_P}
+    with torch.inference_mode():
+        model.forward(params, {k: v[:, :PHI_P + 64] if k == "tokens" else v
+                               for k, v in batch.items()})      # warm-up
+        ops.flash_attention.launches = fa.flash_attention_plain.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.forward(params, batch)
+        torch.cuda.synchronize()
+        rec["forward_ms"] = 1e3 * (time.perf_counter() - t0)
+        launches = ops.flash_attention.launches
+        if launches != cfg.n_layers or fa.flash_attention_plain.calls:
+            raise SystemExit(f"FAIL: phi-3-vision forward: flash launches "
+                             f"{launches} (want {cfg.n_layers}), plain "
+                             f"calls {fa.flash_attention_plain.calls}")
+        with plain_flash():
+            ref = model.forward(params, batch)
+        gap = (logits - ref).abs().max().item()
+        rec.update(logits_shape=list(logits.shape),
+                   plain_path_max_abs_diff=gap, finite=bool(torch.isfinite(logits).all()),
+                   loss=model.loss(params, batch).item())
+        print(json.dumps({"phi3_forward": rec}), flush=True)
+        if (not rec["finite"] or tuple(logits.shape)
+                != (1, PHI_S, cfg.vocab_size)):
+            raise SystemExit("FAIL: phi-3-vision forward logits")
+        if not torch.allclose(logits, ref, atol=1e-3, rtol=1e-3):
+            raise SystemExit(f"FAIL: phi-3-vision forward differs from its "
+                             f"plain path by {gap:.3e} (tol 1e-3)")
+        del logits, ref
+    args = serve_cli.build_parser().parse_args(PHI3_ARGS)
+    _, _, paged = run_paged_engine(summary, args, "phi-3-vision-4.2b paged",
+                                   params)
+    return {"forward": launches, "paged": paged}
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """The model's flash calls take the kernel's plain version (on the
+    card) while the context is open: the reference the forward is held to."""
+    real = layers.kops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0):
+        return fa.flash_attention_plain(q, k, v, causal, window)
+
+    layers.kops.flash_attention = plain
+    try:
+        yield
+    finally:
+        layers.kops.flash_attention = real
+
+
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -1102,7 +1426,8 @@ def implied_events(engine, counts: dict) -> dict:
     return want
 
 
-def profile_engine(engine, args, res: dict, ours: str) -> dict:
+def profile_engine(engine, args, res: dict, ours: str,
+                   modes=("replayed", "eager")) -> dict:
     """torch.profiler over the engine phase's own request set (``args``) on
     ``engine``, whose signatures ``serve_modes`` captured: a replayed and an
     eager run, each profiled alone with every launch counter set to 0 just
@@ -1116,10 +1441,12 @@ def profile_engine(engine, args, res: dict, ours: str) -> dict:
     profiled run's wall clock, and over the wall clock of the unprofiled run
     of the same mode in ``res`` (same requests, same kernels). Prints the
     device time by kernel (``ours``: the name fragment of this path's
-    kernels); returns {mode: both shares}."""
-    print(f"profile {args.arch} ({time.strftime('%H:%M:%S')})", flush=True)
+    kernels); returns {mode: both shares}. ``modes``: the runs to profile.
+    """
+    print(f"profile {args.arch} {args.cache} ({time.strftime('%H:%M:%S')})",
+          flush=True)
     share = {}
-    for mode in ("replayed", "eager"):
+    for mode in modes:
         runs, keys = [], len(engine.graphs.keys)
 
         def serve():
@@ -1379,6 +1706,7 @@ def main() -> int:
     rec = check_kernels(flush)
     check_splits(flush, "paged_decode")
     check_splits(flush, "paged_prefill")
+    check_engine_shapes(flush, rec)
     rec["flash_attention"] = check_flash(flush)
     rec["grouped_matmul"] = check_grouped_matmul(flush)
     rec["ssd_scan"] = check_ssd(flush)
@@ -1390,21 +1718,36 @@ def main() -> int:
 
     phase("engine")
     summary = {}
+    #: each kernel's launches in the captured run of each path
+    paths = {name: {} for name in rec}
     launches = run_engine(summary)  # and the profile and sampled phases
     for name, n in launches.items():
-        rec[name]["launches"] = n
+        paths[name]["qwen2-0.5b paged"] = n
 
     phase("olmoe")
     gc.collect()                    # the qwen2 engines are gone: free them
     torch.cuda.empty_cache()
-    launches = run_olmoe(summary)
+    launches, params = run_olmoe(summary)
     for name in ("flash_attention", "grouped_matmul"):
-        rec[name]["launches"] = launches[name]
+        paths[name]["olmoe-1b-7b contiguous"] = launches[name]
 
-    phase("mamba2")
+    phase("olmoe paged")
+    for name, n in run_olmoe_paged(summary, params).items():
+        paths[name]["olmoe-1b-7b paged"] = n
+    del params
     gc.collect()                    # the olmoe engines are gone: free them
     torch.cuda.empty_cache()
-    rec["ssd_scan"]["launches"] = run_mamba2()
+
+    phase("phi-3-vision")
+    phi = run_phi3(summary)
+    paths["flash_attention"]["phi-3-vision-4.2b forward"] = phi["forward"]
+    for name, n in phi["paged"].items():
+        paths[name]["phi-3-vision-4.2b paged"] = n
+    gc.collect()                    # the phi-3-vision engine is gone
+    torch.cuda.empty_cache()
+
+    phase("mamba2")
+    paths["ssd_scan"]["mamba2-780m forward"] = run_mamba2()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1413,10 +1756,13 @@ def main() -> int:
     phase("summary")
     print(json.dumps({"graphs_vs_eager": summary}), flush=True)
 
-    unread = [name for name, r in rec.items() if "launches" not in r]
+    unread = [name for name, by_path in paths.items() if not by_path]
     if unread:
         raise SystemExit(f"FAIL: no engine run counted the launches of "
                          f"{unread}")
+    for name, by_path in paths.items():
+        rec[name]["launches"] = sum(by_path.values())
+        rec[name]["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,6 +1,6 @@
 """Architecture configuration schema (a trimmed copy of ``repro.configs.base``).
 
-Only the fields the dense, MoE and SSM paths read are kept; the other
+Only the fields the dense, VLM, MoE and SSM paths read are kept; the other
 families' fields arrive with their slices of the port.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 class ArchConfig:
     # -- identity -----------------------------------------------------------
     arch_id: str
-    family: str                      # dense | moe | ssm (the families ported so far)
+    family: str                      # dense | vlm | moe | ssm (ported so far)
     citation: str = ""
 
     # -- transformer geometry ------------------------------------------------
@@ -48,9 +48,16 @@ class ArchConfig:
     ssm_chunk: int = 256
     ssm_groups: int = 1
 
+    # -- vlm ------------------------------------------------------------------
+    n_patches: int = 0               # stub-frontend patch count (the
+                                     # sequence's prefix)
+
     # -- numerics -------------------------------------------------------------
     dtype: str = "float32"           # activation dtype
     param_dtype: str = "float32"
+    moe_gather_dispatch: bool = False  # MoE dispatch via int32 slot->token
+                                     # indices + a gather, instead of a
+                                     # scatter-add of the feature rows
 
     @property
     def resolved_head_dim(self) -> int:
@@ -73,7 +80,8 @@ class ArchConfig:
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """The reference's per-arch smoke shape: same family and code paths,
     laptop-scale widths (2 layers, d_model 256, vocab 512; MoE: 4 experts,
-    top-2, expert width 128; SSM: state 16, head dim 32, chunk 32)."""
+    top-2, expert width 128; SSM: state 16, head dim 32, chunk 32; VLM: 16
+    patches)."""
     kw = dict(
         n_layers=2,
         d_model=256,
@@ -89,6 +97,8 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         kw.update(n_experts=4, top_k=2, d_ff=128)
     if cfg.family == "ssm":
         kw.update(ssm_state=16, ssm_headdim=32, ssm_chunk=32)
+    if cfg.family == "vlm":
+        kw.update(n_patches=16)
     if cfg.sliding_window:
         kw.update(sliding_window=32)
     return cfg.replace(**kw)

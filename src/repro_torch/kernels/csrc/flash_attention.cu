@@ -51,8 +51,9 @@
 //     its own rows can see; where its rows see all of its keys it skips
 //     the mask.
 //   * Shared memory: f32 D 128 takes 164.5 KB (Q fragments split into hi
-//     and lo 32 KB, two K/V buffers 132 KB), one CTA an SM; dynamic shared
-//     memory with cudaFuncSetAttribute.
+//     and lo 32 KB, two K/V buffers 132 KB), one CTA an SM; D 96 124.5 KB;
+//     dynamic shared memory with cudaFuncSetAttribute. Head dims 32, 64,
+//     96 (phi-3-vision) and 128.
 //
 // Interface: plain C, loaded with ctypes. The entry returns
 // cudaGetLastError() after the launch; the Python wrapper raises on non-0.
@@ -218,6 +219,7 @@ int dispatch(const Args& a, int B, int D, cudaStream_t s) {
   switch (D) {
     case 32: return launch<T, 32>(a, B, s);
     case 64: return launch<T, 64>(a, B, s);
+    case 96: return launch<T, 96>(a, B, s);
     case 128: return launch<T, 128>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }

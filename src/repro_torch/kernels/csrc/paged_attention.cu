@@ -40,7 +40,9 @@
 //     at position start + r / G; rows come in m16 tiles and both products
 //     run on mma.sync (three TF32 passes for f32, one bf16 pass for bf16).
 //     The prefill has C G rows (112 at C 16, G 7): each of its 8 warps (4
-//     for f32 at D 128) takes 16 rows and every key. Decode has G rows a kv
+//     for f32 at D 128) takes 16 rows and every key. Head dims 32, 64, 96
+//     and 128 (D 96: 12 TF32 k8 steps or 6 bf16 k16 steps in Q.K, 12 n8
+//     tiles in P.V). Decode has G rows a kv
 //     head, one m16 tile (G > 16: more tiles on the grid's z), so its 4
 //     warps share the tile and each takes a 16-key quarter of every 64-key
 //     tile; the quarters merge through shared memory at the end
@@ -91,8 +93,10 @@ struct Args {
   float scale;
 };
 
-// Prefill warps a CTA: 8 (128 rows), 4 for f32 at D 128 to stay in shared
-// memory.
+// Prefill warps a CTA: 8 (128 rows), 4 for f32 at D 128 to stay in the
+// 227 KB of shared memory a block may take (attention_mma.cuh smem_bytes:
+// f32 at D 128 takes 260.5 KB with 8 warps, 196.5 KB with 4; at D 96, 8
+// warps take 196.5 KB).
 template <typename T, int D>
 __host__ __device__ constexpr int prefill_warps() {
   return attn::is_f32<T>() && D == 128 ? 4 : 8;
@@ -360,6 +364,8 @@ int run(const void* q, const void* k, const void* v, const int* tables,
                                : launch<__nv_bfloat16, 32>(a, decode, s);
     case 64: return dtype == 0 ? launch<float, 64>(a, decode, s)
                                : launch<__nv_bfloat16, 64>(a, decode, s);
+    case 96: return dtype == 0 ? launch<float, 96>(a, decode, s)
+                               : launch<__nv_bfloat16, 96>(a, decode, s);
     case 128: return dtype == 0 ? launch<float, 128>(a, decode, s)
                                 : launch<__nv_bfloat16, 128>(a, decode, s);
     default: return (int)cudaErrorInvalidValue;

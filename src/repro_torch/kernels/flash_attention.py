@@ -24,6 +24,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims the CUDA source instantiates
+HEAD_DIMS = (32, 64, 96, 128)
 
 
 def tpu_block(s: int) -> int:
@@ -81,8 +83,8 @@ def _check(q, k, v) -> None:
             hq % k.shape[2] or 0 in q.shape:
         raise ValueError(f"q {tuple(q.shape)} does not group over k "
                          f"{tuple(k.shape)}")
-    if d not in (32, 64, 128):
-        raise ValueError(f"head_dim {d} not in (32, 64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim "

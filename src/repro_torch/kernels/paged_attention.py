@@ -40,6 +40,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims the CUDA source instantiates
+HEAD_DIMS = (32, 64, 96, 128)
 #: keys a split of the prefill's table walk covers: 2 columns at block 16,
 #: the fastest width at the qwen2-0.5b engine's shape (PERF.md, split width)
 SPLIT_KEYS = 32
@@ -147,8 +149,8 @@ def _check(q, k_pages, v_pages, tables, start, qdim: int) -> None:
     if q.shape[-1] != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not group over pool "
                          f"{tuple(k_pages.shape)}")
-    if d not in (32, 64, 128):
-        raise ValueError(f"head_dim {d} not in (32, 64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if not 1 <= bs <= 32:
         raise ValueError(f"block_size {bs} not in [1, 32]")
     if tables.dim() != 2 or tables.shape[0] != b or start.shape != (b,):

@@ -8,6 +8,16 @@ contiguous or the paged cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --preset full --engine continuous --cache contiguous --slots 4 \\
         --batch 8 --prompt-len 128 --max-new 16 --max-len 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --preset full --engine continuous --cache paged --slots 4 \\
+        --batch 8 --prompt-len 128 --shared-prefix 32 --max-len 256
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi-3-vision-4.2b --preset full --engine continuous \\
+        --cache paged --slots 4 --batch 8 --prompt-len 256 --max-len 512
+
+Every attention family (dense, VLM, MoE) serves on both caches; the SSM
+family on the contiguous one. Serving is text-only for the VLM, as in the
+reference.
 
 The defaults are the reference CLI's (``repro/launch/serve.py``):
 ``--engine static --cache contiguous``, greedy decoding. ``--temperature``
@@ -80,6 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "block_size))")
     ap.add_argument("--prefill-lanes", type=int, default=4,
                     help="joining requests prefilled per chunk-round")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="disable content-hashed prompt-block sharing (paged)")
     ap.add_argument("--prompt-len", type=int, default=8,
                     help="max prompt length (lengths mixed in [len/2, len])")
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -115,16 +128,17 @@ def requests(args) -> List[ServeRequest]:
                          shared_prefix=args.shared_prefix)
 
 
-def build(args) -> Tuple[ServeEngine, List[ServeRequest]]:
-    """The engine (weights drawn on its device) and the request set that
-    ``args`` describe."""
+def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest]]:
+    """The engine and the request set that ``args`` describe; the engine
+    serves ``params`` when given, else weights drawn on its device."""
     cfg = get_config(args.arch, smoke=args.preset == "smoke")
     reqs = requests(args)
     engine = ServeEngine(
-        cfg, max_len=args.max_len,
+        cfg, params=params, max_len=args.max_len,
         n_slots=args.slots if args.engine == "continuous" else None,
         cache=args.cache, block_size=args.block_size,
         n_blocks=args.blocks or None, prefill_lanes=args.prefill_lanes,
+        prefix_cache=args.prefix_cache,
         decode_horizon=args.decode_horizon, eos_token=args.eos_token,
         temperature=args.temperature, top_k=args.top_k, device=args.device,
         seed=args.seed)

@@ -1,21 +1,23 @@
 """Mixture-of-Experts decoder (OLMoE 64 experts / top-8), ported from
 ``repro/models/moe.py``.
 
-Token-choice top-k routing with capacity-bounded scatter dispatch: each
-batch row routes on its own (the reference's ``vmap`` over rows is a batch
-dimension written out), an expert takes at most ``capacity`` of a row's
-assignments in arrival order, and the rest are dropped. The expert FFNs
-run as one batched contraction over the expert axis
-(``[B, E, C, D] x [E, D, F]``) with ``einsum``, as the reference does; the
-hand-written ``grouped_matmul`` kernel computes the same contraction and
-is an op of its own (``kernels/ops.py``), not called here.
+Token-choice top-k routing with capacity-bounded dispatch: each batch row
+routes on its own (the reference's ``vmap`` over rows is a batch dimension
+written out), an expert takes at most ``capacity`` of a row's assignments
+in arrival order, and the rest are dropped. The dispatch scatters the
+feature rows into the expert buffers, or (``cfg.moe_gather_dispatch``)
+scatters only int32 slot->token indices and gathers the rows; both give
+the same buffers. The expert FFNs run as one batched contraction over the
+expert axis (``[B, E, C, D] x [E, D, F]``) with ``einsum``, as the
+reference does; the hand-written ``grouped_matmul`` kernel computes the
+same contraction and is an op of its own (``kernels/ops.py``), not called
+here.
 
-Only the scatter dispatch is ported (``moe_gather_dispatch=False``, the
-setting of every config); the gather dispatch and the paged entry points
-(``paged_prefill_chunk``, ``paged_prefill_state``, ``paged_decode_step``)
-come with the paged-MoE engine wiring (ROADMAP queue A, item 6).
 Parameters are a dict with a list of per-layer dicts; caches are the
-dense family's (``transformer.init_cache``), updated in place.
+dense family's (``transformer.init_cache`` / ``init_paged_cache``),
+updated in place. The paged prefill carries each layer's per-expert
+assignment counts across chunks (``paged_prefill_state``), so chunked
+routing drops the tokens a one-pass forward drops.
 """
 from __future__ import annotations
 
@@ -116,13 +118,27 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     keep = (pos_in_e < cap_rows[:, None]) & flat_tv
     safe_pos = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, cap - 1))
     rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
-    buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=dev)
-    # the reference's .at[flat_e, safe_pos].add scatter: kept slots are
-    # unique, dropped assignments add zeros into the slot cap - 1
-    buf.index_put_((rows, flat_e, safe_pos),
-                   torch.where(keep[..., None], x[:, flat_tok],
-                               torch.zeros((), dtype=x.dtype, device=dev)),
-                   accumulate=True)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    if cfg.moe_gather_dispatch:
+        # the reference's .at[flat_e, safe_pos].max of int32 token ids:
+        # kept slots are unique, dropped assignments offer -1 to cap - 1
+        slot_tok = torch.full((b, e * cap), -1, dtype=torch.int32,
+                              device=dev)
+        slot_tok.scatter_reduce_(
+            1, (flat_e * cap + safe_pos).long(),
+            torch.where(keep, flat_tok.to(torch.int32), -1), reduce="amax")
+        slot_tok = slot_tok.view(b, e, cap)
+        buf = torch.where(
+            slot_tok[..., None] >= 0,
+            x[torch.arange(b, device=dev)[:, None, None],
+              slot_tok.clamp(min=0).long()], zero)
+    else:
+        # the reference's .at[flat_e, safe_pos].add scatter: kept slots are
+        # unique, dropped assignments add zeros into the slot cap - 1
+        buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=dev)
+        buf.index_put_((rows, flat_e, safe_pos),
+                       torch.where(keep[..., None], x[:, flat_tok], zero),
+                       accumulate=True)
 
     # expert computation: batched SwiGLU over the expert axis
     gu = torch.einsum("becd,edf->becf", buf, p["we_gate_up"])
@@ -130,11 +146,13 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     h = F.silu(g) * u
     out_buf = torch.einsum("becf,efd->becd", h, p["we_down"])
 
-    # combine: the reference's segment_sum over each row's assignments
+    # combine: the reference's segment_sum over each row's assignments; a
+    # token's k assignments are adjacent, so a sum over them (in a fixed
+    # order: index_add_'s atomics on the card sum in any order, and a
+    # token's bits would change from run to run)
     w = torch.where(keep, flat_p, torch.zeros_like(flat_p))
     y = out_buf[rows, flat_e, safe_pos] * w[..., None].to(out_buf.dtype)
-    out = torch.zeros((b, s, d), dtype=y.dtype, device=dev)
-    out.index_add_(1, flat_tok, y)
+    out = y.view(b, s, k, d).sum(dim=2)
     if counts is not None:
         return out, aux, cnt0 + one.sum(dim=1, dtype=torch.int32)
     return out, aux
@@ -184,7 +202,16 @@ def forward(cfg, params, tokens, return_aux: bool = False,
     return logits
 
 
+def loss_fn(cfg, params, batch):
+    """Next-token cross entropy plus ``router_aux_coef`` times the mean
+    load-balance loss (``moe.py:206-209``)."""
+    logits, aux = forward(cfg, params, batch["tokens"], return_aux=True)
+    ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    return ce + cfg.router_aux_coef * aux
+
+
 init_cache = T.init_cache
+init_paged_cache = T.init_paged_cache
 
 
 def decode_step(cfg, params, cache: dict, tokens, pos,
@@ -197,5 +224,63 @@ def decode_step(cfg, params, cache: dict, tokens, pos,
         x, _, _ = _layer(cfg, p, x, positions,
                          kv_cache=(cache["k"][i], cache["v"][i]),
                          cache_pos=pos, kv_valid=kv_valid)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["emb"], cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# paged cache
+# ---------------------------------------------------------------------------
+def paged_prefill_state(cfg, batch: int = 1, device="cuda") -> torch.Tensor:
+    """Per-layer expert assignment counts carried across prefill chunks
+    (int32 ``[L, batch, E]``), so capacity drops match the one-pass
+    forward (see ``moe_ffn``)."""
+    return torch.zeros((cfg.n_layers, batch, cfg.n_experts),
+                       dtype=torch.int32, device=device)
+
+
+def paged_prefill_chunk(cfg, params, cache: T.PagedCache, tokens, start,
+                        tables, state=None, cap_tokens: int = 0,
+                        n_valid=None, cap_rows=None):
+    """MoE chunked prefill, lane-batched as the dense one
+    (``transformer.paged_prefill_chunk``; ``moe.py:223-263``): attention
+    pages through each lane's block table; the expert FFN routes with the
+    carried counts ``state`` [L, P, E], drops lane-padding tokens from
+    dispatch and pins each lane's effective capacity to ``cap_rows`` [P]
+    (its own prompt's ``capacity(cfg, len)``); the static ``cap_tokens``
+    only sizes the dispatch buffers. Returns (per-lane last-valid-position
+    logits [P, 1, V], cache, the new counts [L, P, E])."""
+    x = L.embed(params["emb"], cfg, tokens)
+    b, c, _ = x.shape
+    positions, valid, last = T.prefill_chunk_layout(start, n_valid, b, c)
+    if state is None:
+        state = paged_prefill_state(cfg, b, x.device)
+    counts = []
+    for i, p in enumerate(params["layers"]):
+        h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+        attn_out, _ = L.attention(p["attn"], cfg, h, positions,
+                                  kv_cache=cache.layer(i, tables),
+                                  kv_valid=valid)
+        x = x + attn_out
+        h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+        ffn_out, _, cnt = moe_ffn(cfg, p, h, counts=state[i],
+                                  cap_tokens=cap_tokens, token_valid=valid,
+                                  cap_rows=cap_rows)
+        x = x + ffn_out
+        counts.append(cnt)
+    x = x[torch.arange(b, device=x.device), last][:, None]
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["emb"], cfg, x), cache, torch.stack(counts)
+
+
+def paged_decode_step(cfg, params, cache: T.PagedCache, tokens, pos, tables,
+                      write_valid: Optional[torch.Tensor] = None):
+    """One paged decode step (see ``transformer.paged_decode_step``)."""
+    x = L.embed(params["emb"], cfg, tokens)
+    positions = L.decode_positions(x.shape[0], pos, x.device)
+    kv_valid = None if write_valid is None else write_valid[:, None]
+    for i, p in enumerate(params["layers"]):
+        x, _, _ = _layer(cfg, p, x, positions,
+                         kv_cache=cache.layer(i, tables), kv_valid=kv_valid)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["emb"], cfg, x), cache

@@ -1,9 +1,12 @@
-"""Dense decoder-only transformer (qwen2 / llama3 / gemma3), ported from
-``repro/models/transformer.py``.
+"""Dense decoder-only transformer (qwen2 / llama3 / gemma3 / phi-3-vision),
+ported from ``repro/models/transformer.py``.
 
 Parameters are a dict with a list of per-layer dicts (the reference stacks
 them along a leading axis for ``lax.scan``; here the scan is a Python loop).
 Gemma3's local:global pattern is a per-layer window list (0 = global).
+The VLM family (phi-3-vision) is this model with a stub vision frontend:
+``forward`` takes precomputed patch embeddings that replace the first
+``n_patches`` positions; serving is text-only, as in the reference.
 The contiguous cache is a ``{"k", "v"}`` dict of ``[L, B, S, Hkv, D]``
 tensors and the paged cache a ``PagedCache``; the decode and prefill steps
 update either in place.
@@ -62,13 +65,15 @@ def _layer(cfg, p, x, positions, window: int, kv_cache=None, cache_pos=None,
     """One decoder layer -> (x, new_kv_cache). Attention takes the layer's
     window (``transformer.py:69-109``): the paged backend for a
     ``PagedKV``, contiguous decode for a ``(ck, cv)`` cache, else causal
-    self-attention over x through plain ``mha`` — the dense forward never
-    reaches the flash kernel (``transformer.py:107``)."""
+    self-attention over x. The dense forward attends through plain ``mha``,
+    as the reference's does (``transformer.py:107``); the VLM forward,
+    whose patch prefix makes every call a long causal pass, through the
+    flash kernel (the same function)."""
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     attn_out, new_cache = L.attention(p["attn"], cfg, h, positions,
                                       window=window, kv_cache=kv_cache,
                                       cache_pos=cache_pos, kv_valid=kv_valid,
-                                      flash=False)
+                                      flash=cfg.family == "vlm")
     x = x + attn_out
     h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     return x + L.mlp(p["mlp"], h), new_cache
@@ -78,10 +83,16 @@ def _layer(cfg, p, x, positions, window: int, kv_cache=None, cache_pos=None,
 # forward (one pass over a full sequence: training, one-pass prefill, and the
 # reference for chunked paths)
 # ---------------------------------------------------------------------------
-def forward(cfg, params, tokens, return_cache: bool = False):
+def forward(cfg, params, tokens, patch_embeds=None,
+            return_cache: bool = False):
     """tokens: [B, S] int -> logits [B, S, V] (and, with ``return_cache``,
-    the per-layer post-RoPE (k, v) stacked ``[L, B, S, Hkv, D]``)."""
+    the per-layer post-RoPE (k, v) stacked ``[L, B, S, Hkv, D]``).
+    ``patch_embeds`` [B, P, D] (VLM) replace the embeddings of the first P
+    positions (``transformer.py:231-246``)."""
     x = L.embed(params["emb"], cfg, tokens)
+    if patch_embeds is not None:
+        n = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     caches = []
@@ -94,6 +105,21 @@ def forward(cfg, params, tokens, return_cache: bool = False):
     if return_cache:
         return logits, stack_caches(caches)
     return logits
+
+
+def loss_fn(cfg, params, batch):
+    """Mean next-token cross entropy over ``batch`` (tokens, labels,
+    optional loss_mask and patch_embeds); a VLM batch without a loss_mask
+    scores only the text positions, ``>= n_patches``
+    (``transformer.py:269-278``)."""
+    logits = forward(cfg, params, batch["tokens"],
+                     patch_embeds=batch.get("patch_embeds"))
+    mask = batch.get("loss_mask")
+    labels = batch["labels"]
+    if cfg.family == "vlm" and mask is None:
+        pos = torch.arange(labels.shape[1], device=labels.device)
+        mask = (pos >= cfg.n_patches)[None, :].expand(labels.shape)
+    return L.cross_entropy(logits, labels, mask)
 
 
 def stack_caches(caches):
@@ -168,7 +194,7 @@ def init_paged_cache(cfg, n_blocks: int, block_size: int, dtype=None,
                       torch.zeros(shape, dtype=dtype, device=device))
 
 
-def paged_prefill_state(cfg, batch: int = 1):
+def paged_prefill_state(cfg, batch: int = 1, device="cuda"):
     """Cross-chunk prefill carry (none for dense attention)."""
     return None
 
@@ -189,14 +215,17 @@ def prefill_chunk_layout(start, n_valid, b: int, c: int):
 
 
 def paged_prefill_chunk(cfg, params, cache: PagedCache, tokens, start, tables,
-                        state=None, n_valid=None):
+                        state=None, cap_tokens: int = 0, n_valid=None,
+                        cap_rows=None):
     """Prefill one prompt chunk per lane into the paged cache (in place).
 
     tokens: [P, C]; start: int32 [P] — each lane's first position;
     n_valid: int32 [P] or None — real tokens per lane; tables: int32
     [P, MB] — the blocks covering [0, start + n_valid) must be assigned.
     Returns (per-lane last-valid-position logits [P, 1, V], cache, state).
-    Only the last valid position of each lane is unembedded.
+    Only the last valid position of each lane is unembedded. Dense
+    attention carries no state across chunks: ``state``, ``cap_tokens``
+    and ``cap_rows`` (the MoE family's) are accepted and unused.
     """
     x = L.embed(params["emb"], cfg, tokens)
     b, c, _ = x.shape

@@ -20,7 +20,10 @@ it exactly:
     (one captured dispatch per chunk-round and lane width, padded lanes
     masked), starting past each request's prefix-cache hits; every lane's
     token is picked on the device and the finishing lanes' are fetched once
-    per round;
+    per round. MoE lanes carry their per-layer expert counts from round to
+    round and into the prefix cache on the device, and each lane routes at
+    its own prompt's capacity, so chunked routing equals a one-pass
+    forward's;
   * decode: one *horizon* per boundary runs up to ``decode_horizon`` steps
     of ``decode_step`` / ``paged_decode_step`` with token selection
     (``sampling.pick``), token feedback, per-row ``pos`` advance and
@@ -45,11 +48,13 @@ run with the same slot count reuses the previous run's pool and state,
 reset in place, and another slot count drops the graphs.
 ``graphs.eager()`` runs the same loop with no capture.
 
-The contiguous backend serves the dense, MoE and SSM families, the paged
-one the dense family (paged MoE comes with ROADMAP queue A, item 6; the
-recurrent state is O(1) per slot and has nothing to page). Tenants, fault
-injection, elastic reshapes, sharding, tracing and profiling are ported
-later and raise ``NotImplementedError`` naming their ROADMAP item.
+The contiguous backend serves the dense, VLM, MoE and SSM families, the
+paged one the attention families (dense, VLM, MoE; the recurrent state is
+O(1) per slot and has nothing to page). Serving is text-only: the VLM
+patch prefix reaches ``forward`` and ``loss`` only, as in the reference.
+Tenants, fault injection, elastic reshapes, sharding, tracing and
+profiling are ported later and raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import Model, build_model
+from repro_torch.models.moe import capacity
 from repro_torch.obs.metrics import RunObs
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import CachePool
@@ -76,7 +82,7 @@ from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
 CACHE_BACKENDS = ("contiguous", "paged")
 #: families whose layers attend over a KV cache: one-pass prefill, a
 #: write-masked decode horizon, a pageable cache (``engine.py:98``)
-_ATTN_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 #: engine options of the reference that later slices port, by ROADMAP
 #: queue A item
@@ -139,11 +145,15 @@ class ServeStats:
 
 @dataclass
 class _PrefillLane:
-    """One live lane of the batched prefill: a joining request and its
-    chunk cursor (starting past any prefix-cache hits)."""
+    """One live lane of the batched prefill: a joining request, its chunk
+    cursor (starting past any prefix-cache hits) and, for MoE, its routing
+    capacity and its expert counts after the last chunk ([L, 1, E] int32
+    on the device)."""
     req: ServeRequest
     prompt: np.ndarray
     ptr: int
+    cap_row: int = 0
+    state: Optional[torch.Tensor] = None
 
 
 class _DecodeState:
@@ -192,7 +202,7 @@ class _DecodeState:
 
 
 class ServeEngine:
-    """Serving engine for the dense, MoE and SSM families.
+    """Serving engine for the dense, VLM, MoE and SSM families.
 
     ``n_slots=None`` sizes the pool to the request set (static batching);
     a fixed ``n_slots`` turns on continuous batching. ``decode_horizon=K``
@@ -229,10 +239,6 @@ class ServeEngine:
             raise ValueError(
                 f"cache='paged' needs an attention family (got "
                 f"{cfg.family!r}: recurrent state is O(1))")
-        if cache == "paged" and cfg.family != "dense":
-            raise NotImplementedError(
-                f"cache='paged' for the {cfg.family} family is ported later "
-                "(ROADMAP queue A, item 6); it serves cache='contiguous'")
         self.cfg = cfg
         self.model: Model = build_model(cfg)
         self.device = torch.device(device)
@@ -636,52 +642,77 @@ class ServeEngine:
                                c: RunObs) -> None:
         """Prefill the joining requests through up to ``prefill_lanes``
         lanes in lockstep chunk-rounds (one ``[P, block_size]`` dispatch per
-        round, captured once per lane width ``P``). A lane starts past its
-        prefix-cache hits, commits each completed full block to the prefix
-        cache, and on its final chunk takes its first token (picked on
-        lane = its slot at step ``~step``); the freed lane refills from the
-        queue."""
+        round, captured once per lane width ``P``;
+        ``engine.py:1463-1542``). A lane starts past its prefix-cache hits,
+        commits each completed full block to the prefix cache, and on its
+        final chunk takes its first token (picked on lane = its slot at step
+        ``~step``); the freed lane refills from the queue. MoE rounds also
+        take each lane's expert counts (from the prefix cache on a hit,
+        else zeros; padding lanes zeros) and capacity ``caps``, with the
+        dispatch buffers sized by the static ``max_len``, and give each lane
+        its column of the new counts, kept on the device."""
         if not reqs:
             return
         bs, mb = pool.block_size, pool.max_blocks
+        is_moe = self.cfg.family == "moe"
+        cap_static = self.max_len if is_moe else 0
 
-        def round_ids(tokens, starts, n_valid, tables, lanes, step):
-            logits = self.model.paged_prefill_chunk(
-                self.params, pool.buffers, tokens, starts, tables,
-                n_valid=n_valid)[0]
-            return self._pick(logits[:, -1], lanes, step)
+        def round_ids(tokens, starts, n_valid, tables, lanes, step,
+                      state=None, caps=None):
+            logits, _, new_state = self.model.paged_prefill_chunk(
+                self.params, pool.buffers, tokens, starts, tables, state,
+                cap_static, n_valid=n_valid, cap_rows=caps)
+            ids = self._pick(logits[:, -1], lanes, step)
+            return ids if new_state is None else (ids, new_state)
 
+        zeros = (self.model.paged_prefill_state(1, self.device) if is_moe
+                 else None)
         queue = deque(reqs)
         lanes: List[_PrefillLane] = []
         while queue or lanes:
             while queue and len(lanes) < self.prefill_lanes:
                 r = queue.popleft()
-                lanes.append(_PrefillLane(
-                    req=r, prompt=np.asarray(r.prompt, np.int32),
-                    ptr=pool.cached_tokens(r.slot)))
+                prompt = np.asarray(r.prompt, np.int32)
+                lane = _PrefillLane(req=r, prompt=prompt,
+                                    ptr=pool.cached_tokens(r.slot))
+                if is_moe:
+                    lane.cap_row = capacity(self.cfg, len(prompt))
+                    lane.state = pool.resume_state(r.slot)
+                    if lane.state is None:
+                        lane.state = zeros
+                lanes.append(lane)
             w = _bucket(len(lanes), self.prefill_lanes)
             tokens = np.zeros((w, bs), np.int32)
             starts = np.zeros((w,), np.int32)
             nv = np.zeros((w,), np.int32)
+            caps = np.zeros((w,), np.int32)
             tables = np.full((w, mb), -1, np.int32)
             slots = np.zeros((w,), np.int64)
             for i, ln in enumerate(lanes):
                 n = min(bs, len(ln.prompt) - ln.ptr)
                 tokens[i, :n] = ln.prompt[ln.ptr:ln.ptr + n]
-                starts[i], nv[i] = ln.ptr, n
+                starts[i], nv[i], caps[i] = ln.ptr, n, ln.cap_row
                 tables[i] = pool.tables[ln.req.slot]
                 slots[i] = ln.req.slot
-            ids = self.graphs(("prefill", w), round_ids,
-                              *map(torch.from_numpy,
-                                   (tokens, starts, nv, tables, slots)),
-                              torch.tensor(~step))
+            inputs = [torch.from_numpy(a)
+                      for a in (tokens, starts, nv, tables, slots)]
+            inputs.append(torch.tensor(~step))
+            if is_moe:
+                inputs.append(torch.cat([ln.state for ln in lanes]
+                                        + [zeros] * (w - len(lanes)), dim=1))
+                inputs.append(torch.from_numpy(caps))
+            ids = self.graphs(("prefill", w), round_ids, *inputs)
+            if is_moe:
+                ids, new_state = ids
             c.inc("prefill_dispatches")
             done_idx: List[int] = []
             live: List[_PrefillLane] = []
             for i, ln in enumerate(lanes):
                 n = int(nv[i])
+                if is_moe:     # a copy: the round's output is overwritten
+                    ln.state = new_state[:, i:i + 1].clone()
                 if n == bs:        # a full block is final: cacheable
-                    pool.commit_block(ln.req.slot, ln.ptr // bs)
+                    pool.commit_block(ln.req.slot, ln.ptr // bs, ln.state)
                 ln.ptr += n
                 if ln.ptr >= len(ln.prompt):
                     done_idx.append(i)

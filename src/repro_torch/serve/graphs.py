@@ -6,7 +6,8 @@ width and scans its recurrent prefill inside one program. ``GraphRunner``
 is the torch form of that: a key names the static signature (the engine
 uses ``("paged" | "contiguous", W, h, full)``, ``("prefill", w)`` and
 ``("recurrent_step",)``) and holds, per key, static input buffers, the
-static output and one ``torch.cuda.CUDAGraph``.
+static output (a tensor or a tuple of tensors: the MoE prefill round also
+returns its lanes' expert counts) and one ``torch.cuda.CUDAGraph``.
 
   * First call of a key: the inputs are copied into fresh static buffers
     and the function runs eagerly on them, for real, its kernel launches
@@ -84,6 +85,11 @@ class _Reads(TorchDispatchMode):
         return out
 
 
+def _tensors(out) -> tuple:
+    """A function's output as a tuple of tensors."""
+    return out if isinstance(out, tuple) else (out,)
+
+
 class _Entry:
     """One key's static inputs, static output and first function; on
     CUDA its graph and the kernel launches one replay makes, on the CPU the
@@ -115,11 +121,10 @@ class GraphRunner:
         """Drop every graph: the tensors they read have moved."""
         self._entries.clear()
 
-    def __call__(self, key: Hashable, fn: Callable,
-                 *inputs: torch.Tensor) -> torch.Tensor:
-        """``fn(*inputs)`` (one output tensor) through the static signature
-        ``key``. The inputs may lie on the host or the device; they are
-        copied to the device."""
+    def __call__(self, key: Hashable, fn: Callable, *inputs: torch.Tensor):
+        """``fn(*inputs)`` (a tensor or a tuple of tensors) through the
+        static signature ``key``. The inputs may lie on the host or the
+        device; they are copied to the device."""
         if _eager_depth:
             return fn(*(x.to(self.device) for x in inputs))
         entry = self._entries.get(key)
@@ -135,7 +140,8 @@ class GraphRunner:
                     f"graph {key!r} read {len(reads.read - entry.reads)} "
                     "tensor(s) its first call did not: a tensor it reads was "
                     "rebound since, and a replay would read the old one")
-            entry.output.copy_(out)
+            for dst, src in zip(_tensors(entry.output), _tensors(out)):
+                dst.copy_(src)
         else:
             entry.graph.replay()
             ops.add_counts(entry.counts)
@@ -149,8 +155,10 @@ class GraphRunner:
         if self.device.type != "cuda":
             with _Reads() as reads:
                 out = fn(*static)
-            self._entries[key] = _Entry(static, out.clone(), fn,
-                                        reads=reads.read)
+            kept = tuple(t.clone() for t in _tensors(out))
+            self._entries[key] = _Entry(
+                static, kept if isinstance(out, tuple) else kept[0], fn,
+                reads=reads.read)
             return out
         out = fn(*static)
         if self._pool is None:

@@ -14,6 +14,10 @@ blocks): hits are ref-counted and skip both allocation and prefill; the
 partial tail and every growth block stay private (copy-on-write); a hit on
 a block whose donor has not written it yet defers the request one round;
 refcount-0 blocks park in an evictable FIFO until the free list runs dry.
+For MoE the per-layer expert-assignment counts after each block are kept
+with its entry (``commit_block``'s ``state``) and the routing capacity is
+folded into the hash seed, so a prefix-hit resume routes token for token
+like a cold prefill (``resume_state``).
 
 The pools are torch tensors on the engine's device (the model's
 ``PagedCache``); tables and every other piece of bookkeeping stay numpy on
@@ -26,19 +30,24 @@ from __future__ import annotations
 import hashlib
 import math
 from collections import OrderedDict, deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.models.moe import capacity
 
 
 @dataclass
 class _PrefixEntry:
     """One cached full prompt block. ``ready`` flips when its owner's
-    prefill has written the block (``commit_block``)."""
+    prefill has written the block (``commit_block``); ``state`` is the
+    family's cross-chunk prefill carry after the block (MoE expert counts,
+    a device tensor; None for dense / vlm)."""
     block: int
     refs: int = 0
     ready: bool = False
+    state: object = field(default=None, repr=False)
 
 
 class BlockManager:
@@ -46,7 +55,7 @@ class BlockManager:
     surface the scheduler drives (``alloc_for`` / ``free`` /
     ``validate_request``) plus the per-boundary calls of the engine
     (``ensure``, ``drain_dirty``, ``report``) and the prefix-cache surface
-    (``cached_tokens``, ``commit_block``)."""
+    (``cached_tokens``, ``resume_state``, ``commit_block``)."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
@@ -80,6 +89,7 @@ class BlockManager:
         #: blocks; None marks a private block (hash already owned elsewhere)
         self._chains: Dict[int, List[Tuple[Optional[int], bool]]] = {}
         self._cached_tokens = np.zeros((self.n_slots,), np.int64)
+        self._resume: Dict[int, object] = {}
         self.prefix_blocks_total = 0   # full+partial prompt blocks allocated
         self.prefix_blocks_hit = 0     # of those, served from the cache
         #: True iff the last alloc_for returned None because a donor was
@@ -112,9 +122,12 @@ class BlockManager:
     # -- prefix hashing ------------------------------------------------------
     def _hash_chain(self, prompt: np.ndarray) -> List[int]:
         """Rolling content hashes of the prompt's FULL blocks, chained from
-        an 8-byte zero seed (the reference folds MoE routing capacity into
-        the seed; it is 0 for the dense family)."""
-        prev = (0).to_bytes(8, "little", signed=True)
+        an 8-byte seed: the MoE routing capacity of the prompt's length (two
+        prompts sharing tokens but not capacity drop different tokens), 0
+        for the other families."""
+        cfg = self.model.cfg
+        salt = capacity(cfg, len(prompt)) if cfg.family == "moe" else 0
+        prev = salt.to_bytes(8, "little", signed=True)
         hashes = []
         for i0 in range(0, (len(prompt) // self.block_size) * self.block_size,
                         self.block_size):
@@ -220,6 +233,8 @@ class BlockManager:
         if self.prefix_cache:
             self._chains[slot] = chain
             self._cached_tokens[slot] = hits * self.block_size
+            self._resume[slot] = (self._entries[hashes[hits - 1]].state
+                                  if hits else None)
             self.prefix_blocks_total += need
             self.prefix_blocks_hit += hits
         return slot
@@ -229,9 +244,15 @@ class BlockManager:
         """Prompt positions covered by cache hits: prefill resumes here."""
         return int(self._cached_tokens[slot])
 
-    def commit_block(self, slot: int, block_idx: int) -> None:
+    def resume_state(self, slot: int):
+        """The cross-chunk prefill carry kept after the last hit block
+        (MoE expert counts), or None for a cold start."""
+        return self._resume.get(slot)
+
+    def commit_block(self, slot: int, block_idx: int, state=None) -> None:
         """Mark a prompt block's content written: the entry becomes
-        hittable."""
+        hittable and keeps ``state``, the prefill carry after the block
+        (the caller's snapshot: it must not change afterwards)."""
         chain = self._chains.get(slot, ())
         if block_idx >= len(chain):
             return
@@ -241,6 +262,7 @@ class BlockManager:
         e = self._entries.get(h)
         if e is not None and e.block == int(self.tables[slot, block_idx]):
             e.ready = True
+            e.state = state
 
     def ensure(self, slot: int, n_tokens: int) -> bool:
         """Grow ``slot`` to cover ``n_tokens`` positions (decode append),
@@ -295,6 +317,7 @@ class BlockManager:
         self._dirty_slots.add(slot)
         self._lengths[slot] = 0
         self._cached_tokens[slot] = 0
+        self._resume.pop(slot, None)
         self._free_slots.append(slot)
 
     def audit(self) -> Dict[str, int]:

@@ -118,6 +118,9 @@ def _flash_case(device, dtype, s, hq, hkv, d, seed, b=1):
     (1, 200, 8, 1, 128, True, 5),     # ragged S with a window
     (2, 64, 4, 4, 32, False, 0),      # non-causal, D 32
     (1, 512, 2, 2, 128, False, 0),    # non-causal, eight key tiles
+    (1, 1024, 32, 32, 96, True, 0),   # phi-3-vision's prefill, D 96
+    (1, 200, 32, 32, 96, True, 5),    # D 96, ragged S with a window
+    (1, 128, 8, 2, 96, False, 0),     # D 96, non-causal, G = 4
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, hq, hkv, d,
                                     causal, window):
@@ -195,6 +198,9 @@ def _paged_sweep_case(device, dtype, c, hq, hkv, bs, mb, d, seed):
     (16, 2, 2, 16, 1, 32),       # MB = 1: one split, direct output
     (32, 14, 2, 8, 65, 64),      # 224 rows: two row groups
     (16, 8, 1, 16, 64, 128),     # G = 8 at D 128
+    (16, 32, 32, 16, 32, 96),    # phi-3-vision's engine shape: G = 1, D 96
+    (16, 16, 16, 16, 16, 128),   # olmoe-1b-7b's engine shape: G = 1, D 128
+    (7, 14, 2, 8, 65, 96),       # D 96, C = 7, G = 7, MB = 65
 ])
 def test_prefill_kernel_sweep(cuda_device, dtype, window, c, hq, hkv, bs,
                               mb, d):
@@ -236,6 +242,9 @@ def test_prefill_split_widths_agree(cuda_device, monkeypatch, cols):
     (64, 2, 8, 64, 128),         # G = 32 at D 128
     (7, 1, 8, 1, 64),            # MB = 1: one split, direct output
     (16, 1, 32, 1, 32),          # MB = 1, G = 16, D 32, block 32
+    (32, 32, 16, 32, 96),        # phi-3-vision's engine shape: G = 1, D 96
+    (16, 16, 16, 16, 128),       # olmoe-1b-7b's engine shape: G = 1, D 128
+    (64, 2, 8, 65, 96),          # G = 32 at D 96: two row tiles
 ])
 def test_decode_kernel_sweep(cuda_device, dtype, window, hq, hkv, bs, mb, d):
     """The decode kernel over head dims, block sizes, q-head groups (one

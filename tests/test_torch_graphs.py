@@ -4,8 +4,8 @@ static input buffers and copies its outputs into its static outputs, so
 these tests hold that path — the one a replay takes on the card — to the
 JAX engine.
 
-For the four serving paths (paged dense, contiguous dense, contiguous MoE,
-recurrent) greedy tokens and every ``ServeStats`` counter equal the JAX
+For the six serving paths (paged dense, MoE and VLM, contiguous dense and
+MoE, recurrent) greedy tokens and every ``ServeStats`` counter equal the JAX
 engine's, a second ``run`` on the same engine (the pool's tensors kept and
 reset, the static signatures reused) equals the first, and a run under
 ``graphs.eager()`` equals both. A later call runs the first call's
@@ -50,6 +50,8 @@ PATHS = {
     "contiguous-dense": ("qwen2-0.5b", "contiguous"),
     "contiguous-moe": ("olmoe-1b-7b", "contiguous"),
     "recurrent": ("mamba2-780m", "contiguous"),
+    "paged-moe": ("olmoe-1b-7b", "paged"),
+    "paged-vlm": ("phi-3-vision-4.2b", "paged"),
 }
 
 

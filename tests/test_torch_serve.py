@@ -219,8 +219,8 @@ def test_engine_rejects_unported_options():
     for kw in (dict(tenants=object()), dict(sharding=object())):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):           # paged MoE: item 6
-        ServeEngine(get_config("olmoe-1b-7b", smoke=True), device="cpu",
+    with pytest.raises(ValueError):        # recurrent state is not paged
+        ServeEngine(get_config("mamba2-780m", smoke=True), device="cpu",
                     cache="paged")
     with pytest.raises(ValueError):
         ServeEngine(cfg, device="cpu", cache="blocks")
