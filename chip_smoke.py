@@ -40,18 +40,25 @@ Phases, each printed as it runs; any failure exits non-zero:
                  random and partly zero, f32 and bf16, each all-valid case
                  timed beside torch.bmm; the SSD
                  scan at mamba2-780m's forward shape ([2, 4096] tokens, 48
-                 heads of 64, state 128, chunk 256), the smoke widths, a
-                 chunk that halves (S 96), S 64 with chunk 128, a_log = -40
-                 (memoryless) and B = H = 1 (tolerance 5e-4; no PyTorch
-                 call computes it, so no library time), the full-width time
-                 printed beside the SIMT kernel's it replaced;
+                 heads of 64, state 128, chunk 256), at zamba2-7b's ([1,
+                 4096], 112 heads of 64, state 64, chunk 256), the smoke
+                 widths, a chunk that halves (S 96), S 64 with chunk 128,
+                 a_log = -40 (memoryless) and B = H = 1 (tolerance 5e-4;
+                 no PyTorch call computes it, so no library time), the
+                 mamba2 time printed beside the SIMT kernel's it replaced;
+                 flash also at whisper-large-v3's decoder shape ([1, 448,
+                 20, 64], causal, G 1, a partial row tile), timed beside
+                 its bound and SDPA;
   4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
-                 (olmoe-1b-7b smoke) and the mamba2 forward + decode chain
-                 (mamba2-780m smoke) on the card against the same paths on
-                 the CPU (plain versions, which the CPU tests hold against
-                 the JAX package); the mamba2 decode chain also against
-                 its forward's logits (2e-3);
+                 (olmoe-1b-7b smoke), the mamba2 forward + decode chain
+                 (mamba2-780m smoke), the zamba2 forward + decode chain
+                 (zamba2-7b smoke at 2 and at 5 Mamba2 blocks) and the
+                 whisper forward, prefill_cross_kv + decode chain
+                 (whisper-large-v3 smoke, 37 tokens) on the card against
+                 the same paths on the CPU (plain versions, which the CPU
+                 tests hold against the JAX package); each decode chain
+                 also against its forward's logits (2e-3);
   5. engine    — the full-width qwen2-0.5b paged engine (24 layers, random
                  weights from a seed) built by repro_torch.launch.serve's own
                  build function: 16 requests of 128-256 tokens after a shared
@@ -139,6 +146,33 @@ Phases, each printed as it runs; any failure exits non-zero:
                  token, so the SSD kernel launches 0 times here, as in the
                  reference. Then the profile of phase 6 over the same
                  requests (~2000 kernel launches a step, ~1.7 M a run);
+ 12. zamba2    — with the mamba2 engine freed, full-width zamba2-7b (81
+                 Mamba2 blocks, d_model 3584, 112 SSM heads of 64, state
+                 64, one shared attention block of 32 heads of 112 called
+                 13 times, ~6.75 B float32 weights from a seed):
+                 Model.forward and Model.loss on [1, 4096] random tokens,
+                 each launching the SSD kernel exactly 81 times (its plain
+                 version never); the forward again with the scan's plain
+                 version on the card; 128 decode steps against both
+                 forwards' logits (held to 2e-3 against the kernel's);
+     zamba2 engine — its contiguous engine on the same weights, three runs
+                 as in phase 5 (8 requests of 32-64 tokens, 32 new tokens
+                 each, 4 slots, horizon 8, max_len 256; the prefill
+                 replays a captured batch-1 decode step a token, so the
+                 SSD kernel launches 0 times) and a profiled replayed run;
+ 13. whisper   — with zamba2 freed, full-width whisper-large-v3 (32 encoder
+                 and 32 decoder layers, d_model 1280, 20 heads of 64,
+                 vocab 51866, ~2.0 B float32 weights from a seed):
+                 Model.forward and Model.loss on [1, 1500, 1280] frames and
+                 [1, 448] tokens, each launching flash exactly 32 times
+                 (the decoder's causal self-attention; the encoder and the
+                 cross attention run plain mha, as in the reference), the
+                 forward again with flash's plain version, then
+                 prefill_cross_kv and 64 decode steps against both (2e-3);
+     whisper engine — its contiguous engine on the same weights, text only
+                 as in the reference (cross K/V zero), the zamba2 engine's
+                 request set at max_len 448: three runs (flash launches 0
+                 times) and a profiled replayed run;
                  then the graphs_vs_eager summary line.
 
 The last two lines are the kernels record (one entry per TPU kernel, its
@@ -167,7 +201,7 @@ from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
-from repro_torch.models import layers, moe  # noqa: E402
+from repro_torch.models import encdec, layers, mamba2, moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serve import graphs  # noqa: E402
 
@@ -239,6 +273,24 @@ MAMBA2_ARGS = ["--arch", "mamba2-780m", "--preset", "full", "--engine",
                "--batch", "8", "--prompt-len", "128", "--max-new", "32",
                "--max-len", "256", "--decode-horizon", "8", "--seed", "0",
                "--device", "cuda"]
+#: zamba2-7b: SSM heads, head dim, state, chunk, the forward phase's
+#: sequence (batch 1) and its decode chain's length
+Z_H, Z_P, Z_N, Z_Q, Z_S, Z_CHAIN = 112, 64, 64, 256, 4096, 128
+#: whisper-large-v3: heads (q = kv), head_dim, the forward phase's decoder
+#: length, its decode chain's length
+W_H, W_D, W_S, W_CHAIN = 20, 64, 448, 64
+#: the zamba2-7b and whisper-large-v3 contiguous engines' request set: 8
+#: requests of 32-64 tokens, 32 new tokens each, 4 slots, horizon 8
+ZAMBA2_ARGS = ["--arch", "zamba2-7b", "--preset", "full", "--engine",
+               "continuous", "--cache", "contiguous", "--slots", "4",
+               "--batch", "8", "--prompt-len", "64", "--max-new", "32",
+               "--max-len", "256", "--decode-horizon", "8", "--seed", "0",
+               "--device", "cuda"]
+WHISPER_ARGS = ZAMBA2_ARGS[:1] + ["whisper-large-v3"] + ZAMBA2_ARGS[2:] + [
+    "--max-len", str(W_S)]
+#: the decode chains' tolerance against the forward's logits (the mamba2
+#: chain's, tests/test_smoke_archs.py:82-95)
+CHAIN_TOL = 2e-3
 
 
 def phase(name: str) -> None:
@@ -617,16 +669,18 @@ def flash_bound(s: int, hq: int, hkv: int, d: int, dtype, causal: bool,
 
 def check_flash(flush: torch.Tensor) -> dict:
     """The flash kernel against its plain version at olmoe-1b-7b's prefill
-    shape, at phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96]) and
-    at edge shapes; time the S = 256 f32 call (and, in ``other_shapes``,
-    phi-3-vision's)."""
+    shape, at phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96]), at
+    whisper-large-v3's decoder shape ([1, 448, 20, 64], causal: a partial
+    last row tile) and at edge shapes; time the S = 256 f32 call (and, in
+    ``other_shapes``, phi-3-vision's and whisper's)."""
     cases = [(128, OL_H, OL_H, OL_D, True, 0),
              (256, OL_H, OL_H, OL_D, True, 0),
              (128, 14, 2, 64, True, 5), (128, 14, 2, 64, False, 0),
              (200, OL_H, OL_H, OL_D, True, 0),
              (PHI_S, PHI_H, PHI_H, PHI_D, True, 0),
-             (200, PHI_H, PHI_H, PHI_D, True, 5)]
-    rec = None
+             (200, PHI_H, PHI_H, PHI_D, True, 5),
+             (W_S, W_H, W_H, W_D, True, 0)]
+    rec, others = None, []
     for (s, hq, hkv, d, causal, window) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device="cuda").manual_seed(s + hq + d)
@@ -664,8 +718,10 @@ def check_flash(flush: torch.Tensor) -> dict:
                     flash_bound(s, hq, hkv, d, dtype, True, 0, False)[1],
                     wrapper_times(lambda: ops.flash_attention(q, k, v),
                                   flush))
-            if (s, d, dtype) == (PHI_S, PHI_D, torch.float32):
-                phi = _record(
+            path = {(PHI_S, PHI_D): "phi-3-vision-4.2b forward",
+                    (W_S, W_D): "whisper-large-v3 forward"}.get((s, d))
+            if path and dtype is torch.float32 and not window:
+                others.append(_record(
                     "flash_attention", "flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:86", err,
                     time_ms(lambda: ops.flash_attention(q, k, v), flush),
@@ -676,10 +732,9 @@ def check_flash(flush: torch.Tensor) -> dict:
                             .scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True),
                             flush),
-                    dict(path="phi-3-vision-4.2b forward", B=1, S=s, Hq=hq,
-                         Hkv=hkv, D=d, causal=True, window=0,
-                         dtype="float32"))
-    rec["other_shapes"] = [{k: phi[k] for k in SHAPE_KEYS}]
+                    dict(path=path, B=1, S=s, Hq=hq, Hkv=hkv, D=d,
+                         causal=True, window=0, dtype="float32")))
+    rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
     return rec
 
 
@@ -778,11 +833,13 @@ def ssd_case(b: int, s: int, h: int, p: int, n: int, seed: int):
 
 
 def check_ssd(flush: torch.Tensor) -> dict:
-    """The SSD scan against its plain version at mamba2-780m's forward shape
-    and at edge shapes (tolerance 5e-4, tests/test_kernels.py:134's); time
-    the full-width call."""
+    """The SSD scan against its plain version at mamba2-780m's and
+    zamba2-7b's forward shapes and at edge shapes (tolerance 5e-4,
+    tests/test_kernels.py:134's); time both full-width calls (zamba2's in
+    ``other_shapes``)."""
     cases = [  # (B, S, H, P, N, chunk, what)
         (M2_B, M2_S, M2_H, M2_P, M2_N, M2_Q, "mamba2-780m forward"),
+        (1, Z_S, Z_H, Z_P, Z_N, Z_Q, "zamba2-7b forward"),
         (2, 256, 16, 32, 16, 32, "smoke widths"),
         (2, 96, 4, M2_P, M2_N, M2_Q, "S 96: the chunk halves to 32"),
         (2, 64, 4, M2_P, M2_N, 128, "S 64 with chunk 128"),
@@ -819,7 +876,18 @@ def check_ssd(flush: torch.Tensor) -> dict:
                 err, ms, plain_ms, *ssd_bound(b, s, h, p, n, q), None,
                 dict(B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"),
                 ssd_bound(b, s, h, p, n, q, mma=False)[1])
+        if what.startswith("zamba2"):
+            zamba = _record(
+                "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:66",
+                err, time_ms(lambda: ops.ssd_scan(x, a, bm, cm, chunk=q),
+                             flush),
+                time_ms(lambda: ssd.ssd_scan_plain(x, a, bm, cm, chunk=q),
+                        flush, reps=10),
+                *ssd_bound(b, s, h, p, n, q), None,
+                dict(path=what, B=b, S=s, H=h, P=p, N=n, Q=q,
+                     dtype="float32"))
         del x, a, bm, cm, out
+    rec["other_shapes"] = [{k: zamba[k] for k in SHAPE_KEYS}]
     return rec
 
 
@@ -905,6 +973,44 @@ def mamba2_logits(model, params, device):
     return outs
 
 
+def zamba2_logits(model, params, device):
+    """The hybrid forward over two 64-token rows (the scan kernel on the
+    card in every Mamba2 block, the shared block on plain mha), then the
+    decode chain over the same tokens (the shared block's K/V written at
+    each position); returns every logits tensor on the CPU."""
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 64), generator=g,
+                         dtype=torch.int32)
+    outs = [model.forward(params, {"tokens": toks.to(device)}).cpu()]
+    cache = model.init_cache(2, 64, device=device)
+    for t in range(64):
+        logits, cache = model.decode_step(params, cache,
+                                          toks[:, t:t + 1].to(device), t)
+        outs.append(logits.cpu())
+    return outs
+
+
+def whisper_logits(model, params, device):
+    """The encoder-decoder forward over 64 frames and two 37-token rows
+    (flash in every decoder layer on the card: a ragged S), then
+    ``prefill_cross_kv`` and the decode chain over the same tokens;
+    returns every logits tensor on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), generator=g,
+                         dtype=torch.int32)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=g)
+    outs = [model.forward(params, {"tokens": toks.to(device),
+                                   "frames": frames.to(device)}).cpu()]
+    cache = encdec.prefill_cross_kv(cfg, params, frames.to(device),
+                                    model.init_cache(2, 37, device=device))
+    for t in range(37):
+        logits, cache = model.decode_step(params, cache,
+                                          toks[:, t:t + 1].to(device), t)
+        outs.append(logits.cpu())
+    return outs
+
+
 def _to_cuda(tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(v) for k, v in tree.items()}
@@ -914,23 +1020,29 @@ def _to_cuda(tree):
 
 
 def check_reference() -> None:
-    for arch, path in (("qwen2-0.5b", paged_logits),
-                       ("olmoe-1b-7b", moe_logits),
-                       ("mamba2-780m", mamba2_logits)):
-        got = _check_reference(arch, path)
-    # the decode chain against the forward on the card (the check of
-    # tests/test_smoke_archs.py:82-95)
-    full, steps = got[0], torch.cat(got[1:], dim=1)
-    gap = (steps - full).abs().max().item()
-    print(f"mamba2-780m smoke on the card, 64 decode steps vs forward: "
-          f"max_abs_diff={gap:.3e} (tol 2e-3)", flush=True)
-    if not torch.allclose(steps, full, atol=2e-3, rtol=1e-5):
-        raise SystemExit("FAIL: the mamba2 decode chain disagrees with its "
-                         "forward on the card")
+    for arch, path, kw in (("qwen2-0.5b", paged_logits, {}),
+                           ("olmoe-1b-7b", moe_logits, {}),
+                           ("mamba2-780m", mamba2_logits, {}),
+                           ("zamba2-7b", zamba2_logits, {}),
+                           ("zamba2-7b", zamba2_logits, dict(n_layers=5)),
+                           ("whisper-large-v3", whisper_logits, {})):
+        got = _check_reference(arch, path, **kw)
+        if path is paged_logits or path is moe_logits:
+            continue
+        # the decode chain against the forward on the card (the check of
+        # tests/test_smoke_archs.py:82-95)
+        full, steps = got[0], torch.cat(got[1:], dim=1)
+        gap = (steps - full).abs().max().item()
+        what = f"{arch} smoke {kw or ''}"
+        print(f"{what} on the card, {steps.shape[1]} decode steps vs "
+              f"forward: max_abs_diff={gap:.3e} (tol 2e-3)", flush=True)
+        if not torch.allclose(steps, full, atol=2e-3, rtol=1e-5):
+            raise SystemExit(f"FAIL: the {what} decode chain disagrees with "
+                             "its forward on the card")
 
 
-def _check_reference(arch: str, path) -> list:
-    cfg = get_config(arch, smoke=True)
+def _check_reference(arch: str, path, **overrides) -> list:
+    cfg = get_config(arch, smoke=True, **overrides)
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
     gpu = _to_cuda(cpu)
@@ -941,8 +1053,8 @@ def _check_reference(arch: str, path) -> list:
     # kernels' online softmax vs the plain versions' single pass): logits
     # agree to ~1e-5; 1e-3 leaves margin without hiding a wrong mask.
     worst = max((a - b).abs().max().item() for a, b in zip(ref, got))
-    print(f"{arch} smoke, card vs CPU, {len(ref)} logits tensors: "
-          f"max_abs_diff={worst:.3e} (tol 1e-3)", flush=True)
+    print(f"{arch} smoke {overrides or ''}, card vs CPU, {len(ref)} logits "
+          f"tensors: max_abs_diff={worst:.3e} (tol 1e-3)", flush=True)
     if not all(torch.allclose(a, b, atol=1e-3, rtol=1e-3)
                for a, b in zip(ref, got)):
         raise SystemExit(f"FAIL: the card's {arch} path disagrees with the "
@@ -1645,36 +1757,253 @@ def run_mamba2() -> int:
 
 def run_mamba2_engine(summary: dict) -> None:
     """The full-width mamba2-780m contiguous engine (module docstring,
-    phase 9); the SSD kernel must not launch."""
-    args = serve_cli.build_parser().parse_args(MAMBA2_ARGS)
-    engine, _ = serve_cli.build(args)
-    res = serve_modes(engine, args, "mamba2-780m contiguous")
+    phase 11); the SSD kernel must not launch."""
+    run_recurrent_engine(summary, MAMBA2_ARGS, "mamba2-780m contiguous",
+                         "ssd_scan_")
+
+
+def run_recurrent_engine(summary: dict, argv, what: str, ours: str,
+                         params=None, modes=("replayed", "eager")) -> None:
+    """A full-width contiguous engine whose prefill replays one captured
+    batch-1 decode step a prompt token (mamba2, zamba2, whisper), on
+    ``params`` (weights drawn from the seed when None): its three runs
+    (``serve_modes``), its checks (outputs, finite cache, one prefill a
+    request, no hand-written kernel launched and no plain version called
+    — serving reaches neither the SSD scan nor flash, as in the reference
+    — decode horizons and the recurrent step as graphs) and profiled runs
+    of ``modes`` (``ours``: the name fragment of the kernels its forward
+    runs)."""
+    args = serve_cli.build_parser().parse_args(argv)
+    engine, _ = serve_cli.build(args, params=params)
+    res = serve_modes(engine, args, what)
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
-    _check_outputs("mamba2", engine, out, args.max_new)
+    _check_outputs(what, engine, out, args.max_new)
     finite = all(bool(torch.isfinite(b).all())
                  for b in engine.pool.buffers.values())
-    print(json.dumps({"mamba2_engine": {k: getattr(stats, k) for k in (
-        "n_requests", "new_tokens", "decode_rows_saved", "max_active",
-        "mean_latency_s")},
+    print(json.dumps({"recurrent_engine": {"what": what, **{
+        k: getattr(stats, k) for k in (
+            "n_requests", "new_tokens", "decode_rows_saved", "max_active",
+            "mean_latency_s")}},
         "prompt_tokens": sum(len(r.prompt) for r in out),
-        "ssd_scan_launches": counts["ssd_scan"],
-        "ssd_scan_plain_calls": counts["ssd_scan_plain"],
-        "state_finite": finite, "sample_output": out[0].output[:8]}),
-        flush=True)
-    print("ssd_scan launched 0 times in the mamba2 engine: serving prefills "
-          "by stepping the recurrent state, as the reference does", flush=True)
+        "launches": counts, "state_finite": finite,
+        "cache_gb_per_slot": sum(b.numel() * b.element_size() for b in
+                                 engine.pool.buffers.values())
+        / engine.pool.n_slots / 1e9,
+        "sample_output": out[0].output[:8]}), flush=True)
+    print(f"{what}: no kernel launched and no plain version called: serving "
+          "prefills by stepping the decode, as the reference does",
+          flush=True)
     if not finite:
-        raise SystemExit("FAIL: non-finite values in the recurrent state")
-    if counts["ssd_scan"] or counts["ssd_scan_plain"] or \
-            stats.prefill_dispatches != args.batch:
-        raise SystemExit("FAIL: the mamba2 engine ran the SSD scan or missed "
-                         "a prefill")
+        raise SystemExit(f"FAIL: {what}: non-finite values in the cache")
+    if any(counts.values()) or stats.prefill_dispatches != args.batch:
+        raise SystemExit(f"FAIL: {what} ran a kernel or a plain version "
+                         f"({counts}) or missed a prefill")
     if not {"contiguous", "recurrent_step"} <= _kinds(engine):
-        raise SystemExit(f"FAIL: mamba2 graphs {engine.graphs.keys}")
-    summary["mamba2-780m contiguous"] = _summary(res)
-    summary["mamba2-780m contiguous"]["busy_share"] = profile_engine(
-        engine, args, res, "ssd_scan_")
+        raise SystemExit(f"FAIL: {what} graphs {engine.graphs.keys}")
+    summary[what] = _summary(res)
+    summary[what]["bucket_gather_scatter_ms"] = bucket_copy_ms(engine.pool)
+    summary[what]["busy_share"] = profile_engine(engine, args, res, ours,
+                                                 modes)
+
+
+def bucket_copy_ms(pool) -> dict:
+    """Device ms of the copies a horizon over a bucket of W < n_slots rows
+    adds (``engine._contiguous_horizon``): every cache leaf's rows gathered
+    with ``index_select`` and scattered back with ``index_copy_`` (a full
+    bucket skips both), for W = 1, 2; printed beside the bytes moved over
+    HBM bandwidth."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    slot_bytes = sum(b.numel() * b.element_size()
+                     for b in pool.buffers.values()) / pool.n_slots
+    rec, dev = {}, next(iter(pool.buffers.values())).device
+    for w in (1, 2):
+        idx = torch.arange(w, device=dev)
+
+        @torch.inference_mode()          # the pool's tensors are inference
+        def copy():                      # tensors (made under the engine's)
+            for name, buf in pool.buffers.items():
+                ax = pool.batch_axes[name]
+                buf.index_copy_(ax, idx, buf.index_select(ax, idx))
+
+        rec[w] = time_ms(copy, flush, reps=10)
+        print(f"bucket of {w} row(s): gather + scatter {rec[w]:.4f} ms, "
+              f"{4 * w * slot_bytes / 1e9:.3f} GB moved, at HBM bandwidth "
+              f"{1e3 * 4 * w * slot_bytes / HBM_BPS:.4f} ms", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The model's SSD scans take the kernel's plain version (on the card)
+    while the context is open, with ``ops.ssd_scan``'s casts and chunk
+    rule."""
+    real = mamba2.kops.ssd_scan
+
+    def plain(xdt, a_log, B, C, chunk=128):
+        q = chunk
+        while xdt.shape[1] % q:
+            q //= 2
+        return ssd.ssd_scan_plain(*(t.float().contiguous()
+                                    for t in (xdt, a_log, B, C)), chunk=q)
+
+    mamba2.kops.ssd_scan = plain
+    try:
+        yield
+    finally:
+        mamba2.kops.ssd_scan = real
+
+
+def forward_and_loss(model, params, batch, wrapper, plain, what: str) -> dict:
+    """``Model.forward`` and ``Model.loss`` on ``batch``, each timed alone
+    with ``wrapper``'s launch counter and ``plain``'s call counter set to
+    0 just before: each must launch the kernel once a layer that runs it
+    (``model.cfg.n_layers``) and never call the plain version. Returns the
+    times, the launches, the loss and the logits."""
+    cfg, rec = model.cfg, {}
+    for name, fn in (("forward", model.forward), ("loss", model.loss)):
+        wrapper.launches = plain.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(params, batch)
+        torch.cuda.synchronize()
+        rec[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec[f"{name}_launches"] = wrapper.launches
+        if wrapper.launches != cfg.n_layers or plain.calls:
+            raise SystemExit(f"FAIL: {what} {name}: {wrapper.__name__} "
+                             f"launches {wrapper.launches} (want "
+                             f"{cfg.n_layers}), plain calls {plain.calls}")
+        if not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"FAIL: {what} {name} is not finite")
+        if name == "loss":
+            rec["loss"] = out.item()
+        else:
+            logits = out
+    want = tuple(batch["tokens"].shape) + (cfg.vocab_size,)
+    if tuple(logits.shape) != want:
+        raise SystemExit(f"FAIL: {what} logits {tuple(logits.shape)}, want "
+                         f"{want}")
+    rec["logits"] = logits
+    return rec
+
+
+def chain_gaps(what: str, steps, kernel, plain_path) -> dict:
+    """The decode chain's logits [T, V] against the forward's at the same
+    positions, with the kernel (held to ``CHAIN_TOL``) and with its plain
+    version on the card (printed beside it: the depth's share of the gap
+    and the kernel's are told apart)."""
+    rec = {"decode_steps": steps.shape[0],
+           "chain_vs_kernel_forward": (steps - kernel).abs().max().item(),
+           "chain_vs_plain_forward": (steps - plain_path).abs().max().item(),
+           "kernel_vs_plain_forward":
+               (kernel - plain_path).abs().max().item(),
+           "max_abs_logit": kernel.abs().max().item()}
+    print(f"{what}: {steps.shape[0]} decode steps vs the forward with the "
+          f"kernel {rec['chain_vs_kernel_forward']:.3e}, with its plain "
+          f"version {rec['chain_vs_plain_forward']:.3e} (tol {CHAIN_TOL}); "
+          f"kernel vs plain forward {rec['kernel_vs_plain_forward']:.3e}",
+          flush=True)
+    if not torch.allclose(steps, kernel, atol=CHAIN_TOL, rtol=1e-5):
+        raise SystemExit(f"FAIL: {what}: the decode chain differs from the "
+                         f"forward by {rec['chain_vs_kernel_forward']:.3e}")
+    return rec
+
+
+def run_zamba2(summary: dict) -> int:
+    """Full-width zamba2-7b (module docstring, phase 12): forward and loss
+    on [1, 4096] tokens (81 SSD launches each), the forward again with the
+    scan's plain version, a 128-step decode chain against both, then its
+    contiguous engine on the same weights. Returns the SSD kernel's
+    launches in one forward."""
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, Z_S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks,
+             "labels": torch.randint(0, cfg.vocab_size, (1, Z_S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    rec = {"params": sum(t.numel() for t in _leaves(params)),
+           "shared_block_calls": len(params["groups"]),
+           "mamba2_blocks": cfg.n_layers, "tokens": Z_S}
+    with torch.inference_mode():
+        model.forward(params, {"tokens": toks[:, :Z_Q]})        # warm-up
+        rec.update(forward_and_loss(model, params, batch, ops.ssd_scan,
+                                    ssd.ssd_scan_plain, "zamba2-7b"))
+        kernel = rec.pop("logits")[0, :Z_CHAIN].clone()
+        with plain_ssd():
+            plain_path = model.forward(params, {"tokens": toks})[0, :Z_CHAIN]
+        cache = model.init_cache(1, Z_CHAIN, device="cuda")
+        steps = []
+        t0 = time.perf_counter()
+        for t in range(Z_CHAIN):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1], t)
+            steps.append(logits[0, 0])
+        torch.cuda.synchronize()
+        rec["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / Z_CHAIN
+        rec.update(chain_gaps("zamba2-7b", torch.stack(steps), kernel,
+                              plain_path))
+        print(json.dumps({"zamba2_forward": rec}), flush=True)
+        launches = rec["forward_launches"]
+        del kernel, plain_path, cache, steps, logits
+    phase("zamba2 engine")
+    run_recurrent_engine(summary, ZAMBA2_ARGS, "zamba2-7b contiguous",
+                         "ssd_scan_", params, modes=("replayed",))
+    return launches
+
+
+def run_whisper(summary: dict) -> int:
+    """Full-width whisper-large-v3 (module docstring, phase 13): forward
+    and loss on [1, 1500, 1280] frames and [1, 448] tokens (32 flash
+    launches each), the forward again with flash's plain version,
+    ``prefill_cross_kv`` and a 64-step decode chain against both, then its
+    contiguous engine on the same weights. Returns flash's launches in one
+    forward."""
+    cfg = get_config("whisper-large-v3")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn(1, cfg.enc_seq, cfg.d_model, generator=g,
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, W_S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "frames": frames,
+             "labels": torch.randint(0, cfg.vocab_size, (1, W_S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    rec = {"params": sum(t.numel() for t in _leaves(params)),
+           "frames": cfg.enc_seq, "tokens": W_S}
+    with torch.inference_mode():
+        model.forward(params, {"tokens": toks[:, :64], "frames": frames})
+        rec.update(forward_and_loss(model, params, batch, ops.flash_attention,
+                                    fa.flash_attention_plain,
+                                    "whisper-large-v3"))
+        kernel = rec.pop("logits")[0, :W_CHAIN].clone()
+        with plain_flash():
+            plain_path = model.forward(params, batch)[0, :W_CHAIN]
+        t0 = time.perf_counter()
+        cache = encdec.prefill_cross_kv(
+            cfg, params, frames, model.init_cache(1, W_CHAIN, device="cuda"))
+        torch.cuda.synchronize()
+        rec["prefill_cross_kv_ms"] = 1e3 * (time.perf_counter() - t0)
+        steps = []
+        t0 = time.perf_counter()
+        for t in range(W_CHAIN):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1], t)
+            steps.append(logits[0, 0])
+        torch.cuda.synchronize()
+        rec["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / W_CHAIN
+        rec.update(chain_gaps("whisper-large-v3", torch.stack(steps), kernel,
+                              plain_path))
+        print(json.dumps({"whisper_forward": rec}), flush=True)
+        launches = rec["forward_launches"]
+        del kernel, plain_path, cache, steps, logits
+    phase("whisper engine")
+    run_recurrent_engine(summary, WHISPER_ARGS, "whisper-large-v3 contiguous",
+                         "flash_", params, modes=("replayed",))
+    return launches
 
 
 def main() -> int:
@@ -1753,6 +2082,19 @@ def main() -> int:
 
     phase("mamba2 engine")
     run_mamba2_engine(summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("zamba2")
+    paths["ssd_scan"]["zamba2-7b forward"] = run_zamba2(summary)
+    gc.collect()                    # the zamba2 engine and weights are gone
+    torch.cuda.empty_cache()
+
+    phase("whisper")
+    paths["flash_attention"]["whisper-large-v3 forward"] = run_whisper(
+        summary)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("summary")
     print(json.dumps({"graphs_vs_eager": summary}), flush=True)
 

@@ -1,7 +1,7 @@
 """Architecture configuration schema (a trimmed copy of ``repro.configs.base``).
 
-Only the fields the dense, VLM, MoE and SSM paths read are kept; the other
-families' fields arrive with their slices of the port.
+Only the fields the port's paths read are kept (the dense, VLM, MoE, SSM,
+hybrid and encoder-decoder families).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 class ArchConfig:
     # -- identity -----------------------------------------------------------
     arch_id: str
-    family: str                      # dense | vlm | moe | ssm (ported so far)
+    family: str                      # dense | vlm | moe | ssm | hybrid | encdec
     citation: str = ""
 
     # -- transformer geometry ------------------------------------------------
@@ -48,6 +48,13 @@ class ArchConfig:
     ssm_chunk: int = 256
     ssm_groups: int = 1
 
+    # -- hybrid (zamba2) ------------------------------------------------------
+    shared_attn_every: int = 0       # shared attn block before every N ssm blocks
+
+    # -- encoder-decoder (whisper) --------------------------------------------
+    n_enc_layers: int = 0
+    enc_seq: int = 0                 # stub-frontend frame count
+
     # -- vlm ------------------------------------------------------------------
     n_patches: int = 0               # stub-frontend patch count (the
                                      # sequence's prefix)
@@ -80,8 +87,9 @@ class ArchConfig:
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """The reference's per-arch smoke shape: same family and code paths,
     laptop-scale widths (2 layers, d_model 256, vocab 512; MoE: 4 experts,
-    top-2, expert width 128; SSM: state 16, head dim 32, chunk 32; VLM: 16
-    patches)."""
+    top-2, expert width 128; SSM and hybrid: state 16, head dim 32, chunk
+    32; hybrid: shared attention every 2 blocks; encdec: 2 encoder layers,
+    64 frames; VLM: 16 patches)."""
     kw = dict(
         n_layers=2,
         d_model=256,
@@ -95,8 +103,12 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     )
     if cfg.family == "moe":
         kw.update(n_experts=4, top_k=2, d_ff=128)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         kw.update(ssm_state=16, ssm_headdim=32, ssm_chunk=32)
+    if cfg.family == "hybrid":
+        kw.update(shared_attn_every=2)
+    if cfg.family == "encdec":
+        kw.update(n_enc_layers=2, enc_seq=64)
     if cfg.family == "vlm":
         kw.update(n_patches=16)
     if cfg.sliding_window:

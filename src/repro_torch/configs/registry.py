@@ -1,9 +1,10 @@
-"""Architecture registry for the port: the dense, VLM, MoE and SSM families.
+"""Architecture registry for the port: the dense, VLM, MoE, SSM, hybrid
+and encoder-decoder families.
 
 The values are copies of ``repro/configs/{qwen2_0_5b,llama3_2_1b,
-gemma3_27b,qwen2_7b,phi3_vision,olmoe_1b_7b,mamba2_780m}.py``. Other
-families of the reference registry raise ``NotImplementedError`` until
-their slice of the port lands.
+gemma3_27b,qwen2_7b,phi3_vision,olmoe_1b_7b,mamba2_780m,zamba2_7b,
+whisper_large_v3}.py``. phi3.5-moe, which one card does not hold, raises
+``NotImplementedError`` until sharded serving is ported.
 """
 from __future__ import annotations
 
@@ -49,10 +50,24 @@ _CONFIGS = {
         arch_id="mamba2-780m", family="ssm", citation="arXiv:2405.21060",
         n_layers=48, d_model=1536, d_ff=0, vocab_size=50280, ssm_state=128,
         ssm_expand=2, ssm_headdim=64, ssm_chunk=256, tie_embeddings=True),
+    # 81 Mamba2 blocks; one shared attention(+MLP) block before every 6 of
+    # them (13 calls, then 3 trailing blocks)
+    "zamba2-7b": ArchConfig(
+        arch_id="zamba2-7b", family="hybrid", citation="arXiv:2411.15242",
+        n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, head_dim=112,
+        d_ff=14336, vocab_size=32000, ssm_state=64, ssm_expand=2,
+        ssm_headdim=64, shared_attn_every=6),
+    # 32 encoder + 32 decoder layers; the mel + conv frontend is a stub: the
+    # caller supplies enc_seq precomputed frame embeddings
+    "whisper-large-v3": ArchConfig(
+        arch_id="whisper-large-v3", family="encdec",
+        citation="arXiv:2212.04356", n_layers=32, n_enc_layers=32,
+        d_model=1280, n_heads=20, n_kv_heads=20, head_dim=64, d_ff=5120,
+        vocab_size=51866, qkv_bias=True, pos_emb="sinusoidal", enc_seq=1500),
 }
 
-#: reference architectures whose families are not ported yet
-_LATER = ("whisper-large-v3", "phi3.5-moe-42b-a6.6b", "zamba2-7b")
+#: reference architectures not ported yet
+_LATER = ("phi3.5-moe-42b-a6.6b",)
 
 ARCH_IDS: List[str] = list(_CONFIGS)
 
@@ -60,8 +75,8 @@ ARCH_IDS: List[str] = list(_CONFIGS)
 def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
     if arch_id in _LATER:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: its family (or, for phi3.5-moe, "
-            "its sharded size) comes later (ROADMAP queue A, items 7 and 10)")
+            f"{arch_id!r} is not ported yet: its sharded size comes later "
+            "(ROADMAP queue A, item 10)")
     if arch_id not in _CONFIGS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     cfg = _CONFIGS[arch_id]

@@ -14,10 +14,17 @@ contiguous or the paged cache.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi-3-vision-4.2b --preset full --engine continuous \\
         --cache paged --slots 4 --batch 8 --prompt-len 256 --max-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --preset full --engine continuous --slots 4 --batch 8 \
+        --prompt-len 64 --max-new 32 --max-len 256 --verify
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --preset full --engine continuous \
+        --slots 4 --batch 8 --prompt-len 64 --max-new 32 --max-len 448
 
-Every attention family (dense, VLM, MoE) serves on both caches; the SSM
-family on the contiguous one. Serving is text-only for the VLM, as in the
-reference.
+Every attention family (dense, VLM, MoE) serves on both caches; the SSM,
+hybrid (zamba2) and encoder-decoder (whisper) families on the contiguous
+one. Serving is text-only for the VLM and for whisper, as in the
+reference: whisper's cross K/V stay zero (no encoder runs).
 
 The defaults are the reference CLI's (``repro/launch/serve.py``):
 ``--engine static --cache contiguous``, greedy decoding. ``--temperature``

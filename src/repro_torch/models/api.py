@@ -1,12 +1,14 @@
-"""Model facade (``repro/models/api.py:40-111``) for the dense, VLM, MoE and
-SSM families.
+"""Model facade (``repro/models/api.py:40-111``) for the dense, VLM, MoE,
+SSM, hybrid and encoder-decoder families.
 
 ``build_model(cfg)`` returns a ``Model`` with the reference's entry points:
 ``init``, ``loss``, ``forward``, ``init_cache``, ``decode_step`` and, for
 the attention families (dense, VLM, MoE), ``init_paged_cache``,
 ``paged_prefill_chunk``, ``paged_prefill_state`` and ``paged_decode_step``.
 The VLM family is the dense transformer with patch embeddings
-(``batch["patch_embeds"]``) in front of the text.
+(``batch["patch_embeds"]``) in front of the text; the encoder-decoder
+family's ``forward`` and ``loss`` take the stub frontend's frame
+embeddings (``batch["frames"]``).
 Parameters are passed explicitly, as in the reference, so one set of
 weights serves every caller; ``Model.forward(params, batch)`` makes the
 module callable.
@@ -19,10 +21,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import mamba2, moe, transformer
+from repro_torch.models import encdec, hybrid, mamba2, moe, transformer
 
 _FAMILY_MODULES = {"dense": transformer, "vlm": transformer, "moe": moe,
-                   "ssm": mamba2}
+                   "ssm": mamba2, "hybrid": hybrid, "encdec": encdec}
 
 
 class Model(nn.Module):
@@ -38,6 +40,9 @@ class Model(nn.Module):
         return self.module.init_params(self.cfg, generator, device)
 
     def forward(self, params, batch) -> torch.Tensor:
+        if self.cfg.family == "encdec":
+            return self.module.forward(self.cfg, params, batch["tokens"],
+                                       batch["frames"])
         if self.cfg.family == "vlm":
             return self.module.forward(self.cfg, params, batch["tokens"],
                                        patch_embeds=batch.get("patch_embeds"))
@@ -45,7 +50,7 @@ class Model(nn.Module):
 
     def loss(self, params, batch) -> torch.Tensor:
         """The training objective on ``batch`` (tokens, labels, optional
-        loss_mask; VLM: optional patch_embeds)."""
+        loss_mask; VLM: optional patch_embeds; encdec: frames)."""
         return self.module.loss_fn(self.cfg, params, batch)
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
@@ -54,8 +59,8 @@ class Model(nn.Module):
 
     def decode_step(self, params, cache, tokens, pos, write_valid=None):
         # write_valid (the frozen-row KV-write mask of a decode horizon)
-        # exists for the attention families; recurrent state has no
-        # positional write to mask, so the plain signature is kept there
+        # exists for the attention families; the recurrent, hybrid and
+        # encdec families keep the plain signature, as the reference's do
         if write_valid is None:
             return self.module.decode_step(self.cfg, params, cache, tokens,
                                            pos)
@@ -66,7 +71,7 @@ class Model(nn.Module):
         if not hasattr(self.module, name):
             raise ValueError(
                 f"family {self.cfg.family!r} has no paged decode cache "
-                "(recurrent state is O(1))")
+                "(the reference pages the attention families only)")
         return getattr(self.module, name)
 
     def init_paged_cache(self, n_blocks: int, block_size: int, dtype=None,
@@ -96,8 +101,4 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is ported later (ROADMAP queue A, item "
-            "7); the port covers the dense, VLM, MoE and SSM families")
     return Model(cfg)

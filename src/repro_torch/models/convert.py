@@ -10,6 +10,12 @@ That covers the three families the port has: the dense layer's
 ``we_down`` ``[L, E, F, D]`` and norms, and the mamba2 layer's
 ``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``,
 ``gate_norm``, ``out_proj`` and ``norm``, each sliced per layer.
+The hybrid family's ``shared`` layer maps as it is, its ``groups``
+``[G, every, ...]`` leaves become G lists of ``every`` block dicts and its
+``trailing`` ``[T, ...]`` leaves T block dicts (a stack the reference
+leaves out because it is empty becomes an empty list); the
+encoder-decoder family's ``enc_layers`` and ``dec_layers`` become one dict
+per layer beside ``enc_norm`` and ``dec_norm``.
 It never imports jax.
 """
 from __future__ import annotations
@@ -33,18 +39,33 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stacked: dict, device) -> list:
+    """Layer-stacked ``[L, ...]`` leaves -> L per-layer dicts on
+    ``device``."""
+    depth = {a.shape[0] for a in _leaves(stacked)}
+    if len(depth) != 1:
+        raise ValueError(f"layer leaves disagree on depth: {depth}")
+    return [_map(stacked, lambda a, i=i: _tensor(a[i], device))
+            for i in range(depth.pop())]
+
+
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """JAX dense-, MoE- or SSM-family params (numpy leaves) -> port params
-    on ``device``."""
-    n_layers = {a.shape[0] for a in _leaves(tree["layers"])}
-    if len(n_layers) != 1:
-        raise ValueError(f"layer leaves disagree on depth: {n_layers}")
-    return {
-        "emb": _map(tree["emb"], lambda a: _tensor(a, device)),
-        "layers": [_map(tree["layers"], lambda a, i=i: _tensor(a[i], device))
-                   for i in range(n_layers.pop())],
-        "final_norm": _tensor(tree["final_norm"], device),
-    }
+    """JAX params of any ported family (numpy leaves) -> port params on
+    ``device``."""
+    out = {}
+    for name, sub in tree.items():
+        if name in ("layers", "enc_layers", "dec_layers", "trailing"):
+            out[name] = _unstack(sub, device)
+        elif name == "groups":              # [G, every, ...] leaves
+            n_groups = next(_leaves(sub)).shape[0]
+            out[name] = [_unstack(_map(sub, lambda a, g=g: a[g]), device)
+                         for g in range(n_groups)]
+        else:
+            out[name] = _map(sub, lambda a: _tensor(a, device))
+    if "shared" in tree:                        # hybrid: empty stacks
+        out.setdefault("groups", [])
+        out.setdefault("trailing", [])
+    return out
 
 
 def _leaves(tree):

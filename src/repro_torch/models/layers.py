@@ -1,6 +1,7 @@
-"""Core layers, ported from ``repro/models/layers.py``: RMSNorm, RoPE, GQA
-attention with QKV bias (no cache, contiguous cache, paged cache), SwiGLU
-MLP, tied embeddings, the cross-entropy loss.
+"""Core layers, ported from ``repro/models/layers.py``: RMSNorm, RoPE and
+sinusoidal positions, GQA attention with QKV bias (no cache, contiguous
+cache, paged cache, cross attention), SwiGLU MLP, tied embeddings, the
+cross-entropy loss.
 
 Layers are plain functions over dicts of tensors, as in the reference; the
 sharding constraints of the reference are dropped (one device). KV writes,
@@ -62,6 +63,22 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_at(positions, d: int) -> torch.Tensor:
+    """The sinusoidal embeddings of integer ``positions`` (any shape) ->
+    [..., d] float32: even columns sin(pos * div), odd columns cos, the
+    arithmetic of one row of ``sinusoidal_pos_emb``."""
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / d))
+    angles = positions.float()[..., None] * div
+    return torch.stack([angles.sin(), angles.cos()], dim=-1).flatten(-2)
+
+
+def sinusoidal_pos_emb(max_len: int, d: int, device=None) -> torch.Tensor:
+    """[max_len, d] float32 table (``repro/models/layers.py:76``)."""
+    return sinusoid_at(torch.arange(max_len, device=device), d)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +237,7 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
 
 
 def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
-              kv_cache=None, cache_pos=None, kv_valid=None,
+              kv_cache=None, cache_pos=None, cross_kv=None, kv_valid=None,
               flash: bool = True):
     """Full attention layer (``repro/models/layers.py:418-486``).
 
@@ -234,13 +251,23 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
         place) and attention spans the cache under the per-row mask.
       * paged: ``kv_cache`` a ``PagedKV`` — the paged backend
         (``paged_decode_attention``).
+      * cross attention (encdec): ``cross_kv=(k, v)`` [B, Sk, Hkv, D]
+        precomputed from the encoder output; q attends all of it on plain
+        ``mha``, no position applied, and nothing is cached.
+    Self-attention that is not causal (the encoder's) runs on plain
+    ``mha``, as in the reference (``layers.py:481``).
     ``kv_valid`` masks K/V writes: [B, C] chunk validity for paged prefill
-    lanes, or a [B, 1] per-row freeze mask for decode. Cross attention
-    (encdec) comes with its family. ``flash=False`` keeps the no-cache
-    branch on plain ``mha``, as the reference's dense forward does
-    (``transformer.py:107``). Returns (out, new_kv_cache).
+    lanes, or a [B, 1] per-row freeze mask for decode. ``flash=False``
+    keeps the no-cache branch on plain ``mha``, as the reference's dense
+    forward does (``transformer.py:107``). Returns (out, new_kv_cache).
     """
     b, s, _ = x.shape
+    if cross_kv is not None:         # q only: k and v come precomputed
+        q = x @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        out = mha(q.reshape(b, s, cfg.n_heads, -1), *cross_kv, None)
+        return out.reshape(b, s, -1) @ p["wo"], None
     q, k, v = _qkv(p, cfg, x)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)

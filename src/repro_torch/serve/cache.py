@@ -9,7 +9,12 @@ per row.
 
 The attention families' cache is ``{"k", "v"}`` of ``[L, B, S, Hkv, D]``;
 the SSM family's is ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, N, P]}``
-(conv in ``cfg.dtype``, ssm in float32). The batch axis need not be the
+(conv in ``cfg.dtype``, ssm in float32); the hybrid's adds the shared
+block's ``attn_k`` / ``attn_v`` ``[G, B, S, Hkv, D]`` to per-group state
+``gconv`` / ``gssm`` with batch at axis 2 and trailing ``tconv`` /
+``tssm`` (zero-size where a model has no trailing blocks, which every
+operation carries through); encdec's adds the cross K/V ``ck`` / ``cv``
+``[L, B, enc_seq, Hkv, D]``. The batch axis need not be the
 same dimension in every leaf, so the pool infers each leaf's once, by
 diffing the shapes of two ``init_cache`` probes with different batch
 sizes built on ``device="meta"`` (no memory — the counterpart of the

@@ -11,10 +11,10 @@ it exactly:
   * prefill, contiguous: one forward pass per admitted request at its
     exact prompt length, capturing every layer's K/V (``return_cache``),
     padded to max_len and written into the request's slot — or, for the
-    recurrent (SSM) family, one captured batch-1 ``decode_step`` replayed
-    per prompt position on a zeroed state (the reference scans); the
-    first token is picked on the device and fetched (one host sync per
-    request);
+    recurrent (SSM), hybrid and encdec families, one captured batch-1
+    ``decode_step`` replayed per prompt position (an input of the graph)
+    on a zeroed cache (the reference scans); the first token is picked on
+    the device and fetched (one host sync per request);
   * prefill, paged: prompts run in ``block_size`` chunks, up to
     ``prefill_lanes`` joining requests per ``[P, block_size]`` dispatch
     (one captured dispatch per chunk-round and lane width, padded lanes
@@ -48,10 +48,13 @@ run with the same slot count reuses the previous run's pool and state,
 reset in place, and another slot count drops the graphs.
 ``graphs.eager()`` runs the same loop with no capture.
 
-The contiguous backend serves the dense, VLM, MoE and SSM families, the
-paged one the attention families (dense, VLM, MoE; the recurrent state is
-O(1) per slot and has nothing to page). Serving is text-only: the VLM
-patch prefix reaches ``forward`` and ``loss`` only, as in the reference.
+The contiguous backend serves every ported family (dense, VLM, MoE, SSM,
+hybrid, encdec), the paged one the attention families (dense, VLM, MoE),
+as in the reference. Serving is text-only: the VLM patch prefix reaches
+``forward`` and ``loss`` only, and the encdec engine never runs the
+encoder — the reference engine never calls ``prefill_cross_kv``, so every
+slot's cross K/V stay zero and the decoder's cross attention adds
+nothing.
 Tenants, fault injection, elastic reshapes, sharding, tracing and
 profiling are ported later and raise ``NotImplementedError`` naming their
 ROADMAP item.
@@ -80,8 +83,9 @@ from repro_torch.serve.paged import BlockManager
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
 
 CACHE_BACKENDS = ("contiguous", "paged")
-#: families whose layers attend over a KV cache: one-pass prefill, a
-#: write-masked decode horizon, a pageable cache (``engine.py:98``)
+#: families whose layers attend over a KV cache alone: one-pass prefill, a
+#: write-masked decode horizon, a pageable cache (``engine.py:98``); the
+#: others (ssm, hybrid, encdec) prefill by stepping ``decode_step``
 _ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 #: engine options of the reference that later slices port, by ROADMAP
@@ -202,7 +206,7 @@ class _DecodeState:
 
 
 class ServeEngine:
-    """Serving engine for the dense, VLM, MoE and SSM families.
+    """Serving engine for every ported family (module docstring).
 
     ``n_slots=None`` sizes the pool to the request set (static batching);
     a fixed ``n_slots`` turns on continuous batching. ``decode_horizon=K``
@@ -307,10 +311,13 @@ class ServeEngine:
         """tokens [1, S] -> (last logits [1, 1, V], a batch-1 cache dict for
         ``pool.write``) (``engine.py:455-484``). Attention families: one
         pass via the ``return_cache`` hook at the prompt's exact length
-        (eager), every leaf padded to max_len. Recurrent families: a
-        zeroed batch-1 state stepped through the prompt, one replay of the
-        captured ``decode_step`` per position (the reference scans); the
-        state is the engine's until the next prefill."""
+        (eager), every leaf padded to max_len. The recurrent, hybrid and
+        encdec families: a zeroed batch-1 cache stepped through the
+        prompt, one replay of the captured ``decode_step`` per position
+        (the reference scans), its position ``t`` a [1] int32 device tensor
+        copied into the graph's static input before each replay (the
+        hybrid's shared block and the decoder write their K/V there); the
+        cache is the engine's until the next prefill."""
         if self.cfg.family not in _ATTN_FAMILIES:
             if self._row is None:
                 self._row = self.model.init_cache(1, self.max_len,
@@ -319,12 +326,14 @@ class ServeEngine:
             for buf in row.values():
                 buf.zero_()
 
-            def step(tok):
-                return self.model.decode_step(self.params, row, tok, 0)[0]
+            def step(tok, pos):
+                return self.model.decode_step(self.params, row, tok, pos)[0]
 
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                     device=self.device)
             for t in range(tokens.shape[1]):
                 logits = self.graphs(("recurrent_step",), step,
-                                     tokens[:, t:t + 1])
+                                     tokens[:, t:t + 1], positions[t:t + 1])
             return logits, row
         logits, (k, v) = self.model.module.forward(self.cfg, self.params,
                                                    tokens, return_cache=True)
@@ -503,8 +512,10 @@ class ServeEngine:
         leaf's batch axis with ``index_select`` (unless ``full``: every
         slot decodes, idle rows frozen and inert), decode with
         ``write_valid`` = the live rows, and scatter the rows back with
-        ``index_copy_``. Recurrent families decode without ``write_valid``:
-        their frozen rows recompute state that slot reuse overwrites.
+        ``index_copy_``. The recurrent, hybrid and encdec families decode
+        without ``write_valid``, as the reference's unmasked path does:
+        their frozen rows recompute state (and rewrite K/V at their frozen
+        position) that slot reuse overwrites.
         Returns the [W, h] int32 token block."""
         if full:
             ix, sub = None, pool.buffers

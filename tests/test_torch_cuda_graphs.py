@@ -1,6 +1,8 @@
 """The engine's captured CUDA graphs (``repro_torch/serve/graphs.py``) on
-the card, at smoke size, for the six serving paths (paged dense, MoE and
-VLM, contiguous dense and MoE, recurrent).
+the card, at smoke size, for the eight serving paths (paged dense, MoE and
+VLM, contiguous dense and MoE, and the three families that prefill by
+replaying one captured decode step: recurrent, hybrid and
+encoder-decoder).
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one. The file imports neither JAX nor the JAX package:
@@ -37,6 +39,8 @@ PATHS = {
     "recurrent": ("mamba2-780m", "contiguous"),
     "paged-moe": ("olmoe-1b-7b", "paged"),
     "paged-vlm": ("phi-3-vision-4.2b", "paged"),
+    "recurrent-hybrid": ("zamba2-7b", "contiguous"),
+    "recurrent-encdec": ("whisper-large-v3", "contiguous"),
 }
 
 
@@ -99,6 +103,10 @@ def test_graph_run_equals_eager_run(cuda_device, path):
         assert first[2][1] > 0 and first[2][2] > 0   # never
     if (arch, cache) == ("olmoe-1b-7b", "contiguous"):
         assert first[2][0] > 0                       # flash in the prefill
+    if path.startswith("recurrent"):
+        # the prefill replays a captured decode step; no kernel runs
+        assert ("recurrent_step",) in engine.graphs.keys
+        assert sum(first[2]) == 0
     assert sum(first[2][5:]) == 0
     # a new engine on the same weights: a new pool, captured anew
     assert _run(_engine(arch, cache, params=engine.params)) == first

@@ -121,6 +121,8 @@ def _flash_case(device, dtype, s, hq, hkv, d, seed, b=1):
     (1, 1024, 32, 32, 96, True, 0),   # phi-3-vision's prefill, D 96
     (1, 200, 32, 32, 96, True, 5),    # D 96, ragged S with a window
     (1, 128, 8, 2, 96, False, 0),     # D 96, non-causal, G = 4
+    (1, 448, 20, 20, 64, True, 0),    # whisper-large-v3's decoder: G 1,
+                                      # a partial last row tile
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, hq, hkv, d,
                                     causal, window):
@@ -405,6 +407,8 @@ def _ssd_case(device, b, s, h, p, n, seed):
     (2, 96, 3, 64, 64, 32),          # ragged row tiles, 3 chunks
     (1, 64, 1, 32, 16, 128),         # chunk halves to S
     (1, 40, 2, 48, 8, 8),            # P not a multiple of 32
+    (1, 512, 112, 64, 64, 256),      # zamba2-7b's widths: 112 heads, N 64
+    (1, 4096, 112, 64, 64, 256),     # zamba2-7b's forward shape
 ])
 def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk):
     x, a, B, C = _ssd_case(cuda_device, b, s, h, p, n, s + n)
