@@ -27,7 +27,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  table full at MB 64), each beside SDPA; the paged decode
                  and prefill at the olmoe-1b-7b and phi-3-vision-4.2b paged
                  engines' shapes (16/16 heads of 128 and 32/32 heads of 96,
-                 G 1; f32 and bf16, window 0 and 5, an all -1 row; the f32
+                 G 1) and at the chaos phase's (14/2 heads of 64, MB 16, a
+                 96-block pool, decode B 8 and prefill [4, 16] at positions
+                 32-96; f32 and bf16, window 0 and 5, an all -1 row; the f32
                  call timed beside its plain version, SDPA and its bound);
                  flash attention at olmoe-1b-7b's prefill shape
                  ([1, S, 16, 128], S 128 and 256, causal), at
@@ -94,7 +96,25 @@ Phases, each printed as it runs; any failure exits non-zero:
                  must draw the same tokens; between its replays the greedy
                  engine serves the same set, and the prefill ms a round and
                  decode ms a step of both print;
-  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
+      chaos     — the engine phase's qwen2-0.5b weights on a paged engine
+                 of 8 slots, block 16, max_len 256, horizon 8, 4 lanes and
+                 48 blocks: 24 Philly requests (+4 burst) for two tenants
+                 in SLO-slack order under an allocation, all eight fault
+                 kinds and an elastic controller, two growths of the pool
+                 (48 -> 88 -> 96 blocks). Three runs as in phase 5, every
+                 counter 0 before each: they must agree in tokens, faults,
+                 drops and causes, every ServeStats counter and launch
+                 count, the pool auditing clean; both paged kernels must
+                 launch, the plain versions never. Each run ends with a
+                 grown pool, so the next starts from a new pool and no
+                 graph: the "replayed" run recaptures its signatures and
+                 its figures are a recapture run's. The captured run holds
+                 each growth's new pools against the old ones (torch.equal
+                 on the leading slice, outside the migration's timer).
+                 Then run_replay(verify=True) against the fault-free K=1
+                 static contiguous engine on the same weights, and the set
+                 without faults on a second engine, captured then replayed;
+ 7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (16 layers, 64 experts top-8, ~6.9 B
                  float32 weights from a seed), its three runs as in phase 5:
                  8 requests of 64-128 tokens, 64 new tokens each, 4 slots,
@@ -204,6 +224,11 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import encdec, layers, mamba2, moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serve import graphs  # noqa: E402
+from repro_torch.serve import (BlockManager, ElasticController,  # noqa: E402
+                               FaultInjector, FaultSchedule, ServeEngine,
+                               Tenant, TenantRegistry, philly_requests,
+                               plan_allocation, profiles_from_requests,
+                               run_replay)
 
 HQ, HKV, D, BS, MAX_LEN, SLOTS = 14, 2, 64, 16, 1024, 8
 MB = MAX_LEN // BS
@@ -242,11 +267,15 @@ OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
 #: phi-3-vision-4.2b: q = kv heads, head_dim; the forward phase's
 #: sequence (576 patch positions, then text) and patch count
 PHI_H, PHI_D, PHI_S, PHI_P = 32, 96, 1024, 576
-#: the paged engines' kernel shapes: (path, Hq = Hkv, D, MB, slots, the
-#: positions the engine's requests span)
-PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_D, 256 // BS, 4, 96, 224),
-                ("phi-3-vision-4.2b paged", PHI_H, PHI_D, 512 // BS, 4, 128,
-                 288))
+#: the paged engines' kernel shapes: (path, Hq, Hkv, D, MB, NB, decode
+#: rows, prefill rows, the positions the engine's requests span); the
+#: chaos engine's pool grows from 48 to 96 blocks, its largest is held
+PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_H, OL_D, 256 // BS, 64, 4, 4,
+                 96, 224),
+                ("phi-3-vision-4.2b paged", PHI_H, PHI_H, PHI_D, 512 // BS,
+                 128, 4, 4, 128, 288),
+                ("qwen2-0.5b chaos", HQ, HKV, D, 256 // BS, 96, SLOTS, 4, 32,
+                 96))
 #: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
 #: batch and sequence
 M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
@@ -291,6 +320,22 @@ WHISPER_ARGS = ZAMBA2_ARGS[:1] + ["whisper-large-v3"] + ZAMBA2_ARGS[2:] + [
 #: the decode chains' tolerance against the forward's logits (the mamba2
 #: chain's, tests/test_smoke_archs.py:82-95)
 CHAIN_TOL = 2e-3
+#: the chaos phase: the engine phase's qwen2-0.5b weights on a paged
+#: engine of 8 slots, block 16, max_len 256, horizon 8, 4 lanes and
+#: CHAOS_BLOCKS blocks (16 slots' worth of requests need up to 6 each);
+#: 24 Philly requests at 2 a step (prompts 32-64, budgets 1-32), jobs of
+#: more than one GPU on the "batch" tenant
+CHAOS_BLOCKS = 48
+CHAOS_REQS = dict(n=24, load=2.0, prompt_len=64, max_new=32, seed=7,
+                  max_len=256)
+#: all eight kinds: a shrink and a device failure that come back, a join
+#: past the constructed pool (``grow_physical`` migrates the live blocks)
+CHAOS_FAULTS = ("defer_storm@2:duration=3,tenant_slowdown@4:tenant=batch:"
+                "duration=6,slot_kill@6,arrival_burst@8:n=4:prompt_len=64:"
+                "max_new=16:tenant=interactive,prefix_flush@10,"
+                "pool_shrink@12:blocks=20:restore_after=8,"
+                "device_fail@16:blocks=8:restore_after=10,"
+                "device_join@22:blocks=40")
 
 
 def phase(name: str) -> None:
@@ -361,9 +406,10 @@ def make_case(b: int, c: int, dtype, seed: int, pad_row: bool,
                           dtype=torch.int32)
     perm = torch.randperm(nb, generator=g, device="cuda").to(torch.int32)
     tables = torch.full((b, mb), -1, dtype=torch.int32, device="cuda")
+    stride = min(mb, nb // b)               # a pool of fewer than b * MB
     for i in range(b - 1 if pad_row else b):
         n = (int(start[i]) + c - 1) // BS + 1
-        tables[i, :n] = perm[i * mb:i * mb + n]
+        tables[i, :n] = perm[i * stride:i * stride + n]
     q = torch.randn(b, c, hq, d, generator=g, device="cuda").to(dtype)
     return (q[:, 0] if c == 1 else q), kp, vp, tables, start
 
@@ -567,20 +613,22 @@ SHAPE_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
 def check_engine_shapes(flush: torch.Tensor, rec: dict) -> None:
     """The paged kernels at the shapes of the olmoe-1b-7b and
     phi-3-vision-4.2b paged engines (one q head a kv head: G 1; head_dim
-    128 and 96): f32 and bf16, window 0 and 5, a last all -1 row that must
-    come out zero, against the plain versions; the f32 window-0 call timed
-    beside its plain version, SDPA on the gathered K/V and its bound, kept
-    in the kernel's ``other_shapes``."""
-    for path, hq, d, mb, slots, lo, hi in PAGED_SHAPES:
-        shape = (hq, hq, d, mb, slots * mb)
+    128 and 96) and of the chaos phase's qwen2-0.5b engine (14 / 2 heads
+    of 64, MB 16, its grown 96-block pool): f32 and bf16, window 0 and 5,
+    a last all -1 row that must come out zero, against the plain versions;
+    the f32 window-0 call timed beside its plain version, SDPA on the
+    gathered K/V and its bound, kept in the kernel's ``other_shapes``."""
+    for path, hq, hkv, d, mb, nb, dec_b, pre_b, lo, hi in PAGED_SHAPES:
+        shape = (hq, hkv, d, mb, nb)
         for name, kern in KERNELS.items():
-            b, c = (slots, 1) if name == "paged_decode" else (slots, BS)
+            b, c = (dec_b, 1) if name == "paged_decode" else (pre_b, BS)
             for dtype in (torch.float32, torch.bfloat16):
                 for window in (0, 5):
                     args = make_case(b, c, dtype, seed=hq + d + window,
                                      pad_row=True, lo=lo, hi=hi, shape=shape)
-                    what = (f"{name} {path} shape B={b} C={c} Hq=Hkv={hq} "
-                            f"D={d} {str(dtype)[6:]} window={window}")
+                    what = (f"{name} {path} shape B={b} C={c} Hq={hq} "
+                            f"Hkv={hkv} D={d} {str(dtype)[6:]} "
+                            f"window={window}")
                     out = kern["wrapper"](*args, window)
                     _compare(what, out, kern["plain"](*args, window), dtype)
                     if not bool((out[-1] == 0).all()):
@@ -598,8 +646,8 @@ def check_engine_shapes(flush: torch.Tensor, rec: dict) -> None:
                 time_ms(lambda: kern["plain"](*args, 0), flush),
                 *bound_terms(q, kp, tables, start, c, 0, True),
                 time_ms(sdpa_call(q, kp, vp, tables, start, c, 0), flush),
-                dict(path=path, B=b, C=c, Hq=hq, Hkv=hq, D=d, BS=BS, MB=mb,
-                     positions=[lo, hi], dtype="float32"))
+                dict(path=path, B=b, C=c, Hq=hq, Hkv=hkv, D=d, BS=BS, MB=mb,
+                     NB=nb, positions=[lo, hi], dtype="float32"))
             rec[name].setdefault("other_shapes", []).append(
                 {k: r[k] for k in SHAPE_KEYS})
 
@@ -1151,18 +1199,245 @@ def _kinds(engine) -> set:
     return {k[0] for k in engine.graphs.keys}
 
 
-def run_engine(summary: dict) -> dict:
+def run_engine(summary: dict) -> tuple:
     """The full-width qwen2-0.5b paged engine (module docstring, phases 5
     and 6): ``run_paged_engine`` with a replayed and an eager profile,
     then the sampled phase. Returns each paged kernel's launches in the
-    captured run."""
+    captured run and the engine's weights."""
     args = serve_cli.build_parser().parse_args(ENGINE_ARGS)
     what = "qwen2-0.5b paged"
     engine, _, launches = run_paged_engine(summary, args, what, None,
                                            modes=("replayed", "eager"))
     phase("sampled")
     summary[what]["sampled_vs_greedy"] = run_sampled(engine)
+    params = engine.params
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, params
+
+
+def chaos_engine(cfg, params, device, faults: bool = True):
+    """The chaos phase's engine on ``params`` and a function that makes
+    its request set anew (module docstring, chaos): two tenants,
+    SLO-slack order and an allocation planned on the analytic profile;
+    with ``faults``, ``CHAOS_FAULTS`` and an elastic controller."""
+    def make():
+        return philly_requests(
+            cfg.vocab_size, tenant_of=lambda job: (
+                "batch" if job.gpu_demand > 1 else "interactive"),
+            **CHAOS_REQS)
+    registry = TenantRegistry([Tenant("interactive", weight=2.0,
+                                      slo_steps=64.0), Tenant("batch")])
+    profiles = profiles_from_requests(
+        registry, make(), total_units=CHAOS_BLOCKS, max_k=8,
+        units_for=lambda r: -(-(len(r.prompt) + r.max_new_tokens) // BS))
+    allocation = plan_allocation(registry, profiles, CHAOS_BLOCKS,
+                                 total_lanes=4, max_k=8,
+                                 watermark_units=-(-CHAOS_BLOCKS // 20))
+    kw = {}
+    if faults:
+        kw = dict(injector=FaultInjector(FaultSchedule.from_spec(
+            CHAOS_FAULTS)), elastic=ElasticController())
+    engine = ServeEngine(cfg, params=params, max_len=CHAOS_REQS["max_len"],
+                         n_slots=SLOTS, policy="slo", cache="paged",
+                         block_size=BS, n_blocks=CHAOS_BLOCKS,
+                         prefill_lanes=4, decode_horizon=8,
+                         tenants=registry, allocation=allocation,
+                         device=device, **kw)
+    return engine, make
+
+
+def _chaos_record(engine, out, stats) -> dict:
+    """What the chaos phase's runs must share: tokens, the injected faults,
+    the dropped ids and causes, each request's retries and preemptions,
+    every ServeStats counter (the per-tenant block without its wall-clock
+    entries)."""
+    counters = {f.name: getattr(stats, f.name)
+                for f in dataclasses.fields(stats) if f.name not in TIMES}
+    counters["tenants"] = {
+        tid: {k: v for k, v in d.items() if not k.endswith("_s")}
+        for tid, d in (stats.tenants or {}).items()}
+    return dict(tokens=[r.output for r in out],
+                budgets=[r.max_new_tokens for r in out],
+                injected=list(engine.injector.injected),
+                dropped=[(r.job_id, r.drop_cause) for r in out if r.dropped],
+                requeued=[(r.n_retries, r.n_preempted) for r in out],
+                counters=counters)
+
+
+def chaos_runs(engine, make) -> dict:
+    """Serve the chaos set once per mode (``MODES``) on one engine, every
+    launch counter 0 before each run and read after; the first run also
+    checks each growth's new pools against the old ones (``torch.equal``
+    on the leading slice). Fails unless the runs agree in their records
+    and launches, the pool audits clean after each, and the captured and
+    replayed runs replayed graphs. Every run here ends with a grown pool,
+    so the next one starts from a new pool and no graph: the "replayed"
+    run captures its signatures again, as the captured run does (ROADMAP
+    B9); ``first_calls`` counts them. Returns {mode: dict(record, stats,
+    launches, replays, first_calls, migrations)}."""
+    cuda = engine.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grown, pending = [], []
+    grow = BlockManager.grow_physical
+    drop_graphs = engine.graphs.reset
+
+    def keep_old(pool, n):
+        # references only: the engine times grow_physical and its sync,
+        # then drops the graphs, where the comparison runs outside the timer
+        pending.append((pool, pool.buffers))
+        return grow(pool, n)
+
+    def check_then_drop():
+        while pending:
+            pool, old = pending.pop()
+            nb = old["k"].shape[1]
+            grown.append(all(torch.equal(pool.buffers[name][:, :nb],
+                                         old[name]) for name in ("k", "v")))
+        drop_graphs()
+
+    res = {}
+    for mode in MODES:
+        reqs = make()
+        ops.set_counts((0,) * len(ops.COUNTERS))
+        replays = engine.graphs.replays
+        sync()
+        if mode == MODES[0]:
+            BlockManager.grow_physical = keep_old
+            engine.graphs.reset = check_then_drop
+        try:
+            with _mode(mode):
+                out, stats = engine.run(reqs)
+        finally:
+            BlockManager.grow_physical = grow
+            engine.graphs.reset = drop_graphs
+        if pending:
+            raise SystemExit("FAIL: chaos: a growth's pools were never "
+                             "compared")
+        sync()
+        launches = dict(zip(COUNTER_NAMES, ops.counts()))
+        audit = engine.pool.audit()
+        # the run started with no graph: the previous run grew its pool
+        first_calls = len(engine.graphs.keys) + sum(
+            m["graphs_dropped"] for m in engine.migrations)
+        res[mode] = dict(record=_chaos_record(engine, out, stats),
+                         stats=stats, launches=launches,
+                         replays=engine.graphs.replays - replays,
+                         first_calls=first_calls,
+                         migrations=list(engine.migrations))
+        print(json.dumps({"chaos": mode, **{k: getattr(stats, k) for k in (
+            "wall_s", "tokens_per_s", "n_requests", "new_tokens", "steps",
+            "decode_dispatches", "prefill_dispatches", "faults_injected",
+            "recoveries", "dropped", "preemptions", "scale_ups",
+            "scale_downs", "migrated_blocks", "replans")},
+            "decode_ms_per_step": 1e3 * stats.decode_s / stats.steps,
+            "prefill_ms_per_round":
+                1e3 * stats.prefill_s / stats.prefill_dispatches,
+            "injected": engine.injector.injected,
+            "dropped_ids": res[mode]["record"]["dropped"],
+            "migrations": [{k: m[k] for k in ("step", "blocks", "added",
+                                              "bytes", "graphs_dropped")}
+                           | {"ms": 1e3 * m["dur_s"]}
+                           for m in engine.migrations],
+            "graph_signatures": len(engine.graphs.keys),
+            "graph_first_calls": first_calls,
+            "graph_replays": res[mode]["replays"], "audit": audit,
+            "launches": {k: v for k, v in launches.items() if v}}),
+            flush=True)
+    base = res[MODES[0]]
+    for mode in MODES[1:]:
+        r = res[mode]
+        diff = [k for k in base["record"]
+                if r["record"][k] != base["record"][k]]
+        if diff or r["launches"] != base["launches"]:
+            raise SystemExit(f"FAIL: chaos: the {mode} run differs from the "
+                             f"captured run in {diff} / launches "
+                             f"{r['launches']} vs {base['launches']}")
+    if (res["eager"]["replays"] or not base["replays"]
+            or not res["replayed"]["replays"]):
+        raise SystemExit(f"FAIL: chaos: replays "
+                         f"{[res[m]['replays'] for m in MODES]}")
+    if not grown or not all(grown):
+        raise SystemExit(f"FAIL: chaos: grow_physical's new pools hold the "
+                         f"old blocks: {grown}")
+    print(f"chaos: captured, eager and replayed runs agree in tokens, "
+          f"faults, drops and {len(base['record']['counters'])} counters "
+          f"and launches; {len(grown)} growth(s) kept every block "
+          f"(torch.equal); the replayed run recaptured "
+          f"{res['replayed']['first_calls']} signatures (its pool was new) "
+          f"and replayed {res['replayed']['replays']} times", flush=True)
+    return res
+
+
+def run_chaos(summary: dict, params) -> dict:
+    """The chaos phase (module docstring) on the engine phase's
+    weights. Returns each paged kernel's launches in the captured run."""
+    cfg = get_config("qwen2-0.5b")
+    engine, make = chaos_engine(cfg, params, "cuda")
+    res = chaos_runs(engine, make)
+    base = res["captured"]
+    rec, stats, counts = base["record"], base["stats"], base["launches"]
+    kinds = {k for k, _ in rec["injected"]}
+    launches = {"paged_decode": counts["paged_attention"],
+                "paged_prefill": counts["paged_prefill_attention"]}
+    plain_calls = sum(v for k, v in counts.items() if k.endswith("_plain"))
+    # a dropped request holds no token, every other its whole budget
+    dropped = {jid for jid, _ in rec["dropped"]}
+    out_ok = all(
+        (not t) if i in dropped else (
+            len(t) == n and all(0 <= x < cfg.vocab_size for x in t))
+        for i, (t, n) in enumerate(zip(rec["tokens"], rec["budgets"])))
+    if (min(launches.values()) <= 0 or plain_calls
+            or counts["flash_attention"] or not out_ok):
+        raise SystemExit(f"FAIL: chaos: launches {launches}, plain calls "
+                         f"{plain_calls}, flash {counts['flash_attention']},"
+                         f" outputs ok {out_ok}")
+    if (not {"pool_shrink", "slot_kill", "tenant_slowdown", "arrival_burst",
+             "prefix_flush", "defer_storm", "device_fail",
+             "device_join"} <= kinds or not stats.migrated_blocks
+            or not stats.scale_downs):
+        raise SystemExit(f"FAIL: chaos: faults {rec['injected']}, migrated "
+                         f"{stats.migrated_blocks}, scale-downs "
+                         f"{stats.scale_downs}")
+    # every request not dropped against the fault-free static contiguous
+    # engine at K=1 on the same weights
+    replay = run_replay(engine, make(), verify=True, ref_cfg=cfg)
+    print(json.dumps({"chaos_verify": {
+        "verified": replay.verified, "mismatched": replay.mismatched,
+        "scored": len(replay.requests) - len(replay.dropped),
+        "dropped": replay.dropped}}), flush=True)
+    if not replay.verified:
+        raise SystemExit(f"FAIL: chaos: requests {replay.mismatched} differ "
+                         "from the fault-free static contiguous engine")
+    # the same request set without faults, beside the engine phase's step
+    free, _ = chaos_engine(cfg, params, "cuda", faults=False)
+    for _ in range(2):                       # capture, then replay
+        out, free_stats = free.run(make())
+    same = sum(o.output == t for o, t in zip(out, rec["tokens"]))
+    # the "replayed" mode's run starts from no graph and recaptures every
+    # signature (chaos_runs): its figures are a recapture run's
+    again = res["replayed"]
+    rec = {"recapture_run": {
+               "wall_s": again["stats"].wall_s,
+               "first_calls": again["first_calls"],
+               "replays": again["replays"],
+               **_per_step(again["stats"])},
+           "fault_free_decode_ms_per_step":
+               1e3 * free_stats.decode_s / free_stats.steps,
+           "fault_free_wall_s": free_stats.wall_s,
+           "fault_free_tokens_equal": f"{same} of {len(out)}",
+           "engine_phase_decode_ms_per_step":
+               summary["qwen2-0.5b paged"]["replayed"]["decode_ms_per_step"],
+           "migrations": {mode: [
+               {"ms": 1e3 * m["dur_s"], "bytes": m["bytes"],
+                "blocks": m["blocks"], "added": m["added"],
+                "graphs_dropped": m["graphs_dropped"]}
+               for m in res[mode]["migrations"]] for mode in MODES},
+           "graph_signatures_after": len(engine.graphs.keys)}
+    print(json.dumps({"chaos_summary": rec}), flush=True)
+    summary["qwen2-0.5b chaos"] = rec
+    del engine, free
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2049,9 +2324,15 @@ def main() -> int:
     summary = {}
     #: each kernel's launches in the captured run of each path
     paths = {name: {} for name in rec}
-    launches = run_engine(summary)  # and the profile and sampled phases
+    # and the profile and sampled phases
+    launches, params = run_engine(summary)
     for name, n in launches.items():
         paths[name]["qwen2-0.5b paged"] = n
+
+    phase("chaos")
+    for name, n in run_chaos(summary, params).items():
+        paths[name]["qwen2-0.5b chaos"] = n
+    del params
 
     phase("olmoe")
     gc.collect()                    # the qwen2 engines are gone: free them

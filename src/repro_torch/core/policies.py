@@ -1,6 +1,7 @@
 """Queue orderings the serve scheduler uses (a copy of the FIFO / SRTF part
-of ``repro.core.policies``). A policy only orders the queue; admission is
-the pool's decision."""
+of ``repro.core.policies``; ``serve.tenant.SLOSlack`` orders by SLO
+slack on the same ``Policy``). A policy only orders the queue; admission
+is the pool's and the tenant allocation's decision."""
 from __future__ import annotations
 
 from typing import List, Sequence

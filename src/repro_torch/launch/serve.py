@@ -33,6 +33,19 @@ early, and ``--verify`` re-runs the request set on a static contiguous
 engine with ``decode_horizon=1`` and the same weights, and exits non-zero
 naming the requests whose tokens differ (greedy only).
 
+Multi-tenant serving (``serve/tenant.py``): ``--tenants N`` registers
+tenants t0..tN-1 and tags the request set across them (``--tenant-mix``
+ratios, interleaved); ``--slo`` / ``--slo-s`` give per-tenant latency SLOs
+in decode steps / wall seconds (comma lists, ``none`` = no target) and
+``--tenant-weights`` the fairness weights. ``--policy slo`` orders
+admission by SLO slack, and the optimistic serve profiler and the
+``TenantAllocator`` plan per-tenant block, lane and horizon budgets
+(``--no-tenant-alloc`` keeps the tags, the SLO scoring and the slack
+policy without budgets). ``--elastic`` installs an ``ElasticController``
+(``--elastic-max-units``, ``--elastic-min-units``,
+``--elastic-step-units``, ``--elastic-cooldown``). Tenant mechanisms and
+reshapes reorder; they never change tokens, so ``--verify`` holds.
+
 Weights come from the port's ``init_params`` under a ``torch.Generator``
 seeded with ``--seed`` (nothing is downloaded); the request set is the
 reference driver's ``make_requests`` (``repro/launch/serve.py:98``) on the
@@ -45,13 +58,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.serve import ServeEngine, ServeRequest, ServeStats
+from repro_torch.serve import (ElasticController, ServeEngine, ServeRequest,
+                               ServeStats, Tenant, TenantRegistry,
+                               plan_allocation, profiles_from_requests)
 
 
 def make_requests(cfg, n: int, prompt_len: int, max_new: int,
@@ -75,6 +91,94 @@ def make_requests(cfg, n: int, prompt_len: int, max_new: int,
     return reqs
 
 
+def _csv(spec, n: int, flag: str):
+    """A comma-list tenant flag as n values (``none`` or empty -> None)."""
+    if not spec:
+        return [None] * n
+    parts = [p.strip() for p in spec.split(",")]
+    if len(parts) != n:
+        raise SystemExit(f"{flag} needs {n} comma-separated values "
+                         f"(got {len(parts)})")
+    return [None if p.lower() in ("none", "") else float(p) for p in parts]
+
+
+def tag_tenants(reqs, ids, mix) -> None:
+    """Interleave the request set across tenants by the mix ratios:
+    request i goes to the tenant with the largest deficit against its
+    target share (a 2:1 mix tags t0, t0, t1, t0, t0, t1, ...)."""
+    total = sum(mix)
+    counts = [0] * len(ids)
+    for i, r in enumerate(reqs):
+        j = max(range(len(ids)),
+                key=lambda k: (mix[k] * (i + 1) / total - counts[k], -k))
+        r.tenant = ids[j]
+        counts[j] += 1
+
+
+def build_tenancy(args, reqs, n_slots):
+    """(registry, allocation, profiles) for ``--tenants N``: the profiler
+    reads each tenant's class shape off its tagged requests and the
+    allocator plans budgets for the pool's geometry (allocation and
+    profiles None under ``--no-tenant-alloc``)."""
+    n = args.tenants
+    slo = _csv(args.slo, n, "--slo")
+    slo_s = _csv(args.slo_s, n, "--slo-s")
+    wts = _csv(args.tenant_weights, n, "--tenant-weights")
+    mix = _csv(args.tenant_mix, n, "--tenant-mix")
+    ids = [f"t{i}" for i in range(n)]
+    registry = TenantRegistry([
+        Tenant(ids[i], weight=wts[i] if wts[i] is not None else 1.0,
+               slo_steps=slo[i], slo_s=slo_s[i]) for i in range(n)])
+    tag_tenants(reqs, ids, [m if m is not None else 1.0 for m in mix])
+    if not args.tenant_alloc:
+        return registry, None, None
+    if args.cache == "paged":
+        blocks_per_slot = -(-args.max_len // args.block_size)
+        total_units = args.blocks or (n_slots or args.batch) * blocks_per_slot
+        units_for = lambda r: -(-(len(r.prompt) + r.max_new_tokens)  # noqa: E731
+                                // args.block_size)
+        watermark_units = math.ceil(args.watermark * total_units)
+    else:
+        total_units = n_slots or args.batch
+        units_for = lambda r: 1                                      # noqa: E731
+        watermark_units = 0
+    profiles = profiles_from_requests(
+        registry, reqs, total_units=total_units, units_for=units_for,
+        max_k=args.decode_horizon)
+    allocation = plan_allocation(
+        registry, profiles, total_units, total_lanes=args.prefill_lanes,
+        max_k=args.decode_horizon, watermark_units=watermark_units)
+    return registry, allocation, profiles
+
+
+def elastic_controller(args) -> Optional[ElasticController]:
+    """The ``--elastic*`` flags' controller (None without ``--elastic``)."""
+    if not args.elastic:
+        return None
+    return ElasticController(step_units=args.elastic_step_units,
+                             max_units=args.elastic_max_units,
+                             min_units=args.elastic_min_units,
+                             cooldown=args.elastic_cooldown)
+
+
+def add_elastic_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--elastic", action="store_true",
+                    help="install an ElasticController: the engine scales "
+                         "the pool up/down at horizon boundaries from the "
+                         "occupancy/queue/slack gauges, re-planning tenant "
+                         "budgets at every reshape")
+    ap.add_argument("--elastic-max-units", type=int, default=None,
+                    help="proactive scale-up ceiling in cache units "
+                         "(default: the constructed pool size)")
+    ap.add_argument("--elastic-min-units", type=int, default=None,
+                    help="proactive scale-down floor (default: no "
+                         "proactive shrink)")
+    ap.add_argument("--elastic-step-units", type=int, default=8,
+                    help="cache units per proactive reshape")
+    ap.add_argument("--elastic-cooldown", type=float, default=16.0,
+                    help="decode steps between reshapes")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
@@ -86,6 +190,26 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["static", "continuous"])
     ap.add_argument("--cache", default="contiguous",
                     choices=["contiguous", "paged"])
+    ap.add_argument("--policy", default="fcfs",
+                    choices=["fcfs", "sjf", "slo"])
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="register N tenants t0..tN-1 and tag the request "
+                         "set across them (0 = single-tenant)")
+    ap.add_argument("--slo", default="",
+                    help="per-tenant latency SLO in decode steps, comma "
+                         "list ('none' = no target), e.g. --slo 24,none")
+    ap.add_argument("--slo-s", default="",
+                    help="per-tenant wall-clock SLO in seconds (comma list; "
+                         "scored in the stats, never scheduled on)")
+    ap.add_argument("--tenant-weights", default="",
+                    help="per-tenant fairness weights (comma list, default 1)")
+    ap.add_argument("--tenant-mix", default="",
+                    help="per-tenant request-count ratios (comma list, "
+                         "default equal split), e.g. --tenant-mix 2,1")
+    ap.add_argument("--no-tenant-alloc", dest="tenant_alloc",
+                    action="store_false",
+                    help="keep tenant tags + SLO scoring but drop the "
+                         "profiler-planned budgets")
     ap.add_argument("--batch", type=int, default=8,
                     help="number of requests in the set")
     ap.add_argument("--slots", type=int, default=4,
@@ -95,6 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--blocks", type=int, default=0,
                     help="pool size in blocks (0 = slots * ceil(max_len / "
                          "block_size))")
+    ap.add_argument("--watermark", type=float, default=0.05,
+                    help="fraction of blocks reserved at admission (paged)")
     ap.add_argument("--prefill-lanes", type=int, default=4,
                     help="joining requests prefilled per chunk-round")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
@@ -124,6 +250,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the request set")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_elastic_flags(ap)
     return ap
 
 
@@ -136,18 +263,24 @@ def requests(args) -> List[ServeRequest]:
 
 
 def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest]]:
-    """The engine and the request set that ``args`` describe; the engine
-    serves ``params`` when given, else weights drawn on its device."""
+    """The engine and the request set that ``args`` describe (tenant tags
+    included); the engine serves ``params`` when given, else weights drawn
+    on its device."""
     cfg = get_config(args.arch, smoke=args.preset == "smoke")
     reqs = requests(args)
+    n_slots = args.slots if args.engine == "continuous" else None
+    registry = allocation = None
+    if args.tenants > 0:
+        registry, allocation, _ = build_tenancy(args, reqs, n_slots)
     engine = ServeEngine(
-        cfg, params=params, max_len=args.max_len,
-        n_slots=args.slots if args.engine == "continuous" else None,
-        cache=args.cache, block_size=args.block_size,
-        n_blocks=args.blocks or None, prefill_lanes=args.prefill_lanes,
-        prefix_cache=args.prefix_cache,
+        cfg, params=params, max_len=args.max_len, n_slots=n_slots,
+        policy=args.policy, cache=args.cache, block_size=args.block_size,
+        n_blocks=args.blocks or None, watermark=args.watermark,
+        prefill_lanes=args.prefill_lanes, prefix_cache=args.prefix_cache,
         decode_horizon=args.decode_horizon, eos_token=args.eos_token,
-        temperature=args.temperature, top_k=args.top_k, device=args.device,
+        temperature=args.temperature, top_k=args.top_k,
+        tenants=registry, allocation=allocation,
+        elastic=elastic_controller(args), device=args.device,
         seed=args.seed)
     return engine, reqs
 
@@ -162,17 +295,24 @@ def run(args) -> Tuple[ServeEngine, List[ServeRequest], ServeStats]:
 def summary(args, engine: ServeEngine, out: List[ServeRequest],
             stats: ServeStats) -> dict:
     dev = engine.device
-    return {
+    record = {
         "arch": engine.cfg.arch_id,
         "preset": args.preset,
         "engine": args.engine,
         "cache": args.cache,
+        "policy": args.policy,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "slots": engine.n_slots or args.batch,
+        "elastic": engine.elastic is not None,
         **dataclasses.asdict(stats),
         "sample_output": out[0].output[:8],
     }
+    if engine._allocation0 is not None:
+        record["tenant_budgets"] = {
+            tid: dataclasses.asdict(s)
+            for tid, s in sorted(engine._allocation0.shares.items())}
+    return record
 
 
 def verify(args, engine: ServeEngine, out: List[ServeRequest]) -> List[int]:
@@ -195,6 +335,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
     if args.verify and args.temperature > 0:
         ap.error("--verify is the greedy exactness path; drop --temperature")
+    if args.policy == "slo" and args.tenants <= 0:
+        ap.error("--policy slo needs --tenants N (slack comes from SLOs)")
     engine, out, stats = run(args)
     record = summary(args, engine, out, stats)
     if args.verify:

@@ -165,12 +165,14 @@ class MetricsRegistry:
 
 class RunObs:
     """Per-run observability context: the metrics registry every run keeps
-    (``ServeStats`` is built from it) and the peak block report."""
-    __slots__ = ("metrics", "block_report")
+    (``ServeStats`` is built from it), the peak block report and the count
+    of decode boundaries seen (the sampling cadence)."""
+    __slots__ = ("metrics", "block_report", "boundaries")
 
     def __init__(self):
         self.metrics = MetricsRegistry()
         self.block_report: Optional[dict] = None
+        self.boundaries = 0
 
     def inc(self, name: str, n: float = 1.0) -> None:
         self.metrics.inc(name, n)

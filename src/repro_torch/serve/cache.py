@@ -20,8 +20,9 @@ diffing the shapes of two ``init_cache`` probes with different batch
 sizes built on ``device="meta"`` (no memory — the counterpart of the
 reference's ``jax.eval_shape``). ``write`` replaces
 an entire slot row in place, so a recycled slot never sees its previous
-tenant's state. The elastic ``shrink`` / ``expand`` of the reference come
-with elastic serving (ROADMAP queue A, item 8).
+tenant's state. Elastic serving revokes idle slots (``shrink``) and
+returns them (``expand``); ``capacity`` counts the live slots. The
+buffers never reallocate.
 """
 from __future__ import annotations
 
@@ -58,15 +59,19 @@ class CachePool:
         self.buffers = model.init_cache(n_slots, max_len, device=device)
         self._free = deque(range(n_slots))
         self._in_use: set = set()
+        #: slots revoked by a scale-down: still in the buffers, withheld
+        #: from allocation until a scale-up returns them
+        self._revoked: list = []
 
     def reset(self) -> None:
-        """Empty the pool in place: every slot free, every buffer zeroed.
-        The tensors keep their addresses (the engine's captured graphs read
-        them)."""
+        """Empty the pool in place: every slot free and live, every buffer
+        zeroed. The tensors keep their addresses (the engine's captured
+        graphs read them)."""
         for buf in self.buffers.values():
             buf.zero_()
         self._free = deque(range(self.n_slots))
         self._in_use = set()
+        self._revoked = []
 
     # -- slot management -----------------------------------------------------
     def alloc(self) -> Optional[int]:
@@ -93,14 +98,31 @@ class CachePool:
 
     @property
     def capacity(self) -> int:
-        """Live slot capacity (the contiguous twin of
-        ``BlockManager.n_blocks``); every slot until elastic serving can
-        revoke some."""
-        return self.n_slots
+        """Live slot capacity: all slots but the revoked (the contiguous
+        twin of ``BlockManager.n_blocks``)."""
+        return self.n_slots - len(self._revoked)
 
     @property
     def utilization(self) -> float:
         return len(self._in_use) / max(self.capacity, 1)
+
+    # -- elastic capacity ------------------------------------------------------
+    def shrink(self, n: int) -> int:
+        """Revoke up to ``n`` idle slots (a ``device_fail`` / scale-down on
+        the contiguous backend); in-flight rows keep their state and at
+        least one slot of capacity survives. Returns the slots revoked."""
+        take = max(0, min(int(n), len(self._free), self.capacity - 1))
+        for _ in range(take):
+            self._revoked.append(self._free.pop())
+        return take
+
+    def expand(self, n: int) -> int:
+        """Return up to ``n`` revoked slots to the free list. Returns the
+        slots restored."""
+        give = min(int(n), len(self._revoked))
+        for _ in range(give):
+            self._free.append(self._revoked.pop())
+        return give
 
     # -- buffer access ---------------------------------------------------------
     def write(self, slot: int, row_cache: dict) -> None:

@@ -55,16 +55,31 @@ as in the reference. Serving is text-only: the VLM patch prefix reaches
 encoder — the reference engine never calls ``prefill_cross_kv``, so every
 slot's cross K/V stay zero and the decoder's cross attention adds
 nothing.
-Tenants, fault injection, elastic reshapes, sharding, tracing and
-profiling are ported later and raise ``NotImplementedError`` naming their
-ROADMAP item.
+
+Multi-tenant serving, fault injection and elastic reshapes follow the
+reference's hooks boundary for boundary (``repro/serve/engine.py:883-1279``):
+``tenants`` + ``policy="slo"`` order admission by SLO slack and pick the
+largest-slack preemption victim, an ``allocation`` adds per-tenant budgets,
+watermark headroom, prefill-lane shares and a horizon cap; an ``injector``
+applies its due faults at each boundary (the horizon is capped to land on
+the next one), audits the block pool after each, and turns the
+crash-on-exhaustion paths into bounded retry-with-backoff, then drop; an
+``elastic`` controller reshapes the pool from the boundary gauges. A
+``device_join`` larger than what was revoked grows the paged pool
+(``BlockManager.grow_physical``): the pool tensors move, so every captured
+program is dropped and captured again, and the next run builds a new pool.
+On one device no reshape changes the mesh's bucketing multiple, so a
+``device_fail`` that revokes nothing counts no scale-down, as in the
+reference. Sharding, tracing and profiling are ported later and raise
+``NotImplementedError`` naming their ROADMAP item; profiling brings the
+reference's ``decode_util`` stat with it.
 """
 from __future__ import annotations
 
 import functools
 import math
 import time
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -78,9 +93,13 @@ from repro_torch.models.moe import capacity
 from repro_torch.obs.metrics import RunObs
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import CachePool
+from repro_torch.serve.elastic import ScalePlan, pool_capacity
 from repro_torch.serve.graphs import GraphRunner
 from repro_torch.serve.paged import BlockManager
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
+from repro_torch.serve.tenant import (SLOSlack, TenantAllocation,
+                                      TenantRegistry, plan_allocation,
+                                      profile_class, profiles_from_requests)
 
 CACHE_BACKENDS = ("contiguous", "paged")
 #: families whose layers attend over a KV cache alone: one-pass prefill, a
@@ -90,8 +109,7 @@ _ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 #: engine options of the reference that later slices port, by ROADMAP
 #: queue A item
-_LATER = {"tenants": 8, "allocation": 8, "injector": 8, "elastic": 8,
-          "tracer": 9, "profiler": 9, "profile_store": 9, "sharding": 10}
+_LATER = {"tracer": 9, "profiler": 9, "profile_store": 9, "sharding": 10}
 
 
 def _pow2(n: int) -> int:
@@ -127,7 +145,13 @@ class ServeStats:
     p95_latency_steps: float
     mean_latency_s: float
     max_active: int = 0               # peak concurrently-decoding requests
-    unfinished: int = 0               # requests that never finished
+    unfinished: int = 0               # non-dropped requests that never
+                                      # finished (SLO misses)
+    slo_attainment: float = 1.0       # non-dropped requests meeting their
+                                      # tenant's SLO (1.0 without SLOs)
+    #: per-tenant latency and SLO summary (tenant id -> dict), None
+    #: without a registry or tenant tags
+    tenants: Optional[dict] = field(default=None)
     decode_rows_saved: float = 0.0    # fraction of pool rows never decoded
     preemptions: int = 0              # requests bounced on pool pressure
     block_report: Optional[dict] = field(default=None)
@@ -145,6 +169,16 @@ class ServeStats:
     max_queue_depth: int = 0
     mean_occupancy: float = 0.0       # used blocks at boundaries
     max_occupancy: float = 0.0
+    # -- fault injection (serve/chaos.py; 0 without an injector) -------------
+    faults_injected: int = 0          # faults applied at boundaries
+    recoveries: int = 0               # regenerate / retry / restore /
+                                      # rescale / drop actions
+    dropped: int = 0                  # requests a recovery gave up on
+    # -- elastic reshapes (serve/elastic.py; 0 without reshapes) -------------
+    scale_ups: int = 0
+    scale_downs: int = 0
+    migrated_blocks: int = 0          # live blocks moved by grow_physical
+    replans: int = 0                  # allocator re-plans at reshapes
 
 
 @dataclass
@@ -218,6 +252,16 @@ class ServeEngine:
     their plain versions. ``cache="contiguous"`` (the default, as in the
     reference) gives every slot a max_len cache row; ``cache="paged"`` the
     block pool.
+
+    ``tenants`` (a ``TenantRegistry``), ``allocation`` (a
+    ``TenantAllocation``), ``injector`` (a ``FaultInjector``; a request a
+    shrunken pool cannot hold waits ``max_admit_retries`` backoff retries
+    before it drops) and ``elastic`` (an ``ElasticController``) as in the
+    module docstring;
+    ``metrics_every`` samples the boundary gauges into the run's series
+    every N boundaries (0: never). ``migrations`` lists the last run's
+    pool growths: the live blocks moved, the blocks added, the bytes
+    copied, the copy's seconds and the graphs dropped.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, max_len: int = 256,
@@ -227,7 +271,11 @@ class ServeEngine:
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, prefill_lanes: int = 4,
                  prefix_cache: bool = True, decode_horizon: int = 8,
-                 eos_token: Optional[int] = None, device="cuda",
+                 eos_token: Optional[int] = None,
+                 tenants: Optional[TenantRegistry] = None,
+                 allocation: Optional[TenantAllocation] = None,
+                 metrics_every: int = 1, injector=None,
+                 max_admit_retries: int = 4, elastic=None, device="cuda",
                  seed: int = 0, **later):
         for name, value in later.items():
             if name not in _LATER:
@@ -243,6 +291,12 @@ class ServeEngine:
             raise ValueError(
                 f"cache='paged' needs an attention family (got "
                 f"{cfg.family!r}: recurrent state is O(1))")
+        if policy == "slo" and tenants is None:
+            raise ValueError("policy='slo' needs a TenantRegistry "
+                             "(tenants=...) to compute slack")
+        if allocation is not None and tenants is None:
+            raise ValueError("a TenantAllocation needs its TenantRegistry "
+                             "(tenants=...) installed too")
         self.cfg = cfg
         self.model: Model = build_model(cfg)
         self.device = torch.device(device)
@@ -260,6 +314,16 @@ class ServeEngine:
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.sample_seed = int(sample_seed)
+        self.tenants = tenants
+        self.allocation = allocation
+        #: the allocation as constructed: reshapes re-plan in place, and
+        #: every run starts from this one
+        self._allocation0 = allocation
+        self.metrics_every = max(int(metrics_every), 0)
+        self.injector = injector
+        self.max_admit_retries = max(int(max_admit_retries), 1)
+        self.elastic = elastic
+        self.migrations: List[dict] = []
         self._pick = functools.partial(
             sampling.pick, temperature=self.temperature, top_k=self.top_k,
             seed=self.sample_seed)
@@ -281,10 +345,11 @@ class ServeEngine:
     def _pool_and_state(self, n_slots: int):
         """The run's pool and decode state: the last run's, reset in place,
         when it had ``n_slots`` slots (the pool's shape follows from that
-        and the engine's fixed options) — the captured graphs read their
-        tensors at fixed addresses — else new ones, and the graphs go with
-        the old tensors."""
-        if self.pool is not None and self.pool.n_slots == n_slots:
+        and the engine's fixed options) and its buffers never grew — the
+        captured graphs read their tensors at fixed addresses — else new
+        ones, and the graphs go with the old tensors."""
+        if (self.pool is not None and self.pool.n_slots == n_slots
+                and not getattr(self.pool, "grown", False)):
             self.pool.reset()
             self._state.reset()
             return self.pool, self._state
@@ -346,6 +411,15 @@ class ServeEngine:
         """Serve ``requests`` to completion; returns (requests, stats)."""
         reqs = list(requests)
         n_slots = self.n_slots if self.n_slots else max(len(reqs), 1)
+        if self.injector is not None:
+            # re-armed every run: repeated runs replay the same chaos
+            self.injector.bind(vocab_size=self.cfg.vocab_size,
+                               max_len=self.max_len, n_slots=n_slots)
+            self.injector.reset()
+        if self.elastic is not None:
+            self.elastic.reset()
+        self.allocation = self._allocation0
+        self.migrations = []
         c = RunObs()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -357,8 +431,60 @@ class ServeEngine:
         return reqs, self._stats(reqs, c, n_slots, wall)
 
     def _finished(self, r: ServeRequest) -> bool:
+        """Finished with both clocks stamped; anything else counts as
+        unfinished (an SLO miss)."""
         return (r.done and r.latency_steps is not None
                 and r.latency_s is not None)
+
+    def _meets_slo(self, r: ServeRequest) -> bool:
+        """Whether ``r`` finished inside its tenant's SLO (both clocks where
+        both targets are set; a tenant without targets asks completion
+        only)."""
+        if not self._finished(r):
+            return False
+        t = self.tenants.get(r.tenant) if self.tenants is not None else None
+        if t is None:
+            return True
+        if t.slo_steps is not None and r.latency_steps > t.slo_steps:
+            return False
+        if t.slo_s is not None and r.latency_s > t.slo_s:
+            return False
+        return True
+
+    def _tenant_stats(self, reqs) -> Optional[dict]:
+        """Per-tenant p50/p99 latency (steps and wall) and SLO attainment;
+        None without a registry or a non-default tag. The ``_s`` entries
+        (and ``slo_attainment`` where a tenant has ``slo_s``) are wall
+        time."""
+        tids = sorted({r.tenant for r in reqs})
+        if self.tenants is None and tids in ([], ["default"]):
+            return None
+        out = {}
+        for tid in tids:
+            all_rs = [r for r in reqs if r.tenant == tid]
+            rs = [r for r in all_rs if not r.dropped]
+            steps = [r.latency_steps for r in rs if self._finished(r)]
+            walls = [r.latency_s for r in rs if self._finished(r)]
+            t = self.tenants.get(tid) if self.tenants is not None else None
+            met = sum(1 for r in rs if self._meets_slo(r))
+            out[tid] = {
+                "n_requests": len(all_rs),
+                "unfinished": sum(1 for r in rs if not self._finished(r)),
+                "dropped": len(all_rs) - len(rs),
+                "preemptions": sum(r.n_preempted for r in rs),
+                "p50_latency_steps": (float(np.percentile(steps, 50))
+                                      if steps else 0.0),
+                "p99_latency_steps": (float(np.percentile(steps, 99))
+                                      if steps else 0.0),
+                "p50_latency_s": (float(np.percentile(walls, 50))
+                                  if walls else 0.0),
+                "p99_latency_s": (float(np.percentile(walls, 99))
+                                  if walls else 0.0),
+                "slo_steps": t.slo_steps if t is not None else None,
+                "slo_s": t.slo_s if t is not None else None,
+                "slo_attainment": met / len(rs) if rs else 1.0,
+            }
+        return out
 
     def _stats(self, reqs, c: RunObs, n_slots, wall) -> ServeStats:
         m = c.metrics
@@ -371,6 +497,10 @@ class ServeEngine:
         hit, total = int(m.value("prefix_hits")), int(m.value("prefix_total"))
         qd_mean, qd_max = m.series_stats("queue_depth")
         occ_mean, occ_max = m.series_stats("occupancy")
+        # dropped requests leave the scored set: counted in ``dropped``,
+        # neither ``unfinished`` nor in slo_attainment's denominator
+        scored = [r for r in reqs if not r.dropped]
+        met = sum(1 for r in scored if self._meets_slo(r))
         return ServeStats(
             n_requests=len(reqs),
             new_tokens=new_tokens,
@@ -383,7 +513,9 @@ class ServeEngine:
                                if lat_steps else 0.0),
             mean_latency_s=float(np.mean(lat_wall)) if lat_wall else 0.0,
             max_active=int(m.value("max_active")),
-            unfinished=sum(1 for r in reqs if not self._finished(r)),
+            unfinished=sum(1 for r in scored if not self._finished(r)),
+            slo_attainment=met / len(scored) if scored else 1.0,
+            tenants=self._tenant_stats(reqs),
             decode_rows_saved=(1.0 - m.value("rows_decoded") / rows_possible
                                if rows_possible else 0.0),
             preemptions=int(m.value("preemptions")),
@@ -401,12 +533,23 @@ class ServeEngine:
             max_queue_depth=int(qd_max),
             mean_occupancy=occ_mean,
             max_occupancy=occ_max,
+            faults_injected=int(m.value("faults_injected")),
+            recoveries=int(m.value("recoveries")),
+            dropped=len(reqs) - len(scored),
+            scale_ups=int(m.value("scale_ups")),
+            scale_downs=int(m.value("scale_downs")),
+            migrated_blocks=int(m.value("migrated_blocks")),
+            replans=int(m.value("replans")),
         )
 
     def _sample_boundary(self, sched, pool, c: RunObs) -> None:
-        """Update the gauges after a decode boundary and snapshot them into
-        the series (the stats' queue-depth and occupancy summaries)."""
+        """Update the gauges after a decode boundary and, every
+        ``metrics_every`` boundaries, set each tenant's smallest slack
+        (``slack[<tenant>]``, read by the elastic controller) and snapshot
+        every gauge and counter into the series (the stats' queue-depth and
+        occupancy summaries)."""
         m = c.metrics
+        c.boundaries += 1
         m.set("queue_depth", len(sched.waiting))
         m.set("active", len(sched.active))
         if self.cache_kind == "paged":
@@ -415,7 +558,17 @@ class ServeEngine:
         else:
             occ = len(sched.active) / pool.capacity if pool.capacity else 0.0
         m.set("occupancy", occ)
-        m.sample(sched.step)
+        every = self.metrics_every
+        if every and c.boundaries % every == 0:
+            if self.tenants is not None:
+                live = list(sched.waiting) + list(sched.active.values())
+                for t in self.tenants:
+                    slk = min((self._slack(r, sched.step) for r in live
+                               if r.tenant == t.tenant_id),
+                              default=math.inf)
+                    if math.isfinite(slk):
+                        m.set(f"slack[{t.tenant_id}]", slk)
+            m.sample(sched.step)
 
     def _evict(self, sched, state: _DecodeState, c: RunObs):
         """Evict finished requests and freeze their device rows."""
@@ -425,18 +578,311 @@ class ServeEngine:
         for r in out:
             c.metrics.observe("latency_steps", r.latency_steps)
 
+    def _make_sched(self, pool) -> ContinuousScheduler:
+        """The run's scheduler: SLO-slack ordering for ``policy="slo"`` and
+        the per-tenant budget check when an allocation is installed."""
+        policy = (SLOSlack(self.tenants) if self.policy == "slo"
+                  else self.policy)
+        return ContinuousScheduler(pool, policy, allocation=self.allocation)
+
+    def _slack(self, req, step) -> float:
+        """SLO slack in decode steps (+inf without a registry or SLO)."""
+        if self.tenants is None:
+            return math.inf
+        return self.tenants.slack(req, step)
+
+    # -- fault injection + recovery (serve/chaos.py) ---------------------------
+    def _fault_hold(self, sched):
+        """The admission-hold hook (``tenant_slowdown`` / ``defer_storm``
+        windows); None when nothing is held."""
+        inj = self.injector
+        if inj is None or not inj.has_holds(sched.step):
+            return None
+        return lambda r: inj.hold_cause(r, sched.step)
+
+    def _drop(self, sched, req, c: RunObs, cause: str) -> None:
+        """Give up on a waiting request (a recovery path exhausted)."""
+        if req in sched.waiting:
+            sched.waiting.remove(req)
+        req.dropped = True
+        req.drop_cause = cause
+        c.inc("recoveries")
+
+    def _pending_units(self, pool, step) -> int:
+        """Capacity units scheduled to arrive after ``step``: pending
+        ``pool_restore`` / ``device_join`` faults plus the elastic
+        controller's scale-up headroom."""
+        pend = 0
+        if self.injector is not None and step is not None:
+            pend += self.injector.pending_capacity(step)
+        if self.elastic is not None:
+            pend += self.elastic.pending_units(pool)
+        return pend
+
+    def _can_ever_admit(self, pool, req, step=None) -> bool:
+        """Whether the pool's capacity, with the capacity scheduled to
+        arrive, could ever admit ``req`` (wait, or drop): the arithmetic
+        of ``validate_request`` against the live ``n_blocks``."""
+        if not hasattr(pool, "blocks_for"):
+            return True                      # contiguous slots never vanish
+        need = len(req.prompt) + req.max_new_tokens
+        if need > pool.max_len:
+            return False
+        cap = pool.n_blocks + self._pending_units(pool, step)
+        return (pool.blocks_for(need) <= cap
+                and pool.blocks_for(len(req.prompt)) + pool.watermark_blocks
+                <= cap)
+
+    def _chaos_admission(self, sched, pool, c: RunObs) -> None:
+        """Bounded retry-with-backoff for waiting requests a shrink left
+        unservable: each due retry re-checks capacity (capacity back, or
+        coming back, clears the count), backs off 2^n steps, and past
+        ``max_admit_retries`` the request drops."""
+        for r in list(sched.waiting):
+            if r.arrival_time > sched.step:
+                continue
+            if self._can_ever_admit(pool, r, step=sched.step):
+                r.n_retries = 0
+                continue
+            if sched.step < r.next_retry:
+                continue
+            r.n_retries += 1
+            if r.n_retries > self.max_admit_retries:
+                self._drop(sched, r, c, cause="pool_shrink")
+                continue
+            r.next_retry = sched.step + float(2 ** r.n_retries)
+            c.inc("recoveries")
+
+    def _next_unblock(self, sched) -> Optional[float]:
+        """The earliest future step at which a stalled queue could move:
+        an arrival, a hold release, a pending fault or a backoff retry."""
+        cands = [r.arrival_time for r in sched.waiting
+                 if r.arrival_time > sched.step]
+        cands += [r.next_retry for r in sched.waiting
+                  if r.next_retry > sched.step]
+        inj = self.injector
+        if inj is not None:
+            for s in (inj.release_step(sched.step),
+                      inj.next_fault_step(sched.step)):
+                if s is not None and s > sched.step:
+                    cands.append(s)
+        return min(cands, default=None)
+
+    def _apply_faults(self, sched, pool, state, c: RunObs,
+                      reqs: List[ServeRequest]) -> None:
+        """Apply every due fault at this boundary and audit the block pool
+        after each (a fault that breaks the accounting fails here)."""
+        for f in self.injector.due(sched.step):
+            self._apply_fault(f, sched, pool, state, c, reqs)
+            self.injector.injected.append((f.kind, float(sched.step)))
+            c.inc("faults_injected")
+            if isinstance(pool, BlockManager):
+                pool.audit()
+
+    def _apply_fault(self, f, sched, pool, state, c: RunObs,
+                     reqs: List[ServeRequest]) -> None:
+        inj = self.injector
+        paged = isinstance(pool, BlockManager)
+        if f.kind == "pool_shrink":
+            took = pool.shrink(f.blocks) if paged else 0
+            if took and f.restore_after is not None:
+                inj.defer_restore(f, float(sched.step), took)
+            if took and self.allocation is not None:
+                pool.tenant_reserves = self.allocation.rescaled_reserves(
+                    pool.n_blocks)
+                c.inc("recoveries")
+        elif f.kind == "pool_restore":
+            got = pool.expand(f.blocks) if paged else 0
+            if got and self.allocation is not None:
+                pool.tenant_reserves = self.allocation.rescaled_reserves(
+                    pool.n_blocks)
+            c.inc("recoveries")
+        elif f.kind == "device_fail":
+            took = self._apply_scale(sched, pool, c, ScalePlan(
+                kind="scale_down", units=f.blocks, reason="device_fail",
+                step=float(sched.step), dmult=1))
+            if f.restore_after is not None:
+                # the join is scheduled even when nothing was revocable:
+                # on a mesh it must restore the bucketing multiple
+                inj.defer_restore(f, float(sched.step), took)
+        elif f.kind == "device_join":
+            self._apply_scale(sched, pool, c, ScalePlan(
+                kind="scale_up", units=f.blocks, reason="device_join",
+                step=float(sched.step), dmult=1))
+            c.inc("recoveries")
+        elif f.kind == "slot_kill":
+            slot = inj.pick_slot(list(sched.active), f.slot)
+            if slot is None:
+                return
+            victim = sched.active[slot]
+            # the slot's device state is lost: preempt and regenerate. The
+            # row freezes before the next horizon, so no replay writes KV
+            # through the freed table.
+            sched.preempt(victim, cause="slot_kill")
+            state.freeze([slot])
+            c.inc("preemptions")
+            c.inc("recoveries")
+        elif f.kind in ("tenant_slowdown", "defer_storm"):
+            tenant = f.tenant if f.kind == "tenant_slowdown" else None
+            inj.hold(tenant, float(sched.step) + f.duration)
+        elif f.kind == "arrival_burst":
+            for r in inj.burst_requests(f):
+                r.job_id = len(reqs)
+                r.arrival_time = float(sched.step)
+                reqs.append(r)          # the stats score the injected load
+                try:
+                    sched.submit(r)
+                except ValueError:
+                    # the current pool cannot hold it; scheduled capacity
+                    # may: wait under bounded retry, else drop
+                    if self._can_ever_admit(pool, r, step=sched.step):
+                        sched.park(r)
+                        c.inc("recoveries")
+                    else:
+                        self._drop(sched, r, c, cause="burst_unservable")
+        elif f.kind == "prefix_flush":
+            if paged:
+                pool.flush_prefix()
+
+    # -- elastic reshapes (serve/elastic.py) -----------------------------------
+    def _apply_scale(self, sched, pool, c: RunObs, plan) -> int:
+        """Apply one ``ScalePlan`` at a horizon boundary: a scale-down
+        revokes capacity, a scale-up returns revoked capacity first and,
+        paged, grows the pool past its buffers (``grow_physical``: the live
+        blocks move into new tensors, so every captured program is dropped;
+        the move is recorded in ``migrations``). Then tenant reserves
+        rescale, the allocator re-plans and the pool is audited. Returns
+        the capacity units moved."""
+        paged = isinstance(pool, BlockManager)
+        if plan.kind == "scale_down":
+            moved = pool.shrink(plan.units)
+        else:
+            moved = pool.expand(plan.units)       # the revoked ledger first
+            extra = plan.units - moved
+            if extra > 0 and paged:
+                live = (pool._total_blocks - len(pool._free_blocks)
+                        - len(pool._revoked))
+                dropped = len(self.graphs.keys)
+                t0 = time.perf_counter()
+                added = pool.grow_physical(extra)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                dt = time.perf_counter() - t0
+                self.graphs.reset()
+                if added:
+                    moved += added
+                    c.inc("migrated_blocks", live)
+                    k = pool.buffers["k"]
+                    old = pool._total_blocks - added
+                    self.migrations.append(dict(
+                        step=int(sched.step), blocks=live, added=added,
+                        bytes=2 * k[:, :old].numel() * k.element_size(),
+                        dur_s=dt, graphs_dropped=dropped))
+        if not moved:        # nothing applied (one device: no plan
+            return 0         # changes the mesh's bucketing multiple)
+        c.inc("scale_ups" if plan.kind == "scale_up" else "scale_downs")
+        if paged and self.allocation is not None:
+            pool.tenant_reserves = self.allocation.rescaled_reserves(
+                pool.n_blocks)
+        self._replan(sched, pool, c)
+        if self.elastic is not None:
+            self.elastic.note_scale(sched.step, plan)
+        if paged:
+            pool.audit()
+        return moved
+
+    def _replan(self, sched, pool, c: RunObs) -> None:
+        """Re-profile the live request mix and re-plan the tenants' budgets,
+        horizon knees and lane shares for the reshaped capacity (a
+        tenant-carrying engine without a plan gets its first one here).
+        Allocation only: outputs stay token-identical."""
+        if self.tenants is None:
+            return
+        max_k = (self.allocation.max_k if self.allocation is not None
+                 else self.decode_horizon)
+        total = pool_capacity(pool)
+        live = list(sched.waiting) + list(sched.active.values())
+        units_for = ((lambda r: pool.blocks_for(len(r.prompt)
+                                                + r.max_new_tokens))
+                     if hasattr(pool, "blocks_for") else None)
+        profiles = profiles_from_requests(
+            self.tenants, live, total_units=total, units_for=units_for,
+            max_k=max_k, arch=self.cfg.arch_id, backend=self.cache_kind)
+        for t in self.tenants:
+            if t.tenant_id not in profiles:      # drained: a minimal profile
+                profiles[t.tenant_id] = profile_class(
+                    t.tenant_id, units_per_req=1, concurrency=1,
+                    total_units=total, max_k=max_k, arch=self.cfg.arch_id,
+                    backend=self.cache_kind)
+        wm = (pool.watermark_blocks if hasattr(pool, "watermark_blocks")
+              else 0)
+        self.allocation = plan_allocation(
+            self.tenants, profiles, total, total_lanes=self.prefill_lanes,
+            max_k=max_k, watermark_units=wm)
+        sched.allocation = self.allocation
+        if isinstance(pool, BlockManager):
+            pool.tenant_reserves = self.allocation.reserves()
+        c.inc("replans")
+
+    def _submit_all(self, sched, pool, reqs) -> None:
+        """Submit the run's requests; one the constructed pool cannot
+        validate is parked when scheduled capacity will cover it, else the
+        submit error propagates."""
+        for i, r in enumerate(reqs):
+            r.job_id = i
+            try:
+                sched.submit(r)
+            except ValueError:
+                if not self._can_ever_admit(pool, r, step=float(sched.step)):
+                    raise
+                sched.park(r)
+
+    def _elastic_poll(self, sched, pool, c: RunObs) -> None:
+        """Ask the elastic controller for a proactive reshape."""
+        if self.elastic is None:
+            return
+        plan = self.elastic.decide(sched.step, pool, c.metrics)
+        if plan is not None:
+            self._apply_scale(sched, pool, c, plan)
+
+    def _admission_round(self, sched, pool, state, c: RunObs, reqs):
+        """The top of a boundary, both loops: faults, the elastic poll,
+        evict, admit (past any holds), the bounded retries. Returns the
+        admitted requests awaiting prefill."""
+        if self.injector is not None:
+            self._apply_faults(sched, pool, state, c, reqs)
+        self._elastic_poll(sched, pool, c)
+        self._evict(sched, state, c)
+        sched.admit(hold=self._fault_hold(sched))
+        if self.injector is not None or self.elastic is not None:
+            self._chaos_admission(sched, pool, c)
+        return sched.drain_prefill()
+
     # -- horizon scheduling helpers (host side) --------------------------------
     def _pick_h(self, sched, act) -> int:
         """Horizon length: at most ``decode_horizon``, capped to the longest
-        remaining budget and to the next open-loop arrival when the pool
-        could admit it, quantized down to a power of two."""
+        remaining budget, to the allocator's largest knee among the active
+        tenants, to the next open-loop arrival when the pool could admit
+        it, to the smallest waiting SLO slack and to the next pending
+        fault; quantized down to a power of two."""
         rem = max(sched.active[s].max_new_tokens - len(sched.active[s].output)
                   for s in act)
         h = max(1, min(self.decode_horizon, rem))
+        if self.allocation is not None:
+            h = min(h, max(1, self.allocation.k_cap_for(
+                {sched.active[s].tenant for s in act})))
         nxt = sched.next_arrival()
         if (nxt is not None and nxt > sched.step
                 and self._could_admit_arrival(sched)):
             h = max(1, min(h, int(math.ceil(nxt - sched.step))))
+        if self.tenants is not None and sched.waiting:
+            urgent = min(self._slack(r, sched.step) for r in sched.waiting)
+            if math.isfinite(urgent):
+                h = max(1, min(h, int(max(1.0, urgent))))
+        if self.injector is not None:
+            nf = self.injector.next_fault_step(sched.step)
+            if nf is not None and nf > sched.step:
+                h = max(1, min(h, int(math.ceil(nf - sched.step))))
         return _pow2_floor(h)
 
     @staticmethod
@@ -601,21 +1047,18 @@ class ServeEngine:
 
     # -- contiguous loop ------------------------------------------------------
     def _run_contiguous(self, reqs, n_slots, c: RunObs):
-        """The contiguous engine loop (``engine.py:1362-1438``): evict,
-        admit, one exact-length prefill per admitted request (its cache row
-        written into its slot, its first token picked on the device), then
-        one decode horizon per boundary."""
+        """The contiguous engine loop (``engine.py:1362-1438``): faults,
+        the elastic poll, evict, admit, one exact-length prefill per
+        admitted request (its cache row written into its slot, its first
+        token picked on the device), then one decode horizon per
+        boundary."""
         dev = self.device
         pool, state = self._pool_and_state(n_slots)
-        sched = ContinuousScheduler(pool, self.policy)
-        for i, r in enumerate(reqs):
-            r.job_id = i
-            sched.submit(r)
+        sched = self._make_sched(pool)
+        self._submit_all(sched, pool, reqs)
 
         while sched.has_work:
-            self._evict(sched, state, c)
-            sched.admit()
-            admitted = sched.drain_prefill()
+            admitted = self._admission_round(sched, pool, state, c, reqs)
             t0 = time.perf_counter()
             for r in admitted:
                 tokens = torch.as_tensor(np.asarray(r.prompt, np.int32),
@@ -642,6 +1085,11 @@ class ServeEngine:
                 nxt = sched.next_arrival()
                 if nxt is None:
                     break
+                if self.injector is not None and nxt <= sched.step:
+                    # everything waiting is held: jump to the next event
+                    # that could unstall admission
+                    unb = self._next_unblock(sched)
+                    nxt = unb if unb is not None else sched.step + 1
                 sched.step = max(sched.step + 1, int(math.ceil(nxt)))
                 continue
             h = self._pick_h(sched, sorted(sched.active))
@@ -649,6 +1097,23 @@ class ServeEngine:
         self._evict(sched, state, c)
 
     # -- prefill (paged) ------------------------------------------------------
+    def _next_lane_req(self, queue: deque, lanes) -> ServeRequest:
+        """The request to fill a freed prefill lane: with an allocation and
+        a mixed-tenant queue, a tenant at its lane share yields the lane to
+        the first queued request of a tenant under its share; otherwise
+        (and when every queued tenant is at its share) the head. Lane
+        order only: outputs do not change."""
+        if self.allocation is None or len(queue) == 1:
+            return queue.popleft()
+        held = Counter(ln.req.tenant for ln in lanes)
+        if len({r.tenant for r in queue} | set(held)) <= 1:
+            return queue.popleft()
+        for i, r in enumerate(queue):
+            if held[r.tenant] < self.allocation.lane_share(r.tenant):
+                del queue[i]
+                return r
+        return queue.popleft()
+
     def _batched_paged_prefill(self, pool: BlockManager, reqs, step: int,
                                c: RunObs) -> None:
         """Prefill the joining requests through up to ``prefill_lanes``
@@ -682,7 +1147,7 @@ class ServeEngine:
         lanes: List[_PrefillLane] = []
         while queue or lanes:
             while queue and len(lanes) < self.prefill_lanes:
-                r = queue.popleft()
+                r = self._next_lane_req(queue, lanes)
                 prompt = np.asarray(r.prompt, np.int32)
                 lane = _PrefillLane(req=r, prompt=prompt,
                                     ptr=pool.cached_tokens(r.slot))
@@ -747,10 +1212,12 @@ class ServeEngine:
         return need
 
     def _ensure_growth(self, sched, pool: BlockManager, pos_np, stop_np,
-                       h: int):
+                       h: int, c: RunObs):
         """Guarantee blocks for up to ``h`` decode tokens per active row
-        before a horizon. Shrinks the horizon toward 1 before preempting
-        the most recently admitted request. Returns (h, victim slots)."""
+        before a horizon. Shrinks the horizon toward 1 before preempting:
+        the largest SLO slack with a registry, else the most recently
+        admitted request. A sole request the pool cannot cover raises —
+        or, under chaos or elasticity, drops. Returns (h, victim slots)."""
         victims = []
         while True:
             while h > 1 and (self._growth_blocks_needed(
@@ -764,28 +1231,40 @@ class ServeEngine:
             if blocked is None:
                 return h, victims
             if len(sched.active) == 1:
-                raise RuntimeError(
-                    "paged KV pool exhausted with a single active request; "
-                    "grow n_blocks or lower max_new_tokens")
-            victim = max(sched.active.values(),
-                         key=lambda r: (r.admitted_at, r.slot))
+                if self.injector is None and self.elastic is None:
+                    raise RuntimeError(
+                        "paged KV pool exhausted with a single active "
+                        "request; grow n_blocks or lower max_new_tokens")
+                # the budget vanished under the last active request (a
+                # shrink): drop it instead of crashing the run
+                victim = sched.active[blocked]
+                victims.append(victim.slot)
+                sched.preempt(victim, cause="pool_exhausted")
+                self._drop(sched, victim, c, cause="pool_exhausted")
+                return h, victims
+            if self.tenants is not None:
+                victim = max(sched.active.values(),
+                             key=lambda r: (self._slack(r, sched.step),
+                                            r.admitted_at, r.slot))
+            else:
+                victim = max(sched.active.values(),
+                             key=lambda r: (r.admitted_at, r.slot))
             victims.append(victim.slot)
             sched.preempt(victim)
 
     def _run_paged(self, reqs, n_slots, c: RunObs):
+        """The paged engine loop (``engine.py:1619-1723``)."""
         pool, state = self._pool_and_state(n_slots)
-        sched = ContinuousScheduler(pool, self.policy)
-        for i, r in enumerate(reqs):
-            r.job_id = i
-            sched.submit(r)
+        if self.allocation is not None:
+            pool.tenant_reserves = self.allocation.reserves()
+        sched = self._make_sched(pool)
+        self._submit_all(sched, pool, reqs)
         pos_np = np.zeros((n_slots,), np.int64)
         stop_np = np.zeros((n_slots,), np.int64)
         peak_report = pool.report()
 
         while sched.has_work:
-            self._evict(sched, state, c)
-            sched.admit()
-            admitted = sched.drain_prefill()
+            admitted = self._admission_round(sched, pool, state, c, reqs)
             if admitted:
                 t0 = time.perf_counter()
                 self._batched_paged_prefill(pool, admitted,
@@ -810,16 +1289,24 @@ class ServeEngine:
                 if nxt is None:
                     break
                 if not admitted and nxt <= sched.step:
-                    raise RuntimeError(
-                        "paged KV pool cannot admit any waiting request; "
-                        "grow n_blocks or lower the watermark")
+                    if self.injector is None and self.elastic is None:
+                        raise RuntimeError(
+                            "paged KV pool cannot admit any waiting "
+                            "request; grow n_blocks or lower the watermark")
+                    # a shrink or a hold made everything inadmissible for
+                    # now: jump to the next event that could unstall it
+                    unb = self._next_unblock(sched)
+                    nxt = unb if unb is not None else sched.step + 1
                 sched.step = max(sched.step + 1, int(math.ceil(nxt)))
                 continue
 
             h = self._pick_h(sched, sorted(sched.active))
-            h, victims = self._ensure_growth(sched, pool, pos_np, stop_np, h)
+            h, victims = self._ensure_growth(sched, pool, pos_np, stop_np, h,
+                                             c)
             c.inc("preemptions", len(victims))
             state.freeze(victims)
+            if not sched.active:    # the sole request dropped on exhaustion
+                continue
             # delta-sync the device tables: only rows dirtied by admission
             # or growth (freed rows stay stale — frozen and write-masked)
             dirty = sorted(s for s in pool.drain_dirty() if s in sched.active)

@@ -118,8 +118,11 @@ class GraphRunner:
         return list(self._entries)
 
     def reset(self) -> None:
-        """Drop every graph: the tensors they read have moved."""
+        """Drop every graph: the tensors they read have moved. Their
+        memory pool goes with them (the allocator releases a private pool
+        whose last graph is gone; a later capture takes a new one)."""
         self._entries.clear()
+        self._pool = None
 
     def __call__(self, key: Hashable, fn: Callable, *inputs: torch.Tensor):
         """``fn(*inputs)`` (a tensor or a tuple of tensors) through the

@@ -1,4 +1,4 @@
-"""Block-table KV manager (``repro/serve/paged.py:73-426``, ``:530-641``).
+"""Block-table KV manager (``repro/serve/paged.py``).
 
 A request at length L holds ``ceil(L / block_size)`` blocks of one shared
 ``[n_blocks, block_size, ...]`` pool behind a per-request block table.
@@ -19,11 +19,19 @@ with its entry (``commit_block``'s ``state``) and the routing capacity is
 folded into the hash seed, so a prefix-hit resume routes token for token
 like a cold prefill (``resume_state``).
 
+Chaos and elastic serving reshape the pool mid-run: ``shrink`` revokes
+capacity (idle blocks first, the rest as a *deficit* collected from blocks
+as their holders free them), ``expand`` returns it, ``grow_physical``
+allocates larger pools and copies every block into their leading slice
+(block ids stay put), ``flush_prefix`` evicts the prefix cache (entries
+still held are *retired*: unhittable, freed with their last holder), and
+``tenant_reserves`` lets a tenant admitting spend its own share of the
+watermark. ``audit`` checks that every block the pool was built with is
+in exactly one place, the revoked ledger and the deficit included.
+
 The pools are torch tensors on the engine's device (the model's
 ``PagedCache``); tables and every other piece of bookkeeping stay numpy on
-the host. The reference's ``shrink`` / ``expand`` / ``grow_physical`` /
-``flush_prefix`` (chaos and elastic serving) are ported later (ROADMAP
-queue A, item 8).
+the host.
 """
 from __future__ import annotations
 
@@ -48,14 +56,19 @@ class _PrefixEntry:
     refs: int = 0
     ready: bool = False
     state: object = field(default=None, repr=False)
+    #: force-flushed while still held: kept for refcounting, never hit,
+    #: its block released when the last holder frees
+    retired: bool = False
 
 
 class BlockManager:
     """Paged decode cache over a model's ``init_paged_cache``: the pool
     surface the scheduler drives (``alloc_for`` / ``free`` /
     ``validate_request``) plus the per-boundary calls of the engine
-    (``ensure``, ``drain_dirty``, ``report``) and the prefix-cache surface
-    (``cached_tokens``, ``resume_state``, ``commit_block``)."""
+    (``ensure``, ``drain_dirty``, ``report``), the prefix-cache surface
+    (``cached_tokens``, ``resume_state``, ``commit_block``) and the
+    reshape surface (``shrink``, ``expand``, ``grow_physical``,
+    ``flush_prefix``, ``audit``)."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
@@ -66,17 +79,30 @@ class BlockManager:
         self.max_len = max_len
         self.block_size = block_size
         self.max_blocks = -(-max_len // block_size)   # table width per slot
-        self.n_blocks = (n_blocks if n_blocks is not None
+        #: the constructed capacity (``reset`` restores it)
+        self._blocks0 = (n_blocks if n_blocks is not None
                          else n_slots * self.max_blocks)
-        self.watermark_blocks = math.ceil(watermark * self.n_blocks)
-        self.buffers = model.init_paged_cache(self.n_blocks, block_size,
+        self.watermark = float(watermark)   # fraction; re-applied on reshape
+        self._dtype, self._device = dtype, device
+        self.buffers = model.init_paged_cache(self._blocks0, block_size,
                                               dtype, device=device)
+        #: blocks the pool buffers hold (grows with ``grow_physical``)
+        self._total_blocks = self._blocks0
         self.prefix_cache = prefix_cache
         self._clear()
 
     def _clear(self) -> None:
         """Every block and slot free, the tables -1, the prefix cache
-        empty."""
+        empty, nothing revoked, no tenant reserve."""
+        self.n_blocks = self._total_blocks
+        self.watermark_blocks = math.ceil(self.watermark * self.n_blocks)
+        #: blocks revoked mid-run, and the revocation still owed by blocks
+        #: in tables (collected as they free)
+        self._revoked: List[int] = []
+        self._revoke_deficit = 0
+        #: per-tenant watermark headroom (``TenantAllocation.reserves``):
+        #: a tenant admitting keeps only the other tenants' reserve free
+        self.tenant_reserves: Dict[str, int] = {}
         self._free_blocks = deque(range(self.n_blocks))
         self._free_slots = deque(range(self.n_slots))
         self._in_use: set = set()
@@ -98,10 +124,19 @@ class BlockManager:
         #: slots whose table row changed since the last ``drain_dirty``
         self._dirty_slots: set = set()
 
+    @property
+    def grown(self) -> bool:
+        """Whether ``grow_physical`` replaced the constructed buffers."""
+        return self._total_blocks != self._blocks0
+
     def reset(self) -> None:
-        """Empty the pool in place: the pools zeroed, the host bookkeeping
-        rebuilt. The pool tensors keep their addresses (the engine's
-        captured graphs read them)."""
+        """Empty the pool in place at its constructed capacity: the pools
+        zeroed, the host bookkeeping rebuilt. The pool tensors keep their
+        addresses (the engine's captured graphs read them); a pool whose
+        buffers grew cannot be reset (build a new one)."""
+        if self.grown:
+            raise ValueError("a pool that grew past its constructed "
+                             "capacity cannot be reset: build a new one")
         self.buffers.k_buf.zero_()
         self.buffers.v_buf.zero_()
         self._clear()
@@ -147,6 +182,16 @@ class BlockManager:
         h, _ = self._evictable.popitem(last=False)
         return self._entries.pop(h).block
 
+    def _release_block(self, blk: int) -> None:
+        """Return a block to the pool, or to a pending revocation: after a
+        ``shrink`` that found too few idle blocks, the deficit is collected
+        here as blocks in tables come back."""
+        if self._revoke_deficit > 0:
+            self._revoke_deficit -= 1
+            self._revoked.append(blk)
+        else:
+            self._free_blocks.append(blk)
+
     # -- admission -----------------------------------------------------------
     def validate_request(self, req) -> None:
         """Reject requests that can never run on this pool."""
@@ -166,9 +211,17 @@ class BlockManager:
                 f"which can never clear the {self.watermark_blocks}-block "
                 f"admission watermark on a {self.n_blocks}-block pool")
 
-    def _blocks_clear_watermark(self, n_new_blocks: int) -> bool:
-        """``n_new_blocks`` fresh blocks fit while the reserve stays free."""
-        return self.free_blocks - n_new_blocks >= self.watermark_blocks
+    def _blocks_clear_watermark(self, n_new_blocks: int,
+                                tenant: Optional[str] = None) -> bool:
+        """``n_new_blocks`` fresh blocks fit while the reserve stays free.
+        With per-tenant reserves installed, a known tenant keeps only the
+        other tenants' headroom free (its own is spendable)."""
+        reserve = self.watermark_blocks
+        if tenant is not None and tenant in self.tenant_reserves:
+            reserve = min(reserve,
+                          sum(self.tenant_reserves.values())
+                          - self.tenant_reserves[tenant])
+        return self.free_blocks - n_new_blocks >= reserve
 
     def can_admit(self, n_tokens: int) -> bool:
         """Cache-blind watermark admission test (``alloc_for`` decides)."""
@@ -196,7 +249,7 @@ class BlockManager:
             hit_cap = (n - 1) // self.block_size
             for h in hashes[:hit_cap]:
                 e = self._entries.get(h)
-                if e is None:
+                if e is None or e.retired:   # retired: flushed, unhittable
                     break
                 if not e.ready:
                     self.deferred_last_alloc = True
@@ -206,7 +259,8 @@ class BlockManager:
                 # shrinks availability: charge it
                 revived += e.refs == 0
         if (not self._free_slots
-                or not self._blocks_clear_watermark(need - hits + revived)):
+                or not self._blocks_clear_watermark(
+                    need - hits + revived, getattr(req, "tenant", None))):
             return None
         slot = self._free_slots.popleft()
         self._in_use.add(slot)
@@ -306,13 +360,13 @@ class BlockManager:
             if e is not None and e.block == blk:
                 e.refs -= 1
                 if e.refs == 0:
-                    if e.ready:
+                    if e.ready and not e.retired:
                         self._evictable[h] = None
-                    else:          # owner left before writing: unservable
-                        del self._entries[h]
-                        self._free_blocks.append(blk)
+                    else:   # owner left before writing, or force-flushed
+                        del self._entries[h]      # while held: unservable
+                        self._release_block(blk)
             else:
-                self._free_blocks.append(blk)
+                self._release_block(blk)
         self.tables[slot] = -1
         self._dirty_slots.add(slot)
         self._lengths[slot] = 0
@@ -320,16 +374,95 @@ class BlockManager:
         self._resume.pop(slot, None)
         self._free_slots.append(slot)
 
+    # -- reshapes (chaos and elastic serving) ---------------------------------
+    def shrink(self, n: int) -> int:
+        """Revoke up to ``n`` blocks of capacity (``pool_shrink``,
+        ``device_fail``, an elastic scale-down): idle blocks first — the
+        free list, then evictable cached blocks (their entries dropped) —
+        and the rest as a deficit collected as blocks free. Capacity and
+        the watermark rescale at once; at least one block of capacity
+        survives. Returns the blocks revoked."""
+        take = max(0, min(int(n), self.n_blocks - 1))
+        got = 0
+        while got < take and (self._free_blocks or self._evictable):
+            self._revoked.append(self._take_block())
+            got += 1
+        self._revoke_deficit += take - got
+        self.n_blocks -= take
+        self.watermark_blocks = math.ceil(self.watermark * self.n_blocks)
+        return take
+
+    def expand(self, n: int) -> int:
+        """Return up to ``n`` revoked blocks (``pool_restore``, a join, a
+        scale-up): the deficit cancels first (those blocks never left the
+        tables), then revoked blocks rejoin the free list."""
+        give = min(int(n), len(self._revoked) + self._revoke_deficit)
+        cancel = min(give, self._revoke_deficit)
+        self._revoke_deficit -= cancel
+        for _ in range(give - cancel):
+            self._free_blocks.append(self._revoked.pop())
+        self.n_blocks += give
+        self.watermark_blocks = math.ceil(self.watermark * self.n_blocks)
+        return give
+
+    def grow_physical(self, n: int) -> int:
+        """Grow true capacity past the buffers' (a ``device_join`` larger
+        than what was revoked): allocate pools of ``n`` more blocks and copy
+        every block of the old pools into their leading slice — a move,
+        never a recompute, so in-flight decodes resume token for token.
+        Block ids are stable: the new blocks take ids past the old capacity
+        and join the free list, so tables, prefix entries and the revoked
+        ledger survive untouched. The pool tensors move: whoever captured
+        programs over them must drop those. Returns the blocks added."""
+        n = int(n)
+        if n <= 0:
+            return 0
+        old_total = self._total_blocks
+        new = self.model.init_paged_cache(old_total + n, self.block_size,
+                                          self._dtype, device=self._device)
+        for name in ("k", "v"):
+            new[name][:, :old_total].copy_(self.buffers[name])
+        self.buffers = new
+        self._free_blocks.extend(range(old_total, old_total + n))
+        self._total_blocks = old_total + n
+        self.n_blocks += n
+        self.watermark_blocks = math.ceil(self.watermark * self.n_blocks)
+        return n
+
+    def flush_prefix(self) -> int:
+        """Force-evict the prefix cache (``prefix_flush``): refcount-0
+        entries release their blocks at once; held entries retire —
+        unhittable, released with their last holder. Returns the entries
+        flushed (freed + retired)."""
+        freed = 0
+        for h in list(self._evictable):
+            del self._evictable[h]
+            self._release_block(self._entries.pop(h).block)
+            freed += 1
+        retired = 0
+        for e in self._entries.values():
+            if not e.retired:
+                e.retired = True
+                retired += 1
+        return freed + retired
+
     def audit(self) -> Dict[str, int]:
-        """Block-conservation check: every block is in exactly one of {free
-        list, a table (counted once across sharers), evictable cache}, each
-        entry's refcount equals its block's table multiplicity, and idle
-        slots hold no blocks. Raises RuntimeError on any violation."""
+        """Block-conservation check: every block the buffers hold is in
+        exactly one of {free list, revoked, a table (counted once across
+        sharers), evictable cache}, the deficit's blocks sitting in tables;
+        each entry's refcount equals its block's table multiplicity; idle
+        slots hold no blocks; capacity + revoked + deficit = the buffers'
+        blocks. Raises RuntimeError on any violation."""
         problems: List[str] = []
         free = list(self._free_blocks)
         free_set = set(free)
         if len(free_set) != len(free):
             problems.append(f"duplicate blocks in the free list: {free}")
+        revoked_set = set(self._revoked)
+        if len(revoked_set) != len(self._revoked):
+            problems.append(f"duplicate revoked blocks: {self._revoked}")
+        if free_set & revoked_set:
+            problems.append(f"free∩revoked: {sorted(free_set & revoked_set)}")
         table_refs: Dict[int, int] = {}
         for slot in range(self.n_slots):
             row = self.tables[slot]
@@ -340,8 +473,10 @@ class BlockManager:
             for blk in row[row >= 0]:
                 table_refs[int(blk)] = table_refs.get(int(blk), 0) + 1
         table_set = set(table_refs)
-        if table_set & free_set:
-            problems.append(f"table∩free: {sorted(table_set & free_set)}")
+        for name, other in (("free", free_set), ("revoked", revoked_set)):
+            if table_set & other:
+                problems.append(
+                    f"table∩{name}: {sorted(table_set & other)}")
         entry_blocks: Dict[int, int] = {}
         for h, e in self._entries.items():
             if e.block in entry_blocks:
@@ -364,17 +499,25 @@ class BlockManager:
         if missing:
             problems.append(f"evictable hashes without entries: "
                             f"{[hex(h) for h in missing]}")
-        accounted = (len(free_set) + len(table_set)
+        accounted = (len(free_set) + len(revoked_set) + len(table_set)
                      + len(evict_blocks - table_set))
-        if accounted != self.n_blocks:
+        if accounted != self._total_blocks:
             problems.append(
-                f"{accounted} blocks accounted for (free={len(free_set)} "
+                f"{accounted} blocks accounted for "
+                f"(free={len(free_set)} revoked={len(revoked_set)} "
                 f"table={len(table_set)} evictable={len(evict_blocks)}) "
-                f"of {self.n_blocks}")
+                f"of {self._total_blocks}")
+        if (self.n_blocks + len(self._revoked) + self._revoke_deficit
+                != self._total_blocks):
+            problems.append(
+                f"capacity arithmetic broken: n_blocks={self.n_blocks} "
+                f"+ revoked={len(self._revoked)} "
+                f"+ deficit={self._revoke_deficit} != {self._total_blocks}")
         if problems:
             raise RuntimeError("block audit failed:\n  "
                                + "\n  ".join(problems))
-        return {"free": len(free_set), "in_table": len(table_set),
+        return {"free": len(free_set), "revoked": len(revoked_set),
+                "deficit": self._revoke_deficit, "in_table": len(table_set),
                 "evictable": len(evict_blocks), "capacity": self.n_blocks}
 
     def report(self) -> Dict[str, float]:
@@ -398,4 +541,6 @@ class BlockManager:
                 0.0, 1.0 - used_tokens / allocated) if allocated else 0.0,
             "prefix_blocks_total": self.prefix_blocks_total,
             "prefix_blocks_hit": self.prefix_blocks_hit,
+            "revoked_blocks": len(self._revoked),
+            "revoke_deficit": self._revoke_deficit,
         }

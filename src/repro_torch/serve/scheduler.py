@@ -3,9 +3,13 @@ a request queue with admission by free pool capacity and per-boundary
 join/evict of finished requests.
 
 Ordering reuses the queue policies (``core.policies``): FCFS is FIFO on
-arrival, SJF is SRTF on the work a request still owes. The clock is the
-engine's decode-step counter. The tenant budget check and the chaos
-admission hold of the reference are ported later (ROADMAP queue A, item 8).
+arrival, SJF is SRTF on the work a request still owes, and the engine
+passes ``tenant.SLOSlack`` for SLO-slack ordering. The clock is the
+engine's decode-step counter. A ``tenant.TenantAllocation`` adds the
+per-tenant budget check at admission, and a fault injector's admission
+holds (``tenant_slowdown`` / ``defer_storm``) skip the held requests
+(``admit(hold=...)``); a request the pool cannot validate yet, but
+scheduled capacity will cover, waits in the queue (``park``).
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ class ServeRequest:
     max_new_tokens: int = 16
     job_id: int = 0
     arrival_time: float = 0.0          # engine decode-step clock
+    #: tenant tag, resolved against the engine's ``TenantRegistry``
+    #: (untagged requests share the "default" tenant)
+    tenant: str = "default"
     output: List[int] = field(default_factory=list)
     slot: Optional[int] = None
     admitted_at: Optional[float] = None
@@ -36,6 +43,15 @@ class ServeRequest:
     #: times preempted under pool pressure (each bounce regenerates its
     #: tokens identically after re-admission)
     n_preempted: int = 0
+    # -- fault recovery (serve/chaos.py; idle without an injector) ---------
+    #: admission retries burned while a shrunken pool could not hold the
+    #: request, and the step the next retry is due at
+    n_retries: int = 0
+    next_retry: float = 0.0
+    #: a recovery path gave up on the request: counted in ``dropped``,
+    #: not ``unfinished``, and left out of slo_attainment
+    dropped: bool = False
+    drop_cause: Optional[str] = None
     # wall clocks: t_arrived is stamped when the engine clock first passes
     # arrival_time (not at admission), so latency_s includes queue wait.
     t_arrived: Optional[float] = None
@@ -69,9 +85,11 @@ class ContinuousScheduler:
     """Admission + eviction over a pool — a contiguous ``CachePool``
     (admission by free slot) or a paged ``BlockManager`` (admission by
     free blocks) — ordered by a queue policy (a registered name or a
-    ``Policy`` instance)."""
+    ``Policy`` instance). ``allocation`` (a ``tenant.TenantAllocation``)
+    skips a request over its tenant's cache-unit budget without blocking
+    the requests behind it."""
 
-    def __init__(self, pool, policy="fcfs"):
+    def __init__(self, pool, policy="fcfs", allocation=None):
         if isinstance(policy, Policy):
             self.policy: Policy = policy
         elif policy in SERVE_POLICIES:
@@ -80,6 +98,7 @@ class ContinuousScheduler:
             raise KeyError(f"unknown serve policy {policy!r}; "
                            f"known: {sorted(SERVE_POLICIES)}")
         self.pool = pool
+        self.allocation = allocation
         self.n_preempted = 0
         self.waiting: List[ServeRequest] = []
         self.active: Dict[int, ServeRequest] = {}
@@ -97,6 +116,14 @@ class ContinuousScheduler:
                 f"positions but the pool holds {self.pool.max_len}")
         self.waiting.append(req)
 
+    def park(self, req: ServeRequest) -> None:
+        """Queue a request the current pool cannot validate but scheduled
+        capacity (a pending restore or join, elastic scale-up headroom)
+        will cover: it waits for the engine's bounded-retry admission.
+        ``admit`` re-checks capacity every round, so a parked request
+        only waits."""
+        self.waiting.append(req)
+
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.active)
@@ -104,9 +131,12 @@ class ContinuousScheduler:
     def next_arrival(self) -> Optional[float]:
         return min((r.arrival_time for r in self.waiting), default=None)
 
-    def admit(self) -> List[ServeRequest]:
+    def admit(self, hold=None) -> List[ServeRequest]:
         """Admit policy-ordered admissible requests while the pool has room
-        (a free slot; paged: also free blocks above the watermark)."""
+        (a free slot; paged: also free blocks above the watermark).
+        ``hold`` maps a request to a defer cause or None: a held request
+        skips this round without blocking the requests behind it, as does
+        one over its tenant's budget."""
         ready = [r for r in self.waiting if r.arrival_time <= self.step]
         now = time.perf_counter()
         for r in ready:
@@ -114,6 +144,12 @@ class ContinuousScheduler:
                 r.t_arrived = now
         admitted = []
         for req in self.policy.order(ready, float(self.step)):
+            if hold is not None and hold(req) is not None:
+                continue
+            if (self.allocation is not None
+                    and not self.allocation.admissible(req, self.active,
+                                                       self.pool)):
+                continue
             slot = (self.pool.alloc_for(req)
                     if hasattr(self.pool, "alloc_for") else self.pool.alloc())
             if slot is None:
@@ -137,10 +173,12 @@ class ContinuousScheduler:
         self.prefill_queue.clear()
         return items
 
-    def preempt(self, req: ServeRequest) -> None:
-        """Return an active request to the queue under block-pool pressure:
-        its slot and blocks are freed and its tokens discarded; greedy
-        decoding regenerates them identically after re-admission."""
+    def preempt(self, req: ServeRequest, cause: str = "pool_pressure") -> None:
+        """Return an active request to the queue (``cause``: pool pressure,
+        a killed slot, an exhausted pool): its slot and blocks are freed
+        and its tokens discarded; greedy decoding regenerates them
+        identically after re-admission. ``cause`` names the event for the
+        tracer (ROADMAP queue A, item 9)."""
         if req.slot is None or self.active.get(req.slot) is not req:
             raise ValueError("can only preempt an active request")
         self.n_preempted += 1

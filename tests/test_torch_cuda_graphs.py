@@ -163,3 +163,101 @@ def test_paged_moe_prefix_hits_equal_cold_runs(cuda_device):
     warm, hits = run(True)
     cold, none = run(False)
     assert warm == cold and hits > 0 and none == 0
+
+
+def _chaos_engine(cache, params=None, spec=None):
+    """A smoke qwen2 engine under faults, with tenants and an elastic
+    controller: a join past the constructed pool grows it mid-run."""
+    from repro_torch.serve import (ElasticController, FaultInjector,
+                                   FaultSchedule, Tenant, TenantRegistry,
+                                   plan_allocation, profiles_from_requests)
+    spec = spec or ("defer_storm@1:duration=2,tenant_slowdown@2:tenant=b:"
+                    "duration=3,slot_kill@3,arrival_burst@4:n=2:"
+                    "prompt_len=8:max_new=3:tenant=a,prefix_flush@5,"
+                    "pool_shrink@6:blocks=6:restore_after=4,"
+                    "device_fail@8:blocks=3:restore_after=3,"
+                    "device_join@10:blocks=12")
+    registry = TenantRegistry([Tenant("a", weight=2.0, slo_steps=12.0),
+                               Tenant("b")])
+    total = 24 if cache == "paged" else 3
+    units = ((lambda r: -(-(len(r.prompt) + r.max_new_tokens) // 4))
+             if cache == "paged" else None)
+    allocation = plan_allocation(
+        registry, profiles_from_requests(registry, _chaos_requests(),
+                                         total_units=total, units_for=units,
+                                         max_k=8),
+        total, total_lanes=2, max_k=8,
+        watermark_units=2 if cache == "paged" else 0)
+    kw = dict(n_blocks=24) if cache == "paged" else {}
+    return _engine("qwen2-0.5b", cache, params=params, policy="slo",
+                   tenants=registry, allocation=allocation,
+                   injector=FaultInjector(FaultSchedule.from_spec(spec)),
+                   elastic=ElasticController(queue_hi=3, step_units=4,
+                                             cooldown=4.0), **kw)
+
+
+def _chaos_requests():
+    rng = np.random.default_rng(23)
+    return [ServeRequest(rng.integers(1, 512, size=n).astype(np.int32),
+                         max_new_tokens=b, arrival_time=float(a), tenant=t)
+            for n, a, b, t in zip([5, 9, 7, 12, 6, 8], [0, 0, 1, 2, 4, 5],
+                                  [6, 3, 8, 5, 2, 7],
+                                  ["a", "b", "a", "b", "b", "a"])]
+
+
+def _chaos_run(engine):
+    before = ops.counts()
+    out, st = engine.run(_chaos_requests())
+    torch.cuda.synchronize()
+    launches = tuple(a - b for a, b in zip(ops.counts(), before))
+    counters = {n: getattr(st, n) for n in COUNTERS if n != "tenants"}
+    counters["tenants"] = {t: {k: v for k, v in d.items()
+                               if not k.endswith("_s")}
+                           for t, d in st.tenants.items()}
+    if engine.cache_kind == "paged":
+        engine.pool.audit()
+    return ([r.output for r in out], list(engine.injector.injected),
+            [(r.job_id, r.drop_cause) for r in out if r.dropped], counters,
+            launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["paged", "contiguous"])
+def test_chaos_graph_run_equals_eager_run(cuda_device, cache):
+    """Under all eight fault kinds (the paged pool growing mid-run, its
+    captured programs dropped and captured again over the new pools) a
+    captured run, an eager run and a second captured run agree in tokens,
+    faults, drops, counters and launches; the paged kernels run, their
+    plain versions never; a new engine on the same weights agrees too."""
+    engine = _chaos_engine(cache)
+    first = _chaos_run(engine)
+    assert engine.graphs.replays > 0
+    with graphs.eager():
+        assert _chaos_run(engine) == first
+    assert _chaos_run(engine) == first
+    assert {"slot_kill", "device_join", "pool_shrink"} <= {
+        k for k, _ in first[1]}
+    if cache == "paged":
+        assert first[3]["migrated_blocks"] > 0 and engine.migrations
+        assert engine.migrations[0]["graphs_dropped"] > 0
+        assert first[4][1] > 0 and first[4][2] > 0
+    assert sum(first[4][5:]) == 0
+    assert _chaos_run(_chaos_engine(cache, params=engine.params)) == first
+
+
+@pytest.mark.cuda
+def test_growth_keeps_every_block_on_the_card(cuda_device):
+    """``grow_physical`` on the card: the new pools' leading slice equals
+    the old pools bit for bit, the new blocks are zero."""
+    from repro_torch.serve import BlockManager
+    model = build_model(get_config("qwen2-0.5b", smoke=True))
+    pool = BlockManager(model, n_slots=2, max_len=32, block_size=4,
+                        n_blocks=10, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pool.buffers.k_buf.normal_(generator=gen)
+    pool.buffers.v_buf.normal_(generator=gen)
+    old = pool.buffers
+    assert pool.grow_physical(6) == 6
+    for name in ("k", "v"):
+        assert torch.equal(pool.buffers[name][:, :10], old[name])
+        assert not pool.buffers[name][:, 10:].any()

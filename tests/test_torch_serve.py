@@ -216,7 +216,7 @@ def test_engine_matches_jax_engine_with_pallas_kernels():
 
 def test_engine_rejects_unported_options():
     cfg = get_config(ARCH, smoke=True)
-    for kw in (dict(tenants=object()), dict(sharding=object())):
+    for kw in (dict(tracer=object()), dict(sharding=object())):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, device="cpu", **kw)
     with pytest.raises(ValueError):        # recurrent state is not paged
