@@ -114,6 +114,34 @@ Phases, each printed as it runs; any failure exits non-zero:
                  Then run_replay(verify=True) against the fault-free K=1
                  static contiguous engine on the same weights, and the set
                  without faults on a second engine, captured then replayed;
+      obs       — the engine phase's engine and request set again, built by
+                 repro_torch.launch.serve's build with --trace, --profile
+                 and --profile-store (an event Tracer, a DispatchProfiler
+                 with the H100's roofline, a ProfileStore): served captured,
+                 replayed, then three rounds of replayed runs with both,
+                 neither, the profiler alone and the tracer alone attached,
+                 each round's order rotated, every counter 0 before each
+                 run. The traced
+                 runs must give the untraced runs' tokens, ServeStats
+                 counters and paged-kernel launches (non-zero); their events
+                 must pass validate_events, hold one decode_horizon event a
+                 decode dispatch and one prefill_round event a prefill
+                 dispatch; the profiler must hold one record a dispatch,
+                 every execute record with 0 < util <= 1.05 (a dispatch
+                 timed short of its own byte floor would show above it);
+                 the replayed run's events, times and compile flags
+                 dropped, must equal the captured run's. The Chrome trace
+                 (build/obs/) must load as JSON with a track for each span
+                 type and a util counter a phase, the trace report must run
+                 over the JSONL dump. Prints per run and phase the
+                 dispatches, compile and execute seconds and mean util, the
+                 store's rate fit, profile_class(store=)'s source and
+                 constants, and each setting's tokens/s: the runs, their
+                 median and spread, and the median against neither's. Then the
+                 chaos set with a tracer, graphs and eager: the fault,
+                 recovery, admission, preemption, eviction, deferral,
+                 migration and scale events must be equal between the two
+                 and the tokens and launches equal the chaos phase's;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (16 layers, 64 experts top-8, ~6.9 B
                  float32 weights from a seed), its three runs as in phase 5:
@@ -205,6 +233,7 @@ import dataclasses
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -221,14 +250,18 @@ from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import trace_report  # noqa: E402
 from repro_torch.models import encdec, layers, mamba2, moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.obs import (NULL_PROFILER, NULL_TRACER, Tracer,  # noqa: E402
+                             load_trace, to_chrome_trace, validate_events,
+                             write_chrome_trace)
 from repro_torch.serve import graphs  # noqa: E402
 from repro_torch.serve import (BlockManager, ElasticController,  # noqa: E402
                                FaultInjector, FaultSchedule, ServeEngine,
                                Tenant, TenantRegistry, philly_requests,
-                               plan_allocation, profiles_from_requests,
-                               run_replay)
+                               plan_allocation, profile_class,
+                               profiles_from_requests, run_replay)
 
 HQ, HKV, D, BS, MAX_LEN, SLOTS = 14, 2, 64, 16, 1024, 8
 MB = MAX_LEN // BS
@@ -1118,9 +1151,10 @@ def _check_reference(arch: str, path, **overrides) -> list:
 #: the kernels line reads its launches), "eager" (under graphs.eager(): no
 #: graph at all) and "replayed" (every signature captured already)
 MODES = ("captured", "eager", "replayed")
-#: ServeStats fields that are wall-clock times; every other is a counter
+#: ServeStats fields that are wall-clock times (``decode_util`` a measured
+#: ratio over them); every other is a counter
 TIMES = {"wall_s", "tokens_per_s", "mean_latency_s", "prefill_s",
-         "decode_s"}
+         "decode_s", "decode_util"}
 COUNTER_NAMES = tuple(f.__name__ for f, _ in ops.COUNTERS)
 
 
@@ -1203,25 +1237,26 @@ def run_engine(summary: dict) -> tuple:
     """The full-width qwen2-0.5b paged engine (module docstring, phases 5
     and 6): ``run_paged_engine`` with a replayed and an eager profile,
     then the sampled phase. Returns each paged kernel's launches in the
-    captured run and the engine's weights."""
+    captured run, the engine's weights and its three runs' results."""
     args = serve_cli.build_parser().parse_args(ENGINE_ARGS)
     what = "qwen2-0.5b paged"
-    engine, _, launches = run_paged_engine(summary, args, what, None,
-                                           modes=("replayed", "eager"))
+    engine, res, launches = run_paged_engine(summary, args, what, None,
+                                             modes=("replayed", "eager"))
     phase("sampled")
     summary[what]["sampled_vs_greedy"] = run_sampled(engine)
     params = engine.params
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, params
+    return launches, params, res
 
 
-def chaos_engine(cfg, params, device, faults: bool = True):
+def chaos_engine(cfg, params, device, faults: bool = True, tracer=None):
     """The chaos phase's engine on ``params`` and a function that makes
     its request set anew (module docstring, chaos): two tenants,
     SLO-slack order and an allocation planned on the analytic profile;
-    with ``faults``, ``CHAOS_FAULTS`` and an elastic controller."""
+    with ``faults``, ``CHAOS_FAULTS`` and an elastic controller; with
+    ``tracer``, its events."""
     def make():
         return philly_requests(
             cfg.vocab_size, tenant_of=lambda job: (
@@ -1244,7 +1279,7 @@ def chaos_engine(cfg, params, device, faults: bool = True):
                          block_size=BS, n_blocks=CHAOS_BLOCKS,
                          prefill_lanes=4, decode_horizon=8,
                          tenants=registry, allocation=allocation,
-                         device=device, **kw)
+                         tracer=tracer, device=device, **kw)
     return engine, make
 
 
@@ -1372,7 +1407,8 @@ def chaos_runs(engine, make) -> dict:
 
 def run_chaos(summary: dict, params) -> dict:
     """The chaos phase (module docstring) on the engine phase's
-    weights. Returns each paged kernel's launches in the captured run."""
+    weights. Returns each paged kernel's launches in the captured run and
+    that run's result (``chaos_runs``)."""
     cfg = get_config("qwen2-0.5b")
     engine, make = chaos_engine(cfg, params, "cuda")
     res = chaos_runs(engine, make)
@@ -1440,7 +1476,303 @@ def run_chaos(summary: dict, params) -> dict:
     del engine, free
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, base
+
+
+#: the obs phase's files (build/ is git-ignored)
+OBS_DIR = os.path.join(ROOT, "build", "obs")
+#: the settings whose cost the obs phase measures: (name, tracer attached,
+#: profiler attached)
+OBS_SETTINGS = (("both", True, True), ("neither", False, False),
+                ("profiler alone", False, True), ("tracer alone", True, False))
+#: how many replayed runs of each setting, in rotated order
+OBS_REPEATS = 3
+#: the obs phase's runs: (name, graph mode, tracer attached, profiler
+#: attached); every run but the first replays the first's graphs; after
+#: the captured and the first replayed run, OBS_REPEATS rounds of every
+#: setting, each round's order rotated by one (a Latin square)
+OBS_RUNS = (("captured", "captured", True, True),
+            ("replayed", "replayed", True, True)) + tuple(
+    (f"{OBS_SETTINGS[(i + j) % len(OBS_SETTINGS)][0]} {i}", "replayed",
+     *OBS_SETTINGS[(i + j) % len(OBS_SETTINGS)][1:])
+    for i in range(OBS_REPEATS) for j in range(len(OBS_SETTINGS)))
+#: event fields that hold wall times (``util`` a ratio over one)
+EVENT_TIMES = ("t", "wall_s", "dur_s", "util")
+#: the chaos events held equal between graph and eager runs (those of
+#: tests/test_chaos.py:281-297, and the reshapes')
+CHAOS_EVENTS = ("fault_inject", "recover", "admit", "preempt", "evict",
+                "defer", "migrate", "scale_up", "scale_down")
+#: the most a dispatch's roofline share may read: above 1 the timer missed
+#: device work
+UTIL_MAX = 1.05
+
+
+def _untimed(events, drop=EVENT_TIMES) -> list:
+    return [{k: v for k, v in e.items() if k not in drop} for e in events]
+
+
+def _by_phase(records) -> dict:
+    """Per phase of one run's profiler records: dispatches, compiles,
+    compile and execute seconds, mean / min / max util of the executes,
+    and their mean util with the FLOPs term at the f32 rate outside the
+    tensor cores (the engine's GEMMs run there, TF32 off) with the count
+    of executes that term binds."""
+    out = {}
+    for r in records:
+        p = out.setdefault(r["phase"], dict(dispatches=0, compiles=0,
+                                            compile_s=0.0, execute_s=0.0,
+                                            utils=[], utils_f32=[],
+                                            flops_bound_f32=0))
+        p["dispatches"] += 1
+        if r["compile"]:
+            p["compiles"] += 1
+            p["compile_s"] += r["dur_s"]
+        else:
+            p["execute_s"] += r["dur_s"]
+            p["utils"].append(r["util"])
+            flop_s, byte_s = r["flops"] / F32_FLOPS, r["hbm_bytes"] / HBM_BPS
+            p["utils_f32"].append(max(flop_s, byte_s) / r["dur_s"])
+            p["flops_bound_f32"] += flop_s > byte_s
+    for p in out.values():
+        u, u32 = p.pop("utils"), p.pop("utils_f32")
+        p.update(mean_util=sum(u) / len(u) if u else None,
+                 min_util=min(u, default=None), max_util=max(u, default=None),
+                 mean_util_f32=sum(u32) / len(u32) if u32 else None)
+    return out
+
+
+def obs_runs(engine, args, tracer, prof) -> dict:
+    """Serve ``args``' request set once per ``OBS_RUNS`` entry on
+    ``engine``, attaching ``tracer`` and ``prof`` as it says, every launch
+    counter 0 just before each run and read just after. Returns {name:
+    dict(out, stats, launches, events, records)}, each run's own events
+    and records."""
+    res = {}
+    sync = torch.cuda.synchronize
+    for name, mode, traced, profiled in OBS_RUNS:
+        engine.tracer = tracer if traced else NULL_TRACER
+        engine.profiler = prof if profiled else NULL_PROFILER
+        n_events, n_records = len(tracer), len(prof.records)
+        reqs = serve_cli.requests(args)
+        ops.set_counts((0,) * len(ops.COUNTERS))
+        sync()
+        with _mode(mode):
+            out, stats = engine.run(reqs)
+        sync()
+        res[name] = dict(out=out, stats=stats,
+                         launches=dict(zip(COUNTER_NAMES, ops.counts())),
+                         events=tracer.events[n_events:],
+                         records=prof.records[n_records:])
+        print(json.dumps({
+            "obs": name, "traced": traced, "profiled": profiled,
+            **{k: getattr(stats, k) for k in (
+                "wall_s", "tokens_per_s", "decode_util",
+                "decode_dispatches", "prefill_dispatches")},
+            "events": len(res[name]["events"]),
+            "by_phase": _by_phase(res[name]["records"])}), flush=True)
+    engine.tracer, engine.profiler = tracer, prof
+    return res
+
+
+def check_obs_run(name: str, r: dict, untraced: dict, traced: bool,
+                  profiled: bool) -> None:
+    """One obs run against the untraced run of its graph mode: tokens,
+    every ServeStats counter, every launch count; its events (schema, one
+    span a dispatch) and its records (one a dispatch, each execute's util
+    in (0, UTIL_MAX])."""
+    st, base = r["stats"], untraced["stats"]
+    diff = [f.name for f in dataclasses.fields(st) if f.name not in TIMES
+            and getattr(st, f.name) != getattr(base, f.name)]
+    same = ([x.output for x in r["out"]]
+            == [x.output for x in untraced["out"]])
+    if (not same or diff or r["launches"] != untraced["launches"]
+            or min(r["launches"][k] for k in ("paged_attention",
+                                              "paged_prefill_attention"))
+            <= 0):
+        raise SystemExit(f"FAIL: obs {name}: tokens equal {same}, counters "
+                         f"differ {diff}, launches {r['launches']} vs "
+                         f"{untraced['launches']}")
+    n_disp = st.decode_dispatches + st.prefill_dispatches
+    evs = r["events"]
+    kinds = [e["ev"] for e in evs]
+    if traced and (validate_events(evs)
+                   or kinds.count("decode_horizon") != st.decode_dispatches
+                   or kinds.count("prefill_round") != st.prefill_dispatches
+                   or kinds.count("run_start") != 1
+                   or kinds.count("dispatch_profile") != n_disp * profiled):
+        raise SystemExit(f"FAIL: obs {name}: events "
+                         f"{validate_events(evs)[:5]}, "
+                         f"{ {k: kinds.count(k) for k in set(kinds)} } for "
+                         f"{st.decode_dispatches} decode and "
+                         f"{st.prefill_dispatches} prefill dispatches")
+    if traced != bool(evs):
+        raise SystemExit(f"FAIL: obs {name}: {len(evs)} events")
+    recs = r["records"]
+    bad = [rec for rec in recs if not rec["compile"]
+           and not (rec["util"] is not None and 0 < rec["util"] <= UTIL_MAX)]
+    if len(recs) != n_disp * profiled or bad:
+        raise SystemExit(f"FAIL: obs {name}: {len(recs)} records for "
+                         f"{n_disp} dispatches; utils out of (0, "
+                         f"{UTIL_MAX}]: {bad[:5]}")
+
+
+def check_chrome(events, path: str) -> dict:
+    """Write the Chrome trace and read it back: a track for each span type
+    present and a util counter for each profiled phase."""
+    write_chrome_trace(path, events)
+    with open(path) as f:
+        doc = json.load(f)
+    tracks = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    spans = {tracks[e["tid"]] for e in doc["traceEvents"] if e["ph"] == "X"}
+    counters = {e["name"] for e in doc["traceEvents"] if e["ph"] == "C"}
+    if (spans != {"prefill", "decode"}
+            or counters != {"util[decode]", "util[prefill_round]"}
+            or doc != json.loads(json.dumps(to_chrome_trace(events)))):
+        raise SystemExit(f"FAIL: obs: Chrome trace span tracks {spans}, "
+                         f"counters {counters}")
+    return {"path": os.path.relpath(path, ROOT),
+            "trace_events": len(doc["traceEvents"]),
+            "span_tracks": sorted(spans), "counters": sorted(counters)}
+
+
+def profiling_cost(res: dict) -> dict:
+    """Per ``OBS_SETTINGS`` entry, its replayed runs' tokens/s (in run
+    order), their median, their spread ((max - min) / median) and the
+    median's change against the median with neither attached."""
+    out = {}
+    for setting, *_ in OBS_SETTINGS:
+        tps = [res[f"{setting} {i}"]["stats"].tokens_per_s
+               for i in range(OBS_REPEATS)]
+        med = statistics.median(tps)
+        out[setting] = {"runs": tps, "median": med,
+                        "spread": (max(tps) - min(tps)) / med}
+    for setting in out:
+        out[setting]["vs_neither"] = (out[setting]["median"]
+                                      / out["neither"]["median"] - 1)
+    return out
+
+
+def run_obs(summary: dict, params, untraced: dict, chaos: dict) -> dict:
+    """The obs phase (module docstring) on the engine phase's weights;
+    ``untraced`` the engine phase's runs, ``chaos`` the chaos phase's
+    captured run. Returns each paged kernel's launches in the captured
+    traced run."""
+    os.makedirs(OBS_DIR, exist_ok=True)
+    jsonl, chrome, store_path = (os.path.join(OBS_DIR, f) for f in (
+        "trace.jsonl", "trace.json", "profiles_torch.jsonl"))
+    if os.path.exists(store_path):
+        os.remove(store_path)               # this run's records only
+    args = serve_cli.build_parser().parse_args(ENGINE_ARGS + [
+        "--trace", jsonl, "--profile", "--profile-store", store_path])
+    engine, _, _ = serve_cli.build(args, params=params)
+    tracer, prof = engine.tracer, engine.profiler
+    res = obs_runs(engine, args, tracer, prof)
+    for name, mode, traced, profiled in OBS_RUNS:
+        check_obs_run(name, res[name], untraced[mode], traced, profiled)
+    if tracer.dropped:
+        raise SystemExit(f"FAIL: obs: the ring dropped {tracer.dropped}")
+    captured, replayed = (_untimed(res[m]["events"],
+                                   EVENT_TIMES + ("compile",))
+                          for m in ("captured", "replayed"))
+    if captured != replayed:
+        i = next(i for i, (a, b) in enumerate(zip(captured + [None],
+                                                  replayed + [None]))
+                 if a != b)
+        raise SystemExit(f"FAIL: obs: the replayed run's events differ from "
+                         f"the captured run's at {i}: {captured[i:i + 1]} "
+                         f"vs {replayed[i:i + 1]}")
+    compiles = [sum(r["compile"] for r in res[m]["records"])
+                for m, *_ in OBS_RUNS]
+    if compiles[0] != len(engine.graphs.keys) or any(compiles[1:]):
+        raise SystemExit(f"FAIL: obs: compiles by run {compiles}, graph "
+                         f"signatures {len(engine.graphs.keys)}")
+    # the CLI's summary: writes the JSONL trace, folds the profile into the
+    # store and saves it
+    last = res[OBS_RUNS[-1][0]]
+    record = serve_cli.summary(args, engine, last["out"], last["stats"])
+    events = load_trace(jsonl)
+    report = trace_report.build_report(events)
+    costs = {row["phase"]: row for row in report["phase_costs"]}
+    traced_runs = [res[m] for m, _, traced, _ in OBS_RUNS if traced]
+    if (validate_events(events[1:]) or costs["decode"]["count"] != sum(
+            r["stats"].decode_dispatches for r in traced_runs)
+            or costs["prefill_round"]["count"] != sum(
+                r["stats"].prefill_dispatches for r in traced_runs)):
+        raise SystemExit(f"FAIL: obs: the report's phase costs {costs}")
+    chrome_rec = check_chrome(tracer.events, chrome)
+    store = engine.profile_store
+    fit = store.rate_fit("qwen2-0.5b", "paged")
+    upr = -(-(args.prompt_len + args.shared_prefix + args.max_new) // BS)
+    cls = profile_class("qwen2-0.5b", units_per_req=upr,
+                        concurrency=args.batch, total_units=NB, max_k=8,
+                        store=store, arch="qwen2-0.5b", backend="paged")
+    if (cls.source == "measured") != (fit is not None):
+        raise SystemExit(f"FAIL: obs: profile_class source {cls.source}, "
+                         f"fit {fit}")
+    rec = {"by_run": {m: _by_phase(res[m]["records"])
+                      for m in ("captured", "replayed")},
+           "tokens_per_s": profiling_cost(res),
+           "untraced_engine_phase_replayed_tokens_per_s":
+               untraced["replayed"]["stats"].tokens_per_s,
+           "profile_summary": record["profile"],
+           "rate_fit": {"t_tok": fit[0], "t_fixed": fit[1]} if fit else None,
+           "profile_class": {"source": cls.source, "t_tok": cls.t_tok,
+                             "t_fixed": cls.t_fixed},
+           "events": {"captured": len(res["captured"]["events"]),
+                      "replayed": len(res["replayed"]["events"])},
+           "report_phase_costs": report["phase_costs"],
+           "chrome": chrome_rec}
+    print(json.dumps({"obs_summary": rec}), flush=True)
+    counts = res["captured"]["launches"]
+    launches = {"paged_decode": counts["paged_attention"],
+                "paged_prefill": counts["paged_prefill_attention"]}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["chaos"] = traced_chaos(params, chaos)
+    summary["qwen2-0.5b traced"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def traced_chaos(params, chaos: dict) -> dict:
+    """The chaos set with a tracer, graphs then eager, on a new engine: the
+    ``CHAOS_EVENTS`` of the two runs (times dropped) must be equal, and
+    each run's record and launches the chaos phase's captured run's."""
+    cfg = get_config("qwen2-0.5b")
+    engine, make = chaos_engine(cfg, params, "cuda", tracer=Tracer())
+    got = {}
+    for mode in ("replayed", "eager"):
+        engine.tracer = tracer = Tracer()
+        ops.set_counts((0,) * len(ops.COUNTERS))
+        with _mode(mode):
+            out, stats = engine.run(make())
+        torch.cuda.synchronize()
+        launches = dict(zip(COUNTER_NAMES, ops.counts()))
+        record = _chaos_record(engine, out, stats)
+        diff = [k for k in record if record[k] != chaos["record"][k]]
+        events = tracer.events
+        if (diff or launches != chaos["launches"] or tracer.dropped
+                or validate_events(events)):
+            raise SystemExit(f"FAIL: obs chaos {mode}: differs from the "
+                             f"chaos phase in {diff}, launches {launches} vs "
+                             f"{chaos['launches']}, dropped {tracer.dropped},"
+                             f" schema {validate_events(events)[:5]}")
+        got[mode] = _untimed([e for e in events if e["ev"] in CHAOS_EVENTS])
+    if got["replayed"] != got["eager"]:
+        raise SystemExit("FAIL: obs chaos: the graph and eager runs' events "
+                         "differ")
+    kinds = [e["ev"] for e in got["eager"]]
+    rec = {k: kinds.count(k) for k in CHAOS_EVENTS}
+    if not all(rec[k] for k in ("fault_inject", "recover", "preempt",
+                                "migrate", "scale_up", "scale_down")):
+        raise SystemExit(f"FAIL: obs chaos: events {rec}")
+    print(json.dumps({"obs_chaos": {"equal_graph_eager": True, **rec}}),
+          flush=True)
+    del engine
+    return rec
 
 
 def _summary(res: dict) -> dict:
@@ -1475,7 +1807,7 @@ def run_sampled(greedy) -> dict:
     args = serve_cli.build_parser().parse_args(SAMPLED_ARGS + [
         "--temperature", "0.8", "--top-k", "50"])
     greedy_args = serve_cli.build_parser().parse_args(SAMPLED_ARGS)
-    engine, _ = serve_cli.build(args)
+    engine, _, _ = serve_cli.build(args)
     greedy.run(serve_cli.requests(greedy_args))
     runs, times = [], {"sampled": [], "greedy": []}
     for kind in ("sampled", "sampled", "greedy", "sampled", "greedy"):
@@ -1504,7 +1836,7 @@ def run_olmoe(summary: dict):
     phase 7). Returns each counted wrapper's launches in the captured run
     and the engine's weights."""
     args = serve_cli.build_parser().parse_args(OLMOE_ARGS)
-    engine, _ = serve_cli.build(args)
+    engine, _, _ = serve_cli.build(args)
     res = serve_modes(engine, args, "olmoe-1b-7b contiguous")
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
@@ -1557,7 +1889,7 @@ def run_paged_engine(summary: dict, args, what: str, params,
     rounds as graphs) and profiled runs of ``modes``. Returns (the engine,
     its three runs' results, each paged kernel's launches in the captured
     run)."""
-    engine, _ = serve_cli.build(args, params=params)
+    engine, _, _ = serve_cli.build(args, params=params)
     res = serve_modes(engine, args, what)
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
@@ -1617,7 +1949,7 @@ def run_olmoe_paged(summary: dict, params) -> dict:
 def _run_args(argv, params):
     """Serve ``argv``'s request set once on a new engine over ``params``."""
     args = serve_cli.build_parser().parse_args(argv)
-    engine, _ = serve_cli.build(args, params=params)
+    engine, _, _ = serve_cli.build(args, params=params)
     return engine.run(serve_cli.requests(args))
 
 
@@ -2049,7 +2381,7 @@ def run_recurrent_engine(summary: dict, argv, what: str, ours: str,
     of ``modes`` (``ours``: the name fragment of the kernels its forward
     runs)."""
     args = serve_cli.build_parser().parse_args(argv)
-    engine, _ = serve_cli.build(args, params=params)
+    engine, _, _ = serve_cli.build(args, params=params)
     res = serve_modes(engine, args, what)
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
@@ -2325,14 +2657,19 @@ def main() -> int:
     #: each kernel's launches in the captured run of each path
     paths = {name: {} for name in rec}
     # and the profile and sampled phases
-    launches, params = run_engine(summary)
+    launches, params, untraced = run_engine(summary)
     for name, n in launches.items():
         paths[name]["qwen2-0.5b paged"] = n
 
     phase("chaos")
-    for name, n in run_chaos(summary, params).items():
+    launches, chaos = run_chaos(summary, params)
+    for name, n in launches.items():
         paths[name]["qwen2-0.5b chaos"] = n
-    del params
+
+    phase("obs")
+    for name, n in run_obs(summary, params, untraced, chaos).items():
+        paths[name]["qwen2-0.5b traced"] = n
+    del params, untraced, chaos
 
     phase("olmoe")
     gc.collect()                    # the qwen2 engines are gone: free them

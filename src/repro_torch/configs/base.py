@@ -83,6 +83,59 @@ class ArchConfig:
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's analytic parameter count (``active_only``: the
+        top-k experts of a MoE layer only); the dispatch profiler's
+        roofline reads it."""
+        d, hd = self.d_model, self.resolved_head_dim
+        v = self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+
+        def attn_params() -> int:
+            q = d * self.n_heads * hd + (self.n_heads * hd if self.qkv_bias
+                                         else 0)
+            kv = 2 * (d * self.n_kv_heads * hd
+                      + (self.n_kv_heads * hd if self.qkv_bias else 0))
+            o = self.n_heads * hd * d
+            return q + kv + o
+
+        def mlp_params(ff: int) -> int:
+            return 3 * d * ff          # swiglu: gate + up + down
+
+        def moe_params() -> int:
+            router = d * self.n_experts
+            experts = self.n_experts if not active_only else self.top_k
+            return router + experts * mlp_params(self.d_ff)
+
+        def ssm_params() -> int:
+            di, st, g = self.d_inner, self.ssm_state, self.ssm_groups
+            h = self.n_ssm_heads
+            in_p = d * (2 * di + 2 * g * st + h)
+            conv = (di + 2 * g * st) * self.ssm_conv
+            return in_p + conv + h * 2 + di + di * d  # A, dt_bias, D, norm,
+                                                      # out_proj
+        per_layer = 2 * d              # two norms
+        if self.family in ("dense", "vlm"):
+            per_layer += attn_params() + mlp_params(self.d_ff)
+            total = emb + self.n_layers * per_layer
+        elif self.family == "moe":
+            per_layer += attn_params() + moe_params()
+            total = emb + self.n_layers * per_layer
+        elif self.family == "ssm":
+            total = emb + self.n_layers * (d + ssm_params())
+        elif self.family == "hybrid":
+            shared = attn_params() + mlp_params(4 * d) + 2 * d
+            total = emb + self.n_layers * (d + ssm_params()) + shared
+        elif self.family == "encdec":
+            enc = self.n_enc_layers * (attn_params() + mlp_params(self.d_ff)
+                                       + 2 * d)
+            dec = self.n_layers * (2 * attn_params() + mlp_params(self.d_ff)
+                                   + 3 * d)
+            total = emb + enc + dec
+        else:
+            raise ValueError(self.family)
+        return int(total)
+
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """The reference's per-arch smoke shape: same family and code paths,

@@ -12,7 +12,7 @@ token-identical to the fault-free static contiguous engine at
         --arch qwen2-0.5b --cache paged --slots 4 --n 16 --load 2.0 \\
         --max-len 64 --prompt-len 12 --max-new 8 \\
         --faults "slot_kill@8,prefix_flush@12,pool_shrink@16:blocks=6" \\
-        --verify
+        --trace build/replay_trace.jsonl --verify
     python -m repro_torch.launch.replay --preset full --arch qwen2-0.5b \\
         --cache paged --slots 8 --n 24 --max-len 256 --prompt-len 64 \\
         --max-new 32 --faults "pool_shrink@8:blocks=8:restore_after=16" \\
@@ -21,9 +21,10 @@ token-identical to the fault-free static contiguous engine at
 Fault specs are ``kind@step[:key=val...]`` (comma-separated) or a JSON
 schedule via ``--faults-file`` (``FaultSchedule.to_json``). Weights come
 from a ``torch.Generator`` seeded with ``--seed`` (which also seeds the
-workload). ``--device`` defaults to ``cuda``. ``--mesh host`` (sharded
-serving) is ROADMAP queue A, item 10; the event trace (``--trace``) is
-item 9.
+workload). ``--device`` defaults to ``cuda``. ``--trace PATH`` dumps the
+replay's event trace (``--trace-format``, ``--trace-capacity`` as in
+``launch/serve.py``; analyze it with ``repro_torch.launch.trace_report``).
+``--mesh host`` (sharded serving) is ROADMAP queue A, item 10.
 """
 from __future__ import annotations
 
@@ -35,7 +36,9 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch.serve import add_elastic_flags, elastic_controller
+from repro_torch.launch.serve import (add_elastic_flags, add_trace_flags,
+                                      dump_trace, elastic_controller,
+                                      make_tracer)
 from repro_torch.serve import (FaultInjector, FaultSchedule, ServeEngine,
                                philly_requests, run_replay)
 
@@ -97,6 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admission retries with exponential backoff before "
                          "a request is dropped during pool_shrink")
     add_elastic_flags(ap)
+    add_trace_flags(ap)
     ap.add_argument("--verify", action="store_true",
                     help="check every non-dropped output against the "
                          "fault-free static contiguous engine")
@@ -122,6 +126,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                            seed=args.seed, prompt_len=args.prompt_len,
                            max_new=args.max_new, max_len=args.max_len)
     elastic = elastic_controller(args)
+    tracer = make_tracer(args)
     engine = ServeEngine(
         cfg, max_len=args.max_len, n_slots=args.slots, policy=args.policy,
         cache=args.cache, block_size=args.block_size,
@@ -129,7 +134,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         prefill_lanes=args.prefill_lanes, prefix_cache=args.prefix_cache,
         decode_horizon=args.decode_horizon, eos_token=args.eos_token,
         injector=injector, elastic=elastic,
-        max_admit_retries=args.max_admit_retries,
+        max_admit_retries=args.max_admit_retries, tracer=tracer,
         metrics_every=args.metrics_every, device=args.device,
         seed=args.seed)
     res = run_replay(engine, reqs, verify=args.verify, ref_cfg=cfg,
@@ -150,6 +155,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         "elastic": bool(elastic),
         **dataclasses.asdict(res.stats),
     }
+    trace_info = dump_trace(args, tracer)
+    if trace_info is not None:
+        record["trace"] = trace_info
     if args.verify:
         record["verified"] = bool(res.verified)
         record["mismatched"] = res.mismatched

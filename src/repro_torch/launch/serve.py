@@ -46,6 +46,24 @@ policy without budgets). ``--elastic`` installs an ``ElasticController``
 ``--elastic-step-units``, ``--elastic-cooldown``). Tenant mechanisms and
 reshapes reorder; they never change tokens, so ``--verify`` holds.
 
+Observability (``repro_torch/obs``): ``--trace out.jsonl`` records every
+scheduling decision, phase dispatch and block-pool transition as the
+reference's structured events (``--trace-format chrome`` writes a
+Perfetto-loadable Chrome trace instead; ``--trace-capacity`` bounds the
+event ring); ``--metrics-every N`` sets the series' sampling cadence at
+decode boundaries. Analyze a JSONL trace with
+``python -m repro_torch.launch.trace_report out.jsonl``. ``--profile``
+attaches the dispatch profiler (each dispatch timed to the end of its
+device work, with compile-vs-execute attribution, utilization against the
+H100's roofline and per-tenant cost shares: the summary's ``profile``
+block). ``--profile-store PATH`` (e.g. ``build/profiles_torch.jsonl``)
+reads measured rate constants into the tenant profiles when the store
+holds a fit (the summary's ``calibrate_source`` says which path each
+tenant took) and, with ``--profile``, merges this run's records back in.
+``--min-hit-rate F`` exits non-zero when the prefix-cache hit rate falls
+below F. Tracing and profiling are read-only: ``--verify`` holds with
+them on.
+
 Weights come from the port's ``init_params`` under a ``torch.Generator``
 seeded with ``--seed`` (nothing is downloaded); the request set is the
 reference driver's ``make_requests`` (``repro/launch/serve.py:98``) on the
@@ -65,6 +83,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.obs import (DispatchProfiler, ProfileStore, Tracer,
+                             write_chrome_trace)
 from repro_torch.serve import (ElasticController, ServeEngine, ServeRequest,
                                ServeStats, Tenant, TenantRegistry,
                                plan_allocation, profiles_from_requests)
@@ -115,11 +135,12 @@ def tag_tenants(reqs, ids, mix) -> None:
         counts[j] += 1
 
 
-def build_tenancy(args, reqs, n_slots):
+def build_tenancy(args, reqs, n_slots, store=None):
     """(registry, allocation, profiles) for ``--tenants N``: the profiler
-    reads each tenant's class shape off its tagged requests and the
-    allocator plans budgets for the pool's geometry (allocation and
-    profiles None under ``--no-tenant-alloc``)."""
+    reads each tenant's class shape off its tagged requests (its rates off
+    ``store``, a ``ProfileStore``, when it holds a fit for the arch and
+    cache) and the allocator plans budgets for the pool's geometry
+    (allocation and profiles None under ``--no-tenant-alloc``)."""
     n = args.tenants
     slo = _csv(args.slo, n, "--slo")
     slo_s = _csv(args.slo_s, n, "--slo-s")
@@ -144,7 +165,8 @@ def build_tenancy(args, reqs, n_slots):
         watermark_units = 0
     profiles = profiles_from_requests(
         registry, reqs, total_units=total_units, units_for=units_for,
-        max_k=args.decode_horizon)
+        max_k=args.decode_horizon, store=store, arch=args.arch,
+        backend=args.cache)
     allocation = plan_allocation(
         registry, profiles, total_units, total_lanes=args.prefill_lanes,
         max_k=args.decode_horizon, watermark_units=watermark_units)
@@ -159,6 +181,37 @@ def elastic_controller(args) -> Optional[ElasticController]:
                              max_units=args.elastic_max_units,
                              min_units=args.elastic_min_units,
                              cooldown=args.elastic_cooldown)
+
+
+def add_trace_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="dump a structured event trace of the run here "
+                         "(analyze with repro_torch.launch.trace_report)")
+    ap.add_argument("--trace-format", default="jsonl",
+                    choices=["jsonl", "chrome"],
+                    help="trace file format: jsonl (trace_report) or chrome "
+                         "(load in ui.perfetto.dev)")
+    ap.add_argument("--trace-capacity", type=int, default=1 << 16,
+                    help="event ring-buffer capacity (oldest events drop "
+                         "beyond this)")
+
+
+def make_tracer(args) -> Optional[Tracer]:
+    """The ``--trace*`` flags' tracer (None without ``--trace``)."""
+    return Tracer(capacity=args.trace_capacity) if args.trace else None
+
+
+def dump_trace(args, tracer: Optional[Tracer]) -> Optional[dict]:
+    """Write the run's trace in ``--trace-format``; returns the summary's
+    ``trace`` block (None without a tracer)."""
+    if tracer is None:
+        return None
+    if args.trace_format == "chrome":
+        write_chrome_trace(args.trace, tracer.events)
+    else:
+        tracer.dump_jsonl(args.trace)
+    return {"path": args.trace, "format": args.trace_format,
+            "events": len(tracer), "dropped": tracer.dropped}
 
 
 def add_elastic_flags(ap: argparse.ArgumentParser) -> None:
@@ -230,6 +283,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="max prompt length (lengths mixed in [len/2, len])")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="common prefix tokens prepended to every prompt")
+    ap.add_argument("--min-hit-rate", type=float, default=None,
+                    help="fail unless the prefix-cache hit rate reaches "
+                         "this fraction")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--decode-horizon", type=int, default=8,
@@ -250,6 +306,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the request set")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_trace_flags(ap)
+    ap.add_argument("--metrics-every", type=int, default=1,
+                    help="sample the metrics time series every N decode "
+                         "boundaries (0 disables series sampling)")
+    ap.add_argument("--profile", action="store_true",
+                    help="attach a dispatch profiler: per-dispatch time "
+                         "with compile/execute attribution, roofline "
+                         "utilization, per-tenant cost shares (the summary "
+                         "gains a 'profile' block; with --trace, "
+                         "dispatch_profile events land in the trace)")
+    ap.add_argument("--profile-store", default=None, metavar="PATH",
+                    help="ProfileStore JSONL (e.g. build/profiles_torch."
+                         "jsonl): read measured rate constants into the "
+                         "tenant profiles when a fit exists; with "
+                         "--profile, this run's per-signature costs are "
+                         "merged back in")
     add_elastic_flags(ap)
     return ap
 
@@ -262,16 +334,21 @@ def requests(args) -> List[ServeRequest]:
                          shared_prefix=args.shared_prefix)
 
 
-def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest]]:
-    """The engine and the request set that ``args`` describe (tenant tags
-    included); the engine serves ``params`` when given, else weights drawn
-    on its device."""
+def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest],
+                                     Optional[dict]]:
+    """The engine, the request set (tenant tags included) and the tenants'
+    profiles (None without tenants) that ``args`` describe, with the
+    tracer, profiler and profile store of the flags; the engine serves
+    ``params`` when given, else weights drawn on its device."""
     cfg = get_config(args.arch, smoke=args.preset == "smoke")
     reqs = requests(args)
     n_slots = args.slots if args.engine == "continuous" else None
-    registry = allocation = None
+    store = (ProfileStore.load(args.profile_store) if args.profile_store
+             else None)
+    registry = allocation = profiles = None
     if args.tenants > 0:
-        registry, allocation, _ = build_tenancy(args, reqs, n_slots)
+        registry, allocation, profiles = build_tenancy(args, reqs, n_slots,
+                                                       store=store)
     engine = ServeEngine(
         cfg, params=params, max_len=args.max_len, n_slots=n_slots,
         policy=args.policy, cache=args.cache, block_size=args.block_size,
@@ -280,20 +357,18 @@ def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest]]:
         decode_horizon=args.decode_horizon, eos_token=args.eos_token,
         temperature=args.temperature, top_k=args.top_k,
         tenants=registry, allocation=allocation,
-        elastic=elastic_controller(args), device=args.device,
-        seed=args.seed)
-    return engine, reqs
-
-
-def run(args) -> Tuple[ServeEngine, List[ServeRequest], ServeStats]:
-    """Build the engine and the request set from ``args`` and serve it."""
-    engine, reqs = build(args)
-    out, stats = engine.run(reqs)
-    return engine, out, stats
+        elastic=elastic_controller(args), tracer=make_tracer(args),
+        metrics_every=args.metrics_every,
+        profiler=DispatchProfiler(cfg) if args.profile else None,
+        profile_store=store, device=args.device, seed=args.seed)
+    return engine, reqs, profiles
 
 
 def summary(args, engine: ServeEngine, out: List[ServeRequest],
-            stats: ServeStats) -> dict:
+            stats: ServeStats, profiles=None) -> dict:
+    """The JSON summary of a run (``profiles``: the tenants' profiles, for
+    ``calibrate_source``); writes the ``--trace`` file and, with
+    ``--profile``, merges the run into the ``--profile-store`` file."""
     dev = engine.device
     record = {
         "arch": engine.cfg.arch_id,
@@ -308,10 +383,25 @@ def summary(args, engine: ServeEngine, out: List[ServeRequest],
         **dataclasses.asdict(stats),
         "sample_output": out[0].output[:8],
     }
+    trace_info = dump_trace(args, engine.tracer or None)
+    if trace_info is not None:
+        record["trace"] = trace_info
     if engine._allocation0 is not None:
         record["tenant_budgets"] = {
             tid: dataclasses.asdict(s)
             for tid, s in sorted(engine._allocation0.shares.items())}
+    if profiles is not None:
+        record["calibrate_source"] = {
+            tid: p.source for tid, p in sorted(profiles.items())}
+    prof = engine.profiler
+    if prof:
+        record["profile"] = prof.summary()
+        store = engine.profile_store
+        if store is not None:
+            store.add_run(prof, arch=args.arch, backend=args.cache)
+            store.save(args.profile_store)
+            record["profile"]["store"] = {"path": args.profile_store,
+                                          "records": len(store)}
     return record
 
 
@@ -337,8 +427,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         ap.error("--verify is the greedy exactness path; drop --temperature")
     if args.policy == "slo" and args.tenants <= 0:
         ap.error("--policy slo needs --tenants N (slack comes from SLOs)")
-    engine, out, stats = run(args)
-    record = summary(args, engine, out, stats)
+    engine, reqs, profiles = build(args)
+    out, stats = engine.run(reqs)
+    record = summary(args, engine, out, stats, profiles)
     if args.verify:
         mismatches = verify(args, engine, out)
         record["verified"] = not mismatches
@@ -348,6 +439,12 @@ def main(argv: Optional[List[str]] = None) -> None:
             raise SystemExit(
                 f"FAIL: request(s) {mismatches} diverged from the static "
                 "contiguous engine")
+    if (args.min_hit_rate is not None
+            and stats.prefix_hit_rate < args.min_hit_rate):
+        print(json.dumps(record, indent=2))
+        raise SystemExit(
+            f"FAIL: prefix-cache hit rate {stats.prefix_hit_rate:.2f} below "
+            f"the required {args.min_hit_rate:.2f}")
     print(json.dumps(record, indent=2))
 
 

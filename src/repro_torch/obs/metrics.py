@@ -3,8 +3,8 @@ time series (a copy of ``repro.obs.metrics``).
 
 ``ServeStats`` is built from a per-run ``MetricsRegistry``. The registry is
 plain Python over plain floats, with no locks: the engine loop is
-single-threaded. ``RunObs`` here carries no event tracer; tracing and
-dispatch profiling are ported later (ROADMAP queue A, item 9).
+single-threaded. ``RunObs`` carries the run's (possibly null) event
+tracer beside it.
 """
 from __future__ import annotations
 
@@ -165,12 +165,15 @@ class MetricsRegistry:
 
 class RunObs:
     """Per-run observability context: the metrics registry every run keeps
-    (``ServeStats`` is built from it), the peak block report and the count
-    of decode boundaries seen (the sampling cadence)."""
-    __slots__ = ("metrics", "block_report", "boundaries")
+    (``ServeStats`` is built from it), the possibly null event tracer, the
+    peak block report and the count of decode boundaries seen (the
+    sampling cadence)."""
+    __slots__ = ("metrics", "tracer", "block_report", "boundaries")
 
-    def __init__(self):
+    def __init__(self, tracer=None):
+        from repro_torch.obs.events import NULL_TRACER
         self.metrics = MetricsRegistry()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.block_report: Optional[dict] = None
         self.boundaries = 0
 

@@ -70,9 +70,21 @@ crash-on-exhaustion paths into bounded retry-with-backoff, then drop; an
 program is dropped and captured again, and the next run builds a new pool.
 On one device no reshape changes the mesh's bucketing multiple, so a
 ``device_fail`` that revokes nothing counts no scale-down, as in the
-reference. Sharding, tracing and profiling are ported later and raise
-``NotImplementedError`` naming their ROADMAP item; profiling brings the
-reference's ``decode_util`` stat with it.
+reference.
+
+A ``tracer`` (``obs.Tracer``) records the reference's events at the
+reference's sites (the scheduler's and the block pool's too, at the
+engine's step clock), so a run's event list equals the JAX engine's field
+for field apart from times. A ``profiler`` (``obs.DispatchProfiler``)
+records every dispatch against its roofline (``ServeStats.decode_util``);
+it times each dispatch to the end of its device work — the decode
+horizon's token fetch and the contiguous prefill's id fetch already wait
+for it, and a paged prefill round then waits on the stream, which no
+counter sees. With a ``profile_store`` as well, every re-plan folds the
+run's profile into the store and fits the tenants' rates from it. Both are
+read-only: tokens, counters and event order do not change, and with
+neither attached nothing waits. Sharding is ported later and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -90,7 +102,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.moe import capacity
+from repro_torch.obs.events import NULL_TRACER
 from repro_torch.obs.metrics import RunObs
+from repro_torch.obs.prof import NULL_PROFILER
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import CachePool
 from repro_torch.serve.elastic import ScalePlan, pool_capacity
@@ -109,7 +123,7 @@ _ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 #: engine options of the reference that later slices port, by ROADMAP
 #: queue A item
-_LATER = {"tracer": 9, "profiler": 9, "profile_store": 9, "sharding": 10}
+_LATER = {"sharding": 10}
 
 
 def _pow2(n: int) -> int:
@@ -169,6 +183,9 @@ class ServeStats:
     max_queue_depth: int = 0
     mean_occupancy: float = 0.0       # used blocks at boundaries
     max_occupancy: float = 0.0
+    # -- dispatch profiling (obs.prof; 0.0 with profiling off) ---------------
+    decode_util: float = 0.0          # mean measured-vs-roofline utilization
+                                      # over execute decode dispatches
     # -- fault injection (serve/chaos.py; 0 without an injector) -------------
     faults_injected: int = 0          # faults applied at boundaries
     recoveries: int = 0               # regenerate / retry / restore /
@@ -256,8 +273,10 @@ class ServeEngine:
     ``tenants`` (a ``TenantRegistry``), ``allocation`` (a
     ``TenantAllocation``), ``injector`` (a ``FaultInjector``; a request a
     shrunken pool cannot hold waits ``max_admit_retries`` backoff retries
-    before it drops) and ``elastic`` (an ``ElasticController``) as in the
-    module docstring;
+    before it drops), ``elastic`` (an ``ElasticController``),
+    ``tracer``, ``profiler`` and ``profile_store`` as in the module
+    docstring (the profiler is the engine's, not the run's, so its
+    seen-signature set spans runs);
     ``metrics_every`` samples the boundary gauges into the run's series
     every N boundaries (0: never). ``migrations`` lists the last run's
     pool growths: the live blocks moved, the blocks added, the bytes
@@ -275,7 +294,8 @@ class ServeEngine:
                  tenants: Optional[TenantRegistry] = None,
                  allocation: Optional[TenantAllocation] = None,
                  metrics_every: int = 1, injector=None,
-                 max_admit_retries: int = 4, elastic=None, device="cuda",
+                 max_admit_retries: int = 4, elastic=None, tracer=None,
+                 profiler=None, profile_store=None, device="cuda",
                  seed: int = 0, **later):
         for name, value in later.items():
             if name not in _LATER:
@@ -323,6 +343,9 @@ class ServeEngine:
         self.injector = injector
         self.max_admit_retries = max(int(max_admit_retries), 1)
         self.elastic = elastic
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
+        self.profile_store = profile_store
         self.migrations: List[dict] = []
         self._pick = functools.partial(
             sampling.pick, temperature=self.temperature, top_k=self.top_k,
@@ -352,6 +375,8 @@ class ServeEngine:
                 and not getattr(self.pool, "grown", False)):
             self.pool.reset()
             self._state.reset()
+            if self.cache_kind == "paged":     # as a new pool would take
+                self.pool.tracer = self.tracer
             return self.pool, self._state
         self.graphs.reset()
         self.pool = self._state = None       # free the old tensors first
@@ -361,7 +386,7 @@ class ServeEngine:
                                 n_blocks=self.n_blocks,
                                 watermark=self.watermark,
                                 prefix_cache=self.prefix_cache,
-                                device=self.device)
+                                device=self.device, tracer=self.tracer)
             max_blocks = pool.max_blocks
         else:
             pool = CachePool(self.model, n_slots, self.max_len,
@@ -420,7 +445,12 @@ class ServeEngine:
             self.elastic.reset()
         self.allocation = self._allocation0
         self.migrations = []
-        c = RunObs()
+        c = RunObs(self.tracer)
+        tr = c.tracer
+        if tr:
+            tr.step = 0.0
+            tr.emit("run_start", backend=self.cache_kind, n_slots=n_slots,
+                    horizon=self.decode_horizon, n_requests=len(reqs))
         t0 = time.perf_counter()
         with torch.inference_mode():
             if self.cache_kind == "paged":
@@ -428,6 +458,8 @@ class ServeEngine:
             else:
                 self._run_contiguous(reqs, n_slots, c)
         wall = time.perf_counter() - t0
+        if tr:
+            tr.emit("run_end", steps=c.value("steps"), wall_s=wall)
         return reqs, self._stats(reqs, c, n_slots, wall)
 
     def _finished(self, r: ServeRequest) -> bool:
@@ -533,6 +565,7 @@ class ServeEngine:
             max_queue_depth=int(qd_max),
             mean_occupancy=occ_mean,
             max_occupancy=occ_max,
+            decode_util=m.series_stats("util[decode]")[0],
             faults_injected=int(m.value("faults_injected")),
             recoveries=int(m.value("recoveries")),
             dropped=len(reqs) - len(scored),
@@ -575,15 +608,25 @@ class ServeEngine:
         done_slots = [s for s, r in sched.active.items() if r.done]
         out = sched.evict_finished()
         state.freeze(done_slots)
-        for r in out:
+        for slot, r in zip(done_slots, out):
             c.metrics.observe("latency_steps", r.latency_steps)
+            if c.tracer:
+                t = (self.tenants.get(r.tenant)
+                     if self.tenants is not None else None)
+                c.tracer.emit(
+                    "evict", req=r.job_id, tenant=r.tenant, slot=slot,
+                    latency_steps=r.latency_steps,
+                    finished_early=r.finished_early,
+                    slo_steps=t.slo_steps if t is not None else None,
+                    met=self._meets_slo(r))
 
     def _make_sched(self, pool) -> ContinuousScheduler:
         """The run's scheduler: SLO-slack ordering for ``policy="slo"`` and
         the per-tenant budget check when an allocation is installed."""
         policy = (SLOSlack(self.tenants) if self.policy == "slo"
                   else self.policy)
-        return ContinuousScheduler(pool, policy, allocation=self.allocation)
+        return ContinuousScheduler(pool, policy, allocation=self.allocation,
+                                   tracer=self.tracer)
 
     def _slack(self, req, step) -> float:
         """SLO slack in decode steps (+inf without a registry or SLO)."""
@@ -607,6 +650,9 @@ class ServeEngine:
         req.dropped = True
         req.drop_cause = cause
         c.inc("recoveries")
+        if c.tracer:
+            c.tracer.emit("recover", kind=cause, action="drop",
+                          req=req.job_id, detail=req.n_retries)
 
     def _pending_units(self, pool, step) -> int:
         """Capacity units scheduled to arrive after ``step``: pending
@@ -652,6 +698,9 @@ class ServeEngine:
                 continue
             r.next_retry = sched.step + float(2 ** r.n_retries)
             c.inc("recoveries")
+            if c.tracer:
+                c.tracer.emit("recover", kind="pool_shrink", action="retry",
+                              req=r.job_id, detail=r.n_retries)
 
     def _next_unblock(self, sched) -> Optional[float]:
         """The earliest future step at which a stalled queue could move:
@@ -681,40 +730,59 @@ class ServeEngine:
 
     def _apply_fault(self, f, sched, pool, state, c: RunObs,
                      reqs: List[ServeRequest]) -> None:
+        tr = c.tracer
         inj = self.injector
         paged = isinstance(pool, BlockManager)
         if f.kind == "pool_shrink":
             took = pool.shrink(f.blocks) if paged else 0
+            if tr:
+                tr.emit("fault_inject", kind=f.kind, target=None, mag=took)
             if took and f.restore_after is not None:
                 inj.defer_restore(f, float(sched.step), took)
             if took and self.allocation is not None:
                 pool.tenant_reserves = self.allocation.rescaled_reserves(
                     pool.n_blocks)
                 c.inc("recoveries")
+                if tr:
+                    tr.emit("recover", kind=f.kind, action="reserve_rescale",
+                            req=None, detail=sum(
+                                pool.tenant_reserves.values()))
         elif f.kind == "pool_restore":
             got = pool.expand(f.blocks) if paged else 0
             if got and self.allocation is not None:
                 pool.tenant_reserves = self.allocation.rescaled_reserves(
                     pool.n_blocks)
             c.inc("recoveries")
+            if tr:
+                tr.emit("recover", kind="pool_shrink", action="restore",
+                        req=None, detail=got)
         elif f.kind == "device_fail":
             took = self._apply_scale(sched, pool, c, ScalePlan(
                 kind="scale_down", units=f.blocks, reason="device_fail",
                 step=float(sched.step), dmult=1))
+            if tr:
+                tr.emit("fault_inject", kind=f.kind, target=None, mag=took)
             if f.restore_after is not None:
                 # the join is scheduled even when nothing was revocable:
                 # on a mesh it must restore the bucketing multiple
                 inj.defer_restore(f, float(sched.step), took)
         elif f.kind == "device_join":
-            self._apply_scale(sched, pool, c, ScalePlan(
+            got = self._apply_scale(sched, pool, c, ScalePlan(
                 kind="scale_up", units=f.blocks, reason="device_join",
                 step=float(sched.step), dmult=1))
             c.inc("recoveries")
+            if tr:
+                tr.emit("recover", kind="device_fail", action="restore",
+                        req=None, detail=got)
         elif f.kind == "slot_kill":
             slot = inj.pick_slot(list(sched.active), f.slot)
             if slot is None:
+                if tr:
+                    tr.emit("fault_inject", kind=f.kind, target=None, mag=0)
                 return
             victim = sched.active[slot]
+            if tr:
+                tr.emit("fault_inject", kind=f.kind, target=slot, mag=1)
             # the slot's device state is lost: preempt and regenerate. The
             # row freezes before the next horizon, so no replay writes KV
             # through the freed table.
@@ -722,11 +790,21 @@ class ServeEngine:
             state.freeze([slot])
             c.inc("preemptions")
             c.inc("recoveries")
+            if tr:
+                tr.emit("recover", kind=f.kind, action="regenerate",
+                        req=victim.job_id, detail=victim.n_preempted)
         elif f.kind in ("tenant_slowdown", "defer_storm"):
             tenant = f.tenant if f.kind == "tenant_slowdown" else None
             inj.hold(tenant, float(sched.step) + f.duration)
+            if tr:
+                tr.emit("fault_inject", kind=f.kind, target=tenant,
+                        mag=f.duration)
         elif f.kind == "arrival_burst":
-            for r in inj.burst_requests(f):
+            burst = inj.burst_requests(f)
+            if tr:
+                tr.emit("fault_inject", kind=f.kind, target=f.tenant,
+                        mag=len(burst))
+            for r in burst:
                 r.job_id = len(reqs)
                 r.arrival_time = float(sched.step)
                 reqs.append(r)          # the stats score the injected load
@@ -738,11 +816,16 @@ class ServeEngine:
                     if self._can_ever_admit(pool, r, step=sched.step):
                         sched.park(r)
                         c.inc("recoveries")
+                        if tr:
+                            tr.emit("recover", kind=f.kind, action="retry",
+                                    req=r.job_id, detail=0)
                     else:
                         self._drop(sched, r, c, cause="burst_unservable")
         elif f.kind == "prefix_flush":
-            if paged:
-                pool.flush_prefix()
+            flushed = pool.flush_prefix() if paged else 0
+            if tr:
+                tr.emit("fault_inject", kind=f.kind, target=None,
+                        mag=flushed)
 
     # -- elastic reshapes (serve/elastic.py) -----------------------------------
     def _apply_scale(self, sched, pool, c: RunObs, plan) -> int:
@@ -753,6 +836,7 @@ class ServeEngine:
         the move is recorded in ``migrations``). Then tenant reserves
         rescale, the allocator re-plans and the pool is audited. Returns
         the capacity units moved."""
+        tr = c.tracer
         paged = isinstance(pool, BlockManager)
         if plan.kind == "scale_down":
             moved = pool.shrink(plan.units)
@@ -772,6 +856,9 @@ class ServeEngine:
                 if added:
                     moved += added
                     c.inc("migrated_blocks", live)
+                    if tr:
+                        tr.emit("migrate", blocks=live, added=added,
+                                dur_s=dt)
                     k = pool.buffers["k"]
                     old = pool._total_blocks - added
                     self.migrations.append(dict(
@@ -781,6 +868,9 @@ class ServeEngine:
         if not moved:        # nothing applied (one device: no plan
             return 0         # changes the mesh's bucketing multiple)
         c.inc("scale_ups" if plan.kind == "scale_up" else "scale_downs")
+        if tr:
+            tr.emit(plan.kind, units=moved, capacity=pool_capacity(pool),
+                    dmult=1, reason=plan.reason)
         if paged and self.allocation is not None:
             pool.tenant_reserves = self.allocation.rescaled_reserves(
                 pool.n_blocks)
@@ -795,11 +885,17 @@ class ServeEngine:
         """Re-profile the live request mix and re-plan the tenants' budgets,
         horizon knees and lane shares for the reshaped capacity (a
         tenant-carrying engine without a plan gets its first one here).
+        With a profiler and a ``profile_store``, the run's dispatch profile
+        folds into the store first and the rates come from its fit.
         Allocation only: outputs stay token-identical."""
         if self.tenants is None:
             return
         max_k = (self.allocation.max_k if self.allocation is not None
                  else self.decode_horizon)
+        store = self.profile_store
+        if store is not None and self.profiler:
+            store.add_run(self.profiler, arch=self.cfg.arch_id,
+                          backend=self.cache_kind)
         total = pool_capacity(pool)
         live = list(sched.waiting) + list(sched.active.values())
         units_for = ((lambda r: pool.blocks_for(len(r.prompt)
@@ -807,13 +903,14 @@ class ServeEngine:
                      if hasattr(pool, "blocks_for") else None)
         profiles = profiles_from_requests(
             self.tenants, live, total_units=total, units_for=units_for,
-            max_k=max_k, arch=self.cfg.arch_id, backend=self.cache_kind)
+            max_k=max_k, store=store, arch=self.cfg.arch_id,
+            backend=self.cache_kind)
         for t in self.tenants:
             if t.tenant_id not in profiles:      # drained: a minimal profile
                 profiles[t.tenant_id] = profile_class(
                     t.tenant_id, units_per_req=1, concurrency=1,
-                    total_units=total, max_k=max_k, arch=self.cfg.arch_id,
-                    backend=self.cache_kind)
+                    total_units=total, max_k=max_k, store=store,
+                    arch=self.cfg.arch_id, backend=self.cache_kind)
         wm = (pool.watermark_blocks if hasattr(pool, "watermark_blocks")
               else 0)
         self.allocation = plan_allocation(
@@ -823,6 +920,9 @@ class ServeEngine:
         if isinstance(pool, BlockManager):
             pool.tenant_reserves = self.allocation.reserves()
         c.inc("replans")
+        if c.tracer:
+            c.tracer.emit("recover", kind="reshape", action="replan",
+                          req=None, detail=int(total))
 
     def _submit_all(self, sched, pool, reqs) -> None:
         """Submit the run's requests; one the constructed pool cannot
@@ -1013,13 +1113,30 @@ class ServeEngine:
         c.inc("decode_dispatches")
         blk = blk.cpu().numpy()              # the one [W, h] int32 fetch
         c.inc("host_syncs")
-        c.inc("decode_s", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0        # the fetch waited for the device
+        c.inc("decode_s", dt)
+        prof = self.profiler
+        if prof:
+            # KV positions at dispatch start (outputs not yet extended);
+            # tenants maps tenant -> live rows for the cost-share split
+            kv = sum(len(sched.active[s].prompt) + len(sched.active[s].output)
+                     for s in act)
+            prof.record("decode", dt, width=len(idx), k=h, full=full,
+                        kv_pos_sum=kv,
+                        tenants=Counter(sched.active[s].tenant for s in act),
+                        obs=c)
         counts = self._unpack_horizon(sched, act, rows, blk, h, n_slots, c)
         c.inc("rows_decoded", len(idx) * h)
         c.hi("max_active", len(act))
         c.inc("steps", h)
         c.metrics.observe("horizon_k", h)
+        if c.tracer:
+            c.tracer.emit("decode_horizon", step=sched.step, k=h,
+                          width=len(idx), active=len(act), full=full,
+                          dur_s=dt)
         sched.step += h
+        if c.tracer:
+            c.tracer.step = sched.step
         self._sample_boundary(sched, pool, c)
         return counts
 
@@ -1056,11 +1173,14 @@ class ServeEngine:
         pool, state = self._pool_and_state(n_slots)
         sched = self._make_sched(pool)
         self._submit_all(sched, pool, reqs)
+        tr = c.tracer
+        prof = self.profiler
 
         while sched.has_work:
             admitted = self._admission_round(sched, pool, state, c, reqs)
             t0 = time.perf_counter()
             for r in admitted:
+                rt0 = time.perf_counter() if (tr or prof) else 0.0
                 tokens = torch.as_tensor(np.asarray(r.prompt, np.int32),
                                          device=self.device)[None, :]
                 logits, row = self._prefill(tokens)
@@ -1073,6 +1193,18 @@ class ServeEngine:
                 r.output.append(tok)
                 if self.eos_token is not None and tok == self.eos_token:
                     r.finished_early = True
+                if tr or prof:               # the id fetch waited
+                    rdt = time.perf_counter() - rt0
+                    if tr:
+                        tr.emit("prefill", req=r.job_id, tenant=r.tenant,
+                                slot=r.slot, prompt_len=len(r.prompt),
+                                dur_s=rdt)
+                    if prof:
+                        # one program per prompt length (the reference
+                        # jits one): seq is the static half of the signature
+                        prof.record("prefill", rdt, seq=len(r.prompt),
+                                    tokens=len(r.prompt),
+                                    tenants={r.tenant: 1}, obs=c)
             if admitted:
                 c.inc("prefill_s", time.perf_counter() - t0)
                 state.set_rows(
@@ -1091,6 +1223,8 @@ class ServeEngine:
                     unb = self._next_unblock(sched)
                     nxt = unb if unb is not None else sched.step + 1
                 sched.step = max(sched.step + 1, int(math.ceil(nxt)))
+                if c.tracer:
+                    c.tracer.step = sched.step
                 continue
             h = self._pick_h(sched, sorted(sched.active))
             self._decode_boundary(sched, pool, state, c, n_slots, h)
@@ -1143,6 +1277,8 @@ class ServeEngine:
 
         zeros = (self.model.paged_prefill_state(1, self.device) if is_moe
                  else None)
+        tr = c.tracer
+        prof = self.profiler
         queue = deque(reqs)
         lanes: List[_PrefillLane] = []
         while queue or lanes:
@@ -1177,10 +1313,27 @@ class ServeEngine:
                 inputs.append(torch.cat([ln.state for ln in lanes]
                                         + [zeros] * (w - len(lanes)), dim=1))
                 inputs.append(torch.from_numpy(caps))
+            rt0 = time.perf_counter() if (tr or prof) else 0.0
             ids = self.graphs(("prefill", w), round_ids, *inputs)
             if is_moe:
                 ids, new_state = ids
             c.inc("prefill_dispatches")
+            if tr or prof:
+                if prof and self.device.type == "cuda":
+                    # the round's device work, not its launch: a wait no
+                    # counter sees (host_syncs counts the engine's fetches)
+                    torch.cuda.current_stream(self.device).synchronize()
+                rdt = time.perf_counter() - rt0
+                if tr:
+                    tr.emit("prefill_round", lanes=len(lanes), width=w,
+                            dur_s=rdt)
+                if prof:
+                    # one program per width bucket; padded lanes compute,
+                    # so the roofline counts the full [w, bs] dispatch
+                    prof.record("prefill_round", rdt, width=w, tokens=w * bs,
+                                kv_pos_sum=int(starts.sum()),
+                                tenants=Counter(ln.req.tenant
+                                                for ln in lanes), obs=c)
             done_idx: List[int] = []
             live: List[_PrefillLane] = []
             for i, ln in enumerate(lanes):
@@ -1219,10 +1372,15 @@ class ServeEngine:
         admitted request. A sole request the pool cannot cover raises —
         or, under chaos or elasticity, drops. Returns (h, victim slots)."""
         victims = []
+        tr = c.tracer
         while True:
+            h0 = h
             while h > 1 and (self._growth_blocks_needed(
                     sched, pool, pos_np, stop_np, h) > pool.free_blocks):
                 h = max(1, h // 2)
+            if tr and h < h0:
+                tr.emit("horizon_shrink", from_k=h0, to_k=h,
+                        cause="pool_pressure")
             blocked = next(
                 (s for s in sorted(sched.active)
                  if not pool.ensure(s, min(int(pos_np[s]) + h,
@@ -1250,7 +1408,7 @@ class ServeEngine:
                 victim = max(sched.active.values(),
                              key=lambda r: (r.admitted_at, r.slot))
             victims.append(victim.slot)
-            sched.preempt(victim)
+            sched.preempt(victim, cause="pool_pressure")
 
     def _run_paged(self, reqs, n_slots, c: RunObs):
         """The paged engine loop (``engine.py:1619-1723``)."""
@@ -1298,6 +1456,8 @@ class ServeEngine:
                     unb = self._next_unblock(sched)
                     nxt = unb if unb is not None else sched.step + 1
                 sched.step = max(sched.step + 1, int(math.ceil(nxt)))
+                if c.tracer:
+                    c.tracer.step = sched.step
                 continue
 
             h = self._pick_h(sched, sorted(sched.active))

@@ -27,7 +27,9 @@ the capture's difference is added on every replay: a captured run counts
 the launches an eager run counts.
 
 There is no fallback: on a CUDA device a capture or replay that fails
-raises. On the CPU there is nothing to capture: every call runs the first
+raises. The garbage collector is off while a graph captures: a collection
+that freed another runner's graph (an engine dropped in a reference cycle)
+would destroy a graph mid-capture, which invalidates the capture. On the CPU there is nothing to capture: every call runs the first
 call's function through the same static buffers and copies its output
 into the static output, so the CPU tests exercise the copy-in and
 copy-out. The CPU also holds the function to the fixed-address contract:
@@ -40,6 +42,7 @@ its replay would have read the old tensor.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
@@ -168,11 +171,15 @@ class GraphRunner:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         before = ops.counts()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 output = fn(*static)
             delta = tuple(a - b for a, b in zip(ops.counts(), before))
         finally:
             ops.set_counts(before)
+            if collecting:
+                gc.enable()
         self._entries[key] = _Entry(static, output, fn, graph, delta)
         return out

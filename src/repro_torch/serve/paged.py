@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.models.moe import capacity
+from repro_torch.obs.events import NULL_TRACER
 
 
 @dataclass
@@ -68,13 +69,17 @@ class BlockManager:
     (``ensure``, ``drain_dirty``, ``report``), the prefix-cache surface
     (``cached_tokens``, ``resume_state``, ``commit_block``) and the
     reshape surface (``shrink``, ``expand``, ``grow_physical``,
-    ``flush_prefix``, ``audit``)."""
+    ``flush_prefix``, ``audit``). ``tracer`` (an ``obs.Tracer``) records
+    the pool's events (``block_alloc``, ``block_grow``, ``block_free``,
+    ``prefix_evict``) at the engine's clock, ``tracer.step``."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  watermark: float = 0.05, dtype=None,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, device="cuda",
+                 tracer=NULL_TRACER):
         self.model = model
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.n_slots = n_slots
         self.max_len = max_len
         self.block_size = block_size
@@ -180,6 +185,8 @@ class BlockManager:
         if self._free_blocks:
             return self._free_blocks.popleft()
         h, _ = self._evictable.popitem(last=False)
+        if self.tracer:
+            self.tracer.emit("prefix_evict", blocks=1)
         return self._entries.pop(h).block
 
     def _release_block(self, blk: int) -> None:
@@ -291,6 +298,9 @@ class BlockManager:
                                   if hits else None)
             self.prefix_blocks_total += need
             self.prefix_blocks_hit += hits
+        if self.tracer:
+            self.tracer.emit("block_alloc", slot=slot, blocks=need - hits,
+                             hits=hits)
         return slot
 
     # -- prefix-cache surface --------------------------------------------------
@@ -323,13 +333,15 @@ class BlockManager:
         with private blocks only. False when the pool is dry."""
         if slot not in self._in_use:
             raise ValueError(f"slot {slot} is not allocated")
-        have = int((self.tables[slot] >= 0).sum())
+        have = have0 = int((self.tables[slot] >= 0).sum())
         while have * self.block_size < n_tokens:
             if not self._free_blocks and not self._evictable:
                 return False
             self.tables[slot, have] = self._take_block()
             self._dirty_slots.add(slot)
             have += 1
+        if self.tracer and have > have0:
+            self.tracer.emit("block_grow", slot=slot, blocks=have - have0)
         self._lengths[slot] = max(self._lengths[slot], n_tokens)
         return True
 
@@ -351,13 +363,16 @@ class BlockManager:
             raise ValueError(f"slot {slot} is not allocated")
         self._in_use.remove(slot)
         chain = self._chains.pop(slot, ())
+        n_freed = n_shared = 0
         for j in range(self.max_blocks):
             blk = int(self.tables[slot, j])
             if blk < 0:
                 continue
+            n_freed += 1
             h = chain[j][0] if j < len(chain) else None
             e = self._entries.get(h) if h is not None else None
             if e is not None and e.block == blk:
+                n_shared += 1
                 e.refs -= 1
                 if e.refs == 0:
                     if e.ready and not e.retired:
@@ -373,6 +388,9 @@ class BlockManager:
         self._cached_tokens[slot] = 0
         self._resume.pop(slot, None)
         self._free_slots.append(slot)
+        if self.tracer:
+            self.tracer.emit("block_free", slot=slot, blocks=n_freed,
+                             shared=n_shared)
 
     # -- reshapes (chaos and elastic serving) ---------------------------------
     def shrink(self, n: int) -> int:
@@ -444,6 +462,8 @@ class BlockManager:
             if not e.retired:
                 e.retired = True
                 retired += 1
+        if freed and self.tracer:
+            self.tracer.emit("prefix_evict", blocks=freed)
         return freed + retired
 
     def audit(self) -> Dict[str, int]:

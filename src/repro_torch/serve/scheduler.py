@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.policies import FIFO, SRTF, Policy
+from repro_torch.obs.events import NULL_TRACER
 
 SERVE_POLICIES = {"fcfs": FIFO, "sjf": SRTF}
 
@@ -87,9 +88,13 @@ class ContinuousScheduler:
     free blocks) — ordered by a queue policy (a registered name or a
     ``Policy`` instance). ``allocation`` (a ``tenant.TenantAllocation``)
     skips a request over its tenant's cache-unit budget without blocking
-    the requests behind it."""
+    the requests behind it. ``tracer`` (an ``obs.Tracer``) records every
+    admission decision (admit / budget_skip / defer / preempt); the
+    default ``NULL_TRACER`` is falsy, so tracing off costs one branch per
+    decision."""
 
-    def __init__(self, pool, policy="fcfs", allocation=None):
+    def __init__(self, pool, policy="fcfs", allocation=None,
+                 tracer=NULL_TRACER):
         if isinstance(policy, Policy):
             self.policy: Policy = policy
         elif policy in SERVE_POLICIES:
@@ -99,6 +104,7 @@ class ContinuousScheduler:
                            f"known: {sorted(SERVE_POLICIES)}")
         self.pool = pool
         self.allocation = allocation
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.n_preempted = 0
         self.waiting: List[ServeRequest] = []
         self.active: Dict[int, ServeRequest] = {}
@@ -143,12 +149,23 @@ class ContinuousScheduler:
             if r.t_arrived is None:
                 r.t_arrived = now
         admitted = []
+        tr = self.tracer
         for req in self.policy.order(ready, float(self.step)):
-            if hold is not None and hold(req) is not None:
-                continue
+            if hold is not None:
+                cause = hold(req)
+                if cause is not None:
+                    if tr:
+                        tr.emit("defer", req=req.job_id, tenant=req.tenant,
+                                cause=cause)
+                    continue
             if (self.allocation is not None
                     and not self.allocation.admissible(req, self.active,
                                                        self.pool)):
+                if tr:
+                    why = self.allocation.last_decision or {}
+                    tr.emit("budget_skip", req=req.job_id, tenant=req.tenant,
+                            held=why.get("held"), need=why.get("need"),
+                            budget=why.get("budget"))
                 continue
             slot = (self.pool.alloc_for(req)
                     if hasattr(self.pool, "alloc_for") else self.pool.alloc())
@@ -156,6 +173,9 @@ class ContinuousScheduler:
                 # a prefix-cache deferral (donor still prefilling) parks
                 # only that request; pool exhaustion ends the scan.
                 if getattr(self.pool, "deferred_last_alloc", False):
+                    if tr:
+                        tr.emit("defer", req=req.job_id, tenant=req.tenant,
+                                cause="prefix_unready")
                     continue
                 break
             req.slot = slot
@@ -165,6 +185,14 @@ class ContinuousScheduler:
             self.waiting.remove(req)
             self.prefill_queue.append(req)
             admitted.append(req)
+            if tr:
+                units = (self.pool.owned_blocks(slot)
+                         if hasattr(self.pool, "owned_blocks") else 1)
+                tr.emit("admit", req=req.job_id, tenant=req.tenant, slot=slot,
+                        prompt_len=len(req.prompt),
+                        max_new=req.max_new_tokens,
+                        wait_steps=float(self.step) - req.arrival_time,
+                        units=units)
         return admitted
 
     def drain_prefill(self) -> List[ServeRequest]:
@@ -177,11 +205,15 @@ class ContinuousScheduler:
         """Return an active request to the queue (``cause``: pool pressure,
         a killed slot, an exhausted pool): its slot and blocks are freed
         and its tokens discarded; greedy decoding regenerates them
-        identically after re-admission. ``cause`` names the event for the
-        tracer (ROADMAP queue A, item 9)."""
+        identically after re-admission. ``cause`` names the ``preempt``
+        event."""
         if req.slot is None or self.active.get(req.slot) is not req:
             raise ValueError("can only preempt an active request")
         self.n_preempted += 1
+        if self.tracer:
+            self.tracer.emit("preempt", req=req.job_id, tenant=req.tenant,
+                             slot=req.slot, cause=cause,
+                             n_preempted=self.n_preempted)
         self.pool.free(req.slot)
         del self.active[req.slot]
         req.slot = None

@@ -45,9 +45,8 @@ engine.
 What the port does not hold exactly: a probe-calibrated profile
 (``profile_class(probe=...)``) measures the real engine on its own clock,
 and ``profile_seconds`` and the ``slo_s`` wall-clock target are wall time.
-The analytic and caller-constant profiles, and everything on the step
-clock, equal the reference's. A measured-rate ``ProfileStore`` (``store=``)
-comes with observability (ROADMAP queue A, item 9).
+The analytic, caller-constant and store-measured profiles (for the same
+store records), and everything on the step clock, equal the reference's.
 """
 from __future__ import annotations
 
@@ -151,13 +150,6 @@ class SLOSlack(Policy):
 # ---------------------------------------------------------------------------
 # optimistic serve profiler
 # ---------------------------------------------------------------------------
-def _no_store(store) -> None:
-    if store is not None:
-        raise NotImplementedError(
-            "store= (a ProfileStore) is not ported yet (ROADMAP queue A, "
-            "item 9)")
-
-
 def serve_rate(units: float, k: float, *, units_per_req: int,
                concurrency: int, t_tok: float, t_fixed: float) -> float:
     """Steady-state decode tokens/s of one request class at a cache-unit
@@ -205,7 +197,7 @@ class ServeClassProfile:
     t_fixed: float                # per-dispatch overhead seconds
     matrix: SensitivityMatrix = field(repr=False)
     source: str = "analytic"      # where (t_tok, t_fixed) came from:
-                                  # "analytic" | "probed"
+                                  # "analytic" | "measured" | "probed"
 
     def lane_curve(self) -> Callable[[float], float]:
         """Prefill-lane sensitivity: a class can fill at most
@@ -229,11 +221,13 @@ def profile_class(tenant_id: str, *, units_per_req: int, concurrency: int,
     units-axis knees are exact either way because the units axis is pure
     admission arithmetic).
 
-    ``store`` (a measured-rate ``ProfileStore``) is observability's
-    (ROADMAP queue A, item 9): only None is accepted. ``arch`` and
-    ``backend`` name what it would be read for.
+    ``store`` (an ``obs.ProfileStore``, with ``arch`` naming the model and
+    ``backend`` the cache kind) closes the measurement loop: when the
+    store's decode records for (arch, backend) support a rate fit, the
+    measured (t_tok, t_fixed) replace the analytic defaults. A probe still
+    wins (it measured this workload), and a store without a usable fit
+    falls back to the analytic constants.
     """
-    _no_store(store)
     units_per_req = max(int(units_per_req), 1)
     concurrency = max(int(concurrency), 1)
     probes, probe_s = 0, 0.0
@@ -247,6 +241,11 @@ def profile_class(tenant_id: str, *, units_per_req: int, concurrency: int,
         n_rows = min(concurrency, total_units // units_per_req)
         t_tok, t_fixed = calibrate(r1, rk, max(n_rows, 1), max_k)
         source = "probed"
+    elif store is not None and arch is not None:
+        fit = store.rate_fit(arch, backend)
+        if fit is not None:
+            t_tok, t_fixed = fit
+            source = "measured"
 
     # unit grid: one requests's footprint up to the pool, plus the pool
     # itself so the proportional floor always lands on the grid.
@@ -285,9 +284,9 @@ def profiles_from_requests(registry: TenantRegistry, requests, *,
     ``units_for(req) -> int`` maps a request to its cache-unit footprint
     (paged: ``blocks_for(prompt + max_new)``; contiguous: 1 slot).
     ``probe(tenant_id, k) -> tokens/s`` optionally runs the real engine.
-    ``store`` must be None (``profile_class``).
+    ``store``/``arch``/``backend`` feed measured rate constants from an
+    ``obs.ProfileStore`` when no probe is given (see ``profile_class``).
     """
-    _no_store(store)
     if units_for is None:
         units_for = lambda r: 1
     profiles = {}
@@ -333,8 +332,7 @@ class TenantAllocation:
     total_units: int
     max_k: int
     #: arithmetic of the most recent ``admissible`` check (held / need /
-    #: budget), what a ``budget_skip`` trace event reports (ROADMAP
-    #: queue A, item 9)
+    #: budget), what a ``budget_skip`` trace event reports
     last_decision: Optional[Dict[str, int]] = None
 
     def share(self, tenant_id: str) -> Optional[TenantShare]:
@@ -362,7 +360,7 @@ class TenantAllocation:
 
         ``last_decision`` keeps the arithmetic of the MOST RECENT check —
         (units held, request footprint, budget) — so a ``budget_skip``
-        trace event (item 9) can say why a request was skipped."""
+        trace event can say why a request was skipped."""
         share = self.shares.get(req.tenant)
         if share is None:
             self.last_decision = None

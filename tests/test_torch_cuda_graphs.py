@@ -17,6 +17,7 @@ The MoE layer repeats bit for bit, and paged MoE prefix hits that resume
 the expert counts give the cold run's tokens where the shapes agree.
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -261,3 +262,43 @@ def test_growth_keeps_every_block_on_the_card(cuda_device):
     for name in ("k", "v"):
         assert torch.equal(pool.buffers[name][:, :10], old[name])
         assert not pool.buffers[name][:, 10:].any()
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dropped_runner_in_a_cycle(cuda_device):
+    """A runner dropped in a reference cycle keeps its graphs until the
+    garbage collector runs; a collection during another runner's capture
+    would destroy them mid-capture and invalidate it. Here the cycle
+    becomes garbage inside the capture, with collections as frequent as
+    they go: the capture and its replay still succeed."""
+    x = torch.arange(8.0, device=cuda_device)
+
+    class Holder:
+        pass
+
+    old = graphs.GraphRunner(cuda_device)
+    for k in range(4):
+        old(("add", k), lambda t, k=k: t + k, x)
+    held, calls = {"old": old}, []
+    del old
+
+    def fn(t):
+        calls.append(1)
+        if len(calls) == 2:              # the capture: drop the old runner
+            h = Holder()
+            h.me, h.runner = h, held.pop("old")
+            del h
+            [Holder() for _ in range(100)]
+        return t * 2 + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        new = graphs.GraphRunner(cuda_device)
+        for _ in range(2):
+            out = new(("mul",), fn, x)
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    assert new.replays == 1 and len(calls) == 2
+    assert torch.equal(out, x * 2 + 1)

@@ -216,9 +216,8 @@ def test_engine_matches_jax_engine_with_pallas_kernels():
 
 def test_engine_rejects_unported_options():
     cfg = get_config(ARCH, smoke=True)
-    for kw in (dict(tracer=object()), dict(sharding=object())):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ServeEngine(cfg, device="cpu", sharding=object())
     with pytest.raises(ValueError):        # recurrent state is not paged
         ServeEngine(get_config("mamba2-780m", smoke=True), device="cpu",
                     cache="paged")

@@ -126,12 +126,22 @@ def test_profile_class_like_reference(upr, conc, total, max_k):
 
 
 def test_profile_store_is_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_tenant.profile_class("t", units_per_req=1, concurrency=1,
-                                  total_units=4, store=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        P.profiles_from_requests(_registry(P), [], total_units=4,
-                                 store=object())
+    """The store item 9 brought: with a fit the profiles are measured, as
+    the reference's are on the same records."""
+    from repro.obs import ProfileStore as JStore
+    from repro_torch.obs import ProfileStore as PStore
+    recs = [{"source": "serve", "arch": "a1", "backend": "paged",
+             "phase": "decode", "sig": f"decode/W{w}/K8", "width": w,
+             "k": 8, "n": 3, "mean_s": 5e-3 + w * 8 * 3e-4}
+            for w in (1, 2, 4)]
+    kw = dict(units_per_req=1, concurrency=1, total_units=4, arch="a1",
+              backend="paged")
+    port = port_tenant.profile_class("t", store=PStore(recs), **kw)
+    ref = jax_tenant.profile_class("t", store=JStore(recs), **kw)
+    assert port.source == ref.source == "measured"
+    assert (port.t_tok, port.t_fixed) == (ref.t_tok, ref.t_fixed)
+    assert P.profiles_from_requests(_registry(P), [], total_units=4,
+                                    store=PStore(recs)) == {}
 
 
 # ---------------------------------------------------------------------------
