@@ -34,6 +34,7 @@ Phases, each printed as it runs; any failure exits non-zero:
                  flash attention at olmoe-1b-7b's prefill shape
                  ([1, S, 16, 128], S 128 and 256, causal), at
                  phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96],
+                 causal, timed) and its synergy probe's ([2, 1024, 32, 96],
                  causal, timed) and at edge shapes (14/2 heads at D 64,
                  window 5, non-causal, ragged S 200, D 96 with window 5),
                  f32 and bf16 (scaled_dot_product_attention); grouped matmul
@@ -179,6 +180,35 @@ Phases, each printed as it runs; any failure exits non-zero:
                  128-256 tokens, 32 new tokens each, 4 slots, 4 lanes,
                  horizon 8, block 16, max_len 512, its three runs and a
                  profiled replayed run as in phase 8;
+     synergy   — on the same weights, the Synergy optimistic profiler
+                 (repro_torch.core.profiler, the paper's ServerSpec and the
+                 default ProfilerConfig) live on the card for a 1-GPU
+                 phi-3-vision-4.2b job of resnet18's workload class (image,
+                 saturating at 9 CPUs a GPU). Each probe at c CPUs builds a
+                 DataPipeline of c workers ("scaled") with the cache holding
+                 the whole dataset, pulls batches of [2, 1024] tokens
+                 through a SynergyIterator, adds [2, 576, 3072] stub patch
+                 embeddings on the host, and runs Model.loss on the card
+                 (a warm-up, then 2 steps timed on CUDA events from the
+                 warm-up's end; the host prepares each batch while the card
+                 runs the step before). The preprocessing cost is set so one
+                 worker takes 9 measured device steps a batch. Fails unless
+                 there are at most ceil(log2(24)) + 2 probes, each
+                 launching flash 32 times a forward and its plain version
+                 never, every rate is finite and above 0, W is [24, 12],
+                 the knee demand reaches the GPU-proportional rate, a lease
+                 sent mid-stream shows on the next batch (workers and cache
+                 capacity), a termination stops the iteration and calls
+                 on_terminate once, and one progress message arrives a
+                 batch. Prints the probed curve, the knee, the rate at the
+                 proportional share (3 CPUs, 62.5 GB) and the probes' wall
+                 seconds beside the profiler's accounting. Then the
+                 simulator on the card's host: 16 servers (128 GPUs), a
+                 300-job Philly trace (seed 7, 12 jobs an hour) under SRTF
+                 for proportional, greedy, tune and tune_split, and
+                 Synergy-OPT on 4 servers and 40 jobs; every job must
+                 finish and tune keep within 3% of proportional's average
+                 JCT and 5% of its makespan;
  10. mamba2    — with the phi-3-vision engine freed, full-width
                  mamba2-780m (48 layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
                  float32 weights from a seed): Model.forward and Model.loss
@@ -232,6 +262,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -241,9 +272,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cluster import Cluster, ServerSpec  # noqa: E402
+from repro_torch.core.iterator import (ControlChannel,  # noqa: E402
+                                       SynergyIterator)
+from repro_torch.core.job import Job  # noqa: E402
+from repro_torch.core.profiler import (OptimisticProfiler,  # noqa: E402
+                                       ProfilerConfig)
+from repro_torch.core.sensitivity import (ARCH_SENSITIVITY,  # noqa: E402
+                                          MODEL_ZOO, WorkloadModel)
+from repro_torch.core.simulator import simulate  # noqa: E402
+from repro_torch.core.trace import (TraceConfig, generate,  # noqa: E402
+                                    philly_trace)
+from repro_torch.data.pipeline import DataConfig, DataPipeline  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
@@ -369,6 +413,21 @@ CHAOS_FAULTS = ("defer_storm@2:duration=3,tenant_slowdown@4:tenant=batch:"
                 "pool_shrink@12:blocks=20:restore_after=8,"
                 "device_fail@16:blocks=8:restore_after=10,"
                 "device_join@22:blocks=40")
+
+
+#: the synergy phase's live job (the reference runtime's ``_profile``):
+#: phi-3-vision-4.2b on one GPU, batches of SYN_B sequences of PHI_S
+#: tokens, SYN_PROBE_ITERS timed steps a probe (the runtime's default)
+SYN_B, SYN_PROBE_ITERS = 2, 2
+#: its simulator runs: 16 of the paper's servers (128 GPUs) on a Philly
+#: trace under SRTF for each allocator, then Synergy-OPT on 4 servers and
+#: tests/test_scheduler.py:163's trace cut to 40 jobs
+SIM_SERVERS = 16
+SIM_TRACE = dict(n_jobs=300, split=(20, 70, 10), seed=7, jobs_per_hour=12.0)
+SIM_ALLOCATORS = ("proportional", "greedy", "tune", "tune_split")
+OPT_SERVERS = 4
+OPT_TRACE = dict(n_jobs=40, split=(20, 70, 10), arrival="poisson",
+                 jobs_per_hour=6.0, seed=9)
 
 
 def phase(name: str) -> None:
@@ -732,9 +791,9 @@ def _compare(what: str, out, exp, dtype, tol=None) -> float:
 
 
 def flash_bound(s: int, hq: int, hkv: int, d: int, dtype, causal: bool,
-                window: int, mma: bool = True):
-    """Least time for one flash call (B = 1): q, k, v read once and the
-    output written once over HBM bandwidth; the QK and PV flops of the
+                window: int, mma: bool = True, b: int = 1):
+    """Least time for one flash call of batch ``b``: q, k, v read once and
+    the output written once over HBM bandwidth; the QK and PV flops of the
     visible (query, key) pairs at ``ops_ms``'s rate. (bytes ms, ops ms)."""
     pos = torch.arange(s)
     vis = torch.ones((s, s), dtype=torch.bool)
@@ -743,35 +802,38 @@ def flash_bound(s: int, hq: int, hkv: int, d: int, dtype, causal: bool,
     if window:
         vis &= pos[:, None] - pos[None, :] < window
     elem = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * hq + 2 * hkv) * s * d * elem
-    flops = 4 * d * hq * int(vis.sum())
+    nbytes = b * (2 * hq + 2 * hkv) * s * d * elem
+    flops = b * 4 * d * hq * int(vis.sum())
     return 1e3 * nbytes / HBM_BPS, ops_ms(flops, dtype, mma)
 
 
 def check_flash(flush: torch.Tensor) -> dict:
     """The flash kernel against its plain version at olmoe-1b-7b's prefill
-    shape, at phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96]), at
-    whisper-large-v3's decoder shape ([1, 448, 20, 64], causal: a partial
-    last row tile) and at edge shapes; time the S = 256 f32 call (and, in
-    ``other_shapes``, phi-3-vision's and whisper's)."""
-    cases = [(128, OL_H, OL_H, OL_D, True, 0),
-             (256, OL_H, OL_H, OL_D, True, 0),
-             (128, 14, 2, 64, True, 5), (128, 14, 2, 64, False, 0),
-             (200, OL_H, OL_H, OL_D, True, 0),
-             (PHI_S, PHI_H, PHI_H, PHI_D, True, 0),
-             (200, PHI_H, PHI_H, PHI_D, True, 5),
-             (W_S, W_H, W_H, W_D, True, 0)]
+    shape, at phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96]) and
+    its synergy probe's ([2, 1024, 32, 96]), at whisper-large-v3's decoder
+    shape ([1, 448, 20, 64], causal: a partial last row tile) and at edge
+    shapes; time the S = 256 f32 call (and, in ``other_shapes``,
+    phi-3-vision's, its probe's and whisper's)."""
+    cases = [(1, 128, OL_H, OL_H, OL_D, True, 0),
+             (1, 256, OL_H, OL_H, OL_D, True, 0),
+             (1, 128, 14, 2, 64, True, 5), (1, 128, 14, 2, 64, False, 0),
+             (1, 200, OL_H, OL_H, OL_D, True, 0),
+             (1, PHI_S, PHI_H, PHI_H, PHI_D, True, 0),
+             (SYN_B, PHI_S, PHI_H, PHI_H, PHI_D, True, 0),
+             (1, 200, PHI_H, PHI_H, PHI_D, True, 5),
+             (1, W_S, W_H, W_H, W_D, True, 0)]
     rec, others = None, []
-    for (s, hq, hkv, d, causal, window) in cases:
+    for (b, s, hq, hkv, d, causal, window) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device="cuda").manual_seed(s + hq + d)
-            q, k, v = (torch.randn(1, s, h, d, generator=g,
+            q, k, v = (torch.randn(b, s, h, d, generator=g,
                                    device="cuda").to(dtype)
                        for h in (hq, hkv, hkv))
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
             exp = fa.flash_attention_plain(q, k, v, causal, window)
-            err = _compare(f"flash S={s} Hq/Hkv={hq}/{hkv} D={d} causal="
-                           f"{causal} window={window} {str(dtype)[6:]}",
+            err = _compare(f"flash B={b} S={s} Hq/Hkv={hq}/{hkv} D={d} "
+                           f"causal={causal} window={window} "
+                           f"{str(dtype)[6:]}",
                            out, exp, dtype)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             if (s, hq, dtype) == (128, OL_H, torch.float32):
@@ -799,8 +861,9 @@ def check_flash(flush: torch.Tensor) -> dict:
                     flash_bound(s, hq, hkv, d, dtype, True, 0, False)[1],
                     wrapper_times(lambda: ops.flash_attention(q, k, v),
                                   flush))
-            path = {(PHI_S, PHI_D): "phi-3-vision-4.2b forward",
-                    (W_S, W_D): "whisper-large-v3 forward"}.get((s, d))
+            path = {(1, PHI_S, PHI_D): "phi-3-vision-4.2b forward",
+                    (SYN_B, PHI_S, PHI_D): "phi-3-vision-4.2b synergy probe",
+                    (1, W_S, W_D): "whisper-large-v3 forward"}.get((b, s, d))
             if path and dtype is torch.float32 and not window:
                 others.append(_record(
                     "flash_attention", "flash_attention.cu",
@@ -808,12 +871,12 @@ def check_flash(flush: torch.Tensor) -> dict:
                     time_ms(lambda: ops.flash_attention(q, k, v), flush),
                     time_ms(lambda: fa.flash_attention_plain(q, k, v), flush,
                             reps=10),
-                    *flash_bound(s, hq, hkv, d, dtype, True, 0),
+                    *flash_bound(s, hq, hkv, d, dtype, True, 0, b=b),
                     time_ms(lambda: torch.nn.functional
                             .scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True),
                             flush),
-                    dict(path=path, B=1, S=s, Hq=hq, Hkv=hkv, D=d,
+                    dict(path=path, B=b, S=s, Hq=hq, Hkv=hkv, D=d,
                          causal=True, window=0, dtype="float32")))
     rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
     return rec
@@ -2037,12 +2100,13 @@ def first_step_gap(engine, out) -> dict:
     return rec
 
 
-def run_phi3(summary: dict) -> dict:
+def run_phi3(summary: dict) -> tuple:
     """Full-width phi-3-vision-4.2b (module docstring, phase 9): forward and
     loss on [1, 1024] tokens with [1, 576, 3072] patch embeddings (flash in
     all 32 layers) against the same forward with the flash kernel's plain
     version in its place, then the paged engine on the same weights.
-    Returns {"forward": flash launches, "paged": paged launches}."""
+    Returns ({"forward": flash launches, "paged": paged launches}, the
+    model, its weights): the synergy phase runs on them."""
     cfg = get_config("phi-3-vision-4.2b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -2088,7 +2152,7 @@ def run_phi3(summary: dict) -> dict:
     args = serve_cli.build_parser().parse_args(PHI3_ARGS)
     _, _, paged = run_paged_engine(summary, args, "phi-3-vision-4.2b paged",
                                    params)
-    return {"forward": launches, "paged": paged}
+    return {"forward": launches, "paged": paged}, model, params
 
 
 @contextlib.contextmanager
@@ -2105,6 +2169,254 @@ def plain_flash():
         yield
     finally:
         layers.kops.flash_attention = real
+
+
+def synergy_batch(cfg, batch: dict, step: int) -> dict:
+    """A pipeline batch with the VLM's stub patch embeddings (the reference
+    runtime's ``_adapt_batch``: a numpy generator seeded by the step, on
+    the host), copied to the card from pinned memory without waiting."""
+    rng = np.random.default_rng(step)
+    patches = rng.standard_normal((batch["tokens"].shape[0], cfg.n_patches,
+                                   cfg.d_model)).astype(np.float32) * 0.02
+    host = dict(batch, patch_embeds=torch.from_numpy(patches))
+    return {k: v.pin_memory().to("cuda", non_blocking=True)
+            for k, v in host.items()}
+
+
+def device_ms(fn) -> float:
+    """``fn``'s device time on CUDA events (one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _fail(what: str) -> None:
+    raise SystemExit(f"FAIL: synergy: {what}")
+
+
+def _iterator(dcfg, cpus: float, mem_gb: float):
+    """A Synergy iterator over a new pipeline leased (cpus, mem_gb), with
+    its channel and the list ``on_terminate`` appends to."""
+    pipe = DataPipeline(dcfg, SYN_B, n_workers=max(1, int(round(cpus))))
+    pipe.set_cache_gb(mem_gb)
+    ch, ended = ControlChannel(0), []
+    it = SynergyIterator(0, pipe, ch, on_terminate=lambda: ended.append(1))
+    return pipe, ch, it, ended
+
+
+def _end_lease(pipe, ch, it, gen, ended, n: int) -> None:
+    """Terminate the lease after ``n`` batches: the iteration must stop,
+    ``on_terminate`` run once and one progress message arrive a batch."""
+    ch.terminate()
+    rest = list(gen)
+    progress = [p.iters for p in ch.drain_progress()]
+    pipe.close()
+    if rest or ended != [1] or not it.terminated:
+        _fail(f"termination: {len(rest)} batches after it, on_terminate "
+              f"ran {len(ended)} times, terminated {it.terminated}")
+    if progress != list(range(1, n + 1)):
+        _fail(f"progress {progress} after {n} batches")
+
+
+def run_synergy(model, params) -> int:
+    """Phase ``synergy`` (module docstring): the optimistic profiler live on
+    the card against phi-3-vision-4.2b's full-width loss, a lease update
+    and a termination, then the simulator. Returns the flash launches."""
+    cfg = model.cfg
+    cls = MODEL_ZOO[ARCH_SENSITIVITY[cfg.arch_id]]
+    spec, pcfg = ServerSpec(), ProfilerConfig()
+    calls = [0]
+
+    def step(batch):
+        # the forward and loss at full width; A11's train step (forward,
+        # backward and the optimizer) takes its place when training lands
+        calls[0] += 1
+        return model.loss(params, batch)
+
+    with torch.inference_mode():
+        # the device step the preprocessing cost is set from
+        warm = DataPipeline(DataConfig(n_samples=SYN_B, seq_len=PHI_S,
+                                       vocab_size=cfg.vocab_size), SYN_B)
+        batch = synergy_batch(cfg, next(warm.batches(1)), 0)
+        warm.close()
+        step(batch)
+        step_s = device_ms(lambda: step(batch)) / 1e3
+        del batch
+        # one worker takes cpus_to_saturate device steps a batch (9 for
+        # resnet18's class): the curve's knee sits where the class's does
+        cost = cls.cpus_to_saturate() * step_s / SYN_B
+        n_samples = int(cls.dataset_gb * 1024 / cls.sample_mb)
+        dcfg = DataConfig(n_samples=n_samples, seq_len=PHI_S,
+                          vocab_size=cfg.vocab_size, preprocess_cost_s=cost,
+                          sample_bytes=int(cls.sample_mb * (1 << 20)),
+                          simulate_io=False, parallel_mode="scaled", seed=0)
+        full_gb = n_samples * dcfg.sample_bytes / (1 << 30) + 1.0
+        print(json.dumps({"synergy_job": {
+            "arch": cfg.arch_id, "class": cls.name, "batch": SYN_B,
+            "seq_len": PHI_S, "device_step_ms": 1e3 * step_s,
+            "preprocess_cost_s_per_sample": cost, "n_samples": n_samples,
+            "full_cache_gb": full_gb}}), flush=True)
+        probes = []
+
+        def measure(cpus: float) -> float:
+            """Samples/s at ``cpus`` workers and a cache holding the whole
+            dataset (the reference runtime's ``_measure_rate``): a warm-up
+            step, then SYN_PROBE_ITERS steps timed on the device's clock from
+            the warm-up's end. The host prepares each batch while the card
+            runs the step before it."""
+            t0 = time.perf_counter()
+            flash0, plain0, calls0 = (ops.flash_attention.launches,
+                                      fa.flash_attention_plain.calls,
+                                      calls[0])
+            pipe, ch, it, ended = _iterator(dcfg, cpus, full_gb)
+            gen = iter(it)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            step(synergy_batch(cfg, next(gen), 0))
+            start.record()
+            # host seconds a timed batch: the pipeline (fetch and
+            # preprocessing), the patch embeddings and copy, the enqueue
+            host = np.zeros(3)
+            for i in range(SYN_PROBE_ITERS):
+                t = [time.perf_counter()]
+                raw = next(gen)
+                t.append(time.perf_counter())
+                batch = synergy_batch(cfg, raw, i + 1)
+                t.append(time.perf_counter())
+                loss = step(batch)
+                t.append(time.perf_counter())
+                host += np.diff(t)
+            end.record()
+            _end_lease(pipe, ch, it, gen, ended, SYN_PROBE_ITERS + 1)
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            rec = {"cpus": cpus, "workers": pipe.n_workers,
+                   "samples_per_s": SYN_PROBE_ITERS * SYN_B / (ms / 1e3),
+                   "window_ms": ms, "wall_s": time.perf_counter() - t0,
+                   "host_ms_a_batch": dict(zip(
+                       ("pipeline", "patches_copy", "enqueue"),
+                       (1e3 * host / SYN_PROBE_ITERS).tolist())),
+                   "preprocess_ms_a_batch_set": 1e3 * cost * SYN_B
+                   / pipe.n_workers,
+                   "loss": loss.item(),
+                   "flash_launches": ops.flash_attention.launches - flash0,
+                   "plain_calls": fa.flash_attention_plain.calls - plain0,
+                   "loss_calls": calls[0] - calls0}
+            print(json.dumps({"synergy_probe": rec}), flush=True)
+            if (rec["flash_launches"] != cfg.n_layers * rec["loss_calls"]
+                    or rec["plain_calls"]):
+                _fail(f"probe at {cpus} CPUs: flash launches "
+                      f"{rec['flash_launches']} for {rec['loss_calls']} "
+                      f"forwards, plain calls {rec['plain_calls']}")
+            if not (math.isfinite(rec["samples_per_s"])
+                    and rec["samples_per_s"] > 0
+                    and math.isfinite(rec["loss"])):
+                _fail(f"probe at {cpus} CPUs: {rec}")
+            probes.append(rec)
+            return rec["samples_per_s"]
+
+        wm = WorkloadModel(name=cfg.arch_id, task=cls.task,
+                           batch_per_gpu=SYN_B, t_gpu=1.0, k_cpu=0.0,
+                           sample_mb=cls.sample_mb,
+                           dataset_gb=cls.dataset_gb,
+                           disk_bw_mbps=dcfg.disk_bw_bytes / 1e6)
+        profiler = OptimisticProfiler(spec, pcfg)
+        ops.set_counts([0] * len(ops.COUNTERS))
+        calls[0] = 0
+        t0 = time.perf_counter()
+        mat = profiler.profile(wm, 1, measure_fn=measure)
+        profile_s = time.perf_counter() - t0
+        job = Job(0, cls.name, 1, 0.0, 3600.0, arch_id=cfg.arch_id)
+        job.matrix = mat
+        cg, mg = Cluster(1, spec).proportional_demand(1)
+        job.prop_rate = mat.rate(cg, mg)
+        job.demand_cpu, job.demand_mem = mat.best_demand(
+            floor_rate=job.prop_rate)
+
+        # the scheduler's lease at the knee, retuned mid-stream to the
+        # GPU-proportional share, then terminated
+        pipe, ch, it, ended = _iterator(dcfg, job.demand_cpu, job.demand_mem)
+        gen = iter(it)
+        step(synergy_batch(cfg, next(gen), 0))
+        ch.send_lease(cg, mg)
+        loss = step(synergy_batch(cfg, next(gen), 1))
+        lease = (pipe.n_workers, pipe.cache.capacity_bytes)
+        _end_lease(pipe, ch, it, gen, ended, 2)
+        lease_loss = loss.item()
+    launches = ops.flash_attention.launches
+    plain = fa.flash_attention_plain.calls
+
+    bound = math.ceil(math.log2(len(profiler.cpu_grid(1)))) + 2
+    rec = {"probed": [[p["cpus"], p["samples_per_s"]] for p in probes],
+           "probes": mat.profile_probes, "max_probes": bound,
+           "W_shape": list(mat.W.shape),
+           "knee_demand": [job.demand_cpu, job.demand_mem],
+           "knee_rate": mat.rate(job.demand_cpu, job.demand_mem),
+           "proportional_share": [cg, mg], "proportional_rate": job.prop_rate,
+           "max_rate": mat.max_rate(),
+           "probe_wall_s": [p["wall_s"] for p in probes],
+           "profile_wall_s": profile_s,
+           "profile_seconds_accounted": mat.profile_seconds,
+           "lease": {"sent": [cg, mg], "workers": lease[0],
+                     "cache_bytes": lease[1], "loss": lease_loss},
+           "flash_launches": launches, "loss_calls": calls[0],
+           "plain_calls": plain}
+    print(json.dumps({"synergy_profile": rec}), flush=True)
+    if mat.profile_probes != len(probes) or len(probes) > bound:
+        _fail(f"{len(probes)} probes (at most {bound})")
+    if mat.W.shape != (len(profiler.cpu_grid(1)),
+                       len(profiler.mem_grid(1))) or mat.W.shape[0] != 24:
+        _fail(f"W has shape {mat.W.shape}")
+    if not (np.isfinite(mat.W).all() and rec["knee_rate"] >= job.prop_rate):
+        _fail(f"the knee {rec['knee_demand']} runs at {rec['knee_rate']}, "
+              f"below the proportional {job.prop_rate}")
+    if lease != (round(cg), int(mg * (1 << 30))) or not math.isfinite(
+            lease_loss):
+        _fail(f"the lease ({cg}, {mg}) shows as {lease}")
+    if launches != cfg.n_layers * calls[0] or plain:
+        _fail(f"flash launched {launches} times for {calls[0]} forwards, "
+              f"plain calls {plain}")
+    run_simulator()
+    return launches
+
+
+def _sim_record(res, wall_s: float) -> dict:
+    done = [j for j in res.jobs if j.finish_time is not None]
+    return {"avg_jct_h": res.avg_jct / 3600, "p99_jct_h": res.p99_jct / 3600,
+            "makespan_h": res.makespan / 3600, "rounds": res.rounds,
+            "finished": len(done), "jobs": len(res.jobs), "wall_s": wall_s}
+
+
+def run_simulator() -> dict:
+    """The port's simulator on the card's host: each allocator of
+    SIM_ALLOCATORS on SIM_SERVERS servers and a Philly trace under SRTF,
+    then Synergy-OPT on OPT_SERVERS servers; every job must finish, and
+    TUNE keep within tests/test_scheduler.py's bounds of proportional."""
+    res = {}
+    for name in SIM_ALLOCATORS:
+        t0 = time.perf_counter()
+        r = simulate(SIM_SERVERS, philly_trace(**SIM_TRACE), policy="srtf",
+                     allocator=name)
+        res[name] = _sim_record(r, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    r = simulate(OPT_SERVERS, generate(TraceConfig(**OPT_TRACE)),
+                 policy="srtf", allocator="opt")
+    res["opt"] = dict(_sim_record(r, time.perf_counter() - t0),
+                      servers=OPT_SERVERS, solve_s=r.opt_solve_seconds)
+    print(json.dumps({"synergy_simulator": res}), flush=True)
+    for name, rec in res.items():
+        if rec["finished"] != rec["jobs"]:
+            _fail(f"{name}: {rec['finished']} of {rec['jobs']} jobs finished")
+    prop, tune = res["proportional"], res["tune"]
+    if (tune["avg_jct_h"] > prop["avg_jct_h"] * 1.03
+            or tune["makespan_h"] > prop["makespan_h"] * 1.05):
+        _fail(f"tune {tune} against proportional {prop}")
+    return res
 
 
 def _leaves(tree):
@@ -2686,11 +2998,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("phi-3-vision")
-    phi = run_phi3(summary)
+    phi, model, params = run_phi3(summary)
     paths["flash_attention"]["phi-3-vision-4.2b forward"] = phi["forward"]
     for name, n in phi["paged"].items():
         paths[name]["phi-3-vision-4.2b paged"] = n
     gc.collect()                    # the phi-3-vision engine is gone
+    torch.cuda.empty_cache()
+
+    phase("synergy")
+    t0 = time.perf_counter()
+    paths["flash_attention"]["phi-3-vision-4.2b synergy probe"] = \
+        run_synergy(model, params)
+    print(f"synergy phase {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, params
+    gc.collect()                    # the phi-3-vision weights are gone
     torch.cuda.empty_cache()
 
     phase("mamba2")

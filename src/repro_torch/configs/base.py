@@ -66,6 +66,9 @@ class ArchConfig:
                                      # indices + a gather, instead of a
                                      # scatter-add of the feature rows
 
+    # -- Synergy workload class (the paper's Fig. 2 families) ----------------
+    sens_class: str = "language"     # image | language | speech
+
     @property
     def resolved_head_dim(self) -> int:
         if self.head_dim:

@@ -40,7 +40,8 @@ _CONFIGS = {
         arch_id="phi-3-vision-4.2b", family="vlm",
         citation="hf:microsoft/Phi-3-vision-128k-instruct",
         n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, head_dim=96,
-        d_ff=8192, vocab_size=32064, rope_theta=10000.0, n_patches=576),
+        d_ff=8192, vocab_size=32064, rope_theta=10000.0, n_patches=576,
+        sens_class="image"),
     "olmoe-1b-7b": ArchConfig(
         arch_id="olmoe-1b-7b", family="moe", citation="arXiv:2409.02060",
         n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
@@ -63,7 +64,8 @@ _CONFIGS = {
         arch_id="whisper-large-v3", family="encdec",
         citation="arXiv:2212.04356", n_layers=32, n_enc_layers=32,
         d_model=1280, n_heads=20, n_kv_heads=20, head_dim=64, d_ff=5120,
-        vocab_size=51866, qkv_bias=True, pos_emb="sinusoidal", enc_seq=1500),
+        vocab_size=51866, qkv_bias=True, pos_emb="sinusoidal", enc_seq=1500,
+        sens_class="speech"),
 }
 
 #: reference architectures not ported yet

@@ -1,20 +1,29 @@
-"""Resource-sensitivity matrix (a copy of the part of
-``repro/core/sensitivity.py`` that serving and the Philly trace use).
+"""Resource-sensitivity model: the physics behind W_j[c, m] (§2, §3.1; a
+copy of ``repro/core/sensitivity.py``).
+
+A step on ``g`` accelerators takes the longest of three service times:
+
+    t_gpu              accelerator step time (model-specific)
+    t_prep(c)  = g*b*k_cpu / c            k_cpu: CPU-seconds per sample
+    t_fetch(m) = g*b*(1-h(m))*s_mb / bw   h(m): MinIO cache hit rate
+
+MinIO holds a fixed hit rate h = min(1, cache / dataset_gb) per epoch, so
+t_fetch is linear and predictable in m: what lets the optimistic profiler
+probe only along c at full memory.
 
 ``SensitivityMatrix`` is W[c, m]: a job's progress rate over discrete
 allocations of two resources. The serve-side tenant profiler puts cache
 units on the first (CPU) axis and the decode horizon K on the second
 (memory) axis (``serve/tenant.py``). ``MODEL_ZOO`` holds the paper's ten
-workload models with their task class, which ``core/trace.py`` draws
-job models from; the throughput model over them, ``full_matrix`` and
-the architecture map come with the scheduler core (ROADMAP queue A,
-item 13).
+workload models, calibrated to its Figure 2 (CPUs a GPU to saturate) and
+the §2.1 memory experiments; ``ARCH_SENSITIVITY`` maps the registry's
+architectures onto them.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -31,8 +40,12 @@ class WorkloadModel:
     dataset_gb: float        # full dataset size (GB) -> MinIO hit rate
     disk_bw_mbps: float = 500.0   # storage bandwidth per job (MB/s)
 
+    def cpus_to_saturate(self) -> float:
+        return self.batch_per_gpu * self.k_cpu / self.t_gpu
+
 
 def _image(name, sat_cpus, t_gpu=0.20, b=128, sample_mb=0.12, dataset_gb=550):
+    # k_cpu chosen so that t_prep(c=sat_cpus) == t_gpu (Fig. 2)
     return WorkloadModel(name, "image", b, t_gpu, sat_cpus * t_gpu / b,
                          sample_mb, dataset_gb)
 
@@ -61,6 +74,38 @@ MODEL_ZOO: Dict[str, WorkloadModel] = {m.name: m for m in [
     _speech("m5", 8.0, t_gpu=0.22),
     _speech("deepspeech", 5.0, t_gpu=0.60),
 ]}
+
+TASK_OF = {name: m.task for name, m in MODEL_ZOO.items()}
+
+#: each registered architecture's workload class: a live job of that
+#: architecture takes the zoo model's calibrated sensitivity
+ARCH_SENSITIVITY = {
+    "whisper-large-v3": "deepspeech",
+    "phi-3-vision-4.2b": "resnet18",
+    "olmoe-1b-7b": "transformer-xl",
+    "llama3.2-1b": "lstm",
+    "phi3.5-moe-42b-a6.6b": "gnmt",
+    "qwen2-0.5b": "lstm",
+    "zamba2-7b": "gnmt",
+    "qwen2-7b": "gnmt",
+    "mamba2-780m": "transformer-xl",
+    "gemma3-27b": "gnmt",
+}
+
+
+def throughput(model: WorkloadModel, gpus: int, cpus: float, mem_gb: float,
+               *, min_mem_gb: float = 20.0) -> float:
+    """Steady-state samples/s for a job holding (gpus, cpus, mem_gb); memory
+    below ``min_mem_gb`` (the process's working set) runs nothing."""
+    if gpus <= 0 or cpus <= 0 or mem_gb < min_mem_gb:
+        return 0.0
+    b = model.batch_per_gpu * gpus
+    t_prep = b * model.k_cpu / cpus
+    cache_gb = max(mem_gb - min_mem_gb, 0.0)
+    hit = min(1.0, cache_gb / model.dataset_gb)
+    t_fetch = b * (1.0 - hit) * model.sample_mb / model.disk_bw_mbps
+    step = max(model.t_gpu, t_prep, t_fetch)
+    return b / step
 
 
 @dataclass
@@ -123,3 +168,16 @@ class SensitivityMatrix:
         return [(float(c), float(m), float(self.W[ci, mi]))
                 for ci, c in enumerate(self.cpu_points)
                 for mi, m in enumerate(self.mem_points)]
+
+
+def full_matrix(model: WorkloadModel, gpus: int,
+                cpu_points: Sequence[float], mem_points: Sequence[float],
+                min_mem_gb: float = 20.0) -> SensitivityMatrix:
+    """The ground-truth matrix (what exhaustive profiling would measure)."""
+    cpu_points = np.asarray(sorted(cpu_points), float)
+    mem_points = np.asarray(sorted(mem_points), float)
+    W = np.zeros((len(cpu_points), len(mem_points)))
+    for ci, c in enumerate(cpu_points):
+        for mi, m in enumerate(mem_points):
+            W[ci, mi] = throughput(model, gpus, c, m, min_mem_gb=min_mem_gb)
+    return SensitivityMatrix(cpu_points, mem_points, W, gpus)
