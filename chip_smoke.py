@@ -51,7 +51,20 @@ Phases, each printed as it runs; any failure exits non-zero:
                  mamba2 time printed beside the SIMT kernel's it replaced;
                  flash also at whisper-large-v3's decoder shape ([1, 448,
                  20, 64], causal, G 1, a partial row tile), timed beside
-                 its bound and SDPA;
+                 its bound and SDPA; then the two backward kernels (no TPU
+                 kernel has one), through the autograd Functions of
+                 ops.flash_attention and ops.ssd_scan, against autograd of
+                 the plain versions (each gradient's largest error over its
+                 largest value: 2e-5 for flash, 5e-4 for the SSD scan):
+                 flash at phi-3-vision-4.2b's train step ([2, 1024, 32,
+                 96]), olmoe-1b-7b's [1, 256, 16, 128] and
+                 whisper-large-v3's [1, 448, 20, 64], each timed beside its
+                 bound, the plain backward and SDPA's forward +
+                 autograd.grad, and a GQA / window / ragged-S edge; the SSD
+                 scan at mamba2-780m's train step ([2, 4096, 48, 64], N
+                 128) and zamba2-7b's ([1, 4096, 112, 64], N 64), timed
+                 beside the bound and the plain backward (no library
+                 time), the smoke widths and a chunk that halves;
   4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
                  (olmoe-1b-7b smoke), the mamba2 forward + decode chain
@@ -180,7 +193,10 @@ Phases, each printed as it runs; any failure exits non-zero:
                  128-256 tokens, 32 new tokens each, 4 slots, 4 lanes,
                  horizon 8, block 16, max_len 512, its three runs and a
                  profiled replayed run as in phase 8;
-     synergy   — on the same weights, the Synergy optimistic profiler
+     synergy   — with the phase's weights freed, one Trainer of
+                 phi-3-vision-4.2b at full width with remat "full" (the same
+                 seeded weights, AdamW: 61 GB of f32 weights, gradients and
+                 moments), and the Synergy optimistic profiler
                  (repro_torch.core.profiler, the paper's ServerSpec and the
                  default ProfilerConfig) live on the card for a 1-GPU
                  phi-3-vision-4.2b job of resnet18's workload class (image,
@@ -188,14 +204,17 @@ Phases, each printed as it runs; any failure exits non-zero:
                  DataPipeline of c workers ("scaled") with the cache holding
                  the whole dataset, pulls batches of [2, 1024] tokens
                  through a SynergyIterator, adds [2, 576, 3072] stub patch
-                 embeddings on the host, and runs Model.loss on the card
-                 (a warm-up, then 2 steps timed on CUDA events from the
-                 warm-up's end; the host prepares each batch while the card
-                 runs the step before). The preprocessing cost is set so one
-                 worker takes 9 measured device steps a batch. Fails unless
-                 there are at most ceil(log2(24)) + 2 probes, each
-                 launching flash 32 times a forward and its plain version
-                 never, every rate is finite and above 0, W is [24, 12],
+                 embeddings on the host, and runs Trainer.train_step on the
+                 card, as the reference runtime's _measure_rate does (a
+                 warm-up, then 2 steps timed on CUDA events from the
+                 warm-up's end; reading each step's loss syncs). The
+                 preprocessing cost is set so one worker takes 9 measured
+                 train steps a batch. Fails unless there are at most
+                 ceil(log2(24)) + 2 probes, each launching flash 64 times a
+                 step (32 forward, 32 recomputed) and its backward 32 times
+                 and the plain version never, the trainer takes one step a
+                 call, every rate, loss and gradient norm is finite and the
+                 rates above 0, W is [24, 12],
                  the knee demand reaches the GPU-proportional rate, a lease
                  sent mid-stream shows on the next batch (workers and cache
                  capacity), a termination stops the iteration and calls
@@ -224,6 +243,35 @@ Phases, each printed as it runs; any failure exits non-zero:
                  token, so the SSD kernel launches 0 times here, as in the
                  reference. Then the profile of phase 6 over the same
                  requests (~2000 kernel launches a step, ~1.7 M a run);
+ 11b. train    — launch/train.py's build_cfg("mamba2-780m", "full") with
+                 remat "full" (the CLI has no remat flag, as the reference's
+                 has none) and a DataPipeline of one batch of [2, 4096]
+                 tokens into Trainer.fit for 8 AdamW steps (the same seeded
+                 weights). First one step's loss, gradient norm (1e-4) and
+                 64 gradient entries a leaf (1e-3 of the largest) against
+                 the same step with the scan's plain version. Fails unless
+                 every loss and gradient norm is finite, the loss falls,
+                 the SSD kernel launches 96 times a step (48 forward, 48
+                 recomputed) and its backward 48 times, the plain version
+                 never. Prints ms a step, tokens/s and the peak memory.
+                 Then python -m repro_torch.launch.train --arch mamba2-780m
+                 --preset 25m --steps 20 --ckpt build/train/... on the card,
+                 its checkpoint restored into a Trainer leaf for leaf, and
+                 the same command again, which must resume at step 20;
+     runtime  — repro_torch.core.runtime.LiveRuntime on the card as the
+                 reference runs it: one ServerSpec(gpus=2, cpus=6, mem=4)
+                 server, SRTF and tune, three 1-GPU smoke-width jobs
+                 (qwen2-0.5b 24 iterations, mamba2-780m 32 through the SSD
+                 kernels, phi-3-vision-4.2b 40 through the flash kernels),
+                 each profiled live with train steps; a first run of one
+                 0.5 s round, whose drain terminates the running leases
+                 (each checkpoints), then 2 s rounds to the end. Fails
+                 unless every job finishes at its total_iters, a terminated
+                 lease resumed at the step it saved (and every resume at a
+                 saved step), the four kernels launched and the plain
+                 versions never (the counters are not atomic across the
+                 job threads: some and none). Prints avg and p99 JCT and
+                 the makespan;
  12. zamba2    — with the mamba2 engine freed, full-width zamba2-7b (81
                  Mamba2 blocks, d_model 3584, 112 SSM heads of 64, state
                  64, one shared attention block of 32 heads of 112 called
@@ -253,9 +301,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  times) and a profiled replayed run;
                  then the graphs_vs_eager summary line.
 
-The last two lines are the kernels record (one entry per TPU kernel, its
-launches summed over the paths that run it, by path in
-``launches_by_path``, the new engines' shapes in ``other_shapes``) and
+The last two lines are the kernels record (one entry per TPU kernel and
+per backward kernel, its launches summed over the paths that run it, by
+path in ``launches_by_path``, the other shapes in ``other_shapes``) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -264,6 +312,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -272,6 +321,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import msgpack  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
@@ -282,6 +332,7 @@ from repro_torch.core.iterator import (ControlChannel,  # noqa: E402
 from repro_torch.core.job import Job  # noqa: E402
 from repro_torch.core.profiler import (OptimisticProfiler,  # noqa: E402
                                        ProfilerConfig)
+from repro_torch.core.runtime import LiveJobSpec, LiveRuntime  # noqa: E402
 from repro_torch.core.sensitivity import (ARCH_SENSITIVITY,  # noqa: E402
                                           MODEL_ZOO, WorkloadModel)
 from repro_torch.core.simulator import simulate  # noqa: E402
@@ -294,13 +345,17 @@ from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import trace_report  # noqa: E402
 from repro_torch.models import encdec, layers, mamba2, moe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.convert import state_to_jax  # noqa: E402
 from repro_torch.obs import (NULL_PROFILER, NULL_TRACER, Tracer,  # noqa: E402
                              load_trace, to_chrome_trace, validate_events,
                              write_chrome_trace)
 from repro_torch.serve import graphs  # noqa: E402
+from repro_torch.train import checkpoint, optimizer  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.serve import (BlockManager, ElasticController,  # noqa: E402
                                FaultInjector, FaultSchedule, ServeEngine,
                                Tenant, TenantRegistry, philly_requests,
@@ -862,7 +917,7 @@ def check_flash(flush: torch.Tensor) -> dict:
                     wrapper_times(lambda: ops.flash_attention(q, k, v),
                                   flush))
             path = {(1, PHI_S, PHI_D): "phi-3-vision-4.2b forward",
-                    (SYN_B, PHI_S, PHI_D): "phi-3-vision-4.2b synergy probe",
+                    (SYN_B, PHI_S, PHI_D): "phi-3-vision-4.2b synergy train",
                     (1, W_S, W_D): "whisper-large-v3 forward"}.get((b, s, d))
             if path and dtype is torch.float32 and not window:
                 others.append(_record(
@@ -1032,6 +1087,182 @@ def check_ssd(flush: torch.Tensor) -> dict:
                      dtype="float32"))
         del x, a, bm, cm, out
     rec["other_shapes"] = [{k: zamba[k] for k in SHAPE_KEYS}]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (no TPU kernel: the Pallas kernels have no backward)
+# ---------------------------------------------------------------------------
+#: their tolerances, on the largest error over the largest |gradient|
+#: (tests/test_torch_cuda_kernels.py): SIMT f32 flash against the plain
+#: version's f32 einsums; the SSD scan's three forward-kernel launches and
+#: reverse cumulative sum over S, at the forward's 5e-4
+FLASH_BWD_TOL, SSD_BWD_TOL = 2e-5, 5e-4
+
+
+def _compare_grads(what: str, got, want, tol: float) -> float:
+    """Each gradient's max abs error over its largest |value|; exits
+    unless every one is within ``tol``. Returns the largest abs error."""
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for g, w in zip(got, want):
+        if g is None or g.shape != w.shape or not bool(
+                torch.isfinite(g).all()):
+            raise SystemExit(f"FAIL: {what}: a gradient is missing, "
+                             f"misshapen or not finite")
+        errs.append((g - w).abs().max().item())
+        rels.append(errs[-1] / max(w.abs().max().item(), 1e-30))
+    print(f"{what}: max_abs_err={max(errs):.3e}, relative to the largest "
+          f"gradient {['%.2e' % r for r in rels]} (tol {tol})", flush=True)
+    if max(rels) > tol:
+        raise SystemExit(f"FAIL: {what} disagrees with autograd of its "
+                         f"plain version")
+    return max(errs)
+
+
+def flash_bwd_bound(b: int, s: int, hq: int, hkv: int, d: int,
+                    mma: bool = True):
+    """Least time for one causal flash backward: q, k, v, o, do read once
+    and dq, dk, dv written once over HBM bandwidth; the five products of
+    the visible pairs (scores, do.v, P^T do, dS^T q, dS k: 10 D flops a
+    pair and q head) at ``ops_ms``'s rate for f32. (bytes ms, ops ms)."""
+    pairs = s * (s + 1) // 2
+    nbytes = 4 * b * s * d * (4 * hq + 4 * hkv)
+    return (1e3 * nbytes / HBM_BPS,
+            ops_ms(10 * d * hq * b * pairs, torch.float32, mma))
+
+
+def sdpa_backward(q, k, v, do):
+    """One forward and autograd.grad of scaled_dot_product_attention
+    (causal) on the same inputs: the library yardstick of the backward."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def run():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+    return run
+
+
+def check_flash_backward(flush: torch.Tensor) -> dict:
+    """The flash backward through ops.flash_attention's autograd Function
+    against autograd of the plain version at phi-3-vision-4.2b's train
+    step ([2, 1024, 32, 96], the kernels-line entry), olmoe-1b-7b's
+    [1, 256, 16, 128] and whisper-large-v3's [1, 448, 20, 64] (causal,
+    f32), and at a GQA / window / ragged-S edge; each model shape timed
+    beside its bound, the plain backward and SDPA's forward + backward."""
+    cases = [(SYN_B, PHI_S, PHI_H, PHI_H, PHI_D, 0,
+              "phi-3-vision-4.2b train step"),
+             (1, 256, OL_H, OL_H, OL_D, 0, "olmoe-1b-7b"),
+             (1, W_S, W_H, W_H, W_D, 0, "whisper-large-v3"),
+             (1, 200, 14, 2, 64, 5, "GQA 14/2, window 5, ragged S")]
+    rec, others = None, []
+    for (b, s, hq, hkv, d, window, what) in cases:
+        g = torch.Generator(device="cuda").manual_seed(s + hq + d + 1)
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                   for h in (hq, hkv, hkv))
+        do = torch.randn(b, s, hq, d, generator=g, device="cuda")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*leaves, window=window).backward(do)
+        want = fa.flash_attention_backward_plain(q, k, v, do, True, window)
+        err = _compare_grads(f"flash backward [{b}, {s}, {hq}/{hkv}, {d}] "
+                             f"window={window} ({what})",
+                             [t.grad for t in leaves], want, FLASH_BWD_TOL)
+        del leaves, want
+        if window:
+            continue
+        o = fa.flash_attention_cuda(q, k, v)
+        r = _record(
+            "flash_attention_backward", "flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:86", err,
+            time_ms(lambda: ops.flash_attention_backward(q, k, v, o, do),
+                    flush, reps=20),
+            time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, do),
+                    flush, reps=5),
+            *flash_bwd_bound(b, s, hq, hkv, d),
+            time_ms(sdpa_backward(q, k, v, do), flush, reps=20),
+            dict(path=what, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=True,
+                 window=0, dtype="float32"),
+            flash_bwd_bound(b, s, hq, hkv, d, mma=False)[1])
+        r["note"] = ("the backward of flash_attention_bhsd, which has no "
+                     "TPU backward kernel; SIMT f32")
+        if rec is None:
+            rec = r
+        else:
+            others.append(r)
+        del q, k, v, o, do
+    rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
+    return rec
+
+
+def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
+                  mma: bool = True):
+    """Least time for one SSD backward: x, a, B, C and dy read once and dx,
+    da, dB, dC written once over HBM bandwidth; the work of the three scans
+    of the forward's kind that give dx, dB and dC (``ssd_bound``'s count,
+    symmetric in N and P) and of the decay gradient (each chunk's pair
+    weights, two dot products a pair, and its two N x P forms a position)
+    at ``ops_ms``'s rate for f32. (bytes ms, ops ms)."""
+    nbytes = 4 * b * s * h * (3 * p + 4 * n + 2)
+    dlog = b * h * (s // q) * (q * (q - 1) * (n + p) + 4 * q * n * p
+                               + 2 * n * p)
+    return 1e3 * nbytes / HBM_BPS, (3 * ssd_bound(b, s, h, p, n, q, mma)[1]
+                                    + ops_ms(dlog, torch.float32, mma))
+
+
+def check_ssd_backward(flush: torch.Tensor) -> dict:
+    """The SSD backward through ops.ssd_scan's autograd Function against
+    autograd of the plain version at mamba2-780m's train step ([2, 4096],
+    48 heads of 64, N 128: the kernels-line entry) and zamba2-7b's ([1,
+    4096], 112 heads, N 64), timed beside the bound and the plain backward
+    (no PyTorch call computes it: no library time), and at the smoke
+    widths and a chunk that halves."""
+    cases = [(M2_B, M2_S, M2_H, M2_P, M2_N, M2_Q, "mamba2-780m train step"),
+             (1, Z_S, Z_H, Z_P, Z_N, Z_Q, "zamba2-7b"),
+             (2, 256, 16, 32, 16, 32, "smoke widths"),
+             (2, 96, 4, M2_P, M2_N, M2_Q, "S 96: the chunk halves to 32")]
+    rec, others = None, []
+    for (b, s, h, p, n, chunk, what) in cases:
+        x, a, bm, cm = ssd_case(b, s, h, p, n, s + h + n + 1)
+        dy = torch.randn_like(x)
+        q = chunk
+        while s % q:
+            q //= 2
+        leaves = [t.clone().requires_grad_() for t in (x, a, bm, cm)]
+        ops.ssd_scan(*leaves, chunk=chunk).backward(dy)
+        want = ssd.ssd_scan_backward_plain(x, a, bm, cm, dy, chunk=q)
+        err = _compare_grads(f"ssd_scan backward [{b}, {s}, {h}, {p}] N={n} "
+                             f"q={q} ({what})", [t.grad for t in leaves],
+                             want, SSD_BWD_TOL)
+        del leaves, want
+        if s < Z_S:
+            continue
+        fwd = ssd.ssd_scan_cuda(x, a, bm, cm, chunk=q, return_states=True)
+        r = _record(
+            "ssd_scan_backward", "ssd_scan_bwd.cu",
+            "src/repro/kernels/ssd_scan.py:66", err,
+            time_ms(lambda: ops.ssd_scan_backward(x, a, bm, cm, dy, chunk=q,
+                                                  fwd=fwd), flush, reps=20),
+            time_ms(lambda: ssd.ssd_scan_backward_plain(x, a, bm, cm, dy,
+                                                        chunk=q),
+                    flush, reps=5),
+            *ssd_bwd_bound(b, s, h, p, n, q), None,
+            dict(path=what, B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"),
+            ssd_bwd_bound(b, s, h, p, n, q, mma=False)[1])
+        r["note"] = ("the backward of ssd_scan_bhsp, which has no TPU "
+                     "backward kernel: ssd_scan.cu's forward on reversed "
+                     "and rearranged inputs (x-role blocks of 64 columns: "
+                     "five launches at N 128) and ssd_scan_bwd.cu's decay "
+                     "gradient; the forward's output and states are the "
+                     "training forward's")
+        if rec is None:
+            rec = r
+        else:
+            others.append(r)
+        del x, a, bm, cm, dy, fwd
+    rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
     return rec
 
 
@@ -2223,22 +2454,27 @@ def _end_lease(pipe, ch, it, gen, ended, n: int) -> None:
         _fail(f"progress {progress} after {n} batches")
 
 
-def run_synergy(model, params) -> int:
+def run_synergy() -> dict:
     """Phase ``synergy`` (module docstring): the optimistic profiler live on
-    the card against phi-3-vision-4.2b's full-width loss, a lease update
-    and a termination, then the simulator. Returns the flash launches."""
-    cfg = model.cfg
+    the card against phi-3-vision-4.2b's full-width train step (one
+    Trainer, remat "full": 61 GB of f32 weights, gradients and AdamW
+    moments), a lease update and a termination, then the simulator.
+    Returns the flash forward and backward launches."""
+    cfg = get_config("phi-3-vision-4.2b").replace(remat="full")
+    trainer = Trainer(cfg, TrainerConfig(warmup_steps=2),
+                      rng=torch.Generator(device="cuda").manual_seed(0))
     cls = MODEL_ZOO[ARCH_SENSITIVITY[cfg.arch_id]]
     spec, pcfg = ServerSpec(), ProfilerConfig()
     calls = [0]
 
     def step(batch):
-        # the forward and loss at full width; A11's train step (forward,
-        # backward and the optimizer) takes its place when training lands
+        # the train step at full width (the reference runtime's
+        # _measure_rate): forward, recompute and backward through the flash
+        # kernels, AdamW; reading the loss syncs, as there
         calls[0] += 1
-        return model.loss(params, batch)
+        return trainer.train_step(batch)
 
-    with torch.inference_mode():
+    with torch.enable_grad():
         # the device step the preprocessing cost is set from
         warm = DataPipeline(DataConfig(n_samples=SYN_B, seq_len=PHI_S,
                                        vocab_size=cfg.vocab_size), SYN_B)
@@ -2270,9 +2506,10 @@ def run_synergy(model, params) -> int:
             the warm-up's end. The host prepares each batch while the card
             runs the step before it."""
             t0 = time.perf_counter()
-            flash0, plain0, calls0 = (ops.flash_attention.launches,
-                                      fa.flash_attention_plain.calls,
-                                      calls[0])
+            flash0, bwd0, plain0, calls0 = (
+                ops.flash_attention.launches,
+                ops.flash_attention_backward.launches,
+                fa.flash_attention_plain.calls, calls[0])
             pipe, ch, it, ended = _iterator(dcfg, cpus, full_gb)
             gen = iter(it)
             start = torch.cuda.Event(enable_timing=True)
@@ -2303,19 +2540,26 @@ def run_synergy(model, params) -> int:
                        (1e3 * host / SYN_PROBE_ITERS).tolist())),
                    "preprocess_ms_a_batch_set": 1e3 * cost * SYN_B
                    / pipe.n_workers,
-                   "loss": loss.item(),
+                   "loss": loss["loss"], "grad_norm": loss["grad_norm"],
                    "flash_launches": ops.flash_attention.launches - flash0,
+                   "flash_backward_launches":
+                       ops.flash_attention_backward.launches - bwd0,
                    "plain_calls": fa.flash_attention_plain.calls - plain0,
-                   "loss_calls": calls[0] - calls0}
+                   "train_steps": calls[0] - calls0}
             print(json.dumps({"synergy_probe": rec}), flush=True)
-            if (rec["flash_launches"] != cfg.n_layers * rec["loss_calls"]
+            n = cfg.n_layers * rec["train_steps"]
+            if (rec["flash_launches"] != 2 * n
+                    or rec["flash_backward_launches"] != n
                     or rec["plain_calls"]):
                 _fail(f"probe at {cpus} CPUs: flash launches "
-                      f"{rec['flash_launches']} for {rec['loss_calls']} "
-                      f"forwards, plain calls {rec['plain_calls']}")
+                      f"{rec['flash_launches']} forward and "
+                      f"{rec['flash_backward_launches']} backward for "
+                      f"{rec['train_steps']} train steps, plain calls "
+                      f"{rec['plain_calls']}")
             if not (math.isfinite(rec["samples_per_s"])
                     and rec["samples_per_s"] > 0
-                    and math.isfinite(rec["loss"])):
+                    and math.isfinite(rec["loss"])
+                    and math.isfinite(rec["grad_norm"])):
                 _fail(f"probe at {cpus} CPUs: {rec}")
             probes.append(rec)
             return rec["samples_per_s"]
@@ -2327,7 +2571,7 @@ def run_synergy(model, params) -> int:
                            disk_bw_mbps=dcfg.disk_bw_bytes / 1e6)
         profiler = OptimisticProfiler(spec, pcfg)
         ops.set_counts([0] * len(ops.COUNTERS))
-        calls[0] = 0
+        calls[0], step0 = 0, trainer.step
         t0 = time.perf_counter()
         mat = profiler.profile(wm, 1, measure_fn=measure)
         profile_s = time.perf_counter() - t0
@@ -2347,9 +2591,14 @@ def run_synergy(model, params) -> int:
         loss = step(synergy_batch(cfg, next(gen), 1))
         lease = (pipe.n_workers, pipe.cache.capacity_bytes)
         _end_lease(pipe, ch, it, gen, ended, 2)
-        lease_loss = loss.item()
+        lease_loss = loss["loss"]
     launches = ops.flash_attention.launches
+    bwd = ops.flash_attention_backward.launches
     plain = fa.flash_attention_plain.calls
+    rec_step = trainer.step - step0
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
 
     bound = math.ceil(math.log2(len(profiler.cpu_grid(1)))) + 2
     rec = {"probed": [[p["cpus"], p["samples_per_s"]] for p in probes],
@@ -2364,7 +2613,8 @@ def run_synergy(model, params) -> int:
            "profile_seconds_accounted": mat.profile_seconds,
            "lease": {"sent": [cg, mg], "workers": lease[0],
                      "cache_bytes": lease[1], "loss": lease_loss},
-           "flash_launches": launches, "loss_calls": calls[0],
+           "flash_launches": launches, "flash_backward_launches": bwd,
+           "train_steps": calls[0], "trainer_steps": rec_step,
            "plain_calls": plain}
     print(json.dumps({"synergy_profile": rec}), flush=True)
     if mat.profile_probes != len(probes) or len(probes) > bound:
@@ -2378,11 +2628,14 @@ def run_synergy(model, params) -> int:
     if lease != (round(cg), int(mg * (1 << 30))) or not math.isfinite(
             lease_loss):
         _fail(f"the lease ({cg}, {mg}) shows as {lease}")
-    if launches != cfg.n_layers * calls[0] or plain:
-        _fail(f"flash launched {launches} times for {calls[0]} forwards, "
+    if (launches != 2 * cfg.n_layers * calls[0]
+            or bwd != cfg.n_layers * calls[0] or plain
+            or rec_step != calls[0]):
+        _fail(f"flash launched {launches} times forward and {bwd} backward "
+              f"for {calls[0]} train steps (the trainer took {rec_step}), "
               f"plain calls {plain}")
     run_simulator()
-    return launches
+    return {"flash_attention": launches, "flash_attention_backward": bwd}
 
 
 def _sim_record(res, wall_s: float) -> dict:
@@ -2674,6 +2927,224 @@ def run_mamba2() -> int:
     return launches["forward"]
 
 
+#: the train phase: mamba2-780m at full width (remat "full"), batches of
+#: TRAIN_B sequences of TRAIN_S tokens, TRAIN_STEPS steps of AdamW at peak
+#: lr TRAIN_LR after a 2-step warm-up; the one-step comparison with the
+#: plain scan holds the loss and the gradient norm to TRAIN_TOL (relative)
+#: and a sample of gradient entries to TRAIN_GRAD_TOL of the largest |g|
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 4096, 8, 1e-3
+TRAIN_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_DIR = os.path.join(ROOT, "build", "train")
+#: the CLI run on the card and its resume
+TRAIN_CLI = ["--arch", "mamba2-780m", "--preset", "25m", "--steps", "20",
+             "--device", "cuda"]
+
+
+def _grads_and_norm(trainer, batch, idx):
+    """(loss, global grad norm, the gradient entries at ``idx``, one index
+    tensor a leaf) of one forward and backward on ``batch`` without an
+    optimizer step; the grads are cleared after."""
+    params = trainer.state["params"]
+    loss = trainer.model.loss(params, batch)
+    loss.backward()
+    grads = [p.grad for p in optimizer.leaves(params)]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads)).item()
+    sample = torch.cat([g.flatten()[i] for g, i in zip(grads, idx)])
+    for p in optimizer.leaves(params):
+        p.grad = None
+    return loss.item(), norm, sample
+
+
+def run_train() -> dict:
+    """Phase ``train`` (module docstring): launch/train.py's config of
+    mamba2-780m at full width with remat "full" through Trainer.fit on a
+    DataPipeline; one step against the plain scan; then the CLI and its
+    resume. Returns the SSD forward and backward launches of the fit."""
+    cfg = train_cli.build_cfg("mamba2-780m", "full").replace(remat="full")
+    # a dataset of one batch, seen each step (rolled by a token an epoch, as
+    # the pipeline augments): the loss has something to fall to
+    pipe = DataPipeline(DataConfig(n_samples=TRAIN_B, seq_len=TRAIN_S,
+                                   vocab_size=cfg.vocab_size),
+                        TRAIN_B, n_workers=2)
+    trainer = Trainer(cfg, TrainerConfig(
+        peak_lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS),
+        rng=torch.Generator(device="cuda").manual_seed(0))
+    rec = {"arch": cfg.arch_id, "remat": cfg.remat, "batch": TRAIN_B,
+           "seq": TRAIN_S,
+           "params": sum(p.numel() for p in optimizer.leaves(
+               trainer.state["params"]))}
+    # one step's loss, grad norm and gradients against the plain scan
+    first = {k: v.to("cuda") for k, v in next(pipe.batches(1)).items()}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    idx = [torch.randint(0, p.numel(), (64,), generator=g, device="cuda")
+           for p in optimizer.leaves(trainer.state["params"])]
+    got = _grads_and_norm(trainer, first, idx)
+    with plain_ssd():
+        want = _grads_and_norm(trainer, first, idx)
+    sample, ref = got[2], want[2]
+    gap = (sample - ref).abs().max().item() / ref.abs().max().item()
+    rec["plain_step"] = {"loss": [got[0], want[0]],
+                         "grad_norm": [got[1], want[1]],
+                         "sampled_grads": int(ref.numel()),
+                         "sample_max_err_over_max": gap}
+    print(json.dumps({"train_vs_plain": rec["plain_step"]}), flush=True)
+    if not (abs(got[0] - want[0]) <= TRAIN_TOL * abs(want[0])
+            and abs(got[1] - want[1]) <= TRAIN_TOL * abs(want[1])
+            and gap <= TRAIN_GRAD_TOL):
+        raise SystemExit(f"FAIL: train: the kernel step differs from the "
+                         f"plain scan's: {rec['plain_step']}")
+    del sample, ref, first, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.set_counts([0] * len(ops.COUNTERS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = trainer.fit(pipe.batches(TRAIN_STEPS))
+    wall = time.perf_counter() - t0
+    pipe.close()
+    counts = dict(zip(COUNTER_NAMES, ops.counts()))
+    steps = [h["step_seconds"] for h in hist[1:]]
+    rec.update(steps=len(hist), wall_s=wall,
+               losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist],
+               ms_per_step=1e3 * statistics.mean(steps),
+               tokens_per_s=TRAIN_B * TRAIN_S / statistics.mean(steps),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: counts[k] for k in (
+                   "ssd_scan", "ssd_scan_backward", "ssd_scan_plain")})
+    print(json.dumps({"train": rec}), flush=True)
+    n = cfg.n_layers * len(hist)
+    if counts["ssd_scan"] != 2 * n or counts["ssd_scan_backward"] != n or \
+            counts["ssd_scan_plain"]:
+        raise SystemExit(f"FAIL: train: {rec['launches']} over {len(hist)} "
+                         f"steps (want {2 * n} forward and recompute, {n} "
+                         f"backward, 0 plain)")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or hist[-1]["loss"] >= hist[0]["loss"]:
+        raise SystemExit(f"FAIL: train: losses {rec['losses']}, grad norms "
+                         f"{rec['grad_norms']}: not finite or not falling")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cli"] = train_cli_resume()
+    return counts
+
+
+def train_cli_resume() -> dict:
+    """``python -m repro_torch.launch.train`` on the card with a checkpoint,
+    then again: the second run resumes at the saved step; the checkpoint
+    it resumed from restores into a Trainer leaf for leaf."""
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    ck = os.path.join(TRAIN_DIR, "mamba2-25m.ckpt")
+    if os.path.exists(ck):
+        os.unlink(ck)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+             "--ckpt", ck], capture_output=True, text=True, cwd=ROOT,
+            env=env, timeout=300)
+        if proc.returncode != 0:
+            raise SystemExit(f"FAIL: train CLI run {i}: rc "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout[proc.stdout.index("{"):])
+        summary["restored_line"] = [ln for ln in proc.stdout.splitlines()
+                                    if ln.startswith("restored")]
+        summary["process_s"] = time.perf_counter() - t0
+        runs.append(summary)
+        if i == 0:
+            tr = Trainer(train_cli.build_cfg("mamba2-780m", "25m"),
+                         TrainerConfig(ckpt_path=ck))
+            if not tr.maybe_restore() or tr.step != 20:
+                raise SystemExit(f"FAIL: train CLI: the checkpoint restores "
+                                 f"at step {tr.step}, not 20")
+            with open(ck, "rb") as f:
+                payload = msgpack.unpackb(f.read())
+            saved = [np.frombuffer(d[b"data"], np.dtype(d[b"dtype"]))
+                     .reshape(d[b"shape"]) for d in payload[b"leaves"]]
+            mine = [np.asarray(x) for _, x in
+                    checkpoint._flatten(state_to_jax(tr.state))]
+            if len(saved) != len(mine) or not all(
+                    np.array_equal(a, b) for a, b in zip(saved, mine)):
+                raise SystemExit("FAIL: train CLI: the restored state differs "
+                                 "from the saved leaves")
+            del tr
+    if runs[1]["restored_line"] != ["restored checkpoint at step 20"]:
+        raise SystemExit(f"FAIL: train CLI resume: {runs[1]}")
+    rec = {"runs": runs}
+    print(json.dumps({"train_cli": rec}), flush=True)
+    if not all(math.isfinite(r["loss_last"]) for r in runs):
+        raise SystemExit("FAIL: train CLI: loss not finite")
+    return rec
+
+
+#: the runtime phase (the reference runtime's smoke-width jobs): one
+#: server of 2 GPUs, 6 CPUs and 4 GB under SRTF and tune; three 1-GPU jobs
+#: (arch, iterations); a first round of RT_FIRST_ROUND_S whose drain
+#: terminates the running leases, then rounds of RT_ROUND_S to the end
+RT_JOBS = (("qwen2-0.5b", 24), ("mamba2-780m", 32),
+           ("phi-3-vision-4.2b", 40))
+RT_FIRST_ROUND_S, RT_ROUND_S = 0.5, 2.0
+RT_DIR = os.path.join(ROOT, "build", "runtime")
+
+
+def run_runtime() -> dict:
+    """Phase ``runtime`` (module docstring): the live Synergy runtime on the
+    card. Returns every counter's count over the phase."""
+    shutil.rmtree(RT_DIR, ignore_errors=True)
+    ops.set_counts([0] * len(ops.COUNTERS))
+    t0 = time.perf_counter()
+    rt = LiveRuntime(n_servers=1, spec=ServerSpec(gpus=2, cpus=6.0, mem=4.0),
+                     policy="srtf", allocator="tune",
+                     round_seconds=RT_FIRST_ROUND_S, probe_iters=2,
+                     ckpt_dir=RT_DIR, device="cuda")
+    for i, (arch, iters) in enumerate(RT_JOBS):
+        rt.submit(LiveJobSpec(i, arch, total_iters=iters, batch_size=8,
+                              preprocess_cost_s=0.002, dataset_gb=0.1,
+                              seq_len=32))
+    profile_s = time.perf_counter() - t0
+    t_start = time.time()
+    first = rt.run(max_rounds=1)        # its drain ends the running leases
+    rt.round_seconds = RT_ROUND_S
+    rt.run(max_rounds=200)
+    m = rt.metrics(t_start)
+    counts = dict(zip(COUNTER_NAMES, ops.counts()))
+    jobs = [{"arch": lj.spec.arch_id, "iters": lj.iters_done,
+             "total_iters": lj.spec.total_iters, "saves": lj.saves,
+             "restores": lj.restores,
+             "preemptions": lj.sched_job.n_preemptions,
+             "demand": [lj.sched_job.demand_cpu, lj.sched_job.demand_mem],
+             "prop_rate": lj.sched_job.prop_rate,
+             "last_loss": lj.trainer.history[-1]["loss"]}
+            for lj in rt.jobs.values()]
+    rec = {"profile_s": profile_s, "first_run": first, "metrics": m,
+           "jobs": jobs, "rounds": len(rt.round_log),
+           "launches": {k: v for k, v in counts.items() if v}}
+    print(json.dumps({"runtime": rec}), flush=True)
+    print(f"runtime: avg JCT {m['avg_jct']:.2f} s, p99 JCT "
+          f"{m['p99_jct']:.2f} s, makespan {m['makespan']:.2f} s", flush=True)
+    if m["finished"] != len(RT_JOBS) or any(
+            j["iters"] != j["total_iters"] for j in jobs):
+        raise SystemExit(f"FAIL: runtime: jobs unfinished: {jobs}")
+    if not any(j["saves"] and j["restores"] == j["saves"] for j in jobs) \
+            or any(j["restores"] != j["saves"] for j in jobs):
+        raise SystemExit(f"FAIL: runtime: no terminated lease resumed at its "
+                         f"saved step: {jobs}")
+    # the counters are not atomic across the job threads: some, and none
+    if not all(counts[k] > 0 for k in ("flash_attention", "ssd_scan",
+                                       "flash_attention_backward",
+                                       "ssd_scan_backward")) or \
+            counts["flash_attention_plain"] or counts["ssd_scan_plain"]:
+        raise SystemExit(f"FAIL: runtime: launches {rec['launches']}")
+    if not all(math.isfinite(j["last_loss"]) for j in jobs):
+        raise SystemExit(f"FAIL: runtime: a loss is not finite: {jobs}")
+    return counts
+
+
 def run_mamba2_engine(summary: dict) -> None:
     """The full-width mamba2-780m contiguous engine (module docstring,
     phase 11); the SSD kernel must not launch."""
@@ -2958,6 +3429,8 @@ def main() -> int:
     rec["flash_attention"] = check_flash(flush)
     rec["grouped_matmul"] = check_grouped_matmul(flush)
     rec["ssd_scan"] = check_ssd(flush)
+    rec["flash_attention_backward"] = check_flash_backward(flush)
+    rec["ssd_scan_backward"] = check_ssd_backward(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -3006,13 +3479,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("synergy")
-    t0 = time.perf_counter()
-    paths["flash_attention"]["phi-3-vision-4.2b synergy probe"] = \
-        run_synergy(model, params)
-    print(f"synergy phase {time.perf_counter() - t0:.1f} s", flush=True)
-    del model, params
-    gc.collect()                    # the phi-3-vision weights are gone
+    del model, params               # the trainer draws the same weights
+    gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, n in run_synergy().items():
+        paths[name]["phi-3-vision-4.2b synergy train"] = n
+    print(f"synergy phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("mamba2")
     paths["ssd_scan"]["mamba2-780m forward"] = run_mamba2()
@@ -3021,6 +3494,25 @@ def main() -> int:
 
     phase("mamba2 engine")
     run_mamba2_engine(summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("train")
+    t0 = time.perf_counter()
+    counts = run_train()
+    for name in ("ssd_scan", "ssd_scan_backward"):
+        paths[name]["mamba2-780m train"] = counts[name]
+    print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("runtime")
+    t0 = time.perf_counter()
+    counts = run_runtime()
+    for name in ("flash_attention", "ssd_scan", "flash_attention_backward",
+                 "ssd_scan_backward"):
+        paths[name]["live runtime"] = counts[name]
+    print(f"runtime phase {time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -65,6 +65,8 @@ class ArchConfig:
     moe_gather_dispatch: bool = False  # MoE dispatch via int32 slot->token
                                      # indices + a gather, instead of a
                                      # scatter-add of the feature rows
+    remat: str = "none"              # none | dots | full (activation
+                                     # recomputation in training)
 
     # -- Synergy workload class (the paper's Fig. 2 families) ----------------
     sens_class: str = "language"     # image | language | speech
@@ -142,7 +144,7 @@ class ArchConfig:
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """The reference's per-arch smoke shape: same family and code paths,
-    laptop-scale widths (2 layers, d_model 256, vocab 512; MoE: 4 experts,
+    laptop-scale widths, no remat (2 layers, d_model 256, vocab 512; MoE: 4 experts,
     top-2, expert width 128; SSM and hybrid: state 16, head dim 32, chunk
     32; hybrid: shared attention every 2 blocks; encdec: 2 encoder layers,
     64 frames; VLM: 16 patches)."""
@@ -156,6 +158,7 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         vocab_size=512,
         dtype="float32",
         param_dtype="float32",
+        remat="none",
     )
     if cfg.family == "moe":
         kw.update(n_experts=4, top_k=2, d_ff=128)

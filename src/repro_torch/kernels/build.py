@@ -41,12 +41,20 @@ ARGTYPES = {
     # (batch, seq, head) strides of q, k and v; causal, window, dtype, stream
     "flash_attention_forward":
         [_VOID_P] * 4 + [_INT] * 5 + [_I64] * 9 + [_INT] * 3 + [_VOID_P],
+    # csrc/flash_attention_bwd.cu: q, k, v, out, dout, dq, dk, dv, lse,
+    # dsum; B, S, Hq, Hkv, D; the strides of q, k and v; causal, window,
+    # stream
+    "flash_attention_backward":
+        [_VOID_P] * 10 + [_INT] * 5 + [_I64] * 9 + [_INT] * 2 + [_VOID_P],
     # csrc/grouped_matmul.cu: x, w, valid_rows (NULL = all), out; G, C, K,
     # N, dtype, stream
     "grouped_matmul_forward": [_VOID_P] * 4 + [_INT] * 5 + [_VOID_P],
     # csrc/ssd_scan.cu: x, a, B, C, y, chunk states, chunk decays; B, S, H,
     # P, N, Q, stream
     "ssd_scan_forward": [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P],
+    # csrc/ssd_scan_bwd.cu: x, B, C, dy, a, forward states, reversed
+    # states, da; B, S, H, P, N, Q, stream
+    "ssd_scan_dlog": [_VOID_P] * 8 + [_INT] * 6 + [_VOID_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -13,6 +13,12 @@ Layout is the JAX wrapper's: q ``[B, S, Hq, D]``, k/v ``[B, S, Hkv, D]``,
 q head ``h`` attending kv head ``h // G``; out ``[B, S, Hq, D]`` in q's
 dtype. ``kernels/ops.py`` routes by device and raises the JAX wrapper's
 ``ValueError`` for a non-causal S that is not a multiple of the block.
+
+The backward has no TPU kernel to port (the JAX package trains through its
+plain attention): ``flash_attention_backward_cuda`` launches
+``csrc/flash_attention_bwd.cu`` (f32), and
+``flash_attention_backward_plain`` is autograd through the plain version,
+the reference the kernel is held to.
 """
 from __future__ import annotations
 
@@ -109,3 +115,49 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "flash_attention_forward")
     return out
+
+
+def flash_attention_backward_plain(q, k, v, dout, causal: bool = True,
+                                   window: int = 0):
+    """The backward's plain version: (dq, dk, dv) of ``<out, dout>``
+    through autograd of ``flash_attention_plain``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal, window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def flash_attention_backward_cuda(q, k, v, out, dout, causal: bool = True,
+                                  window: int = 0):
+    """Launch the backward kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D] (read
+    in place through their strides), the forward's ``out`` and its gradient
+    ``dout`` [B, S, Hq, D] -> (dq, dk, dv), contiguous f32. f32 only."""
+    _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"the backward kernel takes float32 only, got "
+                         f"{q.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    out, dout = out.contiguous(), dout.to(torch.float32).contiguous()
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, s, hkv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), b, s, hq, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(bool(causal)), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on(code, "flash_attention_backward")
+    return dq, dk, dv

@@ -17,6 +17,14 @@ leaves out because it is empty becomes an empty list); the
 encoder-decoder family's ``enc_layers`` and ``dec_layers`` become one dict
 per layer beside ``enc_norm`` and ``dec_norm``.
 It never imports jax.
+
+``params_to_jax`` is the inverse: port params (any device) -> the
+reference's layout with numpy leaves, per-layer lists stacked back into
+``[L, ...]`` leaves, hybrid ``groups`` into ``[G, every, ...]`` and an
+empty stack left out. ``state_from_jax`` carries a whole reference train
+state (``{"params", "opt": {"mu", "nu"} or {"mom"}, "step"}``, numpy
+leaves) into the port's (``repro_torch.train.state``): params that require
+grad, moments in f32, the step an int; ``state_to_jax`` goes back.
 """
 from __future__ import annotations
 
@@ -68,9 +76,71 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
     return out
 
 
+#: the top-level names whose leaves the reference stacks along a leading
+#: layer axis (``groups`` stacks two axes)
+_STACKED = ("layers", "enc_layers", "dec_layers", "trailing")
+
+
+def _stack(items: list, leaf, stack):
+    """Same-structured per-layer trees -> one tree of stacked leaves."""
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items], leaf, stack)
+                for k in items[0]}
+    return stack([leaf(t) for t in items])
+
+
+def jax_layout(tree: dict, leaf, stack) -> dict:
+    """Port params -> the reference's structure with ``leaf`` applied to
+    each tensor and ``stack`` joining the per-layer values (``np.stack``
+    for arrays, or a shape rule for shapes)."""
+    out = {}
+    for name, sub in tree.items():
+        if name in _STACKED:
+            if sub:
+                out[name] = _stack(sub, leaf, stack)
+        elif name == "groups":
+            if sub:
+                out[name] = _stack([_stack(g, leaf, stack) for g in sub],
+                                   lambda x: x, stack)
+        else:
+            out[name] = _map(sub, leaf)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu").numpy()
+
+
+def params_to_jax(params: dict) -> dict:
+    """Port params -> the reference's params pytree with numpy leaves."""
+    return jax_layout(params, _numpy, np.stack)
+
+
+def state_from_jax(state: dict, device="cuda") -> dict:
+    """A reference train state (numpy leaves) -> the port's: params on
+    ``device`` requiring grad, the optimizer's trees as params, the step an
+    int."""
+    params = params_from_jax(state["params"], device)
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    opt = {k: params_from_jax(v, device) for k, v in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": int(state["step"])}
+
+
+def state_to_jax(state: dict) -> dict:
+    """The port's train state -> the reference's layout, numpy leaves (the
+    step an int32 scalar)."""
+    return {"params": params_to_jax(state["params"]),
+            "opt": {k: params_to_jax(v) for k, v in state["opt"].items()},
+            "step": np.asarray(state["step"], np.int32)}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

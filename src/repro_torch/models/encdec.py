@@ -84,12 +84,17 @@ def encode(cfg, params, frames):
     b, s, d = frames.shape
     x = frames + L.sinusoidal_pos_emb(s, d, frames.device).to(frames.dtype)
     positions = _positions(b, s, frames.device)
-    for p in params["enc_layers"]:
+
+    def body(x, p):
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         a, _ = L.attention(p["attn"], cfg, h, positions, causal=False)
         x = x + a
         h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+        return x + L.mlp(p["mlp"], h)
+
+    body = L.remat(cfg, body, dots=False)        # encdec.py:71-72
+    for p in params["enc_layers"]:
+        x = body(x, p)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -133,8 +138,11 @@ def decode_train(cfg, params, tokens, enc_out):
     x = L.embed(params["emb"], cfg, tokens)
     x = x + L.sinusoidal_pos_emb(s, cfg.d_model, x.device).to(x.dtype)
     positions = _positions(b, s, x.device)
+    body = L.remat(cfg, lambda x, p: _dec_layer(cfg, p, x, positions,
+                                                enc_out=enc_out)[0],
+                   dots=False)                   # encdec.py:116-117
     for p in params["dec_layers"]:
-        x, _ = _dec_layer(cfg, p, x, positions, enc_out=enc_out)
+        x = body(x, p)
     x = L.rmsnorm(x, params["dec_norm"], cfg.norm_eps)
     return L.unembed(params["emb"], cfg, x)
 

@@ -72,10 +72,18 @@ def forward(cfg, params, tokens):
     x = L.embed(params["emb"], cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for group in params["groups"]:
+
+    def super_block(x, group):
         x, _ = T._layer(cfg, params["shared"], x, positions, 0)
         for p in group:
             x = _mamba_layer(cfg, p, x)
+        return x
+
+    # hybrid.py:72-73: one checkpoint a super-block (shared block and its
+    # group), no policy; the trailing blocks run as they are
+    super_block = L.remat(cfg, super_block, dots=False)
+    for group in params["groups"]:
+        x = super_block(x, group)
     for p in params["trailing"]:
         x = _mamba_layer(cfg, p, x)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

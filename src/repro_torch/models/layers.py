@@ -10,11 +10,13 @@ cache.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops as kops
 # shared with the kernels' plain versions, which gather the same way
@@ -30,6 +32,47 @@ def _init_dense(shape, dtype, generator, scale: Optional[float] = None):
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(shape, generator=generator, device=generator.device)
     return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activation recomputation (ArchConfig.remat)
+# ---------------------------------------------------------------------------
+#: the 2-D products ``x @ W`` (aten's mm / addmm, as ``matmul`` lowers a
+#: [B, S, D] x [D, F] product): the dots without batch dimensions that the
+#: reference's ``dots_with_no_batch_dims_saveable`` keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(cfg, fn: Callable, dots: bool = True) -> Callable:
+    """``fn`` under ``cfg.remat`` (the reference's ``jax.checkpoint`` of a
+    layer body): "none" returns it as it is; "full" recomputes everything
+    but its inputs in the backward; "dots" saves the 2-D matmul outputs and
+    recomputes the rest. ``dots=False`` marks a site where the reference
+    checkpoints without a policy (``mamba2.py:233-234``, ``hybrid.py``,
+    ``encdec.py``): there "dots" is "full". Without grad mode nothing is
+    saved anyway, so ``fn`` runs as it is; recomputation never changes a
+    value, only what the backward keeps."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, got "
+                         f"{cfg.remat!r}")
+    context = _ckpt.noop_context_fn
+    if cfg.remat == "dots" and dots:
+        context = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                context_fn=context)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

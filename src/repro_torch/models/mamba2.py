@@ -164,8 +164,11 @@ def block_decode(cfg, p, x, conv_state, ssm_state):
 def forward(cfg, params, tokens):
     """tokens: [B, S] int -> logits [B, S, V]."""
     x = L.embed(params["emb"], cfg, tokens)
+    # mamba2.py:233-234: jax.checkpoint with no policy when remat is on
+    body = L.remat(cfg, lambda x, p: x + block_fwd(
+        cfg, p, L.rmsnorm(x, p["norm"], cfg.norm_eps)), dots=False)
     for p in params["layers"]:
-        x = x + block_fwd(cfg, p, L.rmsnorm(x, p["norm"], cfg.norm_eps))
+        x = body(x, p)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["emb"], cfg, x)
 

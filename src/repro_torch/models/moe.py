@@ -185,8 +185,10 @@ def forward(cfg, params, tokens, return_aux: bool = False,
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    # moe.py:189-193: the layer body under cfg.remat
+    body = L.remat(cfg, lambda x, p: _layer(cfg, p, x, positions))
     for p in params["layers"]:
-        x, kv, aux = _layer(cfg, p, x, positions)
+        x, kv, aux = body(x, p)
         aux_sum = aux_sum + aux
         if return_cache:
             caches.append(kv)

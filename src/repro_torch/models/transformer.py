@@ -96,8 +96,10 @@ def forward(cfg, params, tokens, patch_embeds=None,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     caches = []
+    # transformer.py:255-259: the layer body under cfg.remat
+    body = L.remat(cfg, lambda x, p, w: _layer(cfg, p, x, positions, w))
     for p, w in zip(params["layers"], layer_windows(cfg)):
-        x, kv = _layer(cfg, p, x, positions, w)
+        x, kv = body(x, p, w)
         if return_cache:
             caches.append(kv)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -108,11 +108,12 @@ def test_every_csrc_source_is_built():
     from repro_torch.kernels import build
     names = {p.name for p in build.sources()}
     assert {"paged_attention.cu", "flash_attention.cu", "grouped_matmul.cu",
-            "ssd_scan.cu", "errors.cu"} <= names
+            "ssd_scan.cu", "errors.cu", "flash_attention_bwd.cu",
+            "ssd_scan_bwd.cu"} <= names
     assert set(build.ARGTYPES) == {
         "paged_attention_decode", "paged_attention_prefill",
         "flash_attention_forward", "grouped_matmul_forward",
-        "ssd_scan_forward"}
+        "ssd_scan_forward", "flash_attention_backward", "ssd_scan_dlog"}
 
 
 def test_chip_smoke_refuses_without_a_gpu():

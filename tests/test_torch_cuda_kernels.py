@@ -426,16 +426,21 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk):
 
 @pytest.mark.cuda
 def test_ssd_scan_kernel_refuses_grad_and_bad_inputs(cuda_device):
-    """No backward pass and no fallback: an input that requires grad under
-    grad mode raises, and so does anything the kernel does not take."""
+    """An input that requires grad now gets its gradient from the backward
+    kernel (held to autograd of the plain version), and anything the
+    kernel does not take raises: there is no fallback."""
     x, a, B, C = _ssd_case(cuda_device, 1, 64, 2, 32, 16, 0)
-    before = ops.ssd_scan.launches
-    with pytest.raises(RuntimeError, match="backward"):
-        ops.ssd_scan(x.requires_grad_(), a, B, C, chunk=32)
-    assert ops.ssd_scan.launches == before
+    before = ops.ssd_scan.launches, ops.ssd_scan_backward.launches
+    xg = x.clone().requires_grad_()
+    dy = torch.randn_like(x)
+    ops.ssd_scan(xg, a, B, C, chunk=32).backward(dy)
+    assert (ops.ssd_scan.launches, ops.ssd_scan_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ssd.ssd_scan_backward_plain(x, a, B, C, dy, chunk=32)[0]
+    _close_to_largest(xg.grad, want, SSD_BWD_TOL)
     with torch.no_grad():
-        ops.ssd_scan(x, a, B, C, chunk=32)
-    assert ops.ssd_scan.launches == before + 1
+        ops.ssd_scan(x.requires_grad_(), a, B, C, chunk=32)
+    assert ops.ssd_scan.launches == before[0] + 2
     x = x.detach()
     with pytest.raises(ValueError, match="float32"):
         ssd.ssd_scan_cuda(x.double(), a, B, C, chunk=32)
@@ -507,3 +512,104 @@ def test_kernels_launch_on_the_current_stream(cuda_device, op):
     side.synchronize()
     tol = 5e-4 if op == "ssd_scan" else TOL[torch.float32]
     torch.testing.assert_close(out, exp, atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: each autograd Function against autograd of the plain
+# version. Tolerances are relative to the largest gradient: 2e-5 for flash
+# (SIMT f32 against the plain version's f32 einsums), 5e-4 for the SSD scan
+# (the forward's 5e-4: three launches of the forward kernel and a reverse
+# cumulative sum over S feed it)
+# ---------------------------------------------------------------------------
+FLASH_BWD_TOL, SSD_BWD_TOL = 2e-5, 5e-4
+
+
+def _close_to_largest(got, want, tol):
+    assert got is not None and got.shape == want.shape
+    torch.cuda.synchronize()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window", [
+    (1, 256, 16, 16, 128, True, 0),   # olmoe-1b-7b
+    (2, 1024, 32, 32, 96, True, 0),   # phi-3-vision-4.2b, the train step
+    (1, 448, 20, 20, 64, True, 0),    # whisper-large-v3's decoder
+    (1, 200, 14, 2, 64, True, 5),     # GQA, window, ragged S
+    (1, 128, 14, 2, 64, False, 0),    # non-causal
+    (1, 70, 2, 1, 32, True, 0),
+])
+def test_flash_attention_gradients_match_plain(cuda_device, b, s, hq, hkv, d,
+                                               causal, window):
+    """The repair: backward through ops.flash_attention on the card gives
+    q, k and v gradients (the parent returned a tensor with no autograd
+    edge: every gradient None), equal to autograd of the plain version."""
+    q, k, v = _flash_case(cuda_device, torch.float32, s, hq, hkv, d, s + d,
+                          b=b)
+    do = torch.randn_like(q)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (ops.flash_attention.launches,
+              ops.flash_attention_backward.launches,
+              fa.flash_attention_plain.calls)
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(do)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_backward.launches,
+            fa.flash_attention_plain.calls) == (before[0] + 1, before[1] + 1,
+                                                before[2])
+    want = fa.flash_attention_backward_plain(q, k, v, do, causal, window)
+    for t, w in zip(leaves, want):
+        _close_to_largest(t.grad, w, FLASH_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_bf16(cuda_device):
+    q, k, v = _flash_case(cuda_device, torch.bfloat16, 64, 2, 2, 64, 0)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention_backward_cuda(q, k, v, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 4096, 48, 64, 128, 256),      # mamba2-780m's train step
+    (1, 4096, 112, 64, 64, 256),      # zamba2-7b
+    (2, 256, 4, 32, 16, 32),          # smoke widths
+    (1, 96, 3, 64, 96, 64),           # chunk halves to 32; N 96: 64 + 32
+])
+def test_ssd_scan_gradients_match_plain(cuda_device, b, s, h, p, n, chunk):
+    x, a, B, C = _ssd_case(cuda_device, b, s, h, p, n, s + n)
+    dy = torch.randn_like(x)
+    leaves = [t.clone().requires_grad_() for t in (x, a, B, C)]
+    before = ops.ssd_scan_backward.launches, ssd.ssd_scan_plain.calls
+    ops.ssd_scan(*leaves, chunk=chunk).backward(dy)
+    assert (ops.ssd_scan_backward.launches, ssd.ssd_scan_plain.calls) == (
+        before[0] + 1, before[1])
+    q = chunk
+    while s % q:
+        q //= 2
+    want = ssd.ssd_scan_backward_plain(x, a, B, C, dy, chunk=q)
+    for t, w in zip(leaves, want):
+        _close_to_largest(t.grad, w, SSD_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_routes_without_a_backward_raise_under_grad(cuda_device):
+    """The paged kernels and the grouped matmul have no backward: with an
+    input that requires grad under grad mode they raise instead of
+    returning a result without a gradient; under no_grad they launch."""
+    q, kp, vp, tables, start = _case(cuda_device, torch.float32, 4, 3, 0)
+    qg = q.clone().requires_grad_()
+    q1 = q[:, 0].contiguous().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_attention(q1, kp, vp, tables, start)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_prefill_attention(qg, kp, vp, tables, start)
+    x = torch.randn(2, 8, 64, device=cuda_device)
+    w = torch.randn(2, 64, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.grouped_matmul(x, w)
+    with torch.no_grad():
+        ops.paged_attention(q1, kp, vp, tables, start)
+        ops.paged_prefill_attention(qg, kp, vp, tables, start)
+        ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
