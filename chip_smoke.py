@@ -12,8 +12,10 @@ Phases, each printed as it runs; any failure exits non-zero:
                  build/kernels/, for sm_90a; print each kernel's registers,
                  static shared memory and spills (ptxas -v), and fail unless
                  the SASS of the flash, paged-decode, paged-prefill,
-                 grouped-matmul and the SSD scan's state and chunk kernels
-                 holds tensor-core (HMMA) instructions (cuobjdump -sass);
+                 grouped-matmul and the SSD scan's state and chunk kernels,
+                 and of the backward's flash dq and dk/dv and SSD chunk
+                 kernels, holds tensor-core (HMMA) instructions (cuobjdump
+                 -sass);
   3. kernels   — hold each of the five kernels against its plain PyTorch
                  version on the card and time the kernel, the plain version
                  and a library yardstick the port never calls (each launch
@@ -52,7 +54,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                  flash also at whisper-large-v3's decoder shape ([1, 448,
                  20, 64], causal, G 1, a partial row tile), timed beside
                  its bound and SDPA; then the two backward kernels (no TPU
-                 kernel has one), through the autograd Functions of
+                 kernel has one; tensor cores, three TF32 passes), through
+                 the autograd Functions of
                  ops.flash_attention and ops.ssd_scan, against autograd of
                  the plain versions (each gradient's largest error over its
                  largest value: 2e-5 for flash, 5e-4 for the SSD scan):
@@ -60,11 +63,15 @@ Phases, each printed as it runs; any failure exits non-zero:
                  96]), olmoe-1b-7b's [1, 256, 16, 128] and
                  whisper-large-v3's [1, 448, 20, 64], each timed beside its
                  bound, the plain backward and SDPA's forward +
-                 autograd.grad, and a GQA / window / ragged-S edge; the SSD
-                 scan at mamba2-780m's train step ([2, 4096, 48, 64], N
-                 128) and zamba2-7b's ([1, 4096, 112, 64], N 64), timed
-                 beside the bound and the plain backward (no library
-                 time), the smoke widths and a chunk that halves;
+                 autograd.grad, a GQA / window / ragged-S edge and D 128
+                 with GQA 16/4 and a window; the SSD scan at mamba2-780m's
+                 train step ([2, 4096, 48, 64], N 128) and zamba2-7b's ([1,
+                 4096, 112, 64], N 64), timed beside the bound and the
+                 plain backward (no library time), the smoke widths and a
+                 chunk that halves, and torch.profiler's count of one
+                 backward call at mamba2's shape (three launches: the
+                 reversed states, their pass, the fused chunk pass; no
+                 ssd_scan_chunk_kernel);
   4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
                  (olmoe-1b-7b smoke), the mamba2 forward + decode chain
@@ -496,7 +503,8 @@ def phase(name: str) -> None:
 MMA_KERNELS = ("flash_attention_kernel", "paged_decode_kernel",
                "paged_prefill_kernel",
                "grouped_matmul_kernel", "ssd_scan_state_kernel",
-               "ssd_scan_chunk_kernel")
+               "ssd_scan_chunk_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkdv_kernel", "ssd_scan_bwd_chunk_kernel")
 
 
 def print_ptxas(report: str) -> None:
@@ -600,23 +608,34 @@ def bound_terms(q, kp, tables, start, c: int, window: int, mma: bool):
             ops_ms(4 * d * q.shape[-2] * pairs, q.dtype, mma))
 
 
+#: torch.cuda._sleep's cycles a second at the H100 SXM's 1980 MHz clock
+SPIN_PER_S = 1.98e9
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 50,
             hold: bool = True) -> float:
     """Median CUDA-event time of ``fn`` with the L2 flushed before each
-    launch. A ~0.1 ms device spin before the start event keeps the stream
-    busy while the host enqueues ``fn``, so the events time the device
-    work alone. With ``hold`` False (PR 11-13's method) the Python
-    wrapper's enqueue cost falls inside the events whenever it exceeds the
-    flush."""
-    for _ in range(3):
+    launch. A device spin before the start event keeps the stream busy
+    while the host enqueues ``fn``, so the events time the device work
+    alone: ~0.1 ms, or twice the longer enqueue of the last two warm-up
+    calls where that is longer (SDPA's forward + ``autograd.grad`` takes
+    ~0.3 ms). With ``hold`` False (PR 11-13's method) the Python wrapper's
+    enqueue cost falls inside the events whenever it exceeds the flush."""
+    fn()
+    enqueue = 0.0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        enqueue = max(enqueue, time.perf_counter() - t0)
     torch.cuda.synchronize()
+    spin = max(200_000, int(2 * enqueue * SPIN_PER_S))
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for s, e in ev:
         flush.zero_()
         if hold:
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(spin)
         s.record()
         fn()
         e.record()
@@ -1094,9 +1113,9 @@ def check_ssd(flush: torch.Tensor) -> dict:
 # the backward kernels (no TPU kernel: the Pallas kernels have no backward)
 # ---------------------------------------------------------------------------
 #: their tolerances, on the largest error over the largest |gradient|
-#: (tests/test_torch_cuda_kernels.py): SIMT f32 flash against the plain
-#: version's f32 einsums; the SSD scan's three forward-kernel launches and
-#: reverse cumulative sum over S, at the forward's 5e-4
+#: (tests/test_torch_cuda_kernels.py): flash's three TF32 passes against the
+#: plain version's f32 einsums; the SSD scan at the forward's 5e-4 (sums of
+#: a chunk's terms and the states' recurrence, in other orders)
 FLASH_BWD_TOL, SSD_BWD_TOL = 2e-5, 5e-4
 
 
@@ -1151,13 +1170,16 @@ def check_flash_backward(flush: torch.Tensor) -> dict:
     against autograd of the plain version at phi-3-vision-4.2b's train
     step ([2, 1024, 32, 96], the kernels-line entry), olmoe-1b-7b's
     [1, 256, 16, 128] and whisper-large-v3's [1, 448, 20, 64] (causal,
-    f32), and at a GQA / window / ragged-S edge; each model shape timed
-    beside its bound, the plain backward and SDPA's forward + backward."""
+    f32), and at two GQA / window / ragged-S edges (D 64 and 128); each
+    model shape timed, with the forward's log-sum-exp as the autograd
+    Function hands it over, beside its bound, the plain backward and SDPA's
+    forward + backward."""
     cases = [(SYN_B, PHI_S, PHI_H, PHI_H, PHI_D, 0,
               "phi-3-vision-4.2b train step"),
              (1, 256, OL_H, OL_H, OL_D, 0, "olmoe-1b-7b"),
              (1, W_S, W_H, W_H, W_D, 0, "whisper-large-v3"),
-             (1, 200, 14, 2, 64, 5, "GQA 14/2, window 5, ragged S")]
+             (1, 200, 14, 2, 64, 5, "GQA 14/2, window 5, ragged S"),
+             (1, 300, 16, 4, 128, 40, "D 128, GQA 16/4, window 40, ragged S")]
     rec, others = None, []
     for (b, s, hq, hkv, d, window, what) in cases:
         g = torch.Generator(device="cuda").manual_seed(s + hq + d + 1)
@@ -1173,11 +1195,12 @@ def check_flash_backward(flush: torch.Tensor) -> dict:
         del leaves, want
         if window:
             continue
-        o = fa.flash_attention_cuda(q, k, v)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
         r = _record(
             "flash_attention_backward", "flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention.py:86", err,
-            time_ms(lambda: ops.flash_attention_backward(q, k, v, o, do),
+            time_ms(lambda: ops.flash_attention_backward(q, k, v, o, do,
+                                                         lse=lse),
                     flush, reps=20),
             time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, do),
                     flush, reps=5),
@@ -1187,38 +1210,67 @@ def check_flash_backward(flush: torch.Tensor) -> dict:
                  window=0, dtype="float32"),
             flash_bwd_bound(b, s, hq, hkv, d, mma=False)[1])
         r["note"] = ("the backward of flash_attention_bhsd, which has no "
-                     "TPU backward kernel; SIMT f32")
+                     "TPU backward kernel; tensor cores, 3xTF32: a dq and "
+                     "a dk/dv kernel on the forward's log-sum-exp")
         if rec is None:
             rec = r
         else:
             others.append(r)
-        del q, k, v, o, do
+        del q, k, v, o, lse, do
     rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
     return rec
 
 
 def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
                   mma: bool = True):
-    """Least time for one SSD backward: x, a, B, C and dy read once and dx,
-    da, dB, dC written once over HBM bandwidth; the work of the three scans
-    of the forward's kind that give dx, dB and dC (``ssd_bound``'s count,
-    symmetric in N and P) and of the decay gradient (each chunk's pair
-    weights, two dot products a pair, and its two N x P forms a position)
-    at ``ops_ms``'s rate for f32. (bytes ms, ops ms)."""
-    nbytes = 4 * b * s * h * (3 * p + 4 * n + 2)
-    dlog = b * h * (s // q) * (q * (q - 1) * (n + p) + 4 * q * n * p
-                               + 2 * n * p)
-    return 1e3 * nbytes / HBM_BPS, (3 * ssd_bound(b, s, h, p, n, q, mma)[1]
-                                    + ops_ms(dlog, torch.float32, mma))
+    """Least time for one SSD backward: x, a, B, C and dy read once, the
+    forward's chunk states read once, and dx, da, dB and dC written once
+    over HBM bandwidth; the function's own products at ``ops_ms``'s rate
+    for f32: C.B^T, dy.x^T, dx, dB and dC over each chunk's causal pairs
+    (2 (3N + 2P) flops a pair), and the reversed state and the three inter
+    terms (8 Q N P a chunk), a (row, chunk) each. (bytes ms, ops ms)."""
+    chunks = b * h * (s // q)
+    nbytes = 4 * (b * s * h * (3 * p + 4 * n + 2) + chunks * n * p)
+    pairs = q * (q + 1) // 2
+    flops = chunks * (2 * pairs * (3 * n + 2 * p) + 8 * q * n * p)
+    return 1e3 * nbytes / HBM_BPS, ops_ms(flops, torch.float32, mma)
+
+
+def ssd_backward_launches(fn) -> dict:
+    """torch.profiler's count of the kernels one call of ``fn`` launches,
+    by name (a marker kernel after it must be seen)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)                 # the marker: spin_kernel
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    if not any("spin_kernel" in n for n in names):
+        raise SystemExit("FAIL: the profiler lost the SSD backward's marker")
+    counts = {}
+    for n in names:
+        if "spin_kernel" not in n:
+            key = n.replace("(anonymous namespace)::", "").split("(")[0]
+            key = key[-60:]
+            counts[key] = counts.get(key, 0) + 1
+    return counts
 
 
 def check_ssd_backward(flush: torch.Tensor) -> dict:
     """The SSD backward through ops.ssd_scan's autograd Function against
     autograd of the plain version at mamba2-780m's train step ([2, 4096],
     48 heads of 64, N 128: the kernels-line entry) and zamba2-7b's ([1,
-    4096], 112 heads, N 64), timed beside the bound and the plain backward
-    (no PyTorch call computes it: no library time), and at the smoke
-    widths and a chunk that halves."""
+    4096], 112 heads, N 64), timed with the forward's chunk states as the
+    autograd Function hands them over, beside the bound and the plain
+    backward (no PyTorch call computes it: no library time), and at the
+    smoke widths and a chunk that halves. At mamba2's shape torch.profiler
+    counts one call's kernels: the reversed states, their pass and the
+    fused chunk pass, once each, and no ssd_scan_chunk_kernel (the
+    forward's, which the backward never launches)."""
     cases = [(M2_B, M2_S, M2_H, M2_P, M2_N, M2_Q, "mamba2-780m train step"),
              (1, Z_S, Z_H, Z_P, Z_N, Z_Q, "zamba2-7b"),
              (2, 256, 16, 32, 16, 32, "smoke widths"),
@@ -1239,12 +1291,30 @@ def check_ssd_backward(flush: torch.Tensor) -> dict:
         del leaves, want
         if s < Z_S:
             continue
-        fwd = ssd.ssd_scan_cuda(x, a, bm, cm, chunk=q, return_states=True)
+        _, states = ssd.ssd_scan_cuda(x, a, bm, cm, chunk=q,
+                                      return_states=True)
+
+        def bwd():
+            return ops.ssd_scan_backward(x, a, bm, cm, dy, chunk=q,
+                                         states=states)
+        if rec is None:
+            launched = ssd_backward_launches(bwd)
+            print(f"ssd_scan backward kernels a call ({what}): {launched}",
+                  flush=True)
+            want = {"ssd_scan_state_kernel": 1, "ssd_scan_pass_kernel": 1,
+                    "ssd_scan_bwd_chunk_kernel": 1,
+                    "ssd_scan_chunk_kernel": 0}
+            got = {k: sum(n for name, n in launched.items() if k in name)
+                   for k in want}
+            if sum(launched.values()) != 3 or got != want:
+                raise SystemExit(f"FAIL: the SSD backward launched "
+                                 f"{launched}: want the reversed states, "
+                                 f"their pass and the fused chunk pass once "
+                                 f"each, and no ssd_scan_chunk_kernel")
         r = _record(
             "ssd_scan_backward", "ssd_scan_bwd.cu",
             "src/repro/kernels/ssd_scan.py:66", err,
-            time_ms(lambda: ops.ssd_scan_backward(x, a, bm, cm, dy, chunk=q,
-                                                  fwd=fwd), flush, reps=20),
+            time_ms(bwd, flush, reps=20),
             time_ms(lambda: ssd.ssd_scan_backward_plain(x, a, bm, cm, dy,
                                                         chunk=q),
                     flush, reps=5),
@@ -1252,16 +1322,16 @@ def check_ssd_backward(flush: torch.Tensor) -> dict:
             dict(path=what, B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"),
             ssd_bwd_bound(b, s, h, p, n, q, mma=False)[1])
         r["note"] = ("the backward of ssd_scan_bhsp, which has no TPU "
-                     "backward kernel: ssd_scan.cu's forward on reversed "
-                     "and rearranged inputs (x-role blocks of 64 columns: "
-                     "five launches at N 128) and ssd_scan_bwd.cu's decay "
-                     "gradient; the forward's output and states are the "
-                     "training forward's")
+                     "backward kernel; tensor cores, 3xTF32: the reversed "
+                     "chunk states, their pass from the last chunk down and "
+                     "one fused chunk pass for dx, dB, dC and the decays' "
+                     "gradient, on the training forward's chunk states")
         if rec is None:
+            r["launches_per_call"] = launched
             rec = r
         else:
             others.append(r)
-        del x, a, bm, cm, dy, fwd
+        del x, a, bm, cm, dy, states
     rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
     return rec
 

@@ -37,24 +37,26 @@ ARGTYPES = {
     # Hkv, D, BS, MB, cols_per_split; the pool strides; window, dtype, stream
     "paged_attention_prefill":
         [_VOID_P] * 8 + [_INT] * 8 + [_I64] * 3 + [_INT, _INT, _VOID_P],
-    # csrc/flash_attention.cu: q, k, v, out; B, S, Hq, Hkv, D; the three
-    # (batch, seq, head) strides of q, k and v; causal, window, dtype, stream
+    # csrc/flash_attention.cu: q, k, v, out, lse (NULL = none); B, S, Hq,
+    # Hkv, D; the three (batch, seq, head) strides of q, k and v; causal,
+    # window, dtype, stream
     "flash_attention_forward":
-        [_VOID_P] * 4 + [_INT] * 5 + [_I64] * 9 + [_INT] * 3 + [_VOID_P],
-    # csrc/flash_attention_bwd.cu: q, k, v, out, dout, dq, dk, dv, lse,
+        [_VOID_P] * 5 + [_INT] * 5 + [_I64] * 9 + [_INT] * 3 + [_VOID_P],
+    # csrc/flash_attention_bwd.cu: q, k, v, out, dout, lse, dq, dk, dv,
     # dsum; B, S, Hq, Hkv, D; the strides of q, k and v; causal, window,
-    # stream
+    # groups (the CTA shape: 0 by the kernel's rule, 4 or 2), stream
     "flash_attention_backward":
-        [_VOID_P] * 10 + [_INT] * 5 + [_I64] * 9 + [_INT] * 2 + [_VOID_P],
+        [_VOID_P] * 10 + [_INT] * 5 + [_I64] * 9 + [_INT] * 3 + [_VOID_P],
     # csrc/grouped_matmul.cu: x, w, valid_rows (NULL = all), out; G, C, K,
     # N, dtype, stream
     "grouped_matmul_forward": [_VOID_P] * 4 + [_INT] * 5 + [_VOID_P],
     # csrc/ssd_scan.cu: x, a, B, C, y, chunk states, chunk decays; B, S, H,
     # P, N, Q, stream
     "ssd_scan_forward": [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P],
-    # csrc/ssd_scan_bwd.cu: x, B, C, dy, a, forward states, reversed
-    # states, da; B, S, H, P, N, Q, stream
-    "ssd_scan_dlog": [_VOID_P] * 8 + [_INT] * 6 + [_VOID_P],
+    # csrc/ssd_scan_bwd.cu: x, a, B, C, dy, the forward's states, the
+    # reversed states and chunk decays (scratch), dx, da, dB, dC; B, S, H,
+    # P, N, Q, stream
+    "ssd_scan_backward": [_VOID_P] * 12 + [_INT] * 6 + [_VOID_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

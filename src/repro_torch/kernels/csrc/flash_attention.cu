@@ -55,6 +55,13 @@
 //     dynamic shared memory with cudaFuncSetAttribute. Head dims 32, 64,
 //     96 (phi-3-vision) and 128.
 //
+// The backward (flash_attention_bwd.cu) takes each row's log-sum-exp from
+// here: with a non-null `lse` ([B Hq, S] f32; f32 inputs only) an
+// instantiation of its own (LSE) has part 0 write m + log(l) of each row
+// it outputs, or 1e30 for a row that sees no key (its P is then 0 in the
+// backward, as its output is 0 here). Every serving path passes NULL and
+// runs the instantiations without it.
+//
 // Interface: plain C, loaded with ctypes. The entry returns
 // cudaGetLastError() after the launch; the Python wrapper raises on non-0.
 #include <cuda_bf16.h>
@@ -94,12 +101,13 @@ struct Args {
   int causal, window;
   int async;              // every K/V row 16-byte aligned: cp.async
   float scale;
+  float* lse;             // [B Hq, S] row log-sum-exp (LSE only)
 };
 
 // Warp w owns rows 16 (w % GROUPS) .. + 15 of the query tile and keys
 // 16 (w / GROUPS) .. + 15 of every 64-key tile; the KSPLIT warps of a
 // group merge their online-softmax states through shared memory at the end.
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
   constexpr int LD = attn::ld_kv<T, D>();
   constexpr int NJ = BK / 8 / KSPLIT;          // n8 key tiles a warp a tile
@@ -190,6 +198,11 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
     const int qpos = wr0 + g + 8 * r;
     if (qpos < S) {
       const float inv = 1.f / (st.l[r] == 0.f ? 1.f : st.l[r]);
+      if constexpr (LSE) {
+        if (t == 0)
+          a.lse[(size_t)bh * S + qpos] =
+              st.l[r] > 0.f ? st.m[r] + logf(st.l[r]) : 1e30f;
+      }
       T* o = out + (((size_t)b * S + qpos) * a.Hq + h) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -200,10 +213,10 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr size_t smem = attn::smem_bytes<T, D, GROUPS>();
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<T, D, LSE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -214,13 +227,13 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool LSE = false>
 int dispatch(const Args& a, int B, int D, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(a, B, s);
-    case 64: return launch<T, 64>(a, B, s);
-    case 96: return launch<T, 96>(a, B, s);
-    case 128: return launch<T, 128>(a, B, s);
+    case 32: return launch<T, 32, LSE>(a, B, s);
+    case 64: return launch<T, 64, LSE>(a, B, s);
+    case 96: return launch<T, 96, LSE>(a, B, s);
+    case 128: return launch<T, 128, LSE>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -229,11 +242,13 @@ int dispatch(const Args& a, int B, int D, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. lse: [B Hq, S]
+// f32 or NULL (non-NULL for float32 only). Returns a cudaError_t (0 =
+// launched).
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            void* out, int B, int S, int Hq, int Hkv, int D,
-                            long long qb, long long qs, long long qh,
+                            void* out, void* lse, int B, int S, int Hq,
+                            int Hkv, int D, long long qb, long long qs,
+                            long long qh,
                             long long kb, long long ks, long long kh,
                             long long vb, long long vs, long long vh,
                             int causal, int window, int dtype, void* stream) {
@@ -245,11 +260,13 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   const int async = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
                     kb % al == 0 && ks % al == 0 && kh % al == 0 &&
                     vb % al == 0 && vs % al == 0 && vh % al == 0;
-  Args a{q, k, v, out, S, Hq, Hq / Hkv, qb, qs, qh, kb, ks, kh, vb, vs, vh,
-         causal, window, async, 1.f / sqrtf((float)D)};
+  Args a{q, k, v, out, S, Hq, Hq / Hkv, qb, qs, qh, kb, ks, kh, vb, vs,
+         vh, causal, window, async, 1.f / sqrtf((float)D),
+         static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && lse) return dispatch<float, true>(a, B, D, s);
   if (dtype == 0) return dispatch<float>(a, B, D, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, s);
+  if (dtype == 1 && !lse) return dispatch<__nv_bfloat16>(a, B, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

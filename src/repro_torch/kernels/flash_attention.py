@@ -16,7 +16,8 @@ dtype. ``kernels/ops.py`` routes by device and raises the JAX wrapper's
 
 The backward has no TPU kernel to port (the JAX package trains through its
 plain attention): ``flash_attention_backward_cuda`` launches
-``csrc/flash_attention_bwd.cu`` (f32), and
+``csrc/flash_attention_bwd.cu`` (f32) on the row log-sum-exp the training
+forward hands over (``flash_attention_cuda(..., return_lse=True)``), and
 ``flash_attention_backward_plain`` is autograd through the plain version,
 the reference the kernel is held to.
 """
@@ -98,23 +99,32 @@ def _check(q, k, v) -> None:
                              "other strides)")
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
+                         return_lse: bool = False):
     """Launch the kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D] (read in
-    place through their strides) -> contiguous [B, S, Hq, D]."""
+    place through their strides) -> contiguous [B, S, Hq, D]; with
+    ``return_lse`` (float32 only) also each row's log-sum-exp [B Hq, S]
+    (1e30 for a row that sees no key), which the backward kernel takes."""
     _check(q, k, v)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if return_lse and q.dtype != torch.float32:
+        raise ValueError(f"return_lse takes float32 inputs only (the "
+                         f"backward's), got {q.dtype}")
     b, s, hq, d = q.shape
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.library()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, s, hq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(bool(causal)), int(window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "flash_attention_forward")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_backward_plain(q, k, v, dout, causal: bool = True,
@@ -127,11 +137,16 @@ def flash_attention_backward_plain(q, k, v, dout, causal: bool = True,
         return torch.autograd.grad(out, leaves, dout)
 
 
-def flash_attention_backward_cuda(q, k, v, out, dout, causal: bool = True,
-                                  window: int = 0):
+def flash_attention_backward_cuda(q, k, v, out, dout, lse,
+                                  causal: bool = True, window: int = 0,
+                                  groups: int = 0):
     """Launch the backward kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D] (read
-    in place through their strides), the forward's ``out`` and its gradient
-    ``dout`` [B, S, Hq, D] -> (dq, dk, dv), contiguous f32. f32 only."""
+    in place through their strides), the forward's ``out``, its gradient
+    ``dout`` [B, S, Hq, D] and its row log-sum-exp ``lse`` [B Hq, S]
+    (``flash_attention_cuda(..., return_lse=True)``) -> (dq, dk, dv),
+    contiguous f32. f32 only. ``groups`` 0 lets the kernel pick its CTA
+    shape; 4 (D <= 96) or 2 forces four 16-row groups of two warps or two
+    of four."""
     _check(q, k, v)
     if q.dtype != torch.float32:
         raise ValueError(f"the backward kernel takes float32 only, got "
@@ -139,25 +154,33 @@ def flash_attention_backward_cuda(q, k, v, out, dout, causal: bool = True,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     b, s, hq, d = q.shape
+    if groups not in (0, 2, 4) or (groups == 4 and d > 96):
+        raise ValueError(f"groups must be 0, 2 or (D <= 96) 4, got {groups} "
+                         f"at D {d}")
     hkv = k.shape[2]
     out, dout = out.contiguous(), dout.to(torch.float32).contiguous()
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
+    if lse is None or tuple(lse.shape) != (b * hq, s) or \
+            lse.dtype != torch.float32 or lse.device != q.device or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be the forward's contiguous float32 "
+                         f"[{b * hq}, {s}] log-sum-exp on {q.device} "
+                         f"(flash_attention_cuda(..., return_lse=True))")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, s, hkv, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     lib = build.library()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), b, s, hq, hkv, d,
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dsum.data_ptr(), b, s, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(bool(causal)), int(window),
+            int(bool(causal)), int(window), int(groups),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "flash_attention_backward")
     return dq, dk, dv

@@ -45,17 +45,23 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _fa.flash_attention_cuda(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        # the backward kernel takes f32 (bf16 raises there) and the
+        # forward's row log-sum-exp
+        if q.dtype == torch.float32:
+            out, lse = _fa.flash_attention_cuda(q, k, v, causal, window,
+                                                return_lse=True)
+        else:
+            out, lse = _fa.flash_attention_cuda(q, k, v, causal, window), None
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
                                               causal=ctx.causal,
-                                              window=ctx.window)
+                                              window=ctx.window, lse=lse)
         return dq, dk, dv, None, None
 
 
@@ -66,15 +72,15 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, xdt, a_log, B, C, chunk):
         y, states = _ssd.ssd_scan_cuda(xdt, a_log, B, C, chunk=chunk,
                                        return_states=True)
-        ctx.save_for_backward(xdt, a_log, B, C, y, states)
+        ctx.save_for_backward(xdt, a_log, B, C, states)
         ctx.chunk = chunk
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        xdt, a_log, B, C, y, states = ctx.saved_tensors
+        xdt, a_log, B, C, states = ctx.saved_tensors
         return (*ssd_scan_backward(xdt, a_log, B, C, dy, chunk=ctx.chunk,
-                                   fwd=(y, states)), None)
+                                   states=states), None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -96,15 +102,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, lse=None):
     """(dq, dk, dv) of flash attention for the upstream gradient ``dout``
     [B, S, Hq, D] and the forward's ``out``: autograd through the plain
-    version on the CPU, the backward kernel (f32) on CUDA tensors."""
+    version on the CPU, the backward kernel (f32) on CUDA tensors, which
+    also takes the forward's row log-sum-exp ``lse`` [B Hq, S]."""
     if q.device.type == "cpu":
         return _fa.flash_attention_backward_plain(q, k, v, dout, causal,
                                                   window)
-    grads = _fa.flash_attention_backward_cuda(q, k, v, out, dout, causal,
-                                              window)
+    grads = _fa.flash_attention_backward_cuda(q, k, v, out, dout, lse,
+                                              causal, window)
     flash_attention_backward.launches += 1
     return grads
 
@@ -158,17 +165,16 @@ def ssd_scan(xdt, a_log, B, C, chunk: int = 128):
     return out
 
 
-def ssd_scan_backward(xdt, a_log, B, C, dy, chunk: int = 128, fwd=None):
+def ssd_scan_backward(xdt, a_log, B, C, dy, chunk: int = 128, states=None):
     """(dxdt, da_log, dB, dC) of the SSD scan for the upstream gradient
     ``dy`` [B, S, H, P] (float32 inputs, contiguous; ``chunk`` dividing
     S): autograd through the plain version on the CPU; on CUDA tensors the
-    forward kernel on the reversed and rearranged inputs and the
-    decay-gradient kernel (``kernels/ssd_scan.py`` has the identity).
-    ``fwd`` is the forward launch's ``(y, chunk states)``, recomputed with
-    one more launch when not given."""
+    backward kernels (``csrc/ssd_scan_bwd.cu``), which also take the
+    forward launch's chunk ``states``."""
     if xdt.device.type == "cpu":
         return _ssd.ssd_scan_backward_plain(xdt, a_log, B, C, dy, chunk=chunk)
-    grads = _ssd.ssd_scan_backward_cuda(xdt, a_log, B, C, dy, chunk, fwd=fwd)
+    grads = _ssd.ssd_scan_backward_cuda(xdt, a_log, B, C, dy, chunk,
+                                        states=states)
     ssd_scan_backward.launches += 1
     return grads
 

@@ -113,7 +113,7 @@ def test_every_csrc_source_is_built():
     assert set(build.ARGTYPES) == {
         "paged_attention_decode", "paged_attention_prefill",
         "flash_attention_forward", "grouped_matmul_forward",
-        "ssd_scan_forward", "flash_attention_backward", "ssd_scan_dlog"}
+        "ssd_scan_forward", "flash_attention_backward", "ssd_scan_backward"}
 
 
 def test_chip_smoke_refuses_without_a_gpu():

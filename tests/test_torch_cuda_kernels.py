@@ -517,9 +517,9 @@ def test_kernels_launch_on_the_current_stream(cuda_device, op):
 # ---------------------------------------------------------------------------
 # backward kernels: each autograd Function against autograd of the plain
 # version. Tolerances are relative to the largest gradient: 2e-5 for flash
-# (SIMT f32 against the plain version's f32 einsums), 5e-4 for the SSD scan
-# (the forward's 5e-4: three launches of the forward kernel and a reverse
-# cumulative sum over S feed it)
+# (three TF32 passes on the tensor cores against the plain version's f32
+# einsums), 5e-4 for the SSD scan (the forward's 5e-4: sums of up to a
+# chunk's 256 terms and the chunk states' recurrence, in other orders)
 # ---------------------------------------------------------------------------
 FLASH_BWD_TOL, SSD_BWD_TOL = 2e-5, 5e-4
 
@@ -539,6 +539,7 @@ def _close_to_largest(got, want, tol):
     (1, 200, 14, 2, 64, True, 5),     # GQA, window, ragged S
     (1, 128, 14, 2, 64, False, 0),    # non-causal
     (1, 70, 2, 1, 32, True, 0),
+    (1, 300, 16, 4, 128, True, 40),   # D 128, GQA 16/4, window, ragged S
 ])
 def test_flash_attention_gradients_match_plain(cuda_device, b, s, hq, hkv, d,
                                                causal, window):
@@ -566,7 +567,35 @@ def test_flash_attention_gradients_match_plain(cuda_device, b, s, hq, hkv, d,
 def test_flash_backward_refuses_bf16(cuda_device):
     q, k, v = _flash_case(cuda_device, torch.bfloat16, 64, 2, 2, 64, 0)
     with pytest.raises(ValueError, match="float32"):
-        fa.flash_attention_backward_cuda(q, k, v, q, q)
+        fa.flash_attention_backward_cuda(q, k, v, q, q, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    (1, 448, 20, 20, 64, 0),          # whisper-large-v3: the rule takes 2 x 4
+    (2, 1024, 32, 32, 96, 0),         # phi-3-vision-4.2b's train step: 4 x 2
+    (1, 200, 14, 2, 32, 5),           # GQA, window, ragged S
+    (1, 300, 16, 4, 128, 40),         # D 128: 2 x 4 only
+])
+def test_flash_backward_cta_shapes_agree(cuda_device, b, s, hq, hkv, d,
+                                         window):
+    """Each CTA shape, forced, against the plain backward; the 4 x 2 shape
+    is refused where its fragments do not fit (D > 96)."""
+    q, k, v = _flash_case(cuda_device, torch.float32, s, hq, hkv, d, s + d,
+                          b=b)
+    do = torch.randn_like(q)
+    o, lse = fa.flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    want = fa.flash_attention_backward_plain(q, k, v, do, True, window)
+    for groups in (4, 2):
+        if groups == 4 and d > 96:
+            with pytest.raises(ValueError, match="groups"):
+                fa.flash_attention_backward_cuda(q, k, v, o, do, lse,
+                                                 window=window, groups=4)
+            continue
+        got = fa.flash_attention_backward_cuda(q, k, v, o, do, lse,
+                                               window=window, groups=groups)
+        for t, w in zip(got, want):
+            _close_to_largest(t, w, FLASH_BWD_TOL)
 
 
 @pytest.mark.cuda
@@ -574,7 +603,7 @@ def test_flash_backward_refuses_bf16(cuda_device):
     (2, 4096, 48, 64, 128, 256),      # mamba2-780m's train step
     (1, 4096, 112, 64, 64, 256),      # zamba2-7b
     (2, 256, 4, 32, 16, 32),          # smoke widths
-    (1, 96, 3, 64, 96, 64),           # chunk halves to 32; N 96: 64 + 32
+    (1, 96, 3, 64, 96, 64),           # chunk halves to 32; N 96
 ])
 def test_ssd_scan_gradients_match_plain(cuda_device, b, s, h, p, n, chunk):
     x, a, B, C = _ssd_case(cuda_device, b, s, h, p, n, s + n)
