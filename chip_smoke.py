@@ -29,10 +29,12 @@ Phases, each printed as it runs; any failure exits non-zero:
                  table full at MB 64), each beside SDPA; the paged decode
                  and prefill at the olmoe-1b-7b and phi-3-vision-4.2b paged
                  engines' shapes (16/16 heads of 128 and 32/32 heads of 96,
-                 G 1) and at the chaos phase's (14/2 heads of 64, MB 16, a
+                 G 1), at the chaos phase's (14/2 heads of 64, MB 16, a
                  96-block pool, decode B 8 and prefill [4, 16] at positions
-                 32-96; f32 and bf16, window 0 and 5, an all -1 row; the f32
-                 call timed beside its plain version, SDPA and its bound);
+                 32-96) and at one sharded rank's (7/1 heads of 64, G 7, MB
+                 64, the engine's 512-block pool, positions 192-384); f32
+                 and bf16, window 0 and 5, an all -1 row; the f32 call
+                 timed beside its plain version, SDPA and its bound);
                  flash attention at olmoe-1b-7b's prefill shape
                  ([1, S, 16, 128], S 128 and 256, causal), at
                  phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96],
@@ -163,6 +165,26 @@ Phases, each printed as it runs; any failure exits non-zero:
                  recovery, admission, preemption, eviction, deferral,
                  migration and scale events must be equal between the two
                  and the tokens and launches equal the chaos phase's;
+      sharded   — qwen2-0.5b served TP/DP-sharded (serve/sharded.py) by two
+                 rank processes on the one card (torch.multiprocessing
+                 spawn, a gloo group: NCCL refuses two ranks on one device;
+                 both ranks on cuda:0, each drawing the engine phase's
+                 seeded weights and keeping its own blocks; the plan's
+                 programs run eager, gloo collectives cannot be captured).
+                 First mesh (1, 2) at full width: each rank holds 7 of the
+                 14 q heads and 1 of the 2 KV heads, half the vocabulary
+                 and half of every MLP, and serves the engine phase's
+                 paged request set cut to 8 requests and 32 new tokens;
+                 then mesh (2, 1) at 4 layers with staggered arrivals
+                 (0.5 a step), so decode buckets shrink and split over
+                 'data'. Both ranks' tokens must equal each other and a
+                 single-process eager run of the same engine on the same
+                 weights in this process; each rank must launch both paged
+                 kernels and never their plain versions; the data run must
+                 save decode rows. Prints the collective counts and the
+                 share of the wall spent in them, ms a decode step sharded
+                 and single-process, and the phase's seconds. A rank that
+                 fails fails the phase;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (16 layers, 64 experts top-8, ~6.9 B
                  float32 weights from a seed), its three runs as in phase 5:
@@ -244,12 +266,14 @@ Phases, each printed as it runs; any failure exits non-zero:
                  forward's logits there (2e-3), then torch.profiler over one
                  more forward;
  11. mamba2 engine — the full-width mamba2-780m contiguous engine, its three
-                 runs as in phase 5: 8 requests of 64-128 tokens, 32 new
-                 tokens each, 4 slots, decode horizon 8, max_len 256. Its
-                 prefill replays one captured batch-1 decode step per prompt
-                 token, so the SSD kernel launches 0 times here, as in the
-                 reference. Then the profile of phase 6 over the same
-                 requests (~2000 kernel launches a step, ~1.7 M a run);
+                 runs as in phase 5: 4 requests of 64-128 tokens, 32 new
+                 tokens each, 4 slots, decode horizon 8, max_len 256 (8
+                 requests until the sharded phase came: the script keeps
+                 to its time). Its prefill replays one captured batch-1
+                 decode step per prompt token, so the SSD kernel launches 0
+                 times here, as in the reference. Then the profile of
+                 phase 6 over the same requests (~2000 kernel launches a
+                 step);
  11b. train    — launch/train.py's build_cfg("mamba2-780m", "full") with
                  remat "full" (the CLI has no remat flag, as the reference's
                  has none) and a DataPipeline of one batch of [2, 4096]
@@ -315,6 +339,7 @@ path in ``launches_by_path``, the other shapes in ``other_shapes``) and
 """
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -414,7 +439,15 @@ PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_H, OL_D, 256 // BS, 64, 4, 4,
                 ("phi-3-vision-4.2b paged", PHI_H, PHI_H, PHI_D, 512 // BS,
                  128, 4, 4, 128, 288),
                 ("qwen2-0.5b chaos", HQ, HKV, D, 256 // BS, 96, SLOTS, 4, 32,
-                 96))
+                 96),
+                ("qwen2-0.5b sharded rank", HQ // 2, HKV // 2, D, MB, NB,
+                 SLOTS, 4, 192, 384))
+#: the sharded phase (module docstring): its request set, the data run's
+#: depth and arrival rate, and the rank processes' time limit (s)
+SHARD_N, SHARD_NEW, SHARD_DP_LAYERS, SHARD_DP_RATE = 8, 32, 4, 0.5
+SHARD_TIMEOUT = 400
+#: the rank processes' device type
+SHARD_DEVICE = "cuda"
 #: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
 #: batch and sequence
 M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
@@ -438,7 +471,7 @@ PHI3_ARGS = ["--arch", "phi-3-vision-4.2b", "--preset", "full", "--engine",
              "--decode-horizon", "8", "--seed", "0", "--device", "cuda"]
 MAMBA2_ARGS = ["--arch", "mamba2-780m", "--preset", "full", "--engine",
                "continuous", "--cache", "contiguous", "--slots", "4",
-               "--batch", "8", "--prompt-len", "128", "--max-new", "32",
+               "--batch", "4", "--prompt-len", "128", "--max-new", "32",
                "--max-len", "256", "--decode-horizon", "8", "--seed", "0",
                "--device", "cuda"]
 #: zamba2-7b: SSM heads, head dim, state, chunk, the forward phase's
@@ -3466,6 +3499,178 @@ def run_whisper(summary: dict) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sharded
+# ---------------------------------------------------------------------------
+def shard_engine(cfg, device, plan=None, params=None):
+    """The sharded phase's paged engine (the engine phase's options) on
+    ``device``; weights drawn from seed 0 unless given."""
+    return ServeEngine(cfg, params=params, max_len=MAX_LEN, n_slots=SLOTS,
+                       cache="paged", block_size=BS, prefill_lanes=4,
+                       decode_horizon=8, device=device, seed=0,
+                       sharding=plan)
+
+
+def shard_requests(cfg, rate: float):
+    """The engine phase's request set (its prompts and shared prefix), cut
+    to ``SHARD_N`` requests of ``SHARD_NEW`` new tokens."""
+    return serve_cli.make_requests(cfg, SHARD_N, 256, SHARD_NEW, rate, seed=0,
+                                   shared_prefix=64)
+
+
+def _shard_run(engine, cfg, rate: float) -> dict:
+    """One run of the phase's request set, counters set to 0 just before
+    and read just after."""
+    from repro_torch.dist import sharding as shd
+    reqs = shard_requests(cfg, rate)
+    ops.set_counts((0,) * len(ops.COUNTERS))
+    shd.reset_stats()
+    torch.cuda.synchronize()
+    out, stats = engine.run(reqs)
+    torch.cuda.synchronize()
+    return dict(tokens=[list(map(int, r.output)) for r in out],
+                launches=dict(zip(COUNTER_NAMES, ops.counts())),
+                collectives=dict(shd.STATS),
+                graphs="eager" if engine.graphs.is_eager else "captured",
+                steps=stats.steps, decode_s=stats.decode_s,
+                wall_s=stats.wall_s, decode_rows_saved=stats.decode_rows_saved,
+                decode_dispatches=stats.decode_dispatches,
+                prefill_dispatches=stats.prefill_dispatches)
+
+
+def _shard_rank(rank: int, port: int, runs, queue) -> None:
+    """One rank process: join the gloo group on cuda:0, serve each of
+    ``runs`` ((name, mesh shape, layers, arrival rate)) on its mesh, put
+    (rank, results or the error) on ``queue``."""
+    import traceback
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.serve.sharded import make_serve_sharding
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.library()
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=2, rank=rank,
+                                timeout=datetime.timedelta(seconds=300))
+        res = {}
+        for name, shape, layers, rate in runs:
+            cfg = get_config("qwen2-0.5b").replace(n_layers=layers)
+            mesh = Mesh(shape, ("data", "model"), DeviceMesh(
+                SHARD_DEVICE, torch.arange(2).reshape(shape),
+                mesh_dim_names=("data", "model")))
+            plan = make_serve_sharding(cfg, SLOTS, MAX_LEN, mesh,
+                                       cache="paged", block_size=BS)
+            engine = shard_engine(cfg, SHARD_DEVICE, plan)
+            res[name] = _shard_run(engine, cfg, rate)
+            res[name]["held_replicated"] = list(plan.held_replicated)
+            res[name]["backend"] = plan.backend
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def run_sharded(summary: dict, params) -> dict:
+    """The sharded phase (module docstring). Returns each paged kernel's
+    launches summed over both ranks of the full-width run."""
+    import socket
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    runs = (("tp", (1, 2), get_config("qwen2-0.5b").n_layers, 0.0),
+            ("dp", (2, 1), SHARD_DP_LAYERS, SHARD_DP_RATE))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_shard_rank, args=(r, port, runs, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        # the single-process eager runs meanwhile, on the same weights
+        single = {}
+        for name, _, layers, rate in runs:
+            cfg = get_config("qwen2-0.5b").replace(n_layers=layers)
+            sub = dict(params, layers=params["layers"][:layers])
+            with graphs.eager():
+                single[name] = _shard_run(shard_engine(cfg, "cuda",
+                                                       params=sub), cfg, rate)
+            gc.collect()
+            torch.cuda.empty_cache()
+        ranks = {}
+        while len(ranks) < len(procs):      # stop at the first failure
+            r, res = queue.get(timeout=SHARD_TIMEOUT)
+            ranks[r] = res
+            if "error" in res:
+                break
+        for p in procs:
+            p.join(timeout=60 if len(ranks) == len(procs) else 1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    failed = {r: v["error"] for r, v in ranks.items() if "error" in v}
+    if failed or len(ranks) < len(procs) or any(p.exitcode for p in procs):
+        raise SystemExit(f"FAIL: sharded: rank(s) failed "
+                         f"{[p.exitcode for p in procs]}: {failed}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    rec = {"card": smi}
+    for name, shape, layers, rate in runs:
+        ref, a, b = single[name], ranks[0][name], ranks[1][name]
+        what = f"sharded {name} mesh {shape} at {layers} layers"
+        if not (a["tokens"] == b["tokens"] == ref["tokens"]):
+            raise SystemExit(f"FAIL: {what}: the ranks' tokens differ from "
+                             "each other or from the single-process run")
+        for r, x in enumerate((a, b)):
+            calls = {k: v for k, v in x["launches"].items() if v}
+            if (x["launches"]["paged_attention"] <= 0
+                    or x["launches"]["paged_prefill_attention"] <= 0
+                    or any(k.endswith("_plain") for k in calls)
+                    or x["graphs"] != "eager" or x["backend"] != "gloo"):
+                raise SystemExit(f"FAIL: {what}: rank {r} launches {calls}, "
+                                 f"graphs {x['graphs']}, {x['backend']}")
+        if name == "dp" and not a["decode_rows_saved"] > 0:
+            raise SystemExit(f"FAIL: {what}: no decode rows saved")
+        rec[name] = {
+            "mesh": shape, "layers": layers, "arrival_rate": rate,
+            "tokens": sum(len(t) for t in ref["tokens"]),
+            "steps": a["steps"], "decode_dispatches": a["decode_dispatches"],
+            "prefill_dispatches": a["prefill_dispatches"],
+            "decode_rows_saved": a["decode_rows_saved"],
+            "collectives": [a["collectives"], b["collectives"]],
+            "collective_share_of_wall": [
+                x["collectives"]["seconds"] / x["wall_s"] for x in (a, b)],
+            "launches": [{k: v for k, v in x["launches"].items() if v}
+                         for x in (a, b)],
+            "held_replicated": a["held_replicated"],
+            "decode_ms_per_step": [1e3 * x["decode_s"] / x["steps"]
+                                   for x in (a, b)],
+            "single_decode_ms_per_step": 1e3 * ref["decode_s"] / ref["steps"],
+            "wall_s": [a["wall_s"], b["wall_s"]],
+            "single_wall_s": ref["wall_s"]}
+        print(json.dumps({"sharded": name, **rec[name]}), flush=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"sharded: both runs' tokens agree across the ranks and with the "
+          f"single-process eager runs ({smi}); phase {rec['phase_s']:.1f} s",
+          flush=True)
+    summary["qwen2-0.5b sharded"] = rec
+    return {"paged_decode": sum(ranks[r]["tp"]["launches"]["paged_attention"]
+                                for r in ranks),
+            "paged_prefill": sum(
+                ranks[r]["tp"]["launches"]["paged_prefill_attention"]
+                for r in ranks)}
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -3524,7 +3729,14 @@ def main() -> int:
     phase("obs")
     for name, n in run_obs(summary, params, untraced, chaos).items():
         paths[name]["qwen2-0.5b traced"] = n
-    del params, untraced, chaos
+    del untraced, chaos
+
+    phase("sharded")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in run_sharded(summary, params).items():
+        paths[name]["qwen2-0.5b sharded (2 ranks)"] = n
+    del params
 
     phase("olmoe")
     gc.collect()                    # the qwen2 engines are gone: free them

@@ -67,6 +67,9 @@ class ArchConfig:
                                      # scatter-add of the feature rows
     remat: str = "none"              # none | dots | full (activation
                                      # recomputation in training)
+    pad_q_heads: int = 0             # pad Q heads to this count (zero
+                                     # wo rows, inside each KV group) so
+                                     # heads shard evenly over 'model'
 
     # -- Synergy workload class (the paper's Fig. 2 families) ----------------
     sens_class: str = "language"     # image | language | speech
@@ -76,6 +79,13 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def n_heads_eff(self) -> int:
+        """The q head count the attention layers carry: ``pad_q_heads``
+        when it exceeds ``n_heads``."""
+        return (self.pad_q_heads if self.pad_q_heads > self.n_heads
+                else self.n_heads)
 
     @property
     def d_inner(self) -> int:

@@ -2,9 +2,10 @@
 and encoder-decoder families.
 
 The values are copies of ``repro/configs/{qwen2_0_5b,llama3_2_1b,
-gemma3_27b,qwen2_7b,phi3_vision,olmoe_1b_7b,mamba2_780m,zamba2_7b,
-whisper_large_v3}.py``. phi3.5-moe, which one card does not hold, raises
-``NotImplementedError`` until sharded serving is ported.
+gemma3_27b,qwen2_7b,phi3_vision,olmoe_1b_7b,phi3_5_moe,mamba2_780m,
+zamba2_7b,whisper_large_v3}.py``. phi3.5-moe does not fit one card at full
+width (32 layers of 16 experts of 6400, ~166 GB in f32): it runs at smoke
+size here and waits for a cell of four cards at full width.
 """
 from __future__ import annotations
 
@@ -47,6 +48,13 @@ _CONFIGS = {
         n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
         d_ff=1024, vocab_size=50304, n_experts=64, top_k=8,
         rope_theta=10000.0),
+    # 16 experts top-2; full width needs the four-card mesh
+    "phi3.5-moe-42b-a6.6b": ArchConfig(
+        arch_id="phi3.5-moe-42b-a6.6b", family="moe",
+        citation="hf:microsoft/Phi-3.5-MoE-instruct",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=6400, vocab_size=32064, n_experts=16, top_k=2,
+        rope_theta=10000.0, sens_class="language"),
     "mamba2-780m": ArchConfig(
         arch_id="mamba2-780m", family="ssm", citation="arXiv:2405.21060",
         n_layers=48, d_model=1536, d_ff=0, vocab_size=50280, ssm_state=128,
@@ -68,17 +76,10 @@ _CONFIGS = {
         sens_class="speech"),
 }
 
-#: reference architectures not ported yet
-_LATER = ("phi3.5-moe-42b-a6.6b",)
-
 ARCH_IDS: List[str] = list(_CONFIGS)
 
 
 def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: its sharded size comes later "
-            "(ROADMAP queue A, item 10)")
     if arch_id not in _CONFIGS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     cfg = _CONFIGS[arch_id]

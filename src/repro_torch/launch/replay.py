@@ -24,7 +24,9 @@ from a ``torch.Generator`` seeded with ``--seed`` (which also seeds the
 workload). ``--device`` defaults to ``cuda``. ``--trace PATH`` dumps the
 replay's event trace (``--trace-format``, ``--trace-capacity`` as in
 ``launch/serve.py``; analyze it with ``repro_torch.launch.trace_report``).
-``--mesh host`` (sharded serving) is ROADMAP queue A, item 10.
+``--mesh host`` replays TP/DP-sharded over the ``torchrun`` process group
+(as ``launch/serve.py``: ``torchrun --nproc-per-node 2 -m
+repro_torch.launch.replay --mesh host ...``; rank 0 prints).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.serve import (add_elastic_flags, add_trace_flags,
                                       dump_trace, elastic_controller,
-                                      make_tracer)
+                                      host_plan, is_printer, make_tracer)
 from repro_torch.serve import (FaultInjector, FaultSchedule, ServeEngine,
                                philly_requests, run_replay)
 
@@ -113,10 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mesh == "host":
-        raise NotImplementedError("--mesh host (sharded serving) is not "
-                                  "ported yet (ROADMAP queue A, item 10)")
     cfg = get_config(args.arch, smoke=args.preset == "smoke")
+    device, plan = host_plan(args, cfg, args.slots)
     if args.faults_file:
         schedule = FaultSchedule.from_json(args.faults_file)
     else:
@@ -135,8 +135,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         decode_horizon=args.decode_horizon, eos_token=args.eos_token,
         injector=injector, elastic=elastic,
         max_admit_retries=args.max_admit_retries, tracer=tracer,
-        metrics_every=args.metrics_every, device=args.device,
-        seed=args.seed)
+        metrics_every=args.metrics_every, device=device, seed=args.seed,
+        sharding=plan)
     res = run_replay(engine, reqs, verify=args.verify, ref_cfg=cfg,
                      ref_max_len=args.max_len)
     dev = engine.device
@@ -153,6 +153,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         "faults": [{"kind": k, "step": s} for k, s in res.faults],
         "dropped_ids": res.dropped,
         "elastic": bool(elastic),
+        "graphs": "eager" if engine.graphs.is_eager else "captured",
         **dataclasses.asdict(res.stats),
     }
     trace_info = dump_trace(args, tracer)
@@ -161,7 +162,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.verify:
         record["verified"] = bool(res.verified)
         record["mismatched"] = res.mismatched
-    print(json.dumps(record, indent=2, default=float))
+    if is_printer():
+        print(json.dumps(record, indent=2, default=float))
     if args.verify and not res.verified:
         raise SystemExit(
             f"FAIL: {len(res.mismatched)} non-dropped request(s) diverged "

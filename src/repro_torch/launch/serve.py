@@ -70,6 +70,14 @@ reference driver's ``make_requests`` (``repro/launch/serve.py:98``) on the
 same seed. ``--preset smoke`` is the reference's laptop-scale shape,
 ``full`` the published widths. ``--device`` defaults to ``cuda``; the CPU
 runs the kernels' plain versions. Prints a JSON summary.
+
+``--mesh host`` serves TP/DP-sharded (``serve/sharded.py``) over the
+process group that ``torchrun`` starts, one process a rank, laid out as a
+("data", "model") mesh of (world / 2, 2)
+(``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh host
+...``): NCCL on the card (one card a rank), gloo on the CPU; every rank
+serves the same request set and rank 0 prints the summary. Without a
+process group the flag raises, naming that command.
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.obs import (DispatchProfiler, ProfileStore, Tracer,
                              write_chrome_trace)
 from repro_torch.serve import (ElasticController, ServeEngine, ServeRequest,
@@ -243,6 +252,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["static", "continuous"])
     ap.add_argument("--cache", default="contiguous",
                     choices=["contiguous", "paged"])
+    ap.add_argument("--mesh", default="single", choices=["single", "host"],
+                    help="host: TP/DP-sharded over the torchrun process "
+                         "group")
     ap.add_argument("--policy", default="fcfs",
                     choices=["fcfs", "sjf", "slo"])
     ap.add_argument("--tenants", type=int, default=0,
@@ -349,6 +361,7 @@ def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest],
     if args.tenants > 0:
         registry, allocation, profiles = build_tenancy(args, reqs, n_slots,
                                                        store=store)
+    device, plan = host_plan(args, cfg, n_slots or args.batch)
     engine = ServeEngine(
         cfg, params=params, max_len=args.max_len, n_slots=n_slots,
         policy=args.policy, cache=args.cache, block_size=args.block_size,
@@ -359,9 +372,32 @@ def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest],
         tenants=registry, allocation=allocation,
         elastic=elastic_controller(args), tracer=make_tracer(args),
         metrics_every=args.metrics_every,
-        profiler=DispatchProfiler(cfg) if args.profile else None,
-        profile_store=store, device=args.device, seed=args.seed)
+        profiler=(DispatchProfiler(cfg, n_devices=plan.n_devices
+                                   if plan is not None else 1)
+                  if args.profile else None),
+        profile_store=store, device=device, seed=args.seed, sharding=plan)
     return engine, reqs, profiles
+
+
+def host_plan(args, cfg, n_slots: int):
+    """(this rank's device, the sharding plan) for ``--mesh host`` (the
+    process group joined, the host mesh laid over it); (``--device``,
+    None) for ``--mesh single``."""
+    if args.mesh != "host":
+        return args.device, None
+    from repro_torch.serve.sharded import make_serve_sharding
+    device = init_distributed(args.device)
+    plan = make_serve_sharding(cfg, n_slots, args.max_len, make_host_mesh(),
+                               cache=args.cache, block_size=args.block_size,
+                               n_blocks=args.blocks or None)
+    return device, plan
+
+
+def is_printer() -> bool:
+    """Rank 0 of a process group prints the summary (every process when
+    there is none)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def summary(args, engine: ServeEngine, out: List[ServeRequest],
@@ -375,11 +411,13 @@ def summary(args, engine: ServeEngine, out: List[ServeRequest],
         "preset": args.preset,
         "engine": args.engine,
         "cache": args.cache,
+        "mesh": args.mesh,
         "policy": args.policy,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "slots": engine.n_slots or args.batch,
         "elastic": engine.elastic is not None,
+        "graphs": "eager" if engine.graphs.is_eager else "captured",
         **dataclasses.asdict(stats),
         "sample_output": out[0].output[:8],
     }
@@ -410,9 +448,9 @@ def verify(args, engine: ServeEngine, out: List[ServeRequest]) -> List[int]:
     engine, contiguous cache, ``decode_horizon=1``, the same weights
     (``repro/launch/serve.py:405-425``). Returns the indices of the
     requests whose tokens differ."""
-    ref_engine = ServeEngine(engine.cfg, params=engine.params,
+    ref_engine = ServeEngine(engine.cfg, params=engine.full_params(),
                              max_len=args.max_len, decode_horizon=1,
-                             eos_token=args.eos_token, device=args.device)
+                             eos_token=args.eos_token, device=engine.device)
     ref = [ServeRequest(r.prompt.copy(), max_new_tokens=r.max_new_tokens)
            for r in out]
     ref, _ = ref_engine.run(ref)
@@ -430,22 +468,26 @@ def main(argv: Optional[List[str]] = None) -> None:
     engine, reqs, profiles = build(args)
     out, stats = engine.run(reqs)
     record = summary(args, engine, out, stats, profiles)
+    show = is_printer()
     if args.verify:
         mismatches = verify(args, engine, out)
         record["verified"] = not mismatches
         if mismatches:
             record["mismatched_requests"] = mismatches
-            print(json.dumps(record, indent=2))
+            if show:
+                print(json.dumps(record, indent=2))
             raise SystemExit(
                 f"FAIL: request(s) {mismatches} diverged from the static "
                 "contiguous engine")
     if (args.min_hit_rate is not None
             and stats.prefix_hit_rate < args.min_hit_rate):
-        print(json.dumps(record, indent=2))
+        if show:
+            print(json.dumps(record, indent=2))
         raise SystemExit(
             f"FAIL: prefix-cache hit rate {stats.prefix_hit_rate:.2f} below "
             f"the required {args.min_hit_rate:.2f}")
-    print(json.dumps(record, indent=2))
+    if show:
+        print(json.dumps(record, indent=2))
 
 
 if __name__ == "__main__":

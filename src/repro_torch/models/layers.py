@@ -3,10 +3,23 @@ sinusoidal positions, GQA attention with QKV bias (no cache, contiguous
 cache, paged cache, cross attention), SwiGLU MLP, tied embeddings, the
 cross-entropy loss.
 
-Layers are plain functions over dicts of tensors, as in the reference; the
-sharding constraints of the reference are dropped (one device). KV writes,
-paged or contiguous, go into the cache in place instead of returning a new
-cache.
+Layers are plain functions over dicts of tensors, as in the reference. KV
+writes, paged or contiguous, go into the cache in place instead of
+returning a new cache.
+
+Sharded (``dist/sharding.py``): a layer computes on whatever local blocks
+its parameters hold and issues the collective that the reference's
+``shard`` site implies where a leaf is split over 'model' — its local
+shape says so, off the mesh every leaf is whole and nothing is issued.
+Attention runs on this rank's q heads (and KV heads when they divide
+'model'; when they do not, the rank computes every KV head, caches them
+all, and attends over the ones its q heads read); ``wo`` and ``w_down``
+are row-parallel and their partial sums are reduced over 'model'; the
+embedding is vocab-parallel (a masked lookup, then a reduce) and the
+logits are gathered over 'model'. Inside ``sharding.split_rows`` a decode
+step computes this rank's rows of the bucket, and every K/V write first
+gathers the bucket's rows over 'data', since each 'data' rank holds the
+whole pool.
 """
 from __future__ import annotations
 
@@ -18,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops as kops
 # shared with the kernels' plain versions, which gather the same way
 from repro_torch.kernels.paged_attention import paged_kv_gather  # noqa: F401
@@ -128,8 +142,12 @@ def sinusoidal_pos_emb(max_len: int, d: int, device=None) -> torch.Tensor:
 # Attention
 # ---------------------------------------------------------------------------
 def init_attention(cfg, dtype, generator) -> dict:
+    """q / k / v / o projections (and biases). With ``cfg.pad_q_heads``
+    the extra q heads go inside each KV group (head h reads kv head
+    h // G), with zero ``wo`` rows, so the function is unchanged while
+    the heads shard evenly (``layers.py:88-117``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    nh, nkv, nhe = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_eff
     dev = generator.device
     p = {
         "wq": _init_dense((d, nh * hd), dtype, generator),
@@ -137,21 +155,61 @@ def init_attention(cfg, dtype, generator) -> dict:
         "wv": _init_dense((d, nkv * hd), dtype, generator),
         "wo": _init_dense((nh * hd, d), dtype, generator),
     }
+    if nhe > nh:
+        if nh % nkv or nhe % nkv:
+            raise ValueError(f"pad_q_heads {nhe} must keep whole KV groups "
+                             f"({nh} heads, {nkv} kv heads)")
+        pad = nhe // nkv - nh // nkv
+        wq = p["wq"].reshape(d, nkv, nh // nkv, hd)
+        p["wq"] = F.pad(wq, (0, 0, 0, pad)).reshape(d, nhe * hd)
+        wo = p["wo"].reshape(nkv, nh // nkv, hd, d)
+        p["wo"] = F.pad(wo, (0, 0, 0, 0, 0, pad)).reshape(nhe * hd, d)
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((nh * hd,), dtype=dtype, device=dev)
+        p["bq"] = torch.zeros((nhe * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((nkv * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((nkv * hd,), dtype=dtype, device=dev)
     return p
 
 
 def _qkv(p, cfg, x):
+    """x [B, S, D] -> q [B, S, Hq, D], k / v [B, S, Hkv, D] on this rank's
+    heads (all of them off the mesh): the local head counts are the local
+    projections' widths over the head dim."""
     b, s, _ = x.shape
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
-            v.reshape(b, s, nkv, hd))
+    return (q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
+            v.reshape(b, s, -1, hd))
+
+
+def plan_attention_scheme(cfg, b: int, s: int, kv_len: int):
+    """The layer's attention scheme (``layers.py:126-140``): the reference's
+    ``attention_scheme`` at the effective (padded) q head count and the
+    attended length; None off the mesh."""
+    return shd.attention_scheme(b, s, cfg.n_heads_eff, kv_len)
+
+
+def kv_heads_read(cfg, n_q: int, n_kv: int) -> Optional[slice]:
+    """The KV heads this rank's ``n_q`` q heads read when its q heads are
+    a 'model' shard but its ``n_kv`` KV heads are all of them (KV heads
+    that do not divide 'model' stay whole, ``layers.py:160-170``); None
+    when q and KV heads are both whole or both sharded."""
+    if n_q == cfg.n_heads_eff or n_kv != cfg.n_kv_heads:
+        return None
+    g = cfg.n_heads_eff // cfg.n_kv_heads
+    first = shd.axis_index("model") * n_q
+    return slice(first // g, (first + n_q - 1) // g + 1)
+
+
+def _heads_sum(p, cfg, out):
+    """``out @ wo`` of the local heads, summed over 'model' when ``wo``
+    holds a row block (the reference's residual ``shard`` site)."""
+    y = out @ p["wo"]
+    if p["wo"].shape[0] != cfg.n_heads_eff * cfg.resolved_head_dim:
+        y = shd.reduce_over(y, "model")
+    return y
 
 
 def mha(q, k, v, mask):
@@ -202,7 +260,8 @@ def paged_kv_write(pkv: PagedKV, k, v, positions, valid=None) -> None:
     block table, in place. A position whose table column is unassigned (or
     past the table), or whose ``valid`` [B, C] entry is False, is written to
     the scratch block instead — a redirect, not a boolean mask, so the write
-    never syncs with the host."""
+    never syncs with the host. Inside ``sharding.split_rows`` the rows of
+    every 'data' rank are gathered and written (each holds the pool)."""
     nb, bs = pkv.k_buf.shape[0] - 1, pkv.k_buf.shape[1]
     mb = pkv.tables.shape[1]
     p = positions.long()
@@ -212,12 +271,16 @@ def paged_kv_write(pkv: PagedKV, k, v, positions, valid=None) -> None:
         keep &= valid
     blk = torch.where(keep, blk, torch.full_like(blk, nb))
     off = p % bs
+    if shd.rows_split():
+        at = shd.gather_rows(blk * bs + off)
+        kv = shd.gather_rows(torch.stack([k, v], dim=1))
+        blk, off, k, v = at // bs, at % bs, kv[:, 0], kv[:, 1]
     pkv.k_buf[blk, off] = k.to(pkv.k_buf.dtype)
     pkv.v_buf[blk, off] = v.to(pkv.v_buf.dtype)
 
 
 def paged_decode_attention(cfg, q, k, v, pkv: PagedKV, positions, window: int,
-                           valid=None):
+                           valid=None, heads: Optional[slice] = None):
     """The paged backend: write this call's (post-RoPE) k/v [B, C, Hkv, D]
     at ``positions`` [B, C] through the block table (in place), then attend
     q over the pages. C == 1 is decode (``ops.paged_attention``); C > 1 is a
@@ -225,13 +288,17 @@ def paged_decode_attention(cfg, q, k, v, pkv: PagedKV, positions, window: int,
     (``ops.paged_prefill_attention``; ``valid`` [B, C] drops padded lane
     positions from the write, their query rows are discarded by the
     caller). CUDA tensors launch the kernels, CPU tensors take their plain
-    versions. Returns the attention output [B, C, Hq, D]."""
+    versions. ``heads`` (``kv_heads_read``) attends over those KV heads of
+    the pool only. Returns the attention output [B, C, Hq, D]."""
     c = q.shape[1]
     paged_kv_write(pkv, k, v, positions, valid)
+    kp, vp = pkv.k, pkv.v
+    if heads is not None:
+        kp, vp = kp[:, :, heads], vp[:, :, heads]
     if c == 1:
-        return kops.paged_attention(q[:, 0], pkv.k, pkv.v, pkv.tables,
+        return kops.paged_attention(q[:, 0], kp, vp, pkv.tables,
                                     positions[:, 0], window)[:, None]
-    return kops.paged_prefill_attention(q, pkv.k, pkv.v, pkv.tables,
+    return kops.paged_prefill_attention(q, kp, vp, pkv.tables,
                                         positions[:, 0].contiguous(), window)
 
 
@@ -260,6 +327,11 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
     writes back the value its cache row already holds at ``pos`` (positions
     of frozen rows are always inside the cache), which keeps the write free
     of host syncs and leaves the row untouched.
+
+    Inside ``sharding.split_rows`` k, v, ``cache_pos`` and ``valid`` are
+    this rank's rows of a bucket whose every row ``ck`` / ``cv`` hold: the
+    rows of every 'data' rank are gathered and written, and the returned
+    caches and positions are this rank's rows.
     """
     k_pos = torch.arange(ck.shape[1], device=ck.device)
     if not torch.is_tensor(cache_pos) or cache_pos.dim() == 0:
@@ -268,15 +340,26 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
         cv[:, p:p + 1] = v.to(cv.dtype)
         return ck, cv, k_pos, p
     rows = torch.arange(ck.shape[0], device=ck.device)
-    pos = cache_pos.long()
-    new_k, new_v = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+    mine = pos = cache_pos.long()
+    new_k, new_v = k[:, 0], v[:, 0]
+    if shd.rows_split():
+        if valid is not None:        # a dropped row travels as pos -1
+            pos = shd.gather_rows(torch.where(valid, mine, -1))
+            valid = pos >= 0
+            pos = pos.clamp(min=0)
+        else:
+            pos = shd.gather_rows(mine)
+        new = shd.gather_rows(torch.stack([new_k, new_v], dim=1))
+        new_k, new_v = new[:, 0], new[:, 1]
+    new_k, new_v = new_k.to(ck.dtype), new_v.to(cv.dtype)
     if valid is not None:
         keep = valid[:, None, None]
         new_k = torch.where(keep, new_k, ck[rows, pos])
         new_v = torch.where(keep, new_v, cv[rows, pos])
     ck[rows, pos] = new_k
     cv[rows, pos] = new_v
-    return ck, cv, k_pos[None, :], pos[:, None]
+    return (shd.local_rows(ck), shd.local_rows(cv), k_pos[None, :],
+            mine[:, None])
 
 
 def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
@@ -305,20 +388,23 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     forward does (``transformer.py:107``). Returns (out, new_kv_cache).
     """
     b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
     if cross_kv is not None:         # q only: k and v come precomputed
         q = x @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
-        out = mha(q.reshape(b, s, cfg.n_heads, -1), *cross_kv, None)
-        return out.reshape(b, s, -1) @ p["wo"], None
+        out = mha(q.reshape(b, s, -1, hd), *cross_kv, None)
+        return _heads_sum(p, cfg, out.reshape(b, s, -1)), None
     q, k, v = _qkv(p, cfg, x)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    heads = kv_heads_read(cfg, q.shape[2], k.shape[2])
     if isinstance(kv_cache, PagedKV):
         out = paged_decode_attention(cfg, q, k, v, kv_cache, positions,
-                                     window, valid=kv_valid)
-        return out.reshape(b, s, -1) @ p["wo"], (kv_cache.k, kv_cache.v)
+                                     window, valid=kv_valid, heads=heads)
+        return (_heads_sum(p, cfg, out.reshape(b, s, -1)),
+                (kv_cache.k, kv_cache.v))
     if kv_cache is not None:
         ck, cv = kv_cache
         ck, cv, k_pos, cpos = update_kv_cache(
@@ -329,10 +415,14 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
             valid &= k_pos > cpos - window
         # [1, Sk] shared-position mask, or [B, 1, 1, Sk] per-row mask
         mask = valid[None, :] if valid.dim() == 1 else valid[:, None, None, :]
+        if heads is not None:
+            ck, cv = ck[:, :, heads], cv[:, :, heads]
         out = mha(q, ck, cv, mask)
-        return out.reshape(b, s, -1) @ p["wo"], (ck, cv)
+        return _heads_sum(p, cfg, out.reshape(b, s, -1)), (ck, cv)
+    ka, va = (k, v) if heads is None else (k[:, :, heads].contiguous(),
+                                           v[:, :, heads].contiguous())
     if causal and flash:
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        out = kops.flash_attention(q, ka, va, causal=True, window=window)
     else:
         pos = torch.arange(s, device=x.device)
         mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
@@ -340,8 +430,8 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
             mask &= pos[:, None] >= pos[None, :]
         if window:
             mask &= pos[:, None] - pos[None, :] < window
-        out = mha(q, k, v, mask)
-    return out.reshape(b, s, -1) @ p["wo"], (k, v)
+        out = mha(q, ka, va, mask)
+    return _heads_sum(p, cfg, out.reshape(b, s, -1)), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -355,8 +445,13 @@ def init_mlp(d: int, d_ff: int, dtype, generator) -> dict:
     }
 
 
-def mlp(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp(p, x, d_ff: int = 0):
+    """SwiGLU; with ``d_ff`` (the full hidden width) a ``w_down`` row block
+    (``ffn`` over 'model') has its partial sum reduced over 'model'."""
+    y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if d_ff and p["w_down"].shape[0] != d_ff:
+        y = shd.reduce_over(y, "model")
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -375,16 +470,30 @@ def init_embeddings(cfg, dtype, generator) -> dict:
 
 
 def embed(p, cfg, tokens):
-    x = F.embedding(tokens, p["tok_emb"])
+    """Token embeddings; a vocab block of ``tok_emb`` (vocab over 'model')
+    looks up the ids it holds, zeros the rest and reduces over 'model'."""
+    emb = p["tok_emb"]
+    n = emb.shape[0]
+    if n == cfg.vocab_size:
+        x = F.embedding(tokens, emb)
+    else:
+        local = tokens - shd.axis_index("model") * n
+        held = (local >= 0) & (local < n)
+        x = F.embedding(local.clamp(0, n - 1), emb) * held[..., None]
+        x = shd.reduce_over(x, "model")
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
 
 
 def unembed(p, cfg, x):
-    if cfg.tie_embeddings:
-        return x @ p["tok_emb"].T
-    return x @ p["lm_head"]
+    """Logits over the whole vocabulary: a vocab block's logits are
+    gathered over 'model'."""
+    logits = (x @ p["tok_emb"].T if cfg.tie_embeddings
+              else x @ p["lm_head"])
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = shd.gather_over(logits, logits.dim() - 1, "model")
+    return logits
 
 
 def cross_entropy(logits, labels, mask=None):

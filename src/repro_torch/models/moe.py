@@ -18,6 +18,12 @@ dense family's (``transformer.init_cache`` / ``init_paged_cache``),
 updated in place. The paged prefill carries each layer's per-expert
 assignment counts across chunks (``paged_prefill_state``), so chunked
 routing drops the tokens a one-pass forward drops.
+
+Sharded (``dist/sharding.py``, ``moe.py:137-144`` of the reference): the
+experts split over 'model'. The router's expert logits are gathered over
+'model', so every rank routes every token the same way; a rank runs its
+own experts' FFNs on their dispatch buffers and the combined partial
+output is reduced over 'model'.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -88,7 +95,10 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     cap = capacity(cfg, cap_tokens if cap_tokens else s)
     dev = x.device
 
-    logits = (x @ p["router"]).float()                           # [B, S, E]
+    logits = x @ p["router"]
+    if logits.shape[-1] != e:                  # a block of experts' logits
+        logits = shd.gather_over(logits, logits.dim() - 1, "model")
+    logits = logits.float()                                      # [B, S, E]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                  # [B, S, K]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)              # renormalize
@@ -140,7 +150,15 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
                        torch.where(keep[..., None], x[:, flat_tok], zero),
                        accumulate=True)
 
-    # expert computation: batched SwiGLU over the expert axis
+    # expert computation: batched SwiGLU over the expert axis (this
+    # rank's block of experts when they split over 'model')
+    n_local = p["we_gate_up"].shape[0]
+    if n_local != e:
+        e0 = shd.axis_index("model") * n_local
+        buf = buf[:, e0:e0 + n_local]
+        flat_e = flat_e - e0
+        keep = keep & (flat_e >= 0) & (flat_e < n_local)
+        flat_e = flat_e.clamp(0, n_local - 1)
     gu = torch.einsum("becd,edf->becf", buf, p["we_gate_up"])
     g, u = gu.chunk(2, dim=-1)
     h = F.silu(g) * u
@@ -153,6 +171,8 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     w = torch.where(keep, flat_p, torch.zeros_like(flat_p))
     y = out_buf[rows, flat_e, safe_pos] * w[..., None].to(out_buf.dtype)
     out = y.view(b, s, k, d).sum(dim=2)
+    if n_local != e:
+        out = shd.reduce_over(out, "model")
     if counts is not None:
         return out, aux, cnt0 + one.sum(dim=1, dtype=torch.int32)
     return out, aux

@@ -76,7 +76,7 @@ def _layer(cfg, p, x, positions, window: int, kv_cache=None, cache_pos=None,
                                       flash=cfg.family == "vlm")
     x = x + attn_out
     h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h), new_cache
+    return x + L.mlp(p["mlp"], h, cfg.d_ff), new_cache
 
 
 # ---------------------------------------------------------------------------

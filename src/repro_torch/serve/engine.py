@@ -68,9 +68,10 @@ crash-on-exhaustion paths into bounded retry-with-backoff, then drop; an
 ``device_join`` larger than what was revoked grows the paged pool
 (``BlockManager.grow_physical``): the pool tensors move, so every captured
 program is dropped and captured again, and the next run builds a new pool.
-On one device no reshape changes the mesh's bucketing multiple, so a
-``device_fail`` that revokes nothing counts no scale-down, as in the
-reference.
+A ``device_fail`` also collapses the mesh's bucketing multiple ``dmult`` to
+1 and a ``device_join`` restores it (on one device both are 1, so a
+``device_fail`` that revokes nothing counts no scale-down there, as in the
+reference).
 
 A ``tracer`` (``obs.Tracer``) records the reference's events at the
 reference's sites (the scheduler's and the block pool's too, at the
@@ -83,11 +84,25 @@ for it, and a paged prefill round then waits on the stream, which no
 counter sees. With a ``profile_store`` as well, every re-plan folds the
 run's profile into the store and fits the tenants' rates from it. Both are
 read-only: tokens, counters and event order do not change, and with
-neither attached nothing waits. Sharding is ported later and raises
-``NotImplementedError`` naming its ROADMAP item.
+neither attached nothing waits.
+
+A ``sharding`` plan (``serve/sharded.py``) serves TP/DP-sharded over a
+("data", "model") mesh of ranks, one process each, every rank running this
+same loop on the same requests (``engine.py:348-439``): the engine keeps
+this rank's blocks of the params, builds its pools at this rank's KV
+heads, enters the plan's rules around each run, rounds bucket widths up to
+a multiple ``dmult`` of the 'data' axis (``_bucket``), and computes a
+bucket a part a 'data' rank when 'data' divides its width and ``dmult``
+has not collapsed, the selected tokens gathered over 'data' (a collapsed
+multiple leaves every 'data' rank computing every row until a
+``device_join``: degraded but exact). The decode state is whole on every
+rank. Host-side pool writes are checked against the plan
+(``reshard_cache``). A sharded engine's programs run eager
+(``graphs.is_eager``; the CLI summary's ``graphs``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import time
@@ -100,6 +115,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.moe import capacity
 from repro_torch.obs.events import NULL_TRACER
@@ -121,10 +137,6 @@ CACHE_BACKENDS = ("contiguous", "paged")
 #: others (ssm, hybrid, encdec) prefill by stepping ``decode_step``
 _ATTN_FAMILIES = ("dense", "vlm", "moe")
 
-#: engine options of the reference that later slices port, by ROADMAP
-#: queue A item
-_LATER = {"sharding": 10}
-
 
 def _pow2(n: int) -> int:
     b = 1
@@ -140,11 +152,14 @@ def _pow2_floor(n: int) -> int:
     return b
 
 
-def _bucket(n: int, cap: int) -> int:
-    """Compacted width: smallest power of two >= n, capped at the pool
-    width (the reference also rounds to the mesh 'data' axis; the port
-    runs on one device)."""
-    return min(_pow2(max(n, 1)), cap)
+def _bucket(n: int, cap: int, multiple: int = 1) -> int:
+    """Compacted width: smallest power of two >= n, rounded up to a
+    multiple of the mesh 'data' axis size (so bucketed rows split evenly),
+    capped at the pool width."""
+    b = _pow2(max(n, 1))
+    if multiple > 1:
+        b = -(-b // multiple) * multiple
+    return min(b, cap)
 
 
 @dataclass
@@ -215,7 +230,8 @@ class _DecodeState:
     """Device-resident decode state: last token, per-row ``pos``, per-row
     freeze position ``stop`` (a row is live while ``pos < stop``), and —
     paged only — the block tables. The host writes deltas only, at
-    admission, growth and eviction."""
+    admission, growth and eviction. Under a sharding plan every rank holds
+    all of it (the reference replicates it)."""
 
     def __init__(self, n_slots: int, max_blocks: Optional[int], device):
         self.device = device
@@ -281,6 +297,10 @@ class ServeEngine:
     every N boundaries (0: never). ``migrations`` lists the last run's
     pool growths: the live blocks moved, the blocks added, the bytes
     copied, the copy's seconds and the graphs dropped.
+
+    ``sharding`` (a ``ServeSharding``) serves sharded over its mesh; the
+    params, given or drawn from ``seed``, are the full tree, of which the
+    engine keeps this rank's blocks.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, max_len: int = 256,
@@ -296,14 +316,7 @@ class ServeEngine:
                  metrics_every: int = 1, injector=None,
                  max_admit_retries: int = 4, elastic=None, tracer=None,
                  profiler=None, profile_store=None, device="cuda",
-                 seed: int = 0, **later):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet (ROADMAP queue A, item "
-                    f"{_LATER[name]})")
+                 seed: int = 0, sharding=None):
         if cache not in CACHE_BACKENDS:
             raise ValueError(f"unknown cache backend {cache!r}; "
                              f"known: {CACHE_BACKENDS}")
@@ -317,8 +330,20 @@ class ServeEngine:
         if allocation is not None and tenants is None:
             raise ValueError("a TenantAllocation needs its TenantRegistry "
                              "(tenants=...) installed too")
+        if sharding is not None and not hasattr(sharding, "shard_params"):
+            raise TypeError("sharding= takes a ServeSharding plan "
+                            "(serve.sharded.make_serve_sharding)")
         self.cfg = cfg
         self.model: Model = build_model(cfg)
+        self.sharding = sharding
+        #: the pools' model: this rank's KV heads under a plan
+        self._cache_model = (build_model(sharding.cache_cfg)
+                             if sharding is not None else self.model)
+        #: the mesh bucketing multiple: a device_fail collapses it to 1, a
+        #: device_join restores it
+        self._dmult_full = (sharding.axis_size("data")
+                            if sharding is not None else 1)
+        self._dmult = self._dmult_full
         self.device = torch.device(device)
         self.max_len = max_len
         self.n_slots = n_slots
@@ -357,13 +382,38 @@ class ServeEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
+        if sharding is not None:
+            params = sharding.shard_params(params)
         self.params = params
         self._horizon = (self._paged_horizon if cache == "paged"
                          else self._contiguous_horizon)
-        #: the captured programs (one per static signature)
-        self.graphs = GraphRunner(self.device)
+        #: the captured programs (one per static signature); a sharded
+        #: engine's run eager
+        self.graphs = GraphRunner(self.device, eager=sharding is not None)
         #: the recurrent prefill's batch-1 state (read by its graph)
         self._row = None
+
+    def full_params(self):
+        """The full param tree: under a plan, this rank's blocks gathered
+        over the mesh (every rank calls it together)."""
+        if self.sharding is None:
+            return self.params
+        return self.sharding.gather_params(self.params)
+
+    def _rules(self):
+        """The plan's logical-axis rules (no-op unsharded)."""
+        return (self.sharding.rules() if self.sharding is not None
+                else contextlib.nullcontext())
+
+    def _rows(self, width: int):
+        """Split a decode bucket of ``width`` rows over 'data' (the
+        attention families, while ``dmult`` is whole); a no-op
+        otherwise."""
+        plan = self.sharding
+        if (plan is None or not plan.splits_rows
+                or self._dmult != self._dmult_full):
+            return contextlib.nullcontext()
+        return shd.split_rows(width)
 
     def _pool_and_state(self, n_slots: int):
         """The run's pool and decode state: the last run's, reset in place,
@@ -381,7 +431,7 @@ class ServeEngine:
         self.graphs.reset()
         self.pool = self._state = None       # free the old tensors first
         if self.cache_kind == "paged":
-            pool = BlockManager(self.model, n_slots, self.max_len,
+            pool = BlockManager(self._cache_model, n_slots, self.max_len,
                                 block_size=self.block_size,
                                 n_blocks=self.n_blocks,
                                 watermark=self.watermark,
@@ -389,9 +439,11 @@ class ServeEngine:
                                 device=self.device, tracer=self.tracer)
             max_blocks = pool.max_blocks
         else:
-            pool = CachePool(self.model, n_slots, self.max_len,
+            pool = CachePool(self._cache_model, n_slots, self.max_len,
                              device=self.device)
             max_blocks = None
+        if self.sharding is not None:
+            pool.buffers = self.sharding.reshard_cache(pool.buffers)
         self.pool, self._state = pool, _DecodeState(n_slots, max_blocks,
                                                     self.device)
         return self.pool, self._state
@@ -445,6 +497,7 @@ class ServeEngine:
             self.elastic.reset()
         self.allocation = self._allocation0
         self.migrations = []
+        self._dmult = self._dmult_full
         c = RunObs(self.tracer)
         tr = c.tracer
         if tr:
@@ -452,7 +505,7 @@ class ServeEngine:
             tr.emit("run_start", backend=self.cache_kind, n_slots=n_slots,
                     horizon=self.decode_horizon, n_requests=len(reqs))
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with self._rules(), torch.inference_mode():
             if self.cache_kind == "paged":
                 self._run_paged(reqs, n_slots, c)
             else:
@@ -757,6 +810,9 @@ class ServeEngine:
                 tr.emit("recover", kind="pool_shrink", action="restore",
                         req=None, detail=got)
         elif f.kind == "device_fail":
+            # a 'data' rank leaves: its share of the pool is revoked and
+            # the bucketing multiple collapses to 1 (every 'data' rank then
+            # computes every row: degraded but exact)
             took = self._apply_scale(sched, pool, c, ScalePlan(
                 kind="scale_down", units=f.blocks, reason="device_fail",
                 step=float(sched.step), dmult=1))
@@ -769,7 +825,7 @@ class ServeEngine:
         elif f.kind == "device_join":
             got = self._apply_scale(sched, pool, c, ScalePlan(
                 kind="scale_up", units=f.blocks, reason="device_join",
-                step=float(sched.step), dmult=1))
+                step=float(sched.step), dmult=self._dmult_full))
             c.inc("recoveries")
             if tr:
                 tr.emit("recover", kind="device_fail", action="restore",
@@ -835,9 +891,12 @@ class ServeEngine:
         blocks move into new tensors, so every captured program is dropped;
         the move is recorded in ``migrations``). Then tenant reserves
         rescale, the allocator re-plans and the pool is audited. Returns
-        the capacity units moved."""
+        the capacity units moved. A plan's ``dmult`` re-buckets the mesh's
+        'data' axis for every later dispatch (a change of it alone still
+        counts as a reshape, with no re-plan)."""
         tr = c.tracer
         paged = isinstance(pool, BlockManager)
+        old_dmult = self._dmult
         if plan.kind == "scale_down":
             moved = pool.shrink(plan.units)
         else:
@@ -849,6 +908,8 @@ class ServeEngine:
                 dropped = len(self.graphs.keys)
                 t0 = time.perf_counter()
                 added = pool.grow_physical(extra)
+                if self.sharding is not None:
+                    pool.buffers = self.sharding.reshard_cache(pool.buffers)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 dt = time.perf_counter() - t0
@@ -865,16 +926,19 @@ class ServeEngine:
                         step=int(sched.step), blocks=live, added=added,
                         bytes=2 * k[:, :old].numel() * k.element_size(),
                         dur_s=dt, graphs_dropped=dropped))
-        if not moved:        # nothing applied (one device: no plan
-            return 0         # changes the mesh's bucketing multiple)
+        if plan.dmult is not None:
+            self._dmult = max(int(plan.dmult), 1)
+        if not moved and self._dmult == old_dmult:
+            return 0                         # nothing applied: no event
         c.inc("scale_ups" if plan.kind == "scale_up" else "scale_downs")
         if tr:
             tr.emit(plan.kind, units=moved, capacity=pool_capacity(pool),
-                    dmult=1, reason=plan.reason)
-        if paged and self.allocation is not None:
+                    dmult=self._dmult, reason=plan.reason)
+        if moved and paged and self.allocation is not None:
             pool.tenant_reserves = self.allocation.rescaled_reserves(
                 pool.n_blocks)
-        self._replan(sched, pool, c)
+        if moved:
+            self._replan(sched, pool, c)
         if self.elastic is not None:
             self.elastic.note_scale(sched.step, plan)
         if paged:
@@ -1003,18 +1067,25 @@ class ServeEngine:
         the bucket's slot ids, at step ``step0 + k``), token feedback,
         per-row pos advance and the budget/EOS stop masks, all on the
         device. A row is live while ``p < s``; frozen rows keep (token,
-        pos), write no KV and emit -1. Returns (t, p, s, token block
-        [W, h])."""
+        pos), write no KV and emit -1. Inside a 'data' split (``_rows``)
+        ``step_fn`` computes this rank's rows and the picked tokens are
+        gathered, so every rank carries the whole bucket. Returns (t, p,
+        s, token block [W, h])."""
         emitted = []
-        for k in range(h):
-            active = p < s
-            logits = step_fn(t, p, active)
-            nxt = self._pick(logits[:, -1], idx, step0 + k)
-            emitted.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
-            t = torch.where(active[:, None], nxt[:, None], t)
-            p = p + active.to(torch.int32)
-            if self.eos_token is not None:
-                s = torch.where(active & (nxt == self.eos_token), p, s)
+        with self._rows(t.shape[0]):
+            lanes = shd.local_rows(idx)
+            for k in range(h):
+                active = p < s
+                logits = step_fn(shd.local_rows(t), shd.local_rows(p),
+                                 shd.local_rows(active))
+                nxt = shd.gather_rows(self._pick(logits[:, -1], lanes,
+                                                 step0 + k))
+                emitted.append(torch.where(active, nxt,
+                                           torch.full_like(nxt, -1)))
+                t = torch.where(active[:, None], nxt[:, None], t)
+                p = p + active.to(torch.int32)
+                if self.eos_token is not None:
+                    s = torch.where(active & (nxt == self.eos_token), p, s)
         return t, p, s, torch.stack(emitted, dim=1)
 
     @staticmethod
@@ -1044,7 +1115,8 @@ class ServeEngine:
 
         def step(t, p, active):
             return self.model.paged_decode_step(
-                self.params, pool.buffers, t, p, tb, write_valid=active)[0]
+                self.params, pool.buffers, t, p, shd.local_rows(tb),
+                write_valid=active)[0]
 
         t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
         self._put_rows(state, ix, t, p, s)
@@ -1096,7 +1168,7 @@ class ServeEngine:
         h = _pow2_floor(min(h, max(sched.active[s].max_new_tokens
                                    - len(sched.active[s].output)
                                    for s in act)))
-        bc = _bucket(len(act), n_slots)
+        bc = _bucket(len(act), n_slots, self._dmult)
         full = bc == n_slots
         if full:
             idx = np.arange(n_slots, dtype=np.int64)
@@ -1207,6 +1279,8 @@ class ServeEngine:
                                     tenants={r.tenant: 1}, obs=c)
             if admitted:
                 c.inc("prefill_s", time.perf_counter() - t0)
+                if self.sharding is not None:
+                    pool.buffers = self.sharding.reshard_cache(pool.buffers)
                 state.set_rows(
                     [r.slot for r in admitted],
                     [r.output[-1] for r in admitted],
@@ -1441,6 +1515,8 @@ class ServeEngine:
                 snap = pool.report()
                 if snap["used_blocks"] >= peak_report["used_blocks"]:
                     peak_report = snap
+                if self.sharding is not None:
+                    pool.buffers = self.sharding.reshard_cache(pool.buffers)
             self._evict(sched, state, c)  # satisfied by prefill alone / EOS
             if not sched.active:
                 nxt = sched.next_arrival()

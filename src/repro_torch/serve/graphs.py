@@ -37,7 +37,9 @@ each call records the storages its ops read that it did not allocate, and
 a later call that reads one the first call did not raises — on the card
 its replay would have read the old tensor.
 ``eager()`` switches the runners off (the counterpart of
-``jax.disable_jit()``): calls run the function on their own inputs.
+``jax.disable_jit()``): calls run the function on their own inputs. A
+runner made with ``eager=True`` always runs so (a sharded engine's: its
+collectives cannot be captured).
 """
 from __future__ import annotations
 
@@ -108,12 +110,19 @@ class _Entry:
 class GraphRunner:
     """One captured program per key on ``device`` (module docstring)."""
 
-    def __init__(self, device):
+    def __init__(self, device, eager: bool = False):
         self.device = torch.device(device)
+        self.eager = bool(eager)
         self._entries: Dict[Hashable, _Entry] = {}
         self._pool: Optional[Tuple[int, int]] = None
         #: graph replays so far (0 on the CPU and under ``eager()``)
         self.replays = 0
+
+    @property
+    def is_eager(self) -> bool:
+        """Whether calls run uncaptured now (``eager=True`` or inside
+        ``eager()``)."""
+        return self.eager or _eager_depth > 0
 
     @property
     def keys(self):
@@ -131,7 +140,7 @@ class GraphRunner:
         """``fn(*inputs)`` (a tensor or a tuple of tensors) through the
         static signature ``key``. The inputs may lie on the host or the
         device; they are copied to the device."""
-        if _eager_depth:
+        if self.is_eager:
             return fn(*(x.to(self.device) for x in inputs))
         entry = self._entries.get(key)
         if entry is None:

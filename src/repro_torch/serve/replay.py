@@ -82,7 +82,8 @@ def run_replay(engine, requests: List[ServeRequest], *,
                ref_max_len: Optional[int] = None) -> ReplayResult:
     """Drive ``engine`` over ``requests``; with ``verify`` hold every
     request not dropped to the fault-free reference (module docstring),
-    built from ``ref_cfg`` (required then) on ``engine.params``."""
+    built from ``ref_cfg`` (required then) on the engine's full params
+    (``ServeEngine.full_params``: gathered over the mesh when sharded)."""
     out, stats = engine.run(requests)
     res = ReplayResult(
         requests=out, stats=stats,
@@ -96,7 +97,7 @@ def run_replay(engine, requests: List[ServeRequest], *,
                          "config for the reference engine)")
     from repro_torch.serve.engine import ServeEngine
     scored = [r for r in out if not r.dropped]
-    ref_engine = ServeEngine(ref_cfg, params=engine.params,
+    ref_engine = ServeEngine(ref_cfg, params=engine.full_params(),
                              max_len=ref_max_len or engine.max_len,
                              decode_horizon=1, eos_token=engine.eos_token,
                              device=engine.device)

@@ -10,6 +10,7 @@ import sys
 import pytest
 
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import convert, mamba2, moe, transformer
 from repro_torch.models.api import Model
@@ -50,7 +51,10 @@ def test_import_leaves_jax_and_reference_out():
         "          'repro_torch.kernels.grouped_matmul',\n"
         "          'repro_torch.models.mamba2',\n"
         "          'repro_torch.kernels.ssd_scan',\n"
-        "          'repro_torch.serve.graphs', 'repro_torch.serve.sampling'):\n"
+        "          'repro_torch.serve.graphs', 'repro_torch.serve.sampling',\n"
+        "          'repro_torch.dist', 'repro_torch.dist.sharding',\n"
+        "          'repro_torch.launch.mesh', 'repro_torch.launch.dryrun',\n"
+        "          'repro_torch.serve.sharded'):\n"
         "    assert n in names, n\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=300)
@@ -77,7 +81,8 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("fn", [
     transformer.init_params, transformer.init_paged_cache, Model.init,
     Model.init_paged_cache, convert.params_from_jax, BlockManager.__init__,
-    ServeEngine.__init__], ids=lambda f: f.__qualname__)
+    ServeEngine.__init__, mesh_mod.init_distributed],
+    ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

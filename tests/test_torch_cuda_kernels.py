@@ -642,3 +642,113 @@ def test_routes_without_a_backward_raise_under_grad(cuda_device):
         ops.paged_prefill_attention(qg, kp, vp, tables, start)
         ops.grouped_matmul(x, w)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: one rank's local heads, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+def _rank_case(device, dtype, b, c, seed, hq=7, hkv=1):
+    """One rank's share of qwen2-0.5b over a 'model' axis of 2: 7 q heads
+    over 1 kv head (G 7), head_dim 64, block 16, 64 table columns,
+    positions up to ~1000, a last all -1 row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb, bs, d, mb = 512, 16, 64, 64
+    kp = torch.randn(nb, bs, hkv, d, generator=g, device=device).to(dtype)
+    vp = torch.randn(nb, bs, hkv, d, generator=g, device=device).to(dtype)
+    perm = torch.randperm(nb, generator=g, device=device).to(torch.int32)
+    start = torch.randint(1, mb * bs - c, (b,), generator=g, device=device,
+                          dtype=torch.int32)
+    tables = torch.full((b, mb), -1, dtype=torch.int32, device=device)
+    for i in range(b - 1):
+        n = (int(start[i]) + c - 1) // bs + 1
+        tables[i, :n] = perm[i * mb:i * mb + n]
+    q = torch.randn(b, c, hq, d, generator=g, device=device).to(dtype)
+    return q, kp, vp, tables, start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 5])
+def test_paged_kernels_at_a_ranks_local_heads(cuda_device, dtype, window):
+    q, kp, vp, tables, pos = _rank_case(cuda_device, dtype, 8, 1, 7 + window)
+    out = ops.paged_attention(q[:, 0], kp, vp, tables, pos, window)
+    exp = pa.paged_attention_plain(q[:, 0], kp, vp, tables, pos, window)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert (out[-1] == 0).all()
+    q, kp, vp, tables, start = _rank_case(cuda_device, dtype, 4, 16,
+                                          8 + window)
+    out = ops.paged_prefill_attention(q, kp, vp, tables, start, window)
+    exp = pa.paged_prefill_attention_plain(q, kp, vp, tables, start, window)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """qwen2-0.5b smoke served by two gloo ranks on cuda:0 (mesh (1, 2):
+    2 q heads and 1 kv head a rank) gives a single-process eager run's
+    tokens, each rank launching both paged kernels and no plain version;
+    a gloo collective inside a graph capture raises."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.serve import ServeEngine, ServeRequest, graphs
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(1, cfg.vocab_size, size=s).astype(np.int32), 6,
+             a) for s, a in zip([5, 3, 8, 2, 6], [0.0, 0.0, 1.0, 2.0, 2.0])]
+    engine = dict(cache="paged", n_slots=4, max_len=64, block_size=8)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    spec = dict(world=2, port=port, device="cuda",
+                params={"qwen2": params_to_jax(params)},
+                scenarios=[dict(name="paged", arch="qwen2-0.5b",
+                                params="qwen2", mesh=(1, 2), engine=engine,
+                                requests=reqs),
+                           dict(name="capture", kind="capture",
+                                arch="qwen2-0.5b", params="qwen2",
+                                mesh=(1, 2))])
+    with open(tmp_path / "spec.pkl", "wb") as f:
+        pickle.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(here), "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "_torch_sharded_ranks.py"),
+         str(tmp_path / "spec.pkl"), str(tmp_path)], env=env,
+        capture_output=True, text=True, timeout=600)
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+        assert "error" not in ranks[-1], ranks[-1].get("error")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with graphs.eager():
+        single, _ = ServeEngine(cfg, params=params, device=cuda_device,
+                                **engine).run(
+            [ServeRequest(p.copy(), max_new_tokens=m, arrival_time=a)
+             for p, m, a in reqs])
+    for res in ranks:
+        run = res["paged"]
+        assert run["tokens"] == [r.output for r in single]
+        assert run["graphs"] == "eager"
+        assert run["launches"]["paged_attention"] > 0
+        assert run["launches"]["paged_prefill_attention"] > 0
+        assert not any(n for k, n in run["launches"].items()
+                       if k.endswith("_plain"))
+        assert "cannot be captured" in res["capture"]["error"]

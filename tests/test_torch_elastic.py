@@ -326,7 +326,7 @@ def test_replay_cli_verifies_on_the_cpu():
                                                       "prefix_flush"]
     from repro_torch.launch import replay
     assert replay.build_parser().parse_args([]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         replay.main(["--mesh", "host", "--device", "cpu"])
 
 
@@ -334,15 +334,21 @@ def test_replay_cli_verifies_on_the_cpu():
                                        ("profile_store", 9),
                                        ("sharding", 10)])
 def test_unported_engine_options_name_their_item(name, item):
-    """``sharding=`` (item 10) still raises naming its item; item 9's
-    options are ported and the engine holds what it is given."""
+    """Items 9 and 10 are ported: the engine holds what it is given
+    (``sharding=`` a plan, here on a one-rank mesh; anything else is a
+    TypeError)."""
     cfg = get_config(ARCH, smoke=True)
-    if item == 10:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            P.ServeEngine(cfg, device="cpu", **{name: object()})
-        return
     from repro_torch import obs
-    given = {"tracer": obs.Tracer(), "profiler": obs.DispatchProfiler(cfg),
-             "profile_store": obs.ProfileStore()}[name]
+    from repro_torch.dist import Mesh
+    from repro_torch.serve.sharded import make_serve_sharding
+    if item == 10:
+        with pytest.raises(TypeError):
+            P.ServeEngine(cfg, device="cpu", **{name: object()})
+        given = make_serve_sharding(cfg, 4, 256, Mesh((1, 1),
+                                                      ("data", "model")))
+    else:
+        given = {"tracer": obs.Tracer(),
+                 "profiler": obs.DispatchProfiler(cfg),
+                 "profile_store": obs.ProfileStore()}[name]
     eng = P.ServeEngine(cfg, device="cpu", **{name: given})
     assert getattr(eng, name) is given

@@ -103,8 +103,7 @@ def test_config_and_registry():
         == (81, 3584, 112, 64, 64, 6, 112)
     assert hybrid._split(full) == (6, 13, 3)
     assert hybrid._split(cfg) == (2, 1, 0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("phi3.5-moe-42b-a6.6b")
+    assert get_config("phi3.5-moe-42b-a6.6b").family == "moe"
     assert build_model(cfg).module is hybrid
 
 

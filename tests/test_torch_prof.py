@@ -290,7 +290,7 @@ def test_profiles_from_requests_with_store_like_reference():
 
 
 def test_sharding_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="ServeSharding"):
         P.ServeEngine(get_config("qwen2-0.5b", smoke=True), device="cpu",
                       sharding=object())
     assert prof.PEAK_FLOPS_BF16 == 989e12 and prof.HBM_BW == 3.35e12

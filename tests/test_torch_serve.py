@@ -216,7 +216,7 @@ def test_engine_matches_jax_engine_with_pallas_kernels():
 
 def test_engine_rejects_unported_options():
     cfg = get_config(ARCH, smoke=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):          # sharding= takes a plan
         ServeEngine(cfg, device="cpu", sharding=object())
     with pytest.raises(ValueError):        # recurrent state is not paged
         ServeEngine(get_config("mamba2-780m", smoke=True), device="cpu",
