@@ -330,6 +330,26 @@ Phases, each printed as it runs; any failure exits non-zero:
                  as in the reference (cross K/V zero), the zamba2 engine's
                  request set at max_len 448: three runs (flash launches 0
                  times) and a profiled replayed run;
+ 14. dryrun    — the dry-run (repro_torch.launch.dryrun: one rank's local
+                 program on meta tensors, its FLOPs, bytes, live bytes and
+                 collectives counted) for every arch at decode_32k on the
+                 pod mesh (32, 8), one line a record: args GiB a GPU, the
+                 compute, memory and collective terms, the bottleneck. Then
+                 one record made real: qwen2-0.5b at decode_32k on the
+                 card's host mesh (1, 1), bf16, 128 rows of a 32768-token
+                 cache, at the largest depth whose predicted peak is under
+                 90% of the card's memory (all 24 layers if it fits). Its
+                 parameters and cache are drawn from a seeded generator
+                 and Model.decode_step runs at position 32767. Fails
+                 unless (a) the memory allocated for the arguments is the
+                 record's argument_bytes within 1%, (b) FlopCounterMode
+                 counts the record's FLOPs exactly on the card's step (the
+                 contiguous decode runs no kernel), (c) the median step is
+                 at least 0.9 x the arguments over HBM bandwidth and 0.7 x
+                 the record's memory_s (a byte count that counts too much
+                 fails), and the measured peak (max_memory_allocated) is
+                 within 25% of the record's peak_bytes. Prints the step,
+                 memory_s, their ratio and both peaks;
                  then the graphs_vs_eager summary line.
 
 The last two lines are the kernels record (one entry per TPU kernel and
@@ -356,8 +376,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import msgpack  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core.cluster import Cluster, ServerSpec  # noqa: E402
 from repro_torch.core.iterator import (ControlChannel,  # noqa: E402
                                        SynergyIterator)
@@ -371,16 +392,19 @@ from repro_torch.core.simulator import simulate  # noqa: E402
 from repro_torch.core.trace import (TraceConfig, generate,  # noqa: E402
                                     philly_trace)
 from repro_torch.data.pipeline import DataConfig, DataPipeline  # noqa: E402
-from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import build, cost, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import trace_report  # noqa: E402
+from repro_torch.launch.mesh import F32_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW as HBM_BPS  # noqa: E402
 from repro_torch.models import encdec, layers, mamba2, moe  # noqa: E402
-from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.api import build_model, materialize  # noqa: E402
 from repro_torch.models.convert import state_to_jax  # noqa: E402
 from repro_torch.obs import (NULL_PROFILER, NULL_TRACER, Tracer,  # noqa: E402
                              load_trace, to_chrome_trace, validate_events,
@@ -399,9 +423,6 @@ MB = MAX_LEN // BS
 NB = SLOTS * MB
 #: tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-#: H100 SXM data-sheet peaks: HBM bytes/s; f32 FLOP/s outside the tensor
-#: cores; dense TF32 and bf16 FLOP/s on them
-HBM_BPS, F32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
 ENGINE_ARGS = ["--arch", "qwen2-0.5b", "--preset", "full", "--engine",
                "continuous", "--cache", "paged", "--slots", str(SLOTS),
                "--batch", "16", "--block-size", str(BS), "--prefill-lanes",
@@ -602,43 +623,18 @@ def make_case(b: int, c: int, dtype, seed: int, pad_row: bool,
     return (q[:, 0] if c == 1 else q), kp, vp, tables, start
 
 
-def ops_ms(flops: int, dtype, mma: bool) -> float:
-    """Least time of ``flops`` at the rate of the units that run them: the
-    f32 peak outside the tensor cores, or (``mma``) the tensor cores as the
-    redesigned kernels use them, three TF32 passes for f32 and one pass for
-    bf16."""
-    if not mma:
-        return 1e3 * flops / F32_FLOPS
-    if dtype is torch.float32:
-        return 1e3 * 3 * flops / TF32_FLOPS
-    return 1e3 * flops / BF16_FLOPS
-
-
 def bound_terms(q, kp, tables, start, c: int, window: int, mma: bool):
     """Least time for this call's work: every needed byte read once (q,
     the K/V blocks some query sees, tables, positions) and the output
     written once, over HBM bandwidth; the QK and PV flops of the visible
-    (query, key) pairs at ``ops_ms``'s rate. Returns (bytes ms, ops ms)."""
-    elem = q.element_size()
+    (query, key) pairs at ``cost.bound_ms``'s rate. Returns (bytes ms,
+    ops ms)."""
     _, bs, hkv, d = kp.shape
-    tab, st = tables.cpu().numpy(), start.cpu().numpy()
-    nbytes = 2 * q.numel() * elem + tables.numel() * 4 + start.numel() * 4
-    pairs = 0
-    for b in range(tab.shape[0]):
-        s0 = int(st[b])
-        for j in range(tab.shape[1]):
-            k0 = j * bs
-            if tab[b, j] < 0 or k0 > s0 + c - 1:
-                continue
-            if window and k0 + bs - 1 <= s0 - window:
-                continue
-            nbytes += 2 * bs * hkv * d * elem
-            for qi in range(c):
-                qpos = s0 + qi
-                lo = qpos - window + 1 if window else 0
-                pairs += max(0, min(qpos, k0 + bs - 1) - max(lo, k0) + 1)
-    return (1e3 * nbytes / HBM_BPS,
-            ops_ms(4 * d * q.shape[-2] * pairs, q.dtype, mma))
+    flops, nbytes = cost.paged_attention(
+        q.shape[-2], hkv, d, bs, q.element_size(), c, window,
+        tables.cpu().tolist(), start.cpu().tolist())
+    return cost.bound_ms(flops, nbytes, f32=q.dtype is torch.float32,
+                         mma=mma)
 
 
 #: torch.cuda._sleep's cycles a second at the H100 SXM's 1980 MHz clock
@@ -901,17 +897,12 @@ def flash_bound(s: int, hq: int, hkv: int, d: int, dtype, causal: bool,
                 window: int, mma: bool = True, b: int = 1):
     """Least time for one flash call of batch ``b``: q, k, v read once and
     the output written once over HBM bandwidth; the QK and PV flops of the
-    visible (query, key) pairs at ``ops_ms``'s rate. (bytes ms, ops ms)."""
-    pos = torch.arange(s)
-    vis = torch.ones((s, s), dtype=torch.bool)
-    if causal:
-        vis &= pos[:, None] >= pos[None, :]
-    if window:
-        vis &= pos[:, None] - pos[None, :] < window
+    visible (query, key) pairs at ``cost.bound_ms``'s rate. (bytes ms,
+    ops ms)."""
     elem = torch.empty((), dtype=dtype).element_size()
-    nbytes = b * (2 * hq + 2 * hkv) * s * d * elem
-    flops = b * 4 * d * hq * int(vis.sum())
-    return 1e3 * nbytes / HBM_BPS, ops_ms(flops, dtype, mma)
+    flops, nbytes = cost.flash_attention(b, s, hq, hkv, d, elem, causal,
+                                         window)
+    return cost.bound_ms(flops, nbytes, f32=dtype is torch.float32, mma=mma)
 
 
 def check_flash(flush: torch.Tensor) -> dict:
@@ -993,16 +984,13 @@ def gmm_bound(x, w, valid, mma: bool = True):
     """Least time for one grouped matmul: the x rows and the weights of the
     experts that have a valid row read once, valid_rows read and the
     whole output written once, over HBM bandwidth; 2 K N flops per valid
-    row at ``ops_ms``'s rate. (bytes ms, ops ms)."""
+    row at ``cost.bound_ms``'s rate. (bytes ms, ops ms)."""
     g, c, k = x.shape
-    n = w.shape[2]
-    rows = (torch.full((g,), c) if valid is None
-            else valid.cpu().long().clamp(0, c))
-    elem = x.element_size()
-    nbytes = (int(rows.sum()) * k * elem + int((rows > 0).sum()) * k * n * elem
-              + g * c * n * elem + (0 if valid is None else 4 * g))
-    return (1e3 * nbytes / HBM_BPS,
-            ops_ms(2 * k * n * int(rows.sum()), x.dtype, mma))
+    flops, nbytes = cost.grouped_matmul(
+        g, c, k, w.shape[2], x.element_size(),
+        None if valid is None else valid.cpu().tolist())
+    return cost.bound_ms(flops, nbytes, f32=x.dtype is torch.float32,
+                         mma=mma)
 
 
 def check_grouped_matmul(flush: torch.Tensor) -> dict:
@@ -1063,12 +1051,9 @@ def ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
     """Least time for one SSD scan: x, a, B and C read once and y written
     once over HBM bandwidth; the visible work per (row, chunk) — causal
     scores (2 N per pair j <= i), scores times x (2 P per pair), the
-    inter-chunk term and the state update (2 Q N P each) — at ``ops_ms``'s
-    rate for f32. (bytes ms, ops ms)."""
-    nbytes = 4 * b * s * h * (2 * p + 2 * n + 1)
-    pairs = q * (q + 1) // 2
-    flops = b * h * (s // q) * (2 * pairs * (n + p) + 4 * q * n * p)
-    return 1e3 * nbytes / HBM_BPS, ops_ms(flops, torch.float32, mma)
+    inter-chunk term and the state update (2 Q N P each) — at
+    ``cost.bound_ms``'s rate for f32. (bytes ms, ops ms)."""
+    return cost.bound_ms(*cost.ssd_scan(b, s, h, p, n, q), mma=mma)
 
 
 def ssd_case(b: int, s: int, h: int, p: int, n: int, seed: int):
@@ -1177,11 +1162,10 @@ def flash_bwd_bound(b: int, s: int, hq: int, hkv: int, d: int,
     """Least time for one causal flash backward: q, k, v, o, do read once
     and dq, dk, dv written once over HBM bandwidth; the five products of
     the visible pairs (scores, do.v, P^T do, dS^T q, dS k: 10 D flops a
-    pair and q head) at ``ops_ms``'s rate for f32. (bytes ms, ops ms)."""
-    pairs = s * (s + 1) // 2
-    nbytes = 4 * b * s * d * (4 * hq + 4 * hkv)
-    return (1e3 * nbytes / HBM_BPS,
-            ops_ms(10 * d * hq * b * pairs, torch.float32, mma))
+    pair and q head) at ``cost.bound_ms``'s rate for f32. (bytes ms,
+    ops ms)."""
+    return cost.bound_ms(*cost.flash_attention_backward(b, s, hq, hkv, d),
+                         mma=mma)
 
 
 def sdpa_backward(q, k, v, do):
@@ -1258,15 +1242,11 @@ def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
                   mma: bool = True):
     """Least time for one SSD backward: x, a, B, C and dy read once, the
     forward's chunk states read once, and dx, da, dB and dC written once
-    over HBM bandwidth; the function's own products at ``ops_ms``'s rate
+    over HBM bandwidth; the function's own products at ``cost.bound_ms``'s rate
     for f32: C.B^T, dy.x^T, dx, dB and dC over each chunk's causal pairs
     (2 (3N + 2P) flops a pair), and the reversed state and the three inter
     terms (8 Q N P a chunk), a (row, chunk) each. (bytes ms, ops ms)."""
-    chunks = b * h * (s // q)
-    nbytes = 4 * (b * s * h * (3 * p + 4 * n + 2) + chunks * n * p)
-    pairs = q * (q + 1) // 2
-    flops = chunks * (2 * pairs * (3 * n + 2 * p) + 8 * q * n * p)
-    return 1e3 * nbytes / HBM_BPS, ops_ms(flops, torch.float32, mma)
+    return cost.bound_ms(*cost.ssd_scan_backward(b, s, h, p, n, q), mma=mma)
 
 
 def ssd_backward_launches(fn) -> dict:
@@ -3500,6 +3480,133 @@ def run_whisper(summary: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
+# dryrun
+# ---------------------------------------------------------------------------
+#: the combination the dryrun phase runs for real: qwen2-0.5b at
+#: decode_32k on the one card's host mesh (1, 1), the dry-run's bf16
+DRY_ARCH, DRY_SHAPE = "qwen2-0.5b", "decode_32k"
+#: the share of the card's memory the dry-run's predicted peak must stay
+#: under for a depth to run; the step's timed repetitions
+DRY_FIT, DRY_REPS = 0.9, 3
+#: the checks' tolerances: argument bytes placed, the measured peak
+DRY_ARG_TOL, DRY_PEAK_TOL = 0.01, 0.25
+#: the least step time against the arguments over HBM bandwidth, and
+#: against the dry-run's memory_s
+DRY_ARGS_FLOOR, DRY_MEMORY_FLOOR = 0.9, 0.7
+
+
+def _dry_line(rec) -> str:
+    return (f"args {rec['args_gib_per_device']:.3f} GiB a GPU, compute "
+            f"{1e3 * rec['compute_s']:.4f} ms, memory "
+            f"{1e3 * rec['memory_s']:.4f} ms, collective "
+            f"{1e3 * rec['collective_s']:.4f} ms: {rec['bottleneck']}")
+
+
+def _fail_dry(what: str) -> None:
+    raise SystemExit(f"FAIL: dryrun: {what}")
+
+
+def run_dryrun() -> dict:
+    """Phase ``dryrun`` (module docstring, phase 14): the dry-run's sweep
+    at decode_32k on the pod mesh, then one record made real on the card
+    and held to what it predicted."""
+    for arch in ARCH_IDS:
+        rec, _ = dryrun.lower_combo(arch, DRY_SHAPE, False, probe=False)
+        print(f"dryrun {arch} {DRY_SHAPE} pod {rec['mesh_shape']}: "
+              f"{_dry_line(rec)}", flush=True)
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    full = get_config(DRY_ARCH).n_layers
+    for n_layers in range(full, 0, -1):
+        extra = None if n_layers == full else {"n_layers": n_layers}
+        rec, prog = dryrun.lower_combo(DRY_ARCH, DRY_SHAPE, False,
+                                       probe=False, mesh_kind="host",
+                                       ranks=1, extra_cfg=extra)
+        if rec["memory_stats"]["peak_bytes"] < DRY_FIT * total:
+            break
+        print(f"dryrun: {n_layers} layers predict a peak of "
+              f"{rec['memory_stats']['peak_bytes']} bytes, over "
+              f"{DRY_FIT} of the card's {total}", flush=True)
+    else:
+        _fail_dry("no depth fits the card")
+    mem = rec["memory_stats"]
+    print(f"dryrun {DRY_ARCH} {DRY_SHAPE} host {rec['mesh_shape']}, "
+          f"{n_layers} of {full} layers (predicted peak {mem['peak_bytes']} "
+          f"bytes, {mem['peak_bytes'] / total:.4f} of {total}): "
+          f"{_dry_line(rec)}", flush=True)
+    if rec["kernels"] or rec["n_chips"] != 1:
+        _fail_dry(f"the record runs kernels {sorted(rec['kernels'])} on "
+                  f"{rec['n_chips']} GPUs")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = materialize(prog.args, gen, prog.cfg.vocab_size)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    out = {"layers": n_layers, "argument_bytes": mem["argument_bytes"],
+           "placed_bytes": placed}
+    if abs(placed - mem["argument_bytes"]) > DRY_ARG_TOL * mem[
+            "argument_bytes"]:
+        _fail_dry(f"{placed} bytes placed against argument_bytes "
+                  f"{mem['argument_bytes']}")
+
+    with prog.rules():
+        logits, _ = prog.run(*args)       # warm-up
+        want = (args[-1].shape[0], 1, prog.cfg.vocab_size)
+        if (tuple(logits.shape) != want
+                or not torch.isfinite(logits).all()):
+            _fail_dry(f"logits {tuple(logits.shape)} not finite or not "
+                      f"{list(want)}")
+        del logits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(DRY_REPS)]
+        for s_ev, e_ev in ev:
+            s_ev.record()
+            prog.run(*args)
+            e_ev.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with FlopCounterMode(display=False) as fc:
+            prog.run(*args)
+        flops = fc.get_total_flops()
+    step_s = statistics.median(s.elapsed_time(e) for s, e in ev) / 1e3
+    out.update(step_ms=1e3 * step_s, memory_s=rec["memory_s"],
+               step_over_memory_s=step_s / rec["memory_s"],
+               flops=flops, dry_flops=rec["flops_per_chip"],
+               peak_bytes=peak, dry_peak_bytes=mem["peak_bytes"],
+               peak_ratio=peak / mem["peak_bytes"],
+               bytes_per_chip=rec["bytes_per_chip"])
+    print(f"dryrun on the card: step {1e3 * step_s:.3f} ms (median of "
+          f"{DRY_REPS}), memory_s {1e3 * rec['memory_s']:.3f} ms, ratio "
+          f"{step_s / rec['memory_s']:.4f}; peak {peak} bytes against the "
+          f"dry-run's {mem['peak_bytes']} ({peak / mem['peak_bytes']:.4f}); "
+          f"FLOPs {flops} against {rec['flops_per_chip']:.0f}; arguments "
+          f"{placed} bytes placed against {mem['argument_bytes']}",
+          flush=True)
+    print(json.dumps({"dryrun_phase": out}), flush=True)
+    del args
+    if flops != rec["flops_per_chip"]:
+        _fail_dry(f"the card's step counts {flops} FLOPs, the dry-run "
+                  f"{rec['flops_per_chip']}")
+    if step_s < DRY_ARGS_FLOOR * mem["argument_bytes"] / HBM_BPS:
+        _fail_dry(f"a step of {step_s} s is under {DRY_ARGS_FLOOR} x the "
+                  f"arguments' {mem['argument_bytes']} bytes over HBM")
+    if step_s < DRY_MEMORY_FLOOR * rec["memory_s"]:
+        _fail_dry(f"a step of {step_s} s is under {DRY_MEMORY_FLOOR} x the "
+                  f"dry-run's memory_s {rec['memory_s']} s: the byte count "
+                  "counts too much")
+    if abs(peak / mem["peak_bytes"] - 1) > DRY_PEAK_TOL:
+        _fail_dry(f"the measured peak {peak} is not within {DRY_PEAK_TOL} "
+                  f"of the dry-run's {mem['peak_bytes']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # sharded
 # ---------------------------------------------------------------------------
 def shard_engine(cfg, device, plan=None, params=None):
@@ -3808,6 +3915,13 @@ def main() -> int:
         summary)
     gc.collect()
     torch.cuda.empty_cache()
+    phase("dryrun")
+    t0 = time.perf_counter()
+    run_dryrun()
+    print(f"dryrun phase {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("summary")
     print(json.dumps({"graphs_vs_eager": summary}), flush=True)
 

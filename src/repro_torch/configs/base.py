@@ -70,6 +70,13 @@ class ArchConfig:
     pad_q_heads: int = 0             # pad Q heads to this count (zero
                                      # wo rows, inside each KV group) so
                                      # heads shard evenly over 'model'
+    unroll: bool = False             # accepted and ignored, so the
+                                     # reference's --cfg-json parses: it
+                                     # unrolls its layer scans for the
+                                     # dry-run's flop probes (XLA's cost
+                                     # analysis counts a while body once);
+                                     # the port's layer loops are Python,
+                                     # so every layer runs and is counted
 
     # -- Synergy workload class (the paper's Fig. 2 families) ----------------
     sens_class: str = "language"     # image | language | speech
@@ -94,6 +101,14 @@ class ArchConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic archs that run the long_500k shape: the SSM and
+        hybrid families and sliding-window dense models."""
+        return self.family in ("ssm", "hybrid") or (
+            self.family == "dense" and self.sliding_window > 0
+        )
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -54,6 +54,17 @@ invalidated): one issued while the stream captures raises first.
 ``STATS`` counts the calls by kind and the host seconds spent in them (a
 gloo collective on CUDA tensors returns when its result is on the
 device, so that includes the wait for the stream).
+
+On tensors without storage (meta: the dry-run's local program of one
+rank, ``launch/dryrun.py``) ``reduce_over`` and ``gather_over`` need no
+process group: on an axis of more than one rank they return an output of
+the collective's shape, made by the same local copies as the real path,
+count the call in ``STATS`` and book its output bytes by kind and mesh
+axis into the dry-run's counting mode (the innermost mode on the
+dispatch stack that takes collective bookings), as the reference's
+dry-run sums the output bytes of each collective in the HLO.
+Their backward passes are local (the gradient, or this rank's slice of
+it); the dry-run derives the backward's collectives from the forward's.
 """
 from __future__ import annotations
 
@@ -65,6 +76,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 #: one mesh-axis assignment: nothing, a single axis, or several fused axes
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -507,9 +519,58 @@ def _count(kind: str, group, x: torch.Tensor) -> None:
     STATS[kind] += 1
 
 
+def _dry_ranks(x: torch.Tensor, axis: str) -> int:
+    """The ranks of ``axis`` a collective on ``x`` spans when ``x`` has no
+    storage (the dry-run), else 0."""
+    rules = current_rules()
+    if x.device.type != "meta" or rules is None:
+        return 0
+    return rules.sizes.get(axis, 1)
+
+
+class _DryReduce(torch.autograd.Function):
+    """An all-reduce's local program on a tensor without storage."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.contiguous().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _DryGather(torch.autograd.Function):
+    """An all-gather's local program on a tensor without storage (this
+    rank's piece stands for every rank's)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        src = x.contiguous()
+        return torch.cat([src] * n, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, 0, ctx.size), None, None
+
+
+def _book(kind: str, axis: str, x: torch.Tensor, n: int = 1) -> None:
+    """Book a collective's output bytes (``n`` times ``x``'s) over ``axis``
+    into the active counting mode (none: nothing counts)."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "book_collective"):
+            mode.book_collective(kind, axis, n * x.numel() * x.element_size())
+            return
+
+
 def reduce_over(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axis`` (a new tensor; ``x``
     itself when off-mesh or the axis has one rank)."""
+    if _dry_ranks(x, axis) > 1:
+        STATS["all_reduce"] += 1
+        _book("all-reduce", axis, x)
+        return _DryReduce.apply(x)
     group, n = _group(axis)
     if group is None:
         return x
@@ -525,6 +586,11 @@ def gather_over(x: torch.Tensor, dim: int, axis: str = "model"
                 ) -> torch.Tensor:
     """The ranks' pieces of ``x`` along ``axis``, concatenated along
     ``dim`` in rank order (``x`` itself off-mesh)."""
+    n = _dry_ranks(x, axis)
+    if n > 1:
+        STATS["all_gather"] += 1
+        _book("all-gather", axis, x, n)
+        return _DryGather.apply(x, dim % x.dim(), n)
     group, n = _group(axis)
     if group is None:
         return x

@@ -3,7 +3,15 @@
 
 The route depends only on where the tensors lie: CPU tensors take the
 plain PyTorch version, CUDA tensors launch the hand-written kernel (which
-raises on anything it does not take — there is no fallback). Each wrapper
+raises on anything it does not take — there is no fallback), and tensors
+without storage (meta: the dry-run's, ``launch/dryrun.py``) compute
+nothing: they return an output of the kernel's shape and dtype and book
+the kernel's ``kernels/cost.py`` terms into the dry-run's counting mode,
+the innermost mode on the dispatch stack that takes kernel bookings, so a
+dry-run counts the work the card runs. A call that the CUDA route would
+refuse (the backward kernels' dtypes and limits) is booked with the
+reason, so the dry-run marks its record as one the card cannot run. Each
+wrapper
 counts its kernel launches in a plain int attribute, ``launches``, and
 each plain version its calls in ``calls``. A replayed CUDA graph runs no
 Python, so ``serve/graphs.py`` reads these counters around a capture
@@ -21,11 +29,59 @@ a result without a gradient.
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
+from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+def _storage_less(t) -> bool:
+    """A tensor without storage (meta): the dry-run's cost route."""
+    return t.device.type == "meta"
+
+
+def _book(name: str, terms, refused=None) -> None:
+    """Book one kernel call's ``cost.py`` (flops, bytes) into the active
+    counting mode (none: nothing counts); ``refused``: why the CUDA route
+    would refuse the call."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "book_kernel"):
+            mode.book_kernel(name, *terms, refused=refused)
+            return
+
+
+def _flash_forward(q, k, v, causal, window, return_lse=False):
+    """The forward kernel; on tensors without storage its outputs' shapes
+    (out, and the row log-sum-exp [B Hq, S] f32) and its cost booked."""
+    if not _storage_less(q):
+        return _fa.flash_attention_cuda(q, k, v, causal, window,
+                                        return_lse=return_lse)
+    b, s, hq, d = q.shape
+    _book("flash_attention", cost.flash_attention(
+        b, s, hq, k.shape[2], d, q.element_size(), causal, window))
+    out = q.new_empty((b, s, hq, d))
+    if return_lse:
+        return out, q.new_empty((b * hq, s), dtype=torch.float32)
+    return out
+
+
+def _ssd_forward(xdt, a_log, B, C, chunk, return_states=False):
+    """The SSD forward kernel; on tensors without storage its outputs'
+    shapes (y, and the chunk states [B H, S / Q - 1, N, P]) and its cost
+    booked."""
+    if not _storage_less(xdt):
+        return _ssd.ssd_scan_cuda(xdt, a_log, B, C, chunk=chunk,
+                                  return_states=return_states)
+    b, s, h, p = xdt.shape
+    n = B.shape[3]
+    _book("ssd_scan", cost.ssd_scan(b, s, h, p, n, chunk))
+    y = xdt.new_empty((b, s, h, p))
+    if return_states:
+        return y, xdt.new_empty((b * h, s // chunk - 1, n, p))
+    return y
 
 
 def _needs_grad(*tensors) -> bool:
@@ -48,10 +104,10 @@ class _FlashAttention(torch.autograd.Function):
         # the backward kernel takes f32 (bf16 raises there) and the
         # forward's row log-sum-exp
         if q.dtype == torch.float32:
-            out, lse = _fa.flash_attention_cuda(q, k, v, causal, window,
-                                                return_lse=True)
+            out, lse = _flash_forward(q, k, v, causal, window,
+                                      return_lse=True)
         else:
-            out, lse = _fa.flash_attention_cuda(q, k, v, causal, window), None
+            out, lse = _flash_forward(q, k, v, causal, window), None
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -70,8 +126,8 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xdt, a_log, B, C, chunk):
-        y, states = _ssd.ssd_scan_cuda(xdt, a_log, B, C, chunk=chunk,
-                                       return_states=True)
+        y, states = _ssd_forward(xdt, a_log, B, C, chunk,
+                                 return_states=True)
         ctx.save_for_backward(xdt, a_log, B, C, states)
         ctx.chunk = chunk
         return y
@@ -96,8 +152,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if _needs_grad(q, k, v):
         out = _FlashAttention.apply(q, k, v, causal, window)
     else:
-        out = _fa.flash_attention_cuda(q, k, v, causal, window)
-    flash_attention.launches += 1
+        out = _flash_forward(q, k, v, causal, window)
+    if not _storage_less(q):
+        flash_attention.launches += 1
     return out
 
 
@@ -110,10 +167,34 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     if q.device.type == "cpu":
         return _fa.flash_attention_backward_plain(q, k, v, dout, causal,
                                                   window)
+    if _storage_less(q):
+        b, s, hq, d = q.shape
+        hkv = k.shape[2]
+        refused = None
+        if q.dtype != torch.float32:
+            refused = (f"the backward kernel takes float32 only, got "
+                       f"{q.dtype}")
+        elif lse is None:
+            refused = "the backward kernel needs the forward's log-sum-exp"
+        _book("flash_attention_backward", cost.flash_attention_backward(
+            b, s, hq, hkv, d, q.element_size(), causal, window), refused)
+        dk = q.new_empty((b, s, hkv, d), dtype=torch.float32)
+        return q.new_empty(q.shape), dk, torch.empty_like(dk)
     grads = _fa.flash_attention_backward_cuda(q, k, v, out, dout, lse,
                                               causal, window)
     flash_attention_backward.launches += 1
     return grads
+
+
+def _paged_dry(name, q, k_pages, tables, c: int, window: int):
+    """A paged kernel on tensors without storage: the table holds no data,
+    so the cost booked is a full table's (``cost.full_table``)."""
+    _, bs, hkv, d = k_pages.shape
+    b, mb = tables.shape
+    _book(name, cost.paged_attention(
+        q.shape[-2], hkv, d, bs, q.element_size(), c, window,
+        *cost.full_table(b, mb, bs, c)))
+    return q.new_empty(q.shape)
 
 
 def paged_attention(q, k_pages, v_pages, tables, pos, window: int = 0):
@@ -124,6 +205,8 @@ def paged_attention(q, k_pages, v_pages, tables, pos, window: int = 0):
         return _pa.paged_attention_plain(q, k_pages, v_pages, tables, pos,
                                          window)
     _refuse_grad("paged_attention", q, k_pages, v_pages)
+    if _storage_less(q):
+        return _paged_dry("paged_attention", q, k_pages, tables, 1, window)
     out = _pa.paged_attention_cuda(q, k_pages, v_pages, tables, pos, window)
     paged_attention.launches += 1
     return out
@@ -139,6 +222,9 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, start,
         return _pa.paged_prefill_attention_plain(q, k_pages, v_pages, tables,
                                                  start, window)
     _refuse_grad("paged_prefill_attention", q, k_pages, v_pages)
+    if _storage_less(q):
+        return _paged_dry("paged_prefill_attention", q, k_pages, tables,
+                          q.shape[1], window)
     out = _pa.paged_prefill_cuda(q, k_pages, v_pages, tables, start, window)
     paged_prefill_attention.launches += 1
     return out
@@ -160,8 +246,9 @@ def ssd_scan(xdt, a_log, B, C, chunk: int = 128):
     if _needs_grad(*args):
         out = _SSDScan.apply(*args, q)
     else:
-        out = _ssd.ssd_scan_cuda(*args, chunk=q)
-    ssd_scan.launches += 1
+        out = _ssd_forward(*args, q)
+    if not _storage_less(xdt):
+        ssd_scan.launches += 1
     return out
 
 
@@ -173,6 +260,19 @@ def ssd_scan_backward(xdt, a_log, B, C, dy, chunk: int = 128, states=None):
     forward launch's chunk ``states``."""
     if xdt.device.type == "cpu":
         return _ssd.ssd_scan_backward_plain(xdt, a_log, B, C, dy, chunk=chunk)
+    if _storage_less(xdt):
+        b, s, h, p = xdt.shape
+        n, q = B.shape[3], min(chunk, s)
+        refused = None
+        if q > _ssd._BWD_QMAX or n > _ssd._BWD_NMAX or \
+                _ssd.bwd_smem_bytes(n, p, q) > _ssd._MAX_SMEM:
+            refused = (f"the backward takes a chunk up to {_ssd._BWD_QMAX} "
+                       f"and N up to {_ssd._BWD_NMAX} within "
+                       f"{_ssd._MAX_SMEM} bytes of shared memory, got "
+                       f"chunk {q}, N = {n}, P = {p}")
+        _book("ssd_scan_backward", cost.ssd_scan_backward(b, s, h, p, n, q),
+              refused)
+        return tuple(torch.empty_like(t) for t in (xdt, a_log, B, C))
     grads = _ssd.ssd_scan_backward_cuda(xdt, a_log, B, C, dy, chunk,
                                         states=states)
     ssd_scan_backward.launches += 1
@@ -186,6 +286,12 @@ def grouped_matmul(x, w, valid_rows=None):
     if x.device.type == "cpu":
         return _gmm.grouped_matmul_plain(x, w, valid_rows)
     _refuse_grad("grouped_matmul", x, w)
+    if _storage_less(x):
+        g, c, k = x.shape
+        _book("grouped_matmul", cost.grouped_matmul(
+            g, c, k, w.shape[2], x.element_size(),
+            None if valid_rows is None else [c] * g))
+        return x.new_empty((g, c, w.shape[2]))
     out = _gmm.grouped_matmul_cuda(x, w, valid_rows)
     grouped_matmul.launches += 1
     return out

@@ -12,15 +12,25 @@ embeddings (``batch["frames"]``).
 Parameters are passed explicitly, as in the reference, so one set of
 weights serves every caller; ``Model.forward(params, batch)`` makes the
 module callable.
+
+``input_specs``, ``cache_specs``, ``paged_cache_specs`` and
+``params_specs`` (``repro/models/api.py:128-177``) give storage-less
+stand-ins, meta tensors with the reference's names, shapes and dtypes,
+which the dry-run (``launch/dryrun.py``) runs its programs on.
+``materialize`` fills such a tree with random values from a
+``torch.Generator`` (``make_batch``: ``input_specs``'s). A generator
+cannot live on the meta device, so ``params_specs`` runs the seeded init
+on fake CPU tensors (nothing is allocated) and takes their shapes.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import tree_map_with_path
 from repro_torch.models import encdec, hybrid, mamba2, moe, transformer
 
 _FAMILY_MODULES = {"dense": transformer, "vlm": transformer, "moe": moe,
@@ -102,3 +112,91 @@ class Model(nn.Module):
 
 def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# input specs / batches
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _extras(cfg: ArchConfig, batch: int, dtype) -> Dict[str, torch.Tensor]:
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = _meta((batch, cfg.enc_seq, cfg.d_model), dtype)
+    if cfg.family == "vlm":
+        extras["patch_embeds"] = _meta((batch, cfg.n_patches, cfg.d_model),
+                                       dtype)
+    return extras
+
+
+def input_specs(cfg: ArchConfig, batch: int, seq_len: int,
+                mode: str = "train") -> Dict[str, torch.Tensor]:
+    """Meta stand-ins for the given step's data inputs: 'train' (tokens
+    and labels), 'prefill' (tokens), 'decode' (one token a row; the cache
+    comes from ``cache_specs``), plus the VLM's patch embeddings or the
+    encdec's frames in ``cfg.dtype``."""
+    i32 = torch.int32
+    dtype = getattr(torch, cfg.dtype)
+    if mode == "train":
+        specs = {"tokens": _meta((batch, seq_len), i32),
+                 "labels": _meta((batch, seq_len), i32)}
+        specs.update(_extras(cfg, batch, dtype))
+        return specs
+    if mode == "prefill":
+        specs = {"tokens": _meta((batch, seq_len), i32)}
+        specs.update(_extras(cfg, batch, dtype))
+        return specs
+    if mode == "decode":
+        return {"tokens": _meta((batch, 1), i32)}
+    raise ValueError(mode)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's leaves as meta tensors."""
+    return build_model(cfg).init_cache(batch, max_len, device="meta")
+
+
+def paged_cache_specs(cfg: ArchConfig, n_blocks: int, block_size: int
+                      ) -> dict:
+    """The paged (block-pool) cache's ``{"k", "v"}`` pools
+    ``[L, n_blocks, block_size, Hkv, D]`` as meta tensors."""
+    cache = build_model(cfg).init_paged_cache(n_blocks, block_size,
+                                              device="meta")
+    return {"k": cache["k"], "v": cache["v"]}
+
+
+def params_specs(cfg: ArchConfig) -> dict:
+    """The param tree as meta tensors (the seeded init runs on fake CPU
+    tensors, so nothing is allocated at any width)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = build_model(cfg).init(
+            torch.Generator(device="cpu").manual_seed(0), device="cpu")
+    return tree_map_with_path(lambda _, t: _meta(t.shape, t.dtype), params)
+
+
+def materialize(tree, generator: torch.Generator, vocab_size: int):
+    """Tensors on ``generator``'s device of a tree of meta stand-ins'
+    shapes and dtypes (dicts, lists and tuples kept): float leaves normal
+    x 0.02, integer leaves uniform token ids below ``vocab_size``."""
+    if isinstance(tree, dict):
+        return {k: materialize(v, generator, vocab_size)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(materialize(v, generator, vocab_size)
+                          for v in tree)
+    t = torch.empty(tree.shape, dtype=tree.dtype, device=generator.device)
+    if t.dtype.is_floating_point:
+        return t.normal_(0.0, 0.02, generator=generator)
+    return t.random_(0, vocab_size, generator=generator)
+
+
+def make_batch(cfg: ArchConfig, batch: int, seq_len: int,
+               generator: torch.Generator, mode: str = "train"
+               ) -> Dict[str, torch.Tensor]:
+    """A random batch matching ``input_specs`` on ``generator``'s device
+    (``materialize``)."""
+    return materialize(input_specs(cfg, batch, seq_len, mode), generator,
+                       cfg.vocab_size)

@@ -52,11 +52,11 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
-#: roofline peaks of one NVIDIA H100 80GB HBM3 (NVIDIA's data sheet, SXM
-#: part, 700 W): the dense BF16 tensor-core rate, as the reference takes
-#: its chip's BF16 peak, and the HBM3 bandwidth
-PEAK_FLOPS_BF16 = 989e12
-HBM_BW = 3.35e12
+# the roofline peaks of one NVIDIA H100 80GB HBM3: the dense BF16
+# tensor-core rate, as the reference takes its chip's BF16 peak, and the
+# HBM3 bandwidth
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
 
 _ACT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
 

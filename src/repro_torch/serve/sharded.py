@@ -44,13 +44,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-import torch
-
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.dryrun import cache_pspecs
 from repro_torch.launch.mesh import axis_sizes, make_host_mesh
 from repro_torch.models import layers as L
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, params_specs
 
 #: families whose layers the port computes tensor-parallel
 TP_FAMILIES = ("dense", "vlm", "moe")
@@ -59,13 +57,9 @@ _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
 def param_shapes(cfg) -> dict:
-    """The port's param tree of ``cfg`` as shapes, without allocating (the
-    init runs on fake tensors)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        gen = torch.Generator(device="cpu").manual_seed(0)
-        params = build_model(cfg).init(gen)
-    return shd.tree_map_with_path(lambda _, t: tuple(t.shape), params)
+    """The port's param tree of ``cfg`` as shapes, without allocating."""
+    return shd.tree_map_with_path(lambda _, t: tuple(t.shape),
+                                  params_specs(cfg))
 
 
 def cache_shapes(cfg, n_slots: int, max_len: int, *, paged: bool,

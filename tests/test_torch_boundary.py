@@ -54,8 +54,25 @@ def test_import_leaves_jax_and_reference_out():
         "          'repro_torch.serve.graphs', 'repro_torch.serve.sampling',\n"
         "          'repro_torch.dist', 'repro_torch.dist.sharding',\n"
         "          'repro_torch.launch.mesh', 'repro_torch.launch.dryrun',\n"
-        "          'repro_torch.serve.sharded'):\n"
+        "          'repro_torch.serve.sharded', 'repro_torch.configs.shapes',\n"
+        "          'repro_torch.kernels.cost', 'repro_torch.launch.roofline',\n"
+        "          'repro_torch.launch.run_all_dryruns'):\n"
         "    assert n in names, n\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_constants_and_cost_formulas_import_without_torch():
+    """The H100 constants' home, the kernels' cost formulas and the profile
+    store import neither torch nor numpy (store tooling runs anywhere)."""
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}]\n"
+        "import repro_torch.launch.mesh, repro_torch.kernels.cost\n"
+        "import repro_torch.obs.prof, repro_torch.launch.roofline\n"
+        "bad = sorted(m for m in ('torch', 'numpy') if m in sys.modules)\n"
+        "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

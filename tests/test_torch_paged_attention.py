@@ -121,17 +121,34 @@ def test_cpu_tensors_never_launch_kernels():
             ops.paged_prefill_attention.launches) == before == (0, 0)
 
 
-def test_non_cpu_tensors_go_to_the_kernel_or_raise():
-    """Tensors off the CPU never take the plain version: a device the
-    kernels do not take raises instead of falling back."""
+def test_non_cpu_tensors_go_to_the_kernel_or_raise(monkeypatch):
+    """Tensors off the CPU never take the plain version: tensors without
+    storage (meta, the dry-run's) take the cost route, which computes
+    nothing and launches nothing, and a CUDA tensor goes to the kernel,
+    which raises without its library instead of falling back."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build
+
+    def no_library():
+        raise RuntimeError("no kernel library")
+    monkeypatch.setattr(build, "library", no_library)
     calls = pa.paged_attention_plain.calls
+    launches = ops.paged_attention.launches
     q = torch.empty((2, 14, D), device="meta")
     kp = torch.empty((NB, BS, 2, D), device="meta")
     tables = torch.empty((2, MB), dtype=torch.int32, device="meta")
     pos = torch.empty((2,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.paged_attention(q, kp, kp, tables, pos)
+    out = ops.paged_attention(q, kp, kp, tables, pos)
+    assert out.device.type == "meta" and out.shape == q.shape
+    with FakeTensorMode():
+        q, kp, tables, pos = (torch.zeros(t.shape, dtype=t.dtype,
+                                          device="cuda")
+                              for t in (q, kp, tables, pos))
+        with pytest.raises(RuntimeError, match="no kernel library"):
+            ops.paged_attention(q, kp, kp, tables, pos)
     assert pa.paged_attention_plain.calls == calls
+    assert ops.paged_attention.launches == launches
 
 
 # ---------------------------------------------------------------------------
