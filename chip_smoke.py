@@ -31,10 +31,14 @@ Phases, each printed as it runs; any failure exits non-zero:
                  engines' shapes (16/16 heads of 128 and 32/32 heads of 96,
                  G 1), at the chaos phase's (14/2 heads of 64, MB 16, a
                  96-block pool, decode B 8 and prefill [4, 16] at positions
-                 32-96) and at one sharded rank's (7/1 heads of 64, G 7, MB
-                 64, the engine's 512-block pool, positions 192-384); f32
-                 and bf16, window 0 and 5, an all -1 row; the f32 call
-                 timed beside its plain version, SDPA and its bound);
+                 32-96), at one sharded rank's (7/1 heads of 64, G 7, MB
+                 64, the engine's 512-block pool, positions 192-384) and
+                 at the gemma3-27b engine's (32/16 heads of 128, G 2, MB
+                 96, a 384-block pool, positions 960-1432 across its 1024
+                 window); f32 and bf16, window 0 and 5 (gemma3: 0 and
+                 1024), an all -1 row; the f32 window-0 call (gemma3: bf16
+                 at window 1024) timed beside its plain version, SDPA and
+                 its bound);
                  flash attention at olmoe-1b-7b's prefill shape
                  ([1, S, 16, 128], S 128 and 256, causal), at
                  phi-3-vision-4.2b's forward shape ([1, 1024, 32, 96],
@@ -186,20 +190,22 @@ Phases, each printed as it runs; any failure exits non-zero:
                  and single-process, and the phase's seconds. A rank that
                  fails fails the phase;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
-                 contiguous engine (16 layers, 64 experts top-8, ~6.9 B
-                 float32 weights from a seed), its three runs as in phase 5:
+                 contiguous engine (64 experts top-8) cut to 8 of its 16
+                 layers (~3.5 B float32 weights from a seed; 16 until the
+                 gemma3 phase came), its three runs as in phase 5:
                  8 requests of 64-128 tokens, 64 new tokens each, 4 slots,
                  decode horizon 8, max_len 256. Every layer of every prefill
                  (eager: each prompt at its exact length) must launch the
-                 flash kernel (16 x prefills launches) and its plain version
+                 flash kernel (8 x prefills launches) and its plain version
                  must not run. The grouped matmul is an op no model calls
                  (the MoE layer contracts with einsum, as the JAX package's
                  does): it launches 0 times on both paths. Then the profile
                  of phase 6 over the same requests;
   8. olmoe paged — the full-width olmoe-1b-7b paged engine on the same
-                 weights: 8 requests of 64-128 tokens after a shared
-                 32-token prefix (two full blocks), 64 new tokens each, 4
-                 slots, 4 prefill lanes, horizon 8, block 16, max_len 256;
+                 weights (8 layers): 8 requests of 64-128 tokens after a
+                 shared 32-token prefix (two full blocks), 64 new tokens
+                 each, 4 slots, 4 prefill lanes, horizon 8, block 16,
+                 max_len 256;
                  its three runs as in phase 5 (both paged kernels, no plain
                  version, no flash), one profiled replayed run; then the
                  prefix cache against cold runs: gated at one slot and one
@@ -223,8 +229,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  horizon 8, block 16, max_len 512, its three runs and a
                  profiled replayed run as in phase 8;
      synergy   — with the phase's weights freed, one Trainer of
-                 phi-3-vision-4.2b at full width with remat "full" (the same
-                 seeded weights, AdamW: 61 GB of f32 weights, gradients and
+                 phi-3-vision-4.2b at full width, 16 of its 32 layers (32
+                 until the gemma3 phase came), with remat "full" (seeded
+                 weights, AdamW: ~31 GB of f32 weights, gradients and
                  moments), and the Synergy optimistic profiler
                  (repro_torch.core.profiler, the paper's ServerSpec and the
                  default ProfilerConfig) live on the card for a 1-GPU
@@ -239,8 +246,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                  warm-up's end; reading each step's loss syncs). The
                  preprocessing cost is set so one worker takes 9 measured
                  train steps a batch. Fails unless there are at most
-                 ceil(log2(24)) + 2 probes, each launching flash 64 times a
-                 step (32 forward, 32 recomputed) and its backward 32 times
+                 ceil(log2(24)) + 2 probes, each launching flash 32 times a
+                 step (16 forward, 16 recomputed) and its backward 16 times
                  and the plain version never, the trainer takes one step a
                  call, every rate, loss and gradient norm is finite and the
                  rates above 0, W is [24, 12],
@@ -312,9 +319,11 @@ Phases, each printed as it runs; any failure exits non-zero:
                  version never); the forward again with the scan's plain
                  version on the card; 128 decode steps against both
                  forwards' logits (held to 2e-3 against the kernel's);
-     zamba2 engine — its contiguous engine on the same weights, three runs
-                 as in phase 5 (8 requests of 32-64 tokens, 32 new tokens
-                 each, 4 slots, horizon 8, max_len 256; the prefill
+     zamba2 engine — its contiguous engine on the same weights cut to 27
+                 of the 81 Mamba2 blocks (4 shared-block calls and the 3
+                 trailing blocks; 81 until the gemma3 phase came), three
+                 runs as in phase 5 (8 requests of 32-64 tokens, 32 new
+                 tokens each, 4 slots, horizon 8, max_len 256; the prefill
                  replays a captured batch-1 decode step a token, so the
                  SSD kernel launches 0 times) and a profiled replayed run;
  13. whisper   — with zamba2 freed, full-width whisper-large-v3 (32 encoder
@@ -326,10 +335,33 @@ Phases, each printed as it runs; any failure exits non-zero:
                  cross attention run plain mha, as in the reference), the
                  forward again with flash's plain version, then
                  prefill_cross_kv and 64 decode steps against both (2e-3);
-     whisper engine — its contiguous engine on the same weights, text only
-                 as in the reference (cross K/V zero), the zamba2 engine's
+     whisper engine — its contiguous engine on the same weights, cut to 16
+                 of the 32 decoder layers (32 until the gemma3 phase came),
+                 text only as in the reference (cross K/V zero), the
+                 zamba2 engine's
                  request set at max_len 448: three runs (flash launches 0
                  times) and a profiled replayed run;
+ 13b. gemma3-27b — with whisper freed, full-width gemma3-27b in bf16 (62
+                 layers, d_model 5376, 32/16 heads of 128, d_ff 21504,
+                 vocab 262144 tied, window 1024 with every 6th layer
+                 global; 27.0 B parameters, 54.0 GB drawn from a seed on
+                 the card): its paged engine (the serve CLI's build over
+                 the bf16 config: the CLI has no dtype flag, as the
+                 reference's has none):
+                 6 requests of 1100-1400 tokens after a shared 64-token
+                 prefix, 32 new tokens each, 4 slots, 4 lanes, horizon 8,
+                 block 16, max_len 1536, through run_paged_engine (three
+                 runs, the checks of phase 5, a profiled replayed run);
+                 each request's first token against the argmax of
+                 Model.forward at its prompt's last position wherever that
+                 forward's top-2 margin exceeds 2e-2 of its largest
+                 |logit| (the positions held and skipped printed; fails if
+                 none is held); then Model.forward on [1, 4096] with
+                 local_banded and without, each timed twice after a
+                 warm-up with its peak: the banded logits within 2e-2 of
+                 the scanned ones' largest |logit|, argmax agreement
+                 printed. Prints the weights' bytes, the engine's and the
+                 phase's peak memory and the phase's seconds;
  14. dryrun    — the dry-run (repro_torch.launch.dryrun: one rank's local
                  program on meta tensors, its FLOPs, bytes, live bytes and
                  collectives counted) for every arch at decode_32k on the
@@ -349,7 +381,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  the record's memory_s (a byte count that counts too much
                  fails), and the measured peak (max_memory_allocated) is
                  within 25% of the record's peak_bytes. Prints the step,
-                 memory_s, their ratio and both peaks;
+                 memory_s, their ratio and both peaks. The same again
+                 with gqa_no_repeat (mha's grouped einsum, no KV repeat),
+                 and the two steps, peaks and byte counts side by side;
                  then the graphs_vs_eager summary line.
 
 The last two lines are the kernels record (one entry per TPU kernel and
@@ -414,9 +448,10 @@ from repro_torch.train import checkpoint, optimizer  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.serve import (BlockManager, ElasticController,  # noqa: E402
                                FaultInjector, FaultSchedule, ServeEngine,
-                               Tenant, TenantRegistry, philly_requests,
-                               plan_allocation, profile_class,
-                               profiles_from_requests, run_replay)
+                               ServeRequest, Tenant, TenantRegistry,
+                               philly_requests, plan_allocation,
+                               profile_class, profiles_from_requests,
+                               run_replay)
 
 HQ, HKV, D, BS, MAX_LEN, SLOTS = 14, 2, 64, 16, 1024, 8
 MB = MAX_LEN // BS
@@ -452,17 +487,34 @@ OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
 #: phi-3-vision-4.2b: q = kv heads, head_dim; the forward phase's
 #: sequence (576 patch positions, then text) and patch count
 PHI_H, PHI_D, PHI_S, PHI_P = 32, 96, 1024, 576
+#: gemma3-27b served in bf16 (the gemma3 phase): q / kv heads, head_dim,
+#: the local layers' window, max_len, slots and prefill lanes; its request
+#: set (6 requests of 1100-1400 tokens after a shared 64-token prefix, 32
+#: new tokens each, so the prompts pass the window and freed slots are
+#: reused) and the banded-against-scanned forward's length
+G3_H, G3_KV, G3_D, G3_W, G3_MAX_LEN, G3_SLOTS, G3_LANES = (32, 16, 128, 1024,
+                                                          1536, 4, 4)
+G3_N, G3_PREFIX, G3_LENGTHS, G3_NEW, G3_S = 6, 64, (1100, 1400), 32, 4096
+#: the largest |logit| share within which the banded forward must agree
+#: with the scanned one, and beyond which a forward's top-2 margin holds the
+#: paged engine's first token (bf16: ~3 significant digits)
+G3_TOL = 2e-2
 #: the paged engines' kernel shapes: (path, Hq, Hkv, D, MB, NB, decode
-#: rows, prefill rows, the positions the engine's requests span); the
-#: chaos engine's pool grows from 48 to 96 blocks, its largest is held
+#: rows, prefill rows, the positions the engine's requests span, the
+#: windows checked, the (dtype, window) of the timed call); the chaos
+#: engine's pool grows from 48 to 96 blocks, its largest is held
+F32_FULL = (torch.float32, 0)
 PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_H, OL_D, 256 // BS, 64, 4, 4,
-                 96, 224),
+                 96, 224, (0, 5), F32_FULL),
                 ("phi-3-vision-4.2b paged", PHI_H, PHI_H, PHI_D, 512 // BS,
-                 128, 4, 4, 128, 288),
+                 128, 4, 4, 128, 288, (0, 5), F32_FULL),
                 ("qwen2-0.5b chaos", HQ, HKV, D, 256 // BS, 96, SLOTS, 4, 32,
-                 96),
+                 96, (0, 5), F32_FULL),
                 ("qwen2-0.5b sharded rank", HQ // 2, HKV // 2, D, MB, NB,
-                 SLOTS, 4, 192, 384))
+                 SLOTS, 4, 192, 384, (0, 5), F32_FULL),
+                ("gemma3-27b paged", G3_H, G3_KV, G3_D, G3_MAX_LEN // BS,
+                 G3_SLOTS * G3_MAX_LEN // BS, G3_SLOTS, G3_LANES, 960,
+                 G3_LENGTHS[1] + G3_NEW, (0, G3_W), (torch.bfloat16, G3_W)))
 #: the sharded phase (module docstring): its request set, the data run's
 #: depth and arrival rate, and the rank processes' time limit (s)
 SHARD_N, SHARD_NEW, SHARD_DP_LAYERS, SHARD_DP_RATE = 8, 32, 4, 0.5
@@ -510,6 +562,12 @@ ZAMBA2_ARGS = ["--arch", "zamba2-7b", "--preset", "full", "--engine",
                "--device", "cuda"]
 WHISPER_ARGS = ZAMBA2_ARGS[:1] + ["whisper-large-v3"] + ZAMBA2_ARGS[2:] + [
     "--max-len", str(W_S)]
+#: the depths the olmoe, zamba2 and whisper engines serve at, cut so the
+#: script keeps to its time once the gemma3 phase came: olmoe's 16 layers
+#: to 8, zamba2's 81 Mamba2 blocks to 27 (four shared-block calls, then the
+#: 3 trailing blocks), whisper's 32 decoder layers to 16 (its encoder does
+#: not serve); every width, and the forward phases' depths, stay whole
+OL_ENGINE_LAYERS, Z_ENGINE_LAYERS, W_ENGINE_LAYERS = 8, 27, 16
 #: the decode chains' tolerance against the forward's logits (the mamba2
 #: chain's, tests/test_smoke_archs.py:82-95)
 CHAIN_TOL = 2e-3
@@ -533,8 +591,10 @@ CHAOS_FAULTS = ("defer_storm@2:duration=3,tenant_slowdown@4:tenant=batch:"
 
 #: the synergy phase's live job (the reference runtime's ``_profile``):
 #: phi-3-vision-4.2b on one GPU, batches of SYN_B sequences of PHI_S
-#: tokens, SYN_PROBE_ITERS timed steps a probe (the runtime's default)
-SYN_B, SYN_PROBE_ITERS = 2, 2
+#: tokens, SYN_PROBE_ITERS timed steps a probe (the runtime's default), its
+#: Trainer SYN_LAYERS of the 32 layers deep at full width (32 until the
+#: gemma3 phase came: the script's time)
+SYN_B, SYN_PROBE_ITERS, SYN_LAYERS = 2, 2, 16
 #: its simulator runs: 16 of the paper's servers (128 GPUs) on a Philly
 #: trace under SRTF for each allocator, then Synergy-OPT on 4 servers and
 #: tests/test_scheduler.py:163's trace cut to 40 jobs
@@ -808,17 +868,21 @@ SHAPE_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
 def check_engine_shapes(flush: torch.Tensor, rec: dict) -> None:
     """The paged kernels at the shapes of the olmoe-1b-7b and
     phi-3-vision-4.2b paged engines (one q head a kv head: G 1; head_dim
-    128 and 96) and of the chaos phase's qwen2-0.5b engine (14 / 2 heads
-    of 64, MB 16, its grown 96-block pool): f32 and bf16, window 0 and 5,
-    a last all -1 row that must come out zero, against the plain versions;
-    the f32 window-0 call timed beside its plain version, SDPA on the
-    gathered K/V and its bound, kept in the kernel's ``other_shapes``."""
-    for path, hq, hkv, d, mb, nb, dec_b, pre_b, lo, hi in PAGED_SHAPES:
+    128 and 96), of the chaos phase's qwen2-0.5b engine (14 / 2 heads
+    of 64, MB 16, its grown 96-block pool), of one sharded rank and of the
+    gemma3-27b engine (32 / 16 heads of 128, MB 96, positions across its
+    1024 window): f32 and bf16, each shape's windows (0 and 5; gemma3's 0
+    and 1024), a last all -1 row that must come out zero, against the
+    plain versions; the shape's timed call (f32 at window 0; gemma3's bf16
+    at 1024) timed beside its plain version, SDPA on the gathered K/V and
+    its bound, kept in the kernel's ``other_shapes``."""
+    for (path, hq, hkv, d, mb, nb, dec_b, pre_b, lo, hi, windows,
+         (t_dtype, t_window)) in PAGED_SHAPES:
         shape = (hq, hkv, d, mb, nb)
         for name, kern in KERNELS.items():
             b, c = (dec_b, 1) if name == "paged_decode" else (pre_b, BS)
             for dtype in (torch.float32, torch.bfloat16):
-                for window in (0, 5):
+                for window in windows:
                     args = make_case(b, c, dtype, seed=hq + d + window,
                                      pad_row=True, lo=lo, hi=hi, shape=shape)
                     what = (f"{name} {path} shape B={b} C={c} Hq={hq} "
@@ -829,20 +893,24 @@ def check_engine_shapes(flush: torch.Tensor, rec: dict) -> None:
                     if not bool((out[-1] == 0).all()):
                         raise SystemExit(f"FAIL: {what}: the all -1 table "
                                          "row is not zero")
-            args = make_case(b, c, torch.float32, seed=hq + d, pad_row=False,
+            args = make_case(b, c, t_dtype, seed=hq + d, pad_row=False,
                              lo=lo, hi=hi, shape=shape)
             q, kp, vp, tables, start = args
-            err = _compare(f"{name} {path} shape, f32, all rows",
-                           kern["wrapper"](*args, 0), kern["plain"](*args, 0),
-                           torch.float32)
+            t_name = str(t_dtype)[6:]
+            err = _compare(f"{name} {path} shape, {t_name}, window "
+                           f"{t_window}, all rows",
+                           kern["wrapper"](*args, t_window),
+                           kern["plain"](*args, t_window), t_dtype)
             r = _record(
                 name, "paged_attention.cu", kern["replaces"], err,
-                time_ms(lambda: kern["wrapper"](*args, 0), flush),
-                time_ms(lambda: kern["plain"](*args, 0), flush),
-                *bound_terms(q, kp, tables, start, c, 0, True),
-                time_ms(sdpa_call(q, kp, vp, tables, start, c, 0), flush),
+                time_ms(lambda: kern["wrapper"](*args, t_window), flush),
+                time_ms(lambda: kern["plain"](*args, t_window), flush),
+                *bound_terms(q, kp, tables, start, c, t_window, True),
+                time_ms(sdpa_call(q, kp, vp, tables, start, c, t_window),
+                        flush),
                 dict(path=path, B=b, C=c, Hq=hq, Hkv=hkv, D=d, BS=BS, MB=mb,
-                     NB=nb, positions=[lo, hi], dtype="float32"))
+                     NB=nb, positions=[lo, hi], dtype=t_name,
+                     window=t_window))
             rec[name].setdefault("other_shapes", []).append(
                 {k: r[k] for k in SHAPE_KEYS})
 
@@ -1478,7 +1546,8 @@ def _to_cuda(tree):
 
 
 def check_reference() -> None:
-    for arch, path, kw in (("qwen2-0.5b", paged_logits, {}),
+    for arch, path, kw in (("qwen2-0.5b", paged_logits,
+                            dict(decode_attention="paged")),
                            ("olmoe-1b-7b", moe_logits, {}),
                            ("mamba2-780m", mamba2_logits, {}),
                            ("zamba2-7b", zamba2_logits, {}),
@@ -1539,15 +1608,17 @@ def _mode(mode: str):
     return graphs.eager() if mode == "eager" else contextlib.nullcontext()
 
 
-def serve_modes(engine, args, what: str) -> dict:
-    """Serve ``args``' request set on ``engine`` once per mode (``MODES``),
-    every launch counter set to 0 just before each run and read just
-    after. Fails unless the three runs give the same tokens, counters and
-    launches, and unless the replayed run captured nothing new. Prints one
-    line a run and returns {mode: dict(out, stats, launches, replays)}."""
+def serve_modes(engine, args, what: str, make=None) -> dict:
+    """Serve ``args``' request set (``make()``'s when given) on ``engine``
+    once per mode (``MODES``), every launch counter set to 0 just before
+    each run and read just after. Fails unless the three runs give the same
+    tokens, counters and launches, and unless the replayed run captured
+    nothing new. Prints one line a run and returns {mode: dict(out, stats,
+    launches, replays)}."""
+    make = make or (lambda: serve_cli.requests(args))
     res = {}
     for mode in MODES:
-        reqs = serve_cli.requests(args)
+        reqs = make()
         ops.set_counts((0,) * len(ops.COUNTERS))
         replays, keys = engine.graphs.replays, len(engine.graphs.keys)
         torch.cuda.synchronize()
@@ -2208,12 +2279,17 @@ def run_sampled(greedy) -> dict:
     return times
 
 
+def olmoe_engine_cfg():
+    """olmoe-1b-7b at full width, ``OL_ENGINE_LAYERS`` deep."""
+    return get_config("olmoe-1b-7b").replace(n_layers=OL_ENGINE_LAYERS)
+
+
 def run_olmoe(summary: dict):
-    """The full-width olmoe-1b-7b contiguous engine (module docstring,
-    phase 7). Returns each counted wrapper's launches in the captured run
-    and the engine's weights."""
+    """The full-width olmoe-1b-7b contiguous engine, ``OL_ENGINE_LAYERS``
+    deep (module docstring, phase 7). Returns each counted wrapper's
+    launches in the captured run and the engine's weights."""
     args = serve_cli.build_parser().parse_args(OLMOE_ARGS)
-    engine, _, _ = serve_cli.build(args)
+    engine, _, _ = serve_cli.build(args, cfg=olmoe_engine_cfg())
     res = serve_modes(engine, args, "olmoe-1b-7b contiguous")
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
@@ -2226,11 +2302,10 @@ def run_olmoe(summary: dict):
                  for b in engine.pool.buffers.values())
     # every decode step reads every layer's weights (the expert einsum runs
     # all 64 experts) and the unembedding: its least time on the card
-    step_bytes = 4 * (sum(t.numel() for lp in engine.params["layers"]
-                          for t in _leaves(lp))
-                      + engine.params["emb"]["lm_head"].numel())
-    expert_bytes = 4 * sum(lp[n].numel() for lp in engine.params["layers"]
-                           for n in ("we_gate_up", "we_down"))
+    step_bytes = (sum(_nbytes(lp) for lp in engine.params["layers"])
+                  + _nbytes(engine.params["emb"]["lm_head"]))
+    expert_bytes = sum(_nbytes(lp[n]) for lp in engine.params["layers"]
+                       for n in ("we_gate_up", "we_down"))
     print(json.dumps({"olmoe_engine": {k: getattr(stats, k) for k in (
         "n_requests", "new_tokens", "decode_rows_saved", "max_active",
         "mean_latency_s")}, "launches": launches,
@@ -2258,16 +2333,17 @@ def run_olmoe(summary: dict):
 
 
 def run_paged_engine(summary: dict, args, what: str, params,
-                     modes=("replayed",)) -> tuple:
-    """A full-width paged engine on ``params`` (weights drawn from the seed
-    when None; phases 5, 8 and 9): its three runs (``serve_modes``), its
-    checks (outputs, finite pools, a shared prefix hit, both paged kernels
-    launched and no plain version, no flash, decode horizons and prefill
-    rounds as graphs) and profiled runs of ``modes``. Returns (the engine,
-    its three runs' results, each paged kernel's launches in the captured
-    run)."""
-    engine, _, _ = serve_cli.build(args, params=params)
-    res = serve_modes(engine, args, what)
+                     modes=("replayed",), make=None, cfg=None) -> tuple:
+    """A full-width paged engine of ``args`` (running ``cfg`` when given)
+    on ``params`` (weights drawn from the seed when None; phases 5, 8, 9
+    and 13b), serving ``args``' requests (``make()``'s when given): its
+    three runs (``serve_modes``), its checks (outputs, finite pools, a
+    shared prefix hit, both paged kernels launched and no plain version,
+    no flash, decode horizons and prefill rounds as graphs) and profiled
+    runs of ``modes``. Returns (the engine, its three runs' results, each paged
+    kernel's launches in the captured run)."""
+    engine, _, _ = serve_cli.build(args, params=params, cfg=cfg)
+    res = serve_modes(engine, args, what, make)
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
     _check_outputs(what, engine, out, args.max_new)
@@ -2278,8 +2354,8 @@ def run_paged_engine(summary: dict, args, what: str, params,
                   and torch.isfinite(engine.pool.buffers.v_buf).all())
     # a decode step reads every weight but the (untied) embedding table
     emb = engine.params["emb"]
-    step_bytes = 4 * (sum(t.numel() for t in _leaves(engine.params))
-                      - ("lm_head" in emb) * emb["tok_emb"].numel())
+    step_bytes = (_nbytes(engine.params)
+                  - ("lm_head" in emb) * _nbytes(emb["tok_emb"]))
     print(json.dumps({"paged_engine": {"what": what, **{
         k: getattr(stats, k) for k in (
             "n_requests", "new_tokens", "preemptions", "prefix_hit_rate",
@@ -2305,7 +2381,7 @@ def run_paged_engine(summary: dict, args, what: str, params,
     summary[what] = _summary(res)
     phase("profile")
     summary[what]["busy_share"] = profile_engine(engine, args, res, "paged_",
-                                                 modes)
+                                                 modes, make)
     return engine, res, launches
 
 
@@ -2315,7 +2391,8 @@ def run_olmoe_paged(summary: dict, params) -> dict:
     launches in the captured run."""
     args = serve_cli.build_parser().parse_args(OLMOE_PAGED_ARGS)
     what = "olmoe-1b-7b paged"
-    engine, res, launches = run_paged_engine(summary, args, what, params)
+    engine, res, launches = run_paged_engine(summary, args, what, params,
+                                             cfg=olmoe_engine_cfg())
     out = res["captured"]["out"]
     summary[what]["prefix_cache"] = prefix_resume(
         params, out, res["captured"]["stats"])
@@ -2323,10 +2400,11 @@ def run_olmoe_paged(summary: dict, params) -> dict:
     return launches
 
 
-def _run_args(argv, params):
-    """Serve ``argv``'s request set once on a new engine over ``params``."""
+def _run_args(argv, params, cfg=None):
+    """Serve ``argv``'s request set once on a new engine over ``params``
+    (running ``cfg`` when given)."""
     args = serve_cli.build_parser().parse_args(argv)
-    engine, _, _ = serve_cli.build(args, params=params)
+    engine, _, _ = serve_cli.build(args, params=params, cfg=cfg)
     return engine.run(serve_cli.requests(args))
 
 
@@ -2342,15 +2420,16 @@ def prefix_resume(params, out, stats) -> dict:
     other lane and decode widths) and so its f32 GEMMs' shapes: tokens may
     part where two logits nearly tie (the request and the first token
     that differs)."""
+    cfg = olmoe_engine_cfg()
     cold, cold_stats = _run_args(OLMOE_PAGED_ARGS + ["--no-prefix-cache"],
-                                 params)
+                                 params, cfg)
     parted = {r.job_id: next(i for i, (a, b) in enumerate(
                   zip(r.output, c.output)) if a != b)
               for r, c in zip(out, cold) if r.output != c.output}
     one = OLMOE_PAGED_ARGS + ["--slots", "1", "--prefill-lanes", "1",
                               "--max-new", "16"]
-    warm, warm_stats = _run_args(one, params)
-    exact, exact_stats = _run_args(one + ["--no-prefix-cache"], params)
+    warm, warm_stats = _run_args(one, params, cfg)
+    exact, exact_stats = _run_args(one + ["--no-prefix-cache"], params, cfg)
     same = sum(a.output == b.output for a, b in zip(warm, exact))
     rec = {"four_slots": {"identical_requests": len(out) - len(parted),
                           "requests": len(out),
@@ -2539,11 +2618,13 @@ def _end_lease(pipe, ch, it, gen, ended, n: int) -> None:
 
 def run_synergy() -> dict:
     """Phase ``synergy`` (module docstring): the optimistic profiler live on
-    the card against phi-3-vision-4.2b's full-width train step (one
-    Trainer, remat "full": 61 GB of f32 weights, gradients and AdamW
-    moments), a lease update and a termination, then the simulator.
+    the card against phi-3-vision-4.2b's full-width train step at
+    ``SYN_LAYERS`` layers (one Trainer, remat "full": ~31 GB of f32
+    weights, gradients and AdamW moments), a lease update and a
+    termination, then the simulator.
     Returns the flash forward and backward launches."""
-    cfg = get_config("phi-3-vision-4.2b").replace(remat="full")
+    cfg = get_config("phi-3-vision-4.2b").replace(remat="full",
+                                                  n_layers=SYN_LAYERS)
     trainer = Trainer(cfg, TrainerConfig(warmup_steps=2),
                       rng=torch.Generator(device="cuda").manual_seed(0))
     cls = MODEL_ZOO[ARCH_SENSITIVITY[cfg.arch_id]]
@@ -2763,6 +2844,11 @@ def _leaves(tree):
         yield tree
 
 
+def _nbytes(tree) -> int:
+    """The bytes of a tree's tensors, each at its own element size."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
 #: profiled windows a run may take before incomplete ones fail it
 #: (``profile_complete``)
 PROFILE_ATTEMPTS = 4
@@ -2794,8 +2880,9 @@ def implied_events(engine, counts: dict) -> dict:
 
 
 def profile_engine(engine, args, res: dict, ours: str,
-                   modes=("replayed", "eager")) -> dict:
-    """torch.profiler over the engine phase's own request set (``args``) on
+                   modes=("replayed", "eager"), make=None) -> dict:
+    """torch.profiler over the engine phase's own request set (``args``,
+    or ``make()``'s) on
     ``engine``, whose signatures ``serve_modes`` captured: a replayed and an
     eager run, each profiled alone with every launch counter set to 0 just
     before. A window counts only when the profiler saw, of each
@@ -2812,13 +2899,14 @@ def profile_engine(engine, args, res: dict, ours: str,
     """
     print(f"profile {args.arch} {args.cache} ({time.strftime('%H:%M:%S')})",
           flush=True)
+    make = make or (lambda: serve_cli.requests(args))
     share = {}
     for mode in modes:
         runs, keys = [], len(engine.graphs.keys)
 
         def serve():
             ops.set_counts((0,) * len(ops.COUNTERS))
-            runs.append(engine.run(serve_cli.requests(args)))
+            runs.append(engine.run(make()))
 
         def missing(rec):
             counts = dict(zip(COUNTER_NAMES, ops.counts()))
@@ -3236,7 +3324,8 @@ def run_mamba2_engine(summary: dict) -> None:
 
 
 def run_recurrent_engine(summary: dict, argv, what: str, ours: str,
-                         params=None, modes=("replayed", "eager")) -> None:
+                         params=None, modes=("replayed", "eager"),
+                         cfg=None) -> None:
     """A full-width contiguous engine whose prefill replays one captured
     batch-1 decode step a prompt token (mamba2, zamba2, whisper), on
     ``params`` (weights drawn from the seed when None): its three runs
@@ -3245,9 +3334,9 @@ def run_recurrent_engine(summary: dict, argv, what: str, ours: str,
     — serving reaches neither the SSD scan nor flash, as in the reference
     — decode horizons and the recurrent step as graphs) and profiled runs
     of ``modes`` (``ours``: the name fragment of the kernels its forward
-    runs)."""
+    runs; ``cfg``, when given, the config the engine runs)."""
     args = serve_cli.build_parser().parse_args(argv)
-    engine, _, _ = serve_cli.build(args, params=params)
+    engine, _, _ = serve_cli.build(args, params=params, cfg=cfg)
     res = serve_modes(engine, args, what)
     out, stats, counts = (res["captured"][k]
                           for k in ("out", "stats", "launches"))
@@ -3422,8 +3511,12 @@ def run_zamba2(summary: dict) -> int:
         launches = rec["forward_launches"]
         del kernel, plain_path, cache, steps, logits
     phase("zamba2 engine")
+    cut = cfg.replace(n_layers=Z_ENGINE_LAYERS)
+    groups = Z_ENGINE_LAYERS // cfg.shared_attn_every
     run_recurrent_engine(summary, ZAMBA2_ARGS, "zamba2-7b contiguous",
-                         "ssd_scan_", params, modes=("replayed",))
+                         "ssd_scan_", {**params,
+                                       "groups": params["groups"][:groups]},
+                         modes=("replayed",), cfg=cut)
     return launches
 
 
@@ -3474,8 +3567,163 @@ def run_whisper(summary: dict) -> int:
         launches = rec["forward_launches"]
         del kernel, plain_path, cache, steps, logits
     phase("whisper engine")
-    run_recurrent_engine(summary, WHISPER_ARGS, "whisper-large-v3 contiguous",
-                         "flash_", params, modes=("replayed",))
+    run_recurrent_engine(
+        summary, WHISPER_ARGS, "whisper-large-v3 contiguous", "flash_",
+        {**params, "dec_layers": params["dec_layers"][:W_ENGINE_LAYERS]},
+        modes=("replayed",), cfg=cfg.replace(n_layers=W_ENGINE_LAYERS))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# gemma3-27b in bf16
+# ---------------------------------------------------------------------------
+#: the gemma3 engine's options (the serve CLI has no dtype flag, as the
+#: reference's has none: the engine runs ``gemma3_cfg`` and serves
+#: ``gemma3_requests``)
+G3_ARGS = ["--arch", "gemma3-27b", "--preset", "full", "--engine",
+           "continuous", "--cache", "paged", "--slots", str(G3_SLOTS),
+           "--batch", str(G3_N), "--block-size", str(BS), "--prefill-lanes",
+           str(G3_LANES), "--prompt-len", str(G3_LENGTHS[1] - G3_PREFIX),
+           "--shared-prefix", str(G3_PREFIX), "--max-new", str(G3_NEW),
+           "--max-len", str(G3_MAX_LEN), "--decode-horizon", "8", "--seed",
+           "0", "--device", "cuda"]
+
+
+def gemma3_cfg():
+    """gemma3-27b at full width and depth, weights and activations bf16."""
+    return get_config("gemma3-27b").replace(dtype="bfloat16",
+                                            param_dtype="bfloat16")
+
+
+def gemma3_requests() -> list:
+    """``G3_N`` prompts of ``G3_LENGTHS`` tokens (uniform, seeded), each a
+    shared ``G3_PREFIX``-token prefix and its own tail, ``G3_NEW`` new
+    tokens each (the same set on every call)."""
+    rng = np.random.default_rng(0)
+    vocab = get_config("gemma3-27b").vocab_size
+    prefix = rng.integers(1, vocab, size=G3_PREFIX).astype(np.int32)
+    reqs = []
+    for _ in range(G3_N):
+        n = int(rng.integers(G3_LENGTHS[0], G3_LENGTHS[1] + 1)) - G3_PREFIX
+        tail = rng.integers(1, vocab, size=n).astype(np.int32)
+        reqs.append(ServeRequest(np.concatenate([prefix, tail]),
+                                 max_new_tokens=G3_NEW))
+    return reqs
+
+
+def teacher_forced(cfg, params, out) -> dict:
+    """Each request's first generated token against the argmax of
+    ``Model.forward``'s logits at its prompt's last position (the dense
+    forward's plain attention, the same weights), wherever that forward's
+    top-2 margin exceeds ``G3_TOL`` of its largest |logit|; fails on a
+    held mismatch, or when no request is held."""
+    model, held, skipped = build_model(cfg), 0, 0
+    with torch.inference_mode():
+        for r in out:
+            prompt = torch.as_tensor(r.prompt, dtype=torch.int32,
+                                     device="cuda")[None]
+            logits = model.forward(params, {"tokens": prompt})[0, -1].float()
+            top = logits.topk(2).values
+            if (top[0] - top[1]).item() <= G3_TOL * logits.abs().max().item():
+                skipped += 1
+                continue
+            held += 1
+            top = int(logits.argmax())
+            if top != r.output[0]:
+                raise SystemExit(f"FAIL: gemma3-27b: request {r.job_id}'s "
+                                 f"first token {r.output[0]}, the forward's "
+                                 f"argmax {top}")
+    rec = {"held": held, "skipped": skipped, "margin": G3_TOL}
+    print(f"gemma3-27b teacher-forced first tokens: {held} held, {skipped} "
+          f"skipped (top-2 margin under {G3_TOL} of the largest |logit|)",
+          flush=True)
+    if not held:
+        raise SystemExit("FAIL: gemma3-27b: no request's forward margin "
+                         "held its first token")
+    return rec
+
+
+def banded_vs_scanned(cfg, params) -> dict:
+    """``Model.forward`` on [1, ``G3_S``] seeded tokens with
+    ``local_banded`` and without, each timed twice after a warm-up (CUDA
+    events) with its peak memory; the banded logits must lie within
+    ``G3_TOL`` of the scanned ones' largest |logit| (compared in slices of
+    positions); argmax agreement is printed."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, G3_S),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)}
+    models = {"scanned": build_model(cfg),
+              "banded": build_model(cfg.replace(local_banded=True))}
+    ms = {k: [] for k in models}
+    peak, logits = {}, {}
+    with torch.inference_mode():
+        for rep in range(3):                     # the first warms up
+            for name, model in models.items():
+                logits.pop(name, None)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits[name] = model.forward(params, batch)[0]
+                end.record()
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated()
+                if rep:
+                    ms[name].append(start.elapsed_time(end))
+        band, scan = logits["banded"], logits["scanned"]
+        scale = scan.abs().max().float().item()
+        gap = max((band[i:i + 256].float() - scan[i:i + 256].float())
+                  .abs().max().item() for i in range(0, G3_S, 256))
+        agree = (band.argmax(-1) == scan.argmax(-1)).sum().item()
+        finite = bool(torch.isfinite(band).all() and
+                      torch.isfinite(scan).all())
+    rec = {"tokens": G3_S, "ms": ms, "peak_bytes": peak,
+           "max_abs_gap": gap, "max_abs_logit": scale,
+           "gap_over_max": gap / scale, "argmax_agreement": agree,
+           "positions": G3_S, "finite": finite}
+    print(json.dumps({"gemma3_banded_vs_scanned": rec}), flush=True)
+    if not finite or gap > G3_TOL * scale:
+        raise SystemExit(f"FAIL: gemma3-27b: the banded forward's logits "
+                         f"part from the scanned ones by {gap} (largest "
+                         f"|logit| {scale}, tolerance {G3_TOL} of it)")
+    return rec
+
+
+def run_gemma3(summary: dict) -> dict:
+    """gemma3-27b at full width in bf16 (module docstring, phase 13b): its
+    paged engine through ``run_paged_engine``, the teacher-forced first
+    tokens, and the banded forward against the scanned one. Returns each
+    paged kernel's launches in the engine's captured run."""
+    what = "gemma3-27b paged"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = gemma3_cfg()
+    args = serve_cli.build_parser().parse_args(G3_ARGS)
+    engine, res, launches = run_paged_engine(
+        summary, args, what, None, make=gemma3_requests, cfg=cfg)
+    engine_peak = torch.cuda.max_memory_allocated()
+    params = engine.params
+    weights = _nbytes(params)
+    print(f"gemma3-27b bf16 weights: {weights} bytes "
+          f"({weights / 2**30:.2f} GiB), "
+          f"{sum(t.numel() for t in _leaves(params))} parameters; card "
+          f"total {torch.cuda.get_device_properties(0).total_memory} bytes",
+          flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = summary[what]
+    rec["teacher_forced"] = teacher_forced(cfg, params,
+                                           res["captured"]["out"])
+    del res
+    rec["banded_vs_scanned"] = banded_vs_scanned(cfg, params)
+    rec.update(weight_bytes=weights, engine_peak_bytes=engine_peak,
+               phase_s=time.perf_counter() - t0)
+    print(json.dumps({"gemma3_phase": {k: rec[k] for k in (
+        "weight_bytes", "engine_peak_bytes", "phase_s")}}), flush=True)
     return launches
 
 
@@ -3509,34 +3757,55 @@ def _fail_dry(what: str) -> None:
 def run_dryrun() -> dict:
     """Phase ``dryrun`` (module docstring, phase 14): the dry-run's sweep
     at decode_32k on the pod mesh, then one record made real on the card
-    and held to what it predicted."""
+    and held to what it predicted, as the reference's config has it and
+    with ``gqa_no_repeat``."""
     for arch in ARCH_IDS:
         rec, _ = dryrun.lower_combo(arch, DRY_SHAPE, False, probe=False)
         print(f"dryrun {arch} {DRY_SHAPE} pod {rec['mesh_shape']}: "
               f"{_dry_line(rec)}", flush=True)
+    out = {name: dry_on_card(name, knobs) for name, knobs in DRY_KNOBS}
+    base, grouped = (out[name] for name, _ in DRY_KNOBS)
+    print(f"dryrun {DRY_ARCH} {DRY_SHAPE}: gqa_no_repeat step "
+          f"{grouped['step_ms']:.3f} ms against {base['step_ms']:.3f} "
+          f"({grouped['step_ms'] / base['step_ms']:.4f}x), peak "
+          f"{grouped['peak_bytes']} against {base['peak_bytes']} bytes, "
+          f"dry-run bytes {grouped['bytes_per_chip']:.0f} against "
+          f"{base['bytes_per_chip']:.0f}", flush=True)
+    return out
 
+
+#: the dryrun phase's two records made real: the reference config's, and
+#: with the KV repeat of ``mha`` removed (``gqa_no_repeat``)
+DRY_KNOBS = (("repeat", {}), ("gqa_no_repeat", {"gqa_no_repeat": True}))
+
+
+def dry_on_card(name: str, knobs: dict) -> dict:
+    """``DRY_ARCH`` at ``DRY_SHAPE`` with ``knobs`` on the card's host mesh
+    (1, 1) at the largest depth whose predicted peak fits, made real and
+    held to its record (module docstring, phase 14)."""
     total = torch.cuda.get_device_properties(0).total_memory
     full = get_config(DRY_ARCH).n_layers
     for n_layers in range(full, 0, -1):
-        extra = None if n_layers == full else {"n_layers": n_layers}
+        extra = dict(knobs, **({} if n_layers == full
+                               else {"n_layers": n_layers}))
         rec, prog = dryrun.lower_combo(DRY_ARCH, DRY_SHAPE, False,
                                        probe=False, mesh_kind="host",
-                                       ranks=1, extra_cfg=extra)
+                                       ranks=1, extra_cfg=extra or None)
         if rec["memory_stats"]["peak_bytes"] < DRY_FIT * total:
             break
-        print(f"dryrun: {n_layers} layers predict a peak of "
+        print(f"dryrun {name}: {n_layers} layers predict a peak of "
               f"{rec['memory_stats']['peak_bytes']} bytes, over "
               f"{DRY_FIT} of the card's {total}", flush=True)
     else:
-        _fail_dry("no depth fits the card")
+        _fail_dry(f"{name}: no depth fits the card")
     mem = rec["memory_stats"]
-    print(f"dryrun {DRY_ARCH} {DRY_SHAPE} host {rec['mesh_shape']}, "
+    print(f"dryrun {DRY_ARCH} {DRY_SHAPE} {name} host {rec['mesh_shape']}, "
           f"{n_layers} of {full} layers (predicted peak {mem['peak_bytes']} "
           f"bytes, {mem['peak_bytes'] / total:.4f} of {total}): "
           f"{_dry_line(rec)}", flush=True)
     if rec["kernels"] or rec["n_chips"] != 1:
-        _fail_dry(f"the record runs kernels {sorted(rec['kernels'])} on "
-                  f"{rec['n_chips']} GPUs")
+        _fail_dry(f"{name}: the record runs kernels {sorted(rec['kernels'])} "
+                  f"on {rec['n_chips']} GPUs")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3546,11 +3815,11 @@ def run_dryrun() -> dict:
     args = materialize(prog.args, gen, prog.cfg.vocab_size)
     torch.cuda.synchronize()
     placed = torch.cuda.memory_allocated() - base
-    out = {"layers": n_layers, "argument_bytes": mem["argument_bytes"],
-           "placed_bytes": placed}
+    out = {"knobs": knobs, "layers": n_layers,
+           "argument_bytes": mem["argument_bytes"], "placed_bytes": placed}
     if abs(placed - mem["argument_bytes"]) > DRY_ARG_TOL * mem[
             "argument_bytes"]:
-        _fail_dry(f"{placed} bytes placed against argument_bytes "
+        _fail_dry(f"{name}: {placed} bytes placed against argument_bytes "
                   f"{mem['argument_bytes']}")
 
     with prog.rules():
@@ -3558,8 +3827,8 @@ def run_dryrun() -> dict:
         want = (args[-1].shape[0], 1, prog.cfg.vocab_size)
         if (tuple(logits.shape) != want
                 or not torch.isfinite(logits).all()):
-            _fail_dry(f"logits {tuple(logits.shape)} not finite or not "
-                      f"{list(want)}")
+            _fail_dry(f"{name}: logits {tuple(logits.shape)} not finite or "
+                      f"not {list(want)}")
         del logits
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3581,28 +3850,30 @@ def run_dryrun() -> dict:
                peak_bytes=peak, dry_peak_bytes=mem["peak_bytes"],
                peak_ratio=peak / mem["peak_bytes"],
                bytes_per_chip=rec["bytes_per_chip"])
-    print(f"dryrun on the card: step {1e3 * step_s:.3f} ms (median of "
-          f"{DRY_REPS}), memory_s {1e3 * rec['memory_s']:.3f} ms, ratio "
+    print(f"dryrun {name} on the card: step {1e3 * step_s:.3f} ms (median "
+          f"of {DRY_REPS}), memory_s {1e3 * rec['memory_s']:.3f} ms, ratio "
           f"{step_s / rec['memory_s']:.4f}; peak {peak} bytes against the "
           f"dry-run's {mem['peak_bytes']} ({peak / mem['peak_bytes']:.4f}); "
           f"FLOPs {flops} against {rec['flops_per_chip']:.0f}; arguments "
-          f"{placed} bytes placed against {mem['argument_bytes']}",
-          flush=True)
+          f"{placed} bytes placed against {mem['argument_bytes']}; dry-run "
+          f"bytes {rec['bytes_per_chip']:.0f}", flush=True)
     print(json.dumps({"dryrun_phase": out}), flush=True)
     del args
+    gc.collect()
+    torch.cuda.empty_cache()
     if flops != rec["flops_per_chip"]:
-        _fail_dry(f"the card's step counts {flops} FLOPs, the dry-run "
-                  f"{rec['flops_per_chip']}")
+        _fail_dry(f"{name}: the card's step counts {flops} FLOPs, the "
+                  f"dry-run {rec['flops_per_chip']}")
     if step_s < DRY_ARGS_FLOOR * mem["argument_bytes"] / HBM_BPS:
-        _fail_dry(f"a step of {step_s} s is under {DRY_ARGS_FLOOR} x the "
-                  f"arguments' {mem['argument_bytes']} bytes over HBM")
+        _fail_dry(f"{name}: a step of {step_s} s is under {DRY_ARGS_FLOOR} "
+                  f"x the arguments' {mem['argument_bytes']} bytes over HBM")
     if step_s < DRY_MEMORY_FLOOR * rec["memory_s"]:
-        _fail_dry(f"a step of {step_s} s is under {DRY_MEMORY_FLOOR} x the "
-                  f"dry-run's memory_s {rec['memory_s']} s: the byte count "
-                  "counts too much")
+        _fail_dry(f"{name}: a step of {step_s} s is under "
+                  f"{DRY_MEMORY_FLOOR} x the dry-run's memory_s "
+                  f"{rec['memory_s']} s: the byte count counts too much")
     if abs(peak / mem["peak_bytes"] - 1) > DRY_PEAK_TOL:
-        _fail_dry(f"the measured peak {peak} is not within {DRY_PEAK_TOL} "
-                  f"of the dry-run's {mem['peak_bytes']}")
+        _fail_dry(f"{name}: the measured peak {peak} is not within "
+                  f"{DRY_PEAK_TOL} of the dry-run's {mem['peak_bytes']}")
     return out
 
 
@@ -3868,7 +4139,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("synergy")
-    del model, params               # the trainer draws the same weights
+    del model, params               # the trainer draws its own, seeded
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3915,6 +4186,13 @@ def main() -> int:
         summary)
     gc.collect()
     torch.cuda.empty_cache()
+
+    phase("gemma3-27b")
+    for name, n in run_gemma3(summary).items():
+        paths[name]["gemma3-27b paged"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("dryrun")
     t0 = time.perf_counter()
     run_dryrun()

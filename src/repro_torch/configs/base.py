@@ -1,7 +1,7 @@
-"""Architecture configuration schema (a trimmed copy of ``repro.configs.base``).
+"""Architecture configuration schema (a copy of ``repro.configs.base``).
 
-Only the fields the port's paths read are kept (the dense, VLM, MoE, SSM,
-hybrid and encoder-decoder families).
+Every field of the reference's is here, so its configs carry over;
+``unroll`` and ``use_pallas`` are accepted and change nothing in the port.
 """
 from __future__ import annotations
 
@@ -62,6 +62,19 @@ class ArchConfig:
     # -- numerics -------------------------------------------------------------
     dtype: str = "float32"           # activation dtype
     param_dtype: str = "float32"
+    decode_attention: str = "contiguous"  # decode-attention backend per
+                                     # layer: contiguous (one [B, max_len]
+                                     # cache row per slot) | paged
+                                     # (block-pool KV behind a per-request
+                                     # block table — serving); a cache of
+                                     # the other kind raises
+                                     # (layers.plan_decode_backend)
+    use_pallas: bool = False         # accepted and ignored, so the
+                                     # reference's configs carry over: it
+                                     # routes its hot spots through Pallas
+                                     # kernels; the port routes by device
+                                     # (kernels/ops.py), and a CUDA tensor
+                                     # always launches the kernel
     moe_gather_dispatch: bool = False  # MoE dispatch via int32 slot->token
                                      # indices + a gather, instead of a
                                      # scatter-add of the feature rows
@@ -77,6 +90,13 @@ class ArchConfig:
                                      # analysis counts a while body once);
                                      # the port's layer loops are Python,
                                      # so every layer runs and is counted
+
+    # -- beyond-paper perf knobs ----------------------------------------------
+    local_banded: bool = False       # banded (block-local) attention for
+                                     # sliding-window layers: O(S*2W) scores
+                                     # instead of O(S^2)
+    gqa_no_repeat: bool = False      # grouped GQA einsum without KV repeat
+                                     # (when kv heads divide the model axis)
 
     # -- Synergy workload class (the paper's Fig. 2 families) ----------------
     sens_class: str = "language"     # image | language | speech

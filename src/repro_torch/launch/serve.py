@@ -346,13 +346,16 @@ def requests(args) -> List[ServeRequest]:
                          shared_prefix=args.shared_prefix)
 
 
-def build(args, params=None) -> Tuple[ServeEngine, List[ServeRequest],
-                                     Optional[dict]]:
+def build(args, params=None, cfg=None) -> Tuple[ServeEngine,
+                                               List[ServeRequest],
+                                               Optional[dict]]:
     """The engine, the request set (tenant tags included) and the tenants'
     profiles (None without tenants) that ``args`` describe, with the
     tracer, profiler and profile store of the flags; the engine serves
-    ``params`` when given, else weights drawn on its device."""
-    cfg = get_config(args.arch, smoke=args.preset == "smoke")
+    ``params`` when given, else weights drawn on its device, and runs
+    ``cfg`` when given (a config of ``args.arch`` that the flags cannot
+    name, such as a cut depth), else the arch at ``args.preset``."""
+    cfg = cfg or get_config(args.arch, smoke=args.preset == "smoke")
     reqs = requests(args)
     n_slots = args.slots if args.engine == "continuous" else None
     store = (ProfileStore.load(args.profile_store) if args.profile_store
@@ -448,7 +451,8 @@ def verify(args, engine: ServeEngine, out: List[ServeRequest]) -> List[int]:
     engine, contiguous cache, ``decode_horizon=1``, the same weights
     (``repro/launch/serve.py:405-425``). Returns the indices of the
     requests whose tokens differ."""
-    ref_engine = ServeEngine(engine.cfg, params=engine.full_params(),
+    ref_cfg = engine.cfg.replace(decode_attention="contiguous")
+    ref_engine = ServeEngine(ref_cfg, params=engine.full_params(),
                              max_len=args.max_len, decode_horizon=1,
                              eos_token=args.eos_token, device=engine.device)
     ref = [ServeRequest(r.prompt.copy(), max_new_tokens=r.max_new_tokens)

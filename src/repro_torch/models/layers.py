@@ -186,9 +186,13 @@ def _qkv(p, cfg, x):
 
 def plan_attention_scheme(cfg, b: int, s: int, kv_len: int):
     """The layer's attention scheme (``layers.py:126-140``): the reference's
-    ``attention_scheme`` at the effective (padded) q head count and the
-    attended length; None off the mesh."""
-    return shd.attention_scheme(b, s, cfg.n_heads_eff, kv_len)
+    ``attention_scheme`` at the head count the score einsum contracts over
+    (the KV heads under ``gqa_no_repeat`` with a group above 1, else the
+    effective, padded q heads) and the attended length; None off the
+    mesh."""
+    nh, nkv = cfg.n_heads_eff, cfg.n_kv_heads
+    heads = nkv if cfg.gqa_no_repeat and nh // max(nkv, 1) > 1 else nh
+    return shd.attention_scheme(b, s, heads, kv_len)
 
 
 def kv_heads_read(cfg, n_q: int, n_kv: int) -> Optional[slice]:
@@ -212,16 +216,30 @@ def _heads_sum(p, cfg, out):
     return y
 
 
-def mha(q, k, v, mask):
+def mha(q, k, v, mask, no_repeat: bool = False):
     """Grouped-query attention core. q: [B, Sq, Hq, D], k/v: [B, Sk, Hkv, D],
     mask (True = attend) broadcastable to [B, Hq, Sq, Sk]. KV heads repeat
-    to the q-head count (head h reads kv head h // G)."""
-    d = q.shape[-1]
-    g = q.shape[2] // k.shape[2]
+    to the q-head count (head h reads kv head h // G); with ``no_repeat``
+    and G > 1 the score and value einsums contract each KV head against
+    its group of q heads instead (``layers.py:216-238``): q is viewed as
+    [B, Sq, Hkv, G, D] and the KV heads are never repeated; a 4-d mask
+    [B, 1|H, 1|Q, K] gains the group axis."""
+    b, sq, hq, d = q.shape
+    g = hq // k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    if no_repeat and g > 1:
+        qg = q.reshape(b, sq, k.shape[2], g, d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+        if mask is not None:
+            logits = logits.masked_fill(
+                ~(mask[:, :, None] if mask.dim() == 4 else mask), NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return out.reshape(b, sq, hq, d)
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(d))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -231,6 +249,10 @@ def mha(q, k, v, mask):
 # ---------------------------------------------------------------------------
 # Paged decode-attention backend
 # ---------------------------------------------------------------------------
+#: the decode-attention backends a layer selects between (``layers.py:263``)
+DECODE_BACKENDS = ("contiguous", "paged")
+
+
 class PagedKV(NamedTuple):
     """One layer's paged decode cache: block-pool K/V plus the block table.
 
@@ -253,6 +275,24 @@ class PagedKV(NamedTuple):
     @property
     def v(self) -> torch.Tensor:
         return self.v_buf[:-1]
+
+
+def plan_decode_backend(cfg, kv_cache) -> str:
+    """The decode-attention backend of one layer call (``layers.py:279-296``):
+    the cache the caller threads in, which must agree with
+    ``cfg.decode_attention`` — a paged cache reaching a layer whose config
+    says contiguous (or the reverse) is a wiring fault, not a fallback.
+    Raises ``ValueError`` on that and on an unknown backend."""
+    if cfg.decode_attention not in DECODE_BACKENDS:
+        raise ValueError(
+            f"unknown decode_attention {cfg.decode_attention!r}; "
+            f"known: {DECODE_BACKENDS}")
+    backend = "paged" if isinstance(kv_cache, PagedKV) else "contiguous"
+    if kv_cache is not None and backend != cfg.decode_attention:
+        raise ValueError(
+            f"decode cache is {backend} but cfg.decode_attention is "
+            f"{cfg.decode_attention!r}")
+    return backend
 
 
 def paged_kv_write(pkv: PagedKV, k, v, positions, valid=None) -> None:
@@ -289,7 +329,10 @@ def paged_decode_attention(cfg, q, k, v, pkv: PagedKV, positions, window: int,
     positions from the write, their query rows are discarded by the
     caller). CUDA tensors launch the kernels, CPU tensors take their plain
     versions. ``heads`` (``kv_heads_read``) attends over those KV heads of
-    the pool only. Returns the attention output [B, C, Hq, D]."""
+    the pool only. Both routes read each KV head once for its group of q
+    heads, so ``cfg.gqa_no_repeat`` (the reference's grouped ``mha`` on its
+    plain paged path, ``layers.py:374``) changes nothing here. Returns the
+    attention output [B, C, Hq, D]."""
     c = q.shape[1]
     paged_kv_write(pkv, k, v, positions, valid)
     kp, vp = pkv.k, pkv.v
@@ -382,6 +425,9 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
         ``mha``, no position applied, and nothing is cached.
     Self-attention that is not causal (the encoder's) runs on plain
     ``mha``, as in the reference (``layers.py:481``).
+    The cache must be of ``cfg.decode_attention``'s kind
+    (``plan_decode_backend`` raises otherwise); ``cfg.gqa_no_repeat``
+    contracts every plain ``mha`` call grouped, without the KV repeat.
     ``kv_valid`` masks K/V writes: [B, C] chunk validity for paged prefill
     lanes, or a [B, 1] per-row freeze mask for decode. ``flash=False``
     keeps the no-cache branch on plain ``mha``, as the reference's dense
@@ -389,18 +435,20 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    no_repeat = cfg.gqa_no_repeat
+    backend = plan_decode_backend(cfg, kv_cache)
     if cross_kv is not None:         # q only: k and v come precomputed
         q = x @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
-        out = mha(q.reshape(b, s, -1, hd), *cross_kv, None)
+        out = mha(q.reshape(b, s, -1, hd), *cross_kv, None, no_repeat)
         return _heads_sum(p, cfg, out.reshape(b, s, -1)), None
     q, k, v = _qkv(p, cfg, x)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     heads = kv_heads_read(cfg, q.shape[2], k.shape[2])
-    if isinstance(kv_cache, PagedKV):
+    if backend == "paged":
         out = paged_decode_attention(cfg, q, k, v, kv_cache, positions,
                                      window, valid=kv_valid, heads=heads)
         return (_heads_sum(p, cfg, out.reshape(b, s, -1)),
@@ -417,7 +465,7 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
         mask = valid[None, :] if valid.dim() == 1 else valid[:, None, None, :]
         if heads is not None:
             ck, cv = ck[:, :, heads], cv[:, :, heads]
-        out = mha(q, ck, cv, mask)
+        out = mha(q, ck, cv, mask, no_repeat)
         return _heads_sum(p, cfg, out.reshape(b, s, -1)), (ck, cv)
     ka, va = (k, v) if heads is None else (k[:, :, heads].contiguous(),
                                            v[:, :, heads].contiguous())
@@ -430,7 +478,7 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
             mask &= pos[:, None] >= pos[None, :]
         if window:
             mask &= pos[:, None] - pos[None, :] < window
-        out = mha(q, ka, va, mask)
+        out = mha(q, ka, va, mask, no_repeat)
     return _heads_sum(p, cfg, out.reshape(b, s, -1)), (k, v)
 
 

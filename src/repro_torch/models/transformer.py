@@ -3,7 +3,8 @@ ported from ``repro/models/transformer.py``.
 
 Parameters are a dict with a list of per-layer dicts (the reference stacks
 them along a leading axis for ``lax.scan``; here the scan is a Python loop).
-Gemma3's local:global pattern is a per-layer window list (0 = global).
+Gemma3's local:global pattern is a per-layer window list (0 = global);
+``cfg.local_banded`` runs its local layers on banded scores instead.
 The VLM family (phi-3-vision) is this model with a stub vision frontend:
 ``forward`` takes precomputed patch embeddings that replace the first
 ``n_patches`` positions; serving is text-only, as in the reference.
@@ -17,6 +18,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -80,6 +82,119 @@ def _layer(cfg, p, x, positions, window: int, kv_cache=None, cache_pos=None,
 
 
 # ---------------------------------------------------------------------------
+# banded local attention (cfg.local_banded; transformer.py:113-226)
+#
+# A sliding-window layer never needs the full S x S scores: its queries are
+# blocked into W-sized chunks, each attending to its own chunk and the one
+# before, O(S * 2W) scores instead of O(S^2). The window must be static, so
+# the layers run in groups of (every - 1) banded local layers and one
+# global layer, then the trailing local layers, in the scanned order.
+# ---------------------------------------------------------------------------
+def _band_spec(b: int, h: int):
+    """The reference's constraint on the blocked q and K/V
+    (``transformer.py:146-154``): batch over 'batch', heads over
+    'heads_flat' where they divide; None off the mesh (``shard_spec`` is
+    a no-op in the port either way: local tensors hold their layout)."""
+    rules = shd.current_rules()
+    if rules is None:
+        return None
+    m_ax = rules.mesh_axes("heads_flat")
+    if h % max(rules.axis_size(m_ax), 1):
+        m_ax = None
+    b_ax = rules.mesh_axes("batch")
+    if b % max(rules.axis_size(b_ax), 1):
+        b_ax = None
+    return shd.Spec(b_ax, None, None, m_ax, None)
+
+
+def _banded_attention(cfg, p, x, positions, window: int):
+    """Causal attention within ``window`` over x [B, S, D], S a multiple of
+    the window: query block n attends to blocks n - 1 and n of a K/V padded
+    with one zero block in front ([B, nb, 2W, H, D]), under the band mask
+    ``(a < c) & (c <= a + W)`` with block 0's padding excluded. KV heads
+    repeat to the q heads, as in the reference."""
+    b, s, _ = x.shape
+    w = window
+    nb = s // w
+    q, k, v = L._qkv(p, cfg, x)
+    if cfg.pos_emb == "rope":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    heads = L.kv_heads_read(cfg, q.shape[2], k.shape[2])
+    if heads is not None:
+        k, v = k[:, :, heads], v[:, :, heads]
+    h, hd = q.shape[2], q.shape[3]
+    if h != k.shape[2]:
+        k = k.repeat_interleave(h // k.shape[2], dim=2)
+        v = v.repeat_interleave(h // v.shape[2], dim=2)
+    qb = q.reshape(b, nb, w, h, hd)
+    pad = k.new_zeros((b, w, h, hd))
+    kp = torch.cat([pad, k], dim=1).reshape(b, nb + 1, w, h, hd)
+    vp = torch.cat([pad, v], dim=1).reshape(b, nb + 1, w, h, hd)
+    k2 = torch.cat([kp[:, :-1], kp[:, 1:]], dim=2)          # [b,nb,2w,h,hd]
+    v2 = torch.cat([vp[:, :-1], vp[:, 1:]], dim=2)
+    spec = _band_spec(b, h)
+    if spec is not None:
+        qb, k2, v2 = (shd.shard_spec(t, spec) for t in (qb, k2, v2))
+    logits = (torch.einsum("bnqhd,bnkhd->bnhqk", qb, k2).float()
+              * (1.0 / hd ** 0.5))
+    a = torch.arange(w, device=x.device)[:, None]
+    c = torch.arange(2 * w, device=x.device)[None, :]
+    band = (a < c) & (c <= a + w)                           # causal + window
+    blk = torch.arange(nb, device=x.device)[:, None, None]
+    mask = band[None] & ((blk > 0) | (c[None] >= w))        # exclude padding
+    logits = logits.masked_fill(~mask[:, None], L.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, v2)
+    return L._heads_sum(p, cfg, out.reshape(b, s, h * hd))
+
+
+def _local_layer_banded(cfg, p, x, positions, window: int):
+    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + _banded_attention(cfg, p["attn"], h, positions, window)
+    h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, cfg.d_ff)
+
+
+def _grouped_layout(cfg):
+    """(n_groups, group_size, n_trailing) of the local / global split."""
+    every = cfg.global_every
+    groups = cfg.n_layers // every
+    return groups, every, cfg.n_layers - groups * every
+
+
+def forward_banded(cfg, params, tokens, patch_embeds=None):
+    """The grouped forward (``transformer.py:193-226``): per group, every -
+    1 banded local layers and one global layer, then the trailing local
+    layers; the scanned path's layer order and function, with only the
+    local layers' scores banded. ``cfg.remat`` wraps each group, as the
+    reference checkpoints its group body; the trailing layers are not
+    recomputed."""
+    x = L.embed(params["emb"], cfg, tokens)
+    if patch_embeds is not None:
+        n = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    groups, every, _ = _grouped_layout(cfg)
+    w = cfg.sliding_window
+    layers = params["layers"]
+
+    def group_body(x, *group):
+        for p in group[:-1]:
+            x = _local_layer_banded(cfg, p, x, positions, w)
+        return _layer(cfg, group[-1], x, positions, 0)[0]
+
+    group_body = L.remat(cfg, group_body)
+    for i in range(groups):
+        x = group_body(x, *layers[i * every:(i + 1) * every])
+    for p in layers[groups * every:]:
+        x = _local_layer_banded(cfg, p, x, positions, w)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["emb"], cfg, x)
+
+
+# ---------------------------------------------------------------------------
 # forward (one pass over a full sequence: training, one-pass prefill, and the
 # reference for chunked paths)
 # ---------------------------------------------------------------------------
@@ -88,7 +203,16 @@ def forward(cfg, params, tokens, patch_embeds=None,
     """tokens: [B, S] int -> logits [B, S, V] (and, with ``return_cache``,
     the per-layer post-RoPE (k, v) stacked ``[L, B, S, Hkv, D]``).
     ``patch_embeds`` [B, P, D] (VLM) replace the embeddings of the first P
-    positions (``transformer.py:231-246``)."""
+    positions (``transformer.py:231-246``). With ``cfg.local_banded``, a
+    sliding window, ``global_every`` and S a multiple of the window, the
+    grouped banded forward runs (``forward_banded``; it has no prefill
+    cache: ``return_cache`` raises ``NotImplementedError``); otherwise
+    every layer runs in order here."""
+    if (cfg.local_banded and cfg.sliding_window and cfg.global_every
+            and tokens.shape[1] % cfg.sliding_window == 0):
+        if return_cache:
+            raise NotImplementedError("banded path has no prefill cache yet")
+        return forward_banded(cfg, params, tokens, patch_embeds)
     x = L.embed(params["emb"], cfg, tokens)
     if patch_embeds is not None:
         n = patch_embeds.shape[1]

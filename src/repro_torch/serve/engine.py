@@ -320,10 +320,14 @@ class ServeEngine:
         if cache not in CACHE_BACKENDS:
             raise ValueError(f"unknown cache backend {cache!r}; "
                              f"known: {CACHE_BACKENDS}")
-        if cache == "paged" and cfg.family not in _ATTN_FAMILIES:
-            raise ValueError(
-                f"cache='paged' needs an attention family (got "
-                f"{cfg.family!r}: recurrent state is O(1))")
+        if cache == "paged":
+            if cfg.family not in _ATTN_FAMILIES:
+                raise ValueError(
+                    f"cache='paged' needs an attention family (got "
+                    f"{cfg.family!r}: recurrent state is O(1))")
+            # every layer checks its cache against this
+            # (layers.plan_decode_backend), as the reference's engine sets it
+            cfg = cfg.replace(decode_attention="paged")
         if policy == "slo" and tenants is None:
             raise ValueError("policy='slo' needs a TenantRegistry "
                              "(tenants=...) to compute slack")

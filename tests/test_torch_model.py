@@ -118,7 +118,7 @@ def _prefill_both(arch):
     Returns (jax cache, port cache, per-lane final logits of each)."""
     jcfg, jparams, tparams = _pair(arch)
     jm = jax_build(jcfg)
-    tm = build_model(get_config(arch, smoke=True))
+    tm = build_model(get_config(arch, smoke=True, decode_attention="paged"))
     jcache = jm.init_paged_cache(NB, BS)
     tcache = tm.init_paged_cache(NB, BS, device="cpu")
     prompts = _prompts(jcfg.vocab_size)
@@ -158,7 +158,7 @@ def test_paged_decode_steps_match_jax(arch):
     all--1 padding row; step 2 masks lane 1's KV write."""
     jcfg, jparams, tparams = _pair(arch)
     jm = jax_build(jcfg)
-    tm = build_model(get_config(arch, smoke=True))
+    tm = build_model(get_config(arch, smoke=True, decode_attention="paged"))
     jcache, tcache, jlast, _, prompts = _prefill_both(arch)
     tables = np.concatenate([TABLES, np.full((1, MB), -1, np.int32)])
     tok = np.array([[int(jlast[0].argmax())], [int(jlast[1].argmax())], [0]],

@@ -96,7 +96,8 @@ def _prefill_both(cf):
     every round's logits and counts. Returns (jax cache, port cache, the
     lanes' last logits of each, the final counts of each)."""
     jcfg, cfg = _configs(cf)
-    jm, tm = jax_build(jcfg), build_model(cfg)
+    jm, tm = jax_build(jcfg), build_model(cfg.replace(
+        decode_attention="paged"))
     jp = jax.tree_util.tree_map(jnp.asarray, _numpy_params())
     tp = params_from_jax(_numpy_params(), device="cpu")
     jcache = jm.init_paged_cache(NB, BS)
@@ -159,7 +160,8 @@ def test_paged_decode_steps_match_jax():
     """Three decode steps over the prefilled tables and the padding row;
     step 1 masks lane 1's KV write."""
     jcfg, cfg = _configs()
-    jm, tm = jax_build(jcfg), build_model(cfg)
+    jm, tm = jax_build(jcfg), build_model(cfg.replace(
+        decode_attention="paged"))
     jp = jax.tree_util.tree_map(jnp.asarray, _numpy_params())
     tp = params_from_jax(_numpy_params(), device="cpu")
     jcache, tcache, jlast, _, _ = _prefill_both(1.25)
