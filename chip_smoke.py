@@ -77,7 +77,20 @@ Phases, each printed as it runs; any failure exits non-zero:
                  chunk that halves, and torch.profiler's count of one
                  backward call at mamba2's shape (three launches: the
                  reversed states, their pass, the fused chunk pass; no
-                 ssd_scan_chunk_kernel);
+                 ssd_scan_chunk_kernel); then the paged decode (W 8) and
+                 prefill ([4, 16]) in their partial mode at the kv-seq
+                 rank shape (14 / 2 heads of 64; 16-position blocks split
+                 over 4 ranks, local block 4 at offsets 0, 4, 8 and 12;
+                 MB 64, positions 192-384; f32 and bf16, windows 0 and 5,
+                 an all -1 row), each slice as a strided view of the pool
+                 and as a local pool, output and row log-sum-exp against
+                 the plain version, the four partials merged against one
+                 whole-pool call; and flash with a query offset (q [1, 64,
+                 14, 64] at 192 over 256 keys of 2 KV heads; the four row
+                 blocks of a 256-token pass gathered against one
+                 self-attention call); each f32 call timed beside its
+                 plain version, SDPA (on the gathered local K/V, or with
+                 the explicit mask) and its bound;
   4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
                  (olmoe-1b-7b smoke), the mamba2 forward + decode chain
@@ -185,10 +198,23 @@ Phases, each printed as it runs; any failure exits non-zero:
                  single-process eager run of the same engine on the same
                  weights in this process; each rank must launch both paged
                  kernels and never their plain versions; the data run must
-                 save decode rows. Prints the collective counts and the
-                 share of the wall spent in them, ms a decode step sharded
-                 and single-process, and the phase's seconds. A rank that
-                 fails fails the phase;
+                 save decode rows. Then four rank processes on mesh (1,
+                 4), where 'model' divides neither the 14 q heads nor the
+                 2 KV heads: the attention leaves split flat and the
+                 pools' positions over 'model' (nothing held whole), at
+                 full width the paged engine on the same request set (a
+                 rank holds 4 of every block's 16 offsets; decode and
+                 prefill chunks run kv-seq: the paged kernels' partial
+                 mode, merge_partials), and the contiguous engine at 4
+                 layers on prompts whose lengths 4 divides (each prefill
+                 q-seq through flash with a query offset, decode kv-seq
+                 over a rank's quarter of max_len); every rank's tokens
+                 equal the single-process run's, the partial kernels
+                 (paged) or flash with an offset (contiguous) launch on
+                 every rank, no plain call. Prints the collective counts
+                 by kind and the share of the wall spent in them, ms a
+                 decode step sharded and single-process, and the phase's
+                 seconds. A rank that fails fails the phase;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (64 experts top-8) cut to 8 of its 16
                  layers (~3.5 B float32 weights from a seed; 16 until the
@@ -519,6 +545,15 @@ PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_H, OL_D, 256 // BS, 64, 4, 4,
 #: depth and arrival rate, and the rank processes' time limit (s)
 SHARD_N, SHARD_NEW, SHARD_DP_LAYERS, SHARD_DP_RATE = 8, 32, 4, 0.5
 SHARD_TIMEOUT = 400
+#: the sequence-sharded runs on mesh (1, 4): the ranks the pools' positions
+#: split over (qwen2-0.5b's 2 KV heads do not divide 4: a paged rank holds
+#: 4 of each block's 16 offsets), the contiguous run's depth and its
+#: prompts' lengths, each a multiple of 4 so every prefill runs q-seq
+SEQ_M, SEQ_CONTIG_LAYERS = 4, 4
+SEQ_PROMPTS = (64, 96, 128, 160, 192, 224, 256, 120)
+#: the flash query-offset case: a contiguous rank's block of 64 query rows
+#: at offset 192 over 256 keys (rank 3 of a 256-token prompt on (1, 4))
+OFF_SQ, OFF_Q0, OFF_SK = 64, 192, 256
 #: the rank processes' device type
 SHARD_DEVICE = "cuda"
 #: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
@@ -754,10 +789,16 @@ def wrapper_times(fn, flush: torch.Tensor) -> dict:
                 host_ms=host_ms(fn))
 
 
-def sdpa_call(q, kp, vp, tables, start, c: int, window: int):
+def sdpa_call(q, kp, vp, tables, start, c: int, window: int,
+              pos_base=None):
     """torch's scaled_dot_product_attention over the gathered K/V with the
-    same mask: the library yardstick (gather and mask built outside)."""
+    same mask: the library yardstick (gather and mask built outside).
+    ``pos_base``: a pool slice's keys at their global positions (the
+    partial mode's)."""
     kg, vg, k_pos, assigned = pa.paged_kv_gather(kp, vp, tables)
+    if pos_base is not None:
+        k_pos = pa.key_positions(tables.shape[1], kp.shape[1], pos_base,
+                                 "cuda")
     qq = (q[:, None] if c == 1 else q).transpose(1, 2)           # [B,Hq,C,D]
     g = q.shape[-2] // kp.shape[2]
     kk = kg.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
@@ -913,6 +954,156 @@ def check_engine_shapes(flush: torch.Tensor, rec: dict) -> None:
                      window=t_window))
             rec[name].setdefault("other_shapes", []).append(
                 {k: r[k] for k in SHAPE_KEYS})
+
+
+def _compare_lse(what: str, out, exp, dtype) -> float:
+    """A partial call's row log-sum-exp against its plain version's: -inf
+    (no visible key) in the same rows, the others within the dtype's
+    tolerance."""
+    torch.cuda.synchronize()
+    seen = torch.isfinite(exp)
+    if not torch.equal(torch.isfinite(out), seen):
+        raise SystemExit(f"FAIL: {what}: log-sum-exp rows with no key "
+                         "differ from the plain version's")
+    return _compare(f"{what} log-sum-exp", out[seen], exp[seen], dtype)
+
+
+def check_partial(flush: torch.Tensor) -> dict:
+    """The paged decode (W 8) and prefill ([4, 16]) in partial mode at the
+    kv-seq rank shape (qwen2-0.5b's 14 / 2 heads of 64, G 7; a pool whose
+    16-position blocks are split over SEQ_M ranks: local block 4 at
+    offsets 0, 4, 8 and 12; MB 64, positions 192-384; f32 and bf16,
+    windows 0 and 5, an all -1 row), each rank's slice as a strided view
+    of the whole pool and as a contiguous local pool, output and row
+    log-sum-exp against the plain version; the SEQ_M partials merged
+    (``sharding.combine_partials``, merge_partials' arithmetic) against
+    one whole-pool call of the plain-mode kernel. The f32 window-0 call on
+    rank 1's local pool timed beside its plain version, SDPA on its
+    gathered K/V with the mask at their global positions, and its bound."""
+    from repro_torch.dist import sharding as shd
+    rec = {}
+    n = BS // SEQ_M
+    for name in ("paged_decode_partial", "paged_prefill_partial"):
+        decode = name == "paged_decode_partial"
+        b, c = (SLOTS, 1) if decode else (4, BS)
+        wrapper = (ops.paged_attention_partial if decode
+                   else ops.paged_prefill_partial)
+        whole = (ops.paged_attention if decode
+                 else ops.paged_prefill_attention)
+        plain = KERNELS["paged_decode" if decode else "paged_prefill"][
+            "plain"]
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in (0, 5):
+                args = make_case(b, c, dtype, seed=7 * b + c + window,
+                                 pad_row=True)
+                q, kp, vp, tables, start = args
+                parts = []
+                for r in range(SEQ_M):
+                    base = (BS, r * n)
+                    views = (kp[:, r * n:(r + 1) * n],
+                             vp[:, r * n:(r + 1) * n])
+                    for kind, (ks, vs) in (
+                            ("view", views),
+                            ("local", [t.contiguous() for t in views])):
+                        what = (f"{name} B={b} C={c} {str(dtype)[6:]} "
+                                f"window={window} offset {r * n} ({kind})")
+                        o, lse = wrapper(q, ks, vs, tables, start, window,
+                                         base)
+                        eo, el = plain(q, ks, vs, tables, start, window,
+                                       base, return_lse=True)
+                        _compare(what, o, eo, dtype)
+                        _compare_lse(what, lse, el, dtype)
+                        if not (bool((o[-1] == 0).all())
+                                and bool(torch.isinf(lse[-1]).all())):
+                            raise SystemExit(f"FAIL: {what}: the all -1 "
+                                             "row is not 0 with lse -inf")
+                    parts.append((o, lse))
+                merged = shd.combine_partials(
+                    torch.stack([o for o, _ in parts]),
+                    torch.stack([l for _, l in parts])).to(dtype)
+                _compare(f"{name} B={b} C={c} {str(dtype)[6:]} window="
+                         f"{window}: {SEQ_M} partials merged against one "
+                         "whole-pool call", merged,
+                         whole(q, kp, vp, tables, start, window), dtype)
+        q, kp, vp, tables, start = make_case(b, c, torch.float32, seed=11,
+                                             pad_row=False)
+        base = (BS, n)
+        ks, vs = (t[:, n:2 * n].contiguous() for t in (kp, vp))
+        run = lambda: wrapper(q, ks, vs, tables, start, 0, base)  # noqa
+        eo, el = plain(q, ks, vs, tables, start, 0, base, return_lse=True)
+        o, lse = run()
+        err = max(_compare(f"{name} timed case", o, eo, torch.float32),
+                  _compare_lse(f"{name} timed case", lse, el, torch.float32))
+        flops, nbytes = cost.paged_attention(
+            HQ, HKV, D, n, 4, c, 0, tables.cpu().tolist(),
+            start.cpu().tolist(), pos_base=base, lse=True)
+        rec[name] = _record(
+            name, "paged_attention.cu",
+            KERNELS["paged_decode" if decode else "paged_prefill"][
+                "replaces"], err, time_ms(run, flush),
+            time_ms(lambda: plain(q, ks, vs, tables, start, 0, base,
+                                  return_lse=True), flush),
+            *cost.bound_ms(flops, nbytes),
+            time_ms(sdpa_call(q, ks, vs, tables, start, c, 0, base), flush),
+            dict(B=b, C=c, Hq=HQ, Hkv=HKV, D=D, BS=n, BS_global=BS,
+                 offset=n, MB=MB, NB=NB, positions=[192, 384],
+                 dtype="float32"))
+    return rec
+
+
+def check_flash_offset(flush: torch.Tensor) -> dict:
+    """Flash with a query offset at the contiguous (1, 4) rank's shape: q
+    [1, 64, 14, 64] at offset 192 over 256 keys of 2 KV heads, f32 and
+    bf16, windows 0 and 5, against its plain version; the q-seq scheme's
+    four row blocks (offsets 0, 64, 128, 192, each over the keys up to its
+    last row) gathered against one self-attention call of the kernel over
+    all 256 rows. The f32 call timed beside its plain version, SDPA with
+    the explicit mask, and its bound."""
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(OFF_SK)
+        q, k, v = (torch.randn(1, OFF_SK, h, D, generator=g,
+                               device="cuda").to(dtype)
+                   for h in (HQ, HKV, HKV))
+        for window in (0, 5):
+            rows = q[:, OFF_Q0:OFF_Q0 + OFF_SQ]
+            _compare(f"flash_attention_offset q [1, {OFF_SQ}, {HQ}, {D}] "
+                     f"at {OFF_Q0} over {OFF_SK} keys {str(dtype)[6:]} "
+                     f"window={window}",
+                     ops.flash_attention_offset(rows, k, v, OFF_Q0,
+                                                window=window),
+                     fa.flash_attention_plain(rows, k, v, True, window,
+                                              OFF_Q0), dtype)
+            blocks = torch.cat([ops.flash_attention_offset(
+                q[:, r * OFF_SQ:(r + 1) * OFF_SQ], k[:, :(r + 1) * OFF_SQ],
+                v[:, :(r + 1) * OFF_SQ], r * OFF_SQ, window=window)
+                for r in range(OFF_SK // OFF_SQ)], dim=1)
+            _compare(f"flash_attention_offset {OFF_SK // OFF_SQ} row blocks "
+                     f"{str(dtype)[6:]} window={window} against one "
+                     "self-attention call", blocks,
+                     ops.flash_attention(q, k, v, window=window), dtype)
+    g = torch.Generator(device="cuda").manual_seed(OFF_Q0)
+    q, k, v = (torch.randn(1, s, h, D, generator=g, device="cuda")
+               for s, h in ((OFF_SQ, HQ), (OFF_SK, HKV), (OFF_SK, HKV)))
+    run = lambda: ops.flash_attention_offset(q, k, v, OFF_Q0)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, k, v, True, 0,  # noqa: E731
+                                             OFF_Q0)
+    err = _compare("flash_attention_offset timed case", run(), plain(),
+                   torch.float32)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
+              .contiguous() for t in (k, v))
+    mask = (torch.arange(OFF_SK, device="cuda")[None, :]
+            <= OFF_Q0 + torch.arange(OFF_SQ, device="cuda")[:, None])
+    flops, nbytes = cost.flash_attention(1, OFF_SQ, HQ, HKV, D, 4, True, 0,
+                                         q_offset=OFF_Q0, sk=OFF_SK)
+    return _record(
+        "flash_attention_offset", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:86", err, time_ms(run, flush),
+        time_ms(plain, flush), *cost.bound_ms(flops, nbytes),
+        time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), flush),
+        dict(B=1, Sq=OFF_SQ, Sk=OFF_SK, q_offset=OFF_Q0, Hq=HQ, Hkv=HKV, D=D,
+             causal=True, window=0, dtype="float32"))
 
 
 def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
@@ -3880,27 +4071,57 @@ def dry_on_card(name: str, knobs: dict) -> dict:
 # ---------------------------------------------------------------------------
 # sharded
 # ---------------------------------------------------------------------------
-def shard_engine(cfg, device, plan=None, params=None):
-    """The sharded phase's paged engine (the engine phase's options) on
-    ``device``; weights drawn from seed 0 unless given."""
+def shard_engine(cfg, device, plan=None, params=None, cache="paged"):
+    """The sharded phase's engine (the engine phase's options; the
+    contiguous one at the same slots, max_len and horizon) on ``device``;
+    weights drawn from seed 0 unless given."""
     return ServeEngine(cfg, params=params, max_len=MAX_LEN, n_slots=SLOTS,
-                       cache="paged", block_size=BS, prefill_lanes=4,
+                       cache=cache, block_size=BS, prefill_lanes=4,
                        decode_horizon=8, device=device, seed=0,
                        sharding=plan)
 
 
-def shard_requests(cfg, rate: float):
+def shard_requests(cfg, rate: float, cache: str = "paged"):
     """The engine phase's request set (its prompts and shared prefix), cut
-    to ``SHARD_N`` requests of ``SHARD_NEW`` new tokens."""
-    return serve_cli.make_requests(cfg, SHARD_N, 256, SHARD_NEW, rate, seed=0,
-                                   shared_prefix=64)
+    to ``SHARD_N`` requests of ``SHARD_NEW`` new tokens; the contiguous
+    run's: prompts of the ``SEQ_PROMPTS`` lengths (multiples of 4) drawn
+    from seed 0."""
+    if cache == "paged":
+        return serve_cli.make_requests(cfg, SHARD_N, 256, SHARD_NEW, rate,
+                                       seed=0, shared_prefix=64)
+    rng = np.random.default_rng(0)
+    return [ServeRequest(rng.integers(1, cfg.vocab_size, size=n)
+                         .astype(np.int32), max_new_tokens=SHARD_NEW,
+                         arrival_time=0.0) for n in SEQ_PROMPTS]
 
 
-def _shard_run(engine, cfg, rate: float) -> dict:
+#: the sharded phase's runs: (name, mesh shape, layers, arrival rate,
+#: cache), by process group size
+SHARD_RUNS = {
+    2: (("tp", (1, 2), None, 0.0, "paged"),
+        ("dp", (2, 1), SHARD_DP_LAYERS, SHARD_DP_RATE, "paged")),
+    SEQ_M: (("kv-seq", (1, SEQ_M), None, 0.0, "paged"),
+            ("q-seq", (1, SEQ_M), SEQ_CONTIG_LAYERS, 0.0, "contiguous")),
+}
+#: the kernels each run's ranks must launch (ops counter names)
+SHARD_KERNELS = {
+    "tp": ("paged_attention", "paged_prefill_attention"),
+    "dp": ("paged_attention", "paged_prefill_attention"),
+    "kv-seq": ("paged_attention_partial", "paged_prefill_partial"),
+    "q-seq": ("flash_attention_offset",),
+}
+
+
+def _shard_cfg(layers):
+    cfg = get_config("qwen2-0.5b")
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _shard_run(engine, cfg, rate: float, cache: str = "paged") -> dict:
     """One run of the phase's request set, counters set to 0 just before
     and read just after."""
     from repro_torch.dist import sharding as shd
-    reqs = shard_requests(cfg, rate)
+    reqs = shard_requests(cfg, rate, cache)
     ops.set_counts((0,) * len(ops.COUNTERS))
     shd.reset_stats()
     torch.cuda.synchronize()
@@ -3916,10 +4137,10 @@ def _shard_run(engine, cfg, rate: float) -> dict:
                 prefill_dispatches=stats.prefill_dispatches)
 
 
-def _shard_rank(rank: int, port: int, runs, queue) -> None:
-    """One rank process: join the gloo group on cuda:0, serve each of
-    ``runs`` ((name, mesh shape, layers, arrival rate)) on its mesh, put
-    (rank, results or the error) on ``queue``."""
+def _shard_rank(rank: int, port: int, world: int, runs, queue) -> None:
+    """One rank process: join the ``world``-rank gloo group on cuda:0,
+    serve each of ``runs`` ((name, mesh shape, layers, arrival rate,
+    cache)) on its mesh, put (rank, results or the error) on ``queue``."""
     import traceback
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -3931,20 +4152,21 @@ def _shard_rank(rank: int, port: int, runs, queue) -> None:
         torch.backends.cudnn.allow_tf32 = False
         build.library()
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                                world_size=2, rank=rank,
+                                world_size=world, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         res = {}
-        for name, shape, layers, rate in runs:
-            cfg = get_config("qwen2-0.5b").replace(n_layers=layers)
+        for name, shape, layers, rate, cache in runs:
+            cfg = _shard_cfg(layers)
             mesh = Mesh(shape, ("data", "model"), DeviceMesh(
-                SHARD_DEVICE, torch.arange(2).reshape(shape),
+                SHARD_DEVICE, torch.arange(world).reshape(shape),
                 mesh_dim_names=("data", "model")))
             plan = make_serve_sharding(cfg, SLOTS, MAX_LEN, mesh,
-                                       cache="paged", block_size=BS)
-            engine = shard_engine(cfg, SHARD_DEVICE, plan)
-            res[name] = _shard_run(engine, cfg, rate)
+                                       cache=cache, block_size=BS)
+            engine = shard_engine(cfg, SHARD_DEVICE, plan, cache=cache)
+            res[name] = _shard_run(engine, cfg, rate, cache)
             res[name]["held_replicated"] = list(plan.held_replicated)
             res[name]["backend"] = plan.backend
+            res[name]["cache_seq"] = plan.cache_seq_axis
             del engine
             gc.collect()
             torch.cuda.empty_cache()
@@ -3954,32 +4176,32 @@ def _shard_rank(rank: int, port: int, runs, queue) -> None:
         queue.put((rank, {"error": traceback.format_exc()}))
 
 
-def run_sharded(summary: dict, params) -> dict:
-    """The sharded phase (module docstring). Returns each paged kernel's
-    launches summed over both ranks of the full-width run."""
+def _shard_group(world: int, params) -> tuple:
+    """Spawn ``world`` rank processes serving ``SHARD_RUNS[world]`` and run
+    the same engines single-process under ``graphs.eager()`` meanwhile, on
+    the same weights. Returns (each rank's results, the single runs)."""
     import socket
     import torch.multiprocessing as mp
-    t0 = time.perf_counter()
-    runs = (("tp", (1, 2), get_config("qwen2-0.5b").n_layers, 0.0),
-            ("dp", (2, 1), SHARD_DP_LAYERS, SHARD_DP_RATE))
+    runs = SHARD_RUNS[world]
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=_shard_rank, args=(r, port, runs, queue))
-             for r in range(2)]
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, port, world, runs, queue))
+             for r in range(world)]
     for p in procs:
         p.start()
     try:
-        # the single-process eager runs meanwhile, on the same weights
         single = {}
-        for name, _, layers, rate in runs:
-            cfg = get_config("qwen2-0.5b").replace(n_layers=layers)
-            sub = dict(params, layers=params["layers"][:layers])
+        for name, _, layers, rate, cache in runs:
+            cfg = _shard_cfg(layers)
+            sub = dict(params, layers=params["layers"][:cfg.n_layers])
             with graphs.eager():
-                single[name] = _shard_run(shard_engine(cfg, "cuda",
-                                                       params=sub), cfg, rate)
+                single[name] = _shard_run(
+                    shard_engine(cfg, "cuda", params=sub, cache=cache), cfg,
+                    rate, cache)
             gc.collect()
             torch.cuda.empty_cache()
         ranks = {}
@@ -3997,56 +4219,96 @@ def run_sharded(summary: dict, params) -> dict:
                 p.join(timeout=30)
     failed = {r: v["error"] for r, v in ranks.items() if "error" in v}
     if failed or len(ranks) < len(procs) or any(p.exitcode for p in procs):
-        raise SystemExit(f"FAIL: sharded: rank(s) failed "
+        raise SystemExit(f"FAIL: sharded: rank(s) of {world} failed "
                          f"{[p.exitcode for p in procs]}: {failed}")
+    return [ranks[r] for r in range(world)], single
+
+
+def run_sharded(summary: dict, params) -> dict:
+    """The sharded phase (module docstring): two ranks on meshes (1, 2)
+    and (2, 1), then four on (1, 4). Returns, by kernel, the launches
+    summed over the ranks of the full-width (1, 2) and (1, 4) runs and of
+    the contiguous (1, 4) run, by path."""
+    t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     rec = {"card": smi}
-    for name, shape, layers, rate in runs:
-        ref, a, b = single[name], ranks[0][name], ranks[1][name]
-        what = f"sharded {name} mesh {shape} at {layers} layers"
-        if not (a["tokens"] == b["tokens"] == ref["tokens"]):
-            raise SystemExit(f"FAIL: {what}: the ranks' tokens differ from "
-                             "each other or from the single-process run")
-        for r, x in enumerate((a, b)):
-            calls = {k: v for k, v in x["launches"].items() if v}
-            if (x["launches"]["paged_attention"] <= 0
-                    or x["launches"]["paged_prefill_attention"] <= 0
-                    or any(k.endswith("_plain") for k in calls)
-                    or x["graphs"] != "eager" or x["backend"] != "gloo"):
-                raise SystemExit(f"FAIL: {what}: rank {r} launches {calls}, "
-                                 f"graphs {x['graphs']}, {x['backend']}")
-        if name == "dp" and not a["decode_rows_saved"] > 0:
-            raise SystemExit(f"FAIL: {what}: no decode rows saved")
-        rec[name] = {
-            "mesh": shape, "layers": layers, "arrival_rate": rate,
-            "tokens": sum(len(t) for t in ref["tokens"]),
-            "steps": a["steps"], "decode_dispatches": a["decode_dispatches"],
-            "prefill_dispatches": a["prefill_dispatches"],
-            "decode_rows_saved": a["decode_rows_saved"],
-            "collectives": [a["collectives"], b["collectives"]],
-            "collective_share_of_wall": [
-                x["collectives"]["seconds"] / x["wall_s"] for x in (a, b)],
-            "launches": [{k: v for k, v in x["launches"].items() if v}
-                         for x in (a, b)],
-            "held_replicated": a["held_replicated"],
-            "decode_ms_per_step": [1e3 * x["decode_s"] / x["steps"]
-                                   for x in (a, b)],
-            "single_decode_ms_per_step": 1e3 * ref["decode_s"] / ref["steps"],
-            "wall_s": [a["wall_s"], b["wall_s"]],
-            "single_wall_s": ref["wall_s"]}
-        print(json.dumps({"sharded": name, **rec[name]}), flush=True)
+    paths = {}
+    for world in SHARD_RUNS:
+        ranks, single = _shard_group(world, params)
+        for name, shape, layers, rate, cache in SHARD_RUNS[world]:
+            layers = _shard_cfg(layers).n_layers
+            ref, got = single[name], [x[name] for x in ranks]
+            what = f"sharded {name} mesh {shape} {cache} at {layers} layers"
+            if any(x["tokens"] != ref["tokens"] for x in got):
+                raise SystemExit(f"FAIL: {what}: the ranks' tokens differ "
+                                 "from each other or from the "
+                                 "single-process run")
+            for r, x in enumerate(got):
+                calls = {k: v for k, v in x["launches"].items() if v}
+                if (any(x["launches"][k] <= 0 for k in SHARD_KERNELS[name])
+                        or any(k.endswith("_plain") for k in calls)
+                        or x["graphs"] != "eager" or x["backend"] != "gloo"):
+                    raise SystemExit(f"FAIL: {what}: rank {r} launches "
+                                     f"{calls}, graphs {x['graphs']}, "
+                                     f"{x['backend']}")
+                if world == SEQ_M and (x["held_replicated"]
+                                       or x["cache_seq"] != "model"):
+                    raise SystemExit(
+                        f"FAIL: {what}: rank {r} holds "
+                        f"{x['held_replicated']} whole, pool positions "
+                        f"split over {x['cache_seq']}")
+            if name == "dp" and not got[0]["decode_rows_saved"] > 0:
+                raise SystemExit(f"FAIL: {what}: no decode rows saved")
+            a = got[0]
+            rec[name] = {
+                "mesh": shape, "cache": cache, "layers": layers,
+                "arrival_rate": rate,
+                "tokens": sum(len(t) for t in ref["tokens"]),
+                "steps": a["steps"],
+                "decode_dispatches": a["decode_dispatches"],
+                "prefill_dispatches": a["prefill_dispatches"],
+                "decode_rows_saved": a["decode_rows_saved"],
+                "collectives": [x["collectives"] for x in got],
+                "collective_share_of_wall": [
+                    x["collectives"]["seconds"] / x["wall_s"] for x in got],
+                "launches": [{k: v for k, v in x["launches"].items() if v}
+                             for x in got],
+                "held_replicated": a["held_replicated"],
+                "cache_seq": a["cache_seq"],
+                "decode_ms_per_step": [1e3 * x["decode_s"] / x["steps"]
+                                       for x in got],
+                "single_decode_ms_per_step": (1e3 * ref["decode_s"]
+                                              / ref["steps"]),
+                "wall_s": [x["wall_s"] for x in got],
+                "single_wall_s": ref["wall_s"]}
+            print(json.dumps({"sharded": name, **rec[name]}), flush=True)
+            print(f"sharded {name}: collectives a rank "
+                  f"{[{k: v for k, v in c.items() if k != 'seconds'} for c in rec[name]['collectives']]}; "
+                  f"decode ms a step {rec[name]['decode_ms_per_step']} "
+                  f"against single-process eager "
+                  f"{rec[name]['single_decode_ms_per_step']:.3f} ({smi})",
+                  flush=True)
+            if name in ("tp", "kv-seq", "q-seq"):
+                path = (f"qwen2-0.5b sharded {cache} ({world} ranks, mesh "
+                        f"{shape})")
+                for kern, counter in (
+                        ("paged_decode", "paged_attention"),
+                        ("paged_prefill", "paged_prefill_attention"),
+                        ("paged_decode_partial", "paged_attention_partial"),
+                        ("paged_prefill_partial", "paged_prefill_partial"),
+                        ("flash_attention_offset",
+                         "flash_attention_offset")):
+                    n = sum(x["launches"][counter] for x in got)
+                    if n:
+                        paths.setdefault(kern, {})[path] = n
     rec["phase_s"] = time.perf_counter() - t0
-    print(f"sharded: both runs' tokens agree across the ranks and with the "
+    print(f"sharded: every run's tokens agree across the ranks and with the "
           f"single-process eager runs ({smi}); phase {rec['phase_s']:.1f} s",
           flush=True)
     summary["qwen2-0.5b sharded"] = rec
-    return {"paged_decode": sum(ranks[r]["tp"]["launches"]["paged_attention"]
-                                for r in ranks),
-            "paged_prefill": sum(
-                ranks[r]["tp"]["launches"]["paged_prefill_attention"]
-                for r in ranks)}
+    return paths
 
 
 def main() -> int:
@@ -4084,6 +4346,8 @@ def main() -> int:
     rec["ssd_scan"] = check_ssd(flush)
     rec["flash_attention_backward"] = check_flash_backward(flush)
     rec["ssd_scan_backward"] = check_ssd_backward(flush)
+    rec.update(check_partial(flush))
+    rec["flash_attention_offset"] = check_flash_offset(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -4112,8 +4376,8 @@ def main() -> int:
     phase("sharded")
     gc.collect()
     torch.cuda.empty_cache()
-    for name, n in run_sharded(summary, params).items():
-        paths[name]["qwen2-0.5b sharded (2 ranks)"] = n
+    for name, by_path in run_sharded(summary, params).items():
+        paths[name].update(by_path)
     del params
 
     phase("olmoe")

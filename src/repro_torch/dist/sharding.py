@@ -35,7 +35,11 @@ unchanged on each rank's heads, and the model calls, at the reference's
     logits);
   * ``gather_rows(x)``: a decode bucket's rows over ``"data"`` while
     ``split_rows`` is open (new K/V before a write into a pool that every
-    ``data`` rank holds, the selected tokens).
+    ``data`` rank holds, the selected tokens);
+  * ``merge_partials(o, lse, axis)``: the whole attention output from each
+    rank's partial output over its own keys and the rows' log-sum-exp
+    (kv-seq attention over a decode cache whose positions are split over
+    ``axis``, ``cache_seq_axis()``).
 
 ``shard`` and ``shard_spec`` keep the reference's signatures and return
 their input: a local tensor's layout is the one the plan gave its leaves,
@@ -86,7 +90,7 @@ __all__ = [
     "shard_spec", "attention_scheme", "production_rules_table",
     "param_pspecs", "named", "NamedSharding", "PARAM_LOGICAL_AXES",
     "reduce_over", "gather_over", "gather_rows", "split_rows", "local_rows",
-    "rows_split",
+    "rows_split", "merge_partials", "combine_partials", "cache_seq_axis",
     "axis_index", "local_block", "STATS",
 ]
 
@@ -165,9 +169,12 @@ class Mesh:
 # ---------------------------------------------------------------------------
 class Rules:
     """An installed (mesh, logical-axis table) pair. ``rows`` is the open
-    ``split_rows`` range of a decode bucket, None outside one."""
+    ``split_rows`` range of a decode bucket, None outside one;
+    ``cache_seq`` the mesh axis the decode cache's positions are split over
+    (the serve plan's or the dry-run's pool layout), None when whole."""
 
-    def __init__(self, mesh, table: Dict[str, MeshAxes]):
+    def __init__(self, mesh, table: Dict[str, MeshAxes],
+                 cache_seq: Optional[str] = None):
         self.mesh = mesh
         self.table: Dict[str, MeshAxes] = {
             k: tuple(v) if isinstance(v, list) else v
@@ -175,6 +182,7 @@ class Rules:
         }
         self.sizes: Dict[str, int] = dict(mesh.sizes)
         self.rows: Optional[Tuple[int, int]] = None
+        self.cache_seq = cache_seq
 
     def mesh_axes(self, logical: Optional[str]) -> MeshAxes:
         """Mesh axes assigned to a logical axis name (None if unmapped)."""
@@ -209,9 +217,12 @@ def current_rules() -> Optional[Rules]:
 
 
 @contextlib.contextmanager
-def axis_rules(mesh, table: Dict[str, MeshAxes]):
-    """Install ``table`` over ``mesh`` for the dynamic extent of the block."""
-    rules = Rules(mesh, table)
+def axis_rules(mesh, table: Dict[str, MeshAxes],
+               cache_seq: Optional[str] = None):
+    """Install ``table`` over ``mesh`` for the dynamic extent of the block;
+    ``cache_seq``: the mesh axis the decode cache's positions are split
+    over (``Rules``)."""
+    rules = Rules(mesh, table, cache_seq)
     _stack().append(rules)
     try:
         yield rules
@@ -285,9 +296,10 @@ def attention_scheme(b: int, s: int, nh: int, kv_s: int):
         cache sequence.
       * batch-only     — nothing else fits.
 
-    The port realizes head-sharded and batch-only; a layer whose scheme is
-    q-seq or kv-seq sharded runs replicated over 'model'
-    (``serve/sharded.py``).
+    The port realizes all four (``models/layers.py:attention``): q-seq
+    as a block of query rows a rank (flash with a query offset), kv-seq as
+    each rank's partial attention over its slice of a position-split cache,
+    merged by ``merge_partials``.
     """
     rules = current_rules()
     if rules is None:
@@ -601,6 +613,50 @@ def gather_over(x: torch.Tensor, dim: int, axis: str = "model"
     dist.all_gather(parts, src, group=group)
     STATS["seconds"] += time.perf_counter() - t0
     return torch.cat(parts, dim=dim)
+
+
+def cache_seq_axis() -> Optional[str]:
+    """The mesh axis the decode cache's positions are split over under the
+    active rules (``Rules.cache_seq``, when it has more than one rank);
+    None off the mesh and for a whole cache."""
+    rules = current_rules()
+    if rules is None or rules.cache_seq is None:
+        return None
+    return rules.cache_seq if rules.sizes.get(rules.cache_seq, 1) > 1 \
+        else None
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor,
+                   axis: str = "model") -> torch.Tensor:
+    """The whole attention output of rows whose keys are split over the
+    ranks of ``axis``: each rank holds its output over its own keys ``o``
+    [..., D] (normalized over them) and each row's log-sum-exp over them
+    ``lse`` [...] f32 (-inf: none visible). One all-gather of (o, lse) over
+    the axis, then, in rank order and in f32, ``o = sum_r exp(lse_r - L)
+    o_r`` with ``L = logsumexp_r lse_r``: every rank computes the same
+    values. A row whose lse is -inf on every rank gives 0 (the kernels'
+    ``l == 0 -> 1`` rule). Returns o's dtype; ``o`` itself off the mesh or
+    on an axis of one rank."""
+    packed = torch.cat([o.float(), lse.float()[..., None]], dim=-1)[None]
+    parts = gather_over(packed, 0, axis)
+    if parts is packed:
+        return o
+    return combine_partials(parts[..., :-1], parts[..., -1]).to(o.dtype)
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """``merge_partials``' arithmetic on the gathered pairs: o [n, ..., D]
+    and lse [n, ...] of n key slices, in slice order -> the f32 output
+    over all of them (0 for a row no slice saw a key of)."""
+    m = lse.float().amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    acc = torch.zeros_like(o[0], dtype=torch.float32)
+    den = torch.zeros_like(m)
+    for r in range(o.shape[0]):
+        w = torch.exp(lse[r].float() - m)        # -inf: weight 0
+        acc = acc + w[..., None] * o[r].float()
+        den = den + w
+    return acc / torch.where(den > 0, den, torch.ones_like(den))[..., None]
 
 
 # ---------------------------------------------------------------------------

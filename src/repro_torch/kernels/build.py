@@ -29,19 +29,21 @@ _VOID_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: c_void_p so no address is truncated to 32 bits.
 ARGTYPES = {
     # csrc/paged_attention.cu. Decode: q, k, v, tables, pos, out, part_acc,
-    # part_ml; B, Hq, Hkv, D, BS, MB, cols_per_split; the pool strides;
+    # part_ml, lse (NULL = none); B, Hq, Hkv, D, BS, the global block size
+    # and the pool slice's offset, MB, cols_per_split; the pool strides;
     # window, dtype, stream
     "paged_attention_decode":
-        [_VOID_P] * 8 + [_INT] * 7 + [_I64] * 3 + [_INT, _INT, _VOID_P],
-    # prefill: q, k, v, tables, start, out, part_acc, part_ml; B, C, Hq,
-    # Hkv, D, BS, MB, cols_per_split; the pool strides; window, dtype, stream
+        [_VOID_P] * 9 + [_INT] * 9 + [_I64] * 3 + [_INT, _INT, _VOID_P],
+    # prefill: q, k, v, tables, start, out, part_acc, part_ml, lse; B, C,
+    # Hq, Hkv, D, BS, the global block size and offset, MB, cols_per_split;
+    # the pool strides; window, dtype, stream
     "paged_attention_prefill":
-        [_VOID_P] * 8 + [_INT] * 8 + [_I64] * 3 + [_INT, _INT, _VOID_P],
+        [_VOID_P] * 9 + [_INT] * 10 + [_I64] * 3 + [_INT, _INT, _VOID_P],
     # csrc/flash_attention.cu: q, k, v, out, lse (NULL = none); B, S, Hq,
     # Hkv, D; the three (batch, seq, head) strides of q, k and v; causal,
-    # window, dtype, stream
+    # window, the key count Sk and the query offset, dtype, stream
     "flash_attention_forward":
-        [_VOID_P] * 5 + [_INT] * 5 + [_I64] * 9 + [_INT] * 3 + [_VOID_P],
+        [_VOID_P] * 5 + [_INT] * 5 + [_I64] * 9 + [_INT] * 5 + [_VOID_P],
     # csrc/flash_attention_bwd.cu: q, k, v, out, dout, lse, dq, dk, dv,
     # dsum; B, S, Hq, Hkv, D; the strides of q, k and v; causal, window,
     # groups (the CTA shape: 0 by the kernel's rule, 4 or 2), stream

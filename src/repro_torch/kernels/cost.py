@@ -35,14 +35,33 @@ def visible_pairs(s: int, causal: bool, window: int) -> int:
     return s * s if not w else w * s + s * (s - 1) // 2 - w * (w - 1) // 2
 
 
+def visible_pairs_rows(q0: int, s: int, sk: int, causal: bool,
+                       window: int) -> int:
+    """The (query, key) pairs of one head that ``s`` queries at positions
+    ``q0 .. q0 + s - 1`` see among ``sk`` keys at ``0 .. sk - 1`` (a query
+    offset: q-seq sharding's block of rows)."""
+    pairs = 0
+    for i in range(q0, q0 + s):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
 def flash_attention(b: int, s: int, hq: int, hkv: int, d: int, elem: int,
-                    causal: bool = True, window: int = 0) -> Cost:
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    sk: Optional[int] = None) -> Cost:
     """One flash forward of batch ``b``: q, k, v read once and the output
     written once (``elem`` bytes an element); the QK and PV products of
-    the visible pairs, 4 D flops a pair and q head."""
-    nbytes = b * (2 * hq + 2 * hkv) * s * d * elem
-    flops = b * 4 * d * hq * visible_pairs(s, causal, window)
-    return flops, nbytes
+    the visible pairs, 4 D flops a pair and q head. ``q_offset`` / ``sk``:
+    ``s`` query rows at positions ``q_offset ..`` against ``sk`` keys."""
+    if sk is None and not q_offset:
+        nbytes = b * (2 * hq + 2 * hkv) * s * d * elem
+        return b * 4 * d * hq * visible_pairs(s, causal, window), nbytes
+    sk = s if sk is None else sk
+    nbytes = b * (2 * hq * s + 2 * hkv * sk) * d * elem
+    pairs = visible_pairs_rows(q_offset, s, sk, causal, window)
+    return b * 4 * d * hq * pairs, nbytes
 
 
 def flash_attention_backward(b: int, s: int, hq: int, hkv: int, d: int,
@@ -58,19 +77,26 @@ def flash_attention_backward(b: int, s: int, hq: int, hkv: int, d: int,
 
 def paged_attention(hq: int, hkv: int, d: int, bs: int, elem: int, c: int,
                     window: int, tables: Sequence[Sequence[int]],
-                    start: Sequence[int]) -> Cost:
+                    start: Sequence[int], pos_base=None,
+                    lse: bool = False) -> Cost:
     """One paged decode (``c`` 1) or prefill call over ``tables`` [B, MB]
     (block ids, -1 unassigned) with row b's queries at ``start[b] + i``:
     q read and the output written once, the tables and positions read,
     and the K/V blocks some query sees read once; the QK and PV products
-    of the visible (query, key) pairs, 4 D flops a pair and q head."""
+    of the visible (query, key) pairs, 4 D flops a pair and q head. The
+    partial mode: ``bs`` keys a block of the pool slice at in-block
+    offsets ``off ..`` of ``BS_g`` (``pos_base = (BS_g, off)``), only the
+    slice's keys read; ``lse``: each row's log-sum-exp written (f32)."""
+    bs_g, off = pos_base if pos_base is not None else (bs, 0)
     nb = len(tables)
     nbytes = 2 * nb * c * hq * d * elem + nb * len(tables[0]) * 4 + nb * 4
+    if lse:
+        nbytes += 4 * nb * c * hq
     pairs = 0
     for b in range(nb):
         s0 = int(start[b])
         for j, blk in enumerate(tables[b]):
-            k0 = j * bs
+            k0 = j * bs_g + off
             if blk < 0 or k0 > s0 + c - 1:
                 continue
             if window and k0 + bs - 1 <= s0 - window:

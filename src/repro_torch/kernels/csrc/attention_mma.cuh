@@ -64,7 +64,8 @@ __host__ __device__ constexpr int qfrag_u4() {
 }
 
 // Dynamic shared memory of a CTA of W warps: Q fragments, two buffers of
-// K and V tiles, and two BK-long key-validity vectors.
+// K and V tiles, and two BK-long int vectors (the paged kernels' tile key
+// positions).
 template <typename T, int D, int W>
 __host__ __device__ constexpr size_t smem_bytes() {
   return (size_t)W * qfrag_u4<T, D>() * 16 +

@@ -55,6 +55,11 @@
 //     dynamic shared memory with cudaFuncSetAttribute. Head dims 32, 64,
 //     96 (phi-3-vision) and 128.
 //
+// A query offset (q-seq sharding: a rank's block of query rows). q holds
+// Sq rows at positions q_offset .. q_offset + Sq - 1 and k/v Sk >= Sq keys at
+// positions 0 .. Sk - 1; the masks, the tile skip and the unmasked-tile test
+// read the rows' positions. Offset 0 and Sq == Sk is the call above.
+//
 // The backward (flash_attention_bwd.cu) takes each row's log-sum-exp from
 // here: with a non-null `lse` ([B Hq, S] f32; f32 inputs only) an
 // instantiation of its own (LSE) has part 0 write m + log(l) of each row
@@ -93,15 +98,16 @@ struct Args {
   const void* q;      // [B, S, Hq, D]
   const void* k;      // [B, S, Hkv, D]
   const void* v;
-  void* out;          // [B, S, Hq, D], contiguous
-  int S, Hq, G;
+  void* out;          // [B, Sq, Hq, D], contiguous
+  int Sq, Sk, q_off;  // query rows, keys, position of query row 0
+  int Hq, G;
   long long qb, qs, qh;   // element strides of q (batch, seq, head)
   long long kb, ks, kh;
   long long vb, vs, vh;
   int causal, window;
   int async;              // every K/V row 16-byte aligned: cp.async
   float scale;
-  float* lse;             // [B Hq, S] row log-sum-exp (LSE only)
+  float* lse;             // [B Hq, Sq] row log-sum-exp (LSE only)
 };
 
 // Warp w owns rows 16 (w % GROUPS) .. + 15 of the query tile and keys
@@ -121,7 +127,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.G;
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk, qo = a.q_off;
   const T* q = static_cast<const T*>(a.q) + (size_t)b * a.qb +
                (size_t)h * a.qh;
   const T* k = static_cast<const T*>(a.k) + (size_t)b * a.kb +
@@ -129,29 +135,29 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
   const T* v = static_cast<const T*>(a.v) + (size_t)b * a.vb +
                (size_t)hk * a.vh;
 
-  const int q_last = min(q0 + BQ, S) - 1;
-  int kt_lo = 0, kt_hi = (S + BK - 1) / BK;
+  const int q_last = qo + min(q0 + BQ, Sq) - 1;        // a position
+  int kt_lo = 0, kt_hi = (Sk + BK - 1) / BK;
   if (a.causal) kt_hi = min(kt_hi, q_last / BK + 1);
-  if (a.window > 0) kt_lo = max(0, q0 - a.window + 1) / BK;
+  if (a.window > 0) kt_lo = max(0, qo + q0 - a.window + 1) / BK;
 
   auto load = [&](int kt, int buf) {
     T* kd = kv + buf * 2 * BK * LD;
     const int k0 = kt * BK;
     attn::load_tile<T, D, THREADS>(kd, [&](int i) -> const T* {
-      return k0 + i < S ? k + (size_t)(k0 + i) * a.ks : nullptr;
+      return k0 + i < Sk ? k + (size_t)(k0 + i) * a.ks : nullptr;
     }, a.async, k);
     attn::load_tile<T, D, THREADS>(kd + BK * LD, [&](int i) -> const T* {
-      return k0 + i < S ? v + (size_t)(k0 + i) * a.vs : nullptr;
+      return k0 + i < Sk ? v + (size_t)(k0 + i) * a.vs : nullptr;
     }, a.async, v);
     attn::cp_commit();
   };
   load(kt_lo, 0);
 
   const int wr0 = q0 + grp * 16;                       // this warp's rows
-  const int wr_last = min(wr0 + 15, S - 1);
+  const int wp0 = qo + wr0, wp_last = qo + min(wr0 + 15, Sq - 1);
   if (part == 0)                       // read by every part after a barrier
     attn::stage_q<T, D>(qf, [&](int r) -> const T* {
-      return wr0 + r < S ? q + (size_t)(wr0 + r) * a.qs : nullptr;
+      return wr0 + r < Sq ? q + (size_t)(wr0 + r) * a.qs : nullptr;
     });
 
   attn::WarpState<T, D> st;
@@ -163,18 +169,18 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
     attn::cp_wait_one();
     __syncthreads();
     const int k0 = kt * BK + 8 * NJ * part;            // this warp's keys
-    int jmax = wr0 < S && k0 < S ? min(NJ, (S - k0 + 7) / 8) : 0;
-    if (a.causal) jmax = wr_last < k0 ? 0 : min(jmax, (wr_last - k0) / 8 + 1);
+    int jmax = wr0 < Sq && k0 < Sk ? min(NJ, (Sk - k0 + 7) / 8) : 0;
+    if (a.causal) jmax = wp_last < k0 ? 0 : min(jmax, (wp_last - k0) / 8 + 1);
     const T* kd = kv + buf * 2 * BK * LD;
     auto vis = [&](int r, int key) {
-      const int qpos = wr0 + g + 8 * r, kpos = kt * BK + key;
-      return kpos < S && (!a.causal || kpos <= qpos) &&
+      const int qpos = wp0 + g + 8 * r, kpos = kt * BK + key;
+      return kpos < Sk && (!a.causal || kpos <= qpos) &&
              (a.window == 0 || qpos - kpos < a.window);
     };
     // every (row, key) pair visible: no mask (warp-uniform)
     const int k1 = k0 + 8 * NJ - 1;
-    const bool full = jmax == NJ && k1 < S && (!a.causal || k1 <= wr0) &&
-                      (a.window == 0 || wr_last - k0 < a.window);
+    const bool full = jmax == NJ && k1 < Sk && (!a.causal || k1 <= wp0) &&
+                      (a.window == 0 || wp_last - k0 < a.window);
     if (full)
       st.template step<NJ, false>(qf, kd, kd + BK * LD, NJ * part, NJ,
                                   a.scale, vis);
@@ -195,15 +201,15 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Args a) {
   T* out = static_cast<T*>(a.out);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = wr0 + g + 8 * r;
-    if (qpos < S) {
+    const int qrow = wr0 + g + 8 * r;
+    if (qrow < Sq) {
       const float inv = 1.f / (st.l[r] == 0.f ? 1.f : st.l[r]);
       if constexpr (LSE) {
         if (t == 0)
-          a.lse[(size_t)bh * S + qpos] =
+          a.lse[(size_t)bh * Sq + qrow] =
               st.l[r] > 0.f ? st.m[r] + logf(st.l[r]) : 1e30f;
       }
-      T* o = out + (((size_t)b * S + qpos) * a.Hq + h) * D + 2 * t;
+      T* o = out + (((size_t)b * Sq + qrow) * a.Hq + h) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         o[8 * n] = from_f32<T>(st.o[n][2 * r] * inv);
@@ -222,7 +228,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((a.S + BQ - 1) / BQ, B * a.Hq);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, B * a.Hq);
   kern<<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -242,26 +248,28 @@ int dispatch(const Args& a, int B, int D, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. lse: [B Hq, S]
-// f32 or NULL (non-NULL for float32 only). Returns a cudaError_t (0 =
-// launched).
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. S query rows
+// at positions q_offset .. q_offset + S - 1 against Sk >= S keys at 0 ..
+// Sk - 1 (Sk == S, q_offset 0: self-attention). lse: [B Hq, S] f32 or NULL
+// (non-NULL for float32 only). Returns a cudaError_t (0 = launched).
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int Hq,
                             int Hkv, int D, long long qb, long long qs,
                             long long qh,
                             long long kb, long long ks, long long kh,
                             long long vb, long long vs, long long vh,
-                            int causal, int window, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
-      (long long)B * Hq > 65535)
+                            int causal, int window, int Sk, int q_offset,
+                            int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || Sk < S || q_offset < 0 || Hkv <= 0 ||
+      Hq % Hkv != 0 || window < 0 || (long long)B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
   // cp.async needs every K/V row 16-byte aligned
   const long long el = dtype == 0 ? 4 : 2, al = 16 / el;
   const int async = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
                     kb % al == 0 && ks % al == 0 && kh % al == 0 &&
                     vb % al == 0 && vs % al == 0 && vh % al == 0;
-  Args a{q, k, v, out, S, Hq, Hq / Hkv, qb, qs, qh, kb, ks, kh, vb, vs,
-         vh, causal, window, async, 1.f / sqrtf((float)D),
+  Args a{q, k, v, out, S, Sk, q_offset, Hq, Hq / Hkv, qb, qs, qh, kb, ks,
+         kh, vb, vs, vh, causal, window, async, 1.f / sqrtf((float)D),
          static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && lse) return dispatch<float, true>(a, B, D, s);

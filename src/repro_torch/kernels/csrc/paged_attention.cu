@@ -54,10 +54,26 @@
 //   * No host read, no device-side counter or semaphore: a call can be
 //     captured in a CUDA graph and replayed as it is.
 //
+// Partial mode (a pool whose in-block positions are split over ranks: rank r
+// of m holds offsets [r BS_g / m, (r + 1) BS_g / m) of every block of the
+// global block size BS_g). The pool passed in is the rank's slice, BS =
+// BS_g / m keys a block, and `pos_base` gives BS_g and the slice's first
+// offset `off`: local key j of table column c sits at position
+// c BS_g + off + j, which the causal and window masks, the live-column test
+// and the per-warp key limit read. Tile keys' positions go to shared memory
+// with the tile (INT_MAX for a dead key), so the mask is one load either
+// way. With an `lse` output [B, C, Hq] f32 each row's log-sum-exp m + log l
+// over the keys it saw is written (-inf for a row that saw none), by the
+// split kernel when there is one split and by the merge otherwise; ranks
+// merge their partial outputs by it (dist/sharding.py merge_partials). BS_g
+// == BS, off 0 and no lse is the whole pool: the call of the plain mode.
+//
 // Interface: plain C, loaded with ctypes. Each entry returns
 // cudaGetLastError() after the launches; the Python wrapper raises on non-0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "attention_mma.cuh"
@@ -80,18 +96,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 struct Args {
   const void* q;       // [B, C, Hq, D], q heads grouped per kv head
-  const void* k;       // pool [NB, BS, Hkv, D], contiguous
+  const void* k;       // pool [NB, BS, Hkv, D], through its strides
   const void* v;
   const int* tables;   // [B, MB]
   const int* start;    // [B]: position of row b's first query (decode: pos)
   void* out;           // [B, C, Hq, D]
   float* part_acc;     // [nsplit, B, Hkv, R, D]: each split's unnormalised acc
   float2* part_ml;     // [nsplit, B, Hkv, R]: each split's (m, l)
+  float* lse;          // [B, C, Hq] row log-sum-exp, or null
   int B, C, Hq, Hkv, G, BS, MB, cps, nsplit;
+  int BSg, off;        // global block size, the pool slice's first offset
   long long s_blk, s_tok, s_head;
   int window;
   float scale;
 };
+
+// A row's log-sum-exp from its online-softmax state (-inf: no key seen).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -INFINITY;
+}
 
 // Prefill warps a CTA: 8 (128 rows), 4 for f32 at D 128 to stay in the
 // 227 KB of shared memory a block may take (attention_mma.cuh smem_bytes:
@@ -127,12 +150,12 @@ __device__ __forceinline__ void attend_split(const Args& a) {
   const int part = KSPLIT == 1 ? 0 : warp / GROUPS;
   uint4* qf = pa_smem + grp * attn::qfrag_u4<T, D>();
   T* kv = reinterpret_cast<T*>(pa_smem + GROUPS * attn::qfrag_u4<T, D>());
-  int* kvalid = reinterpret_cast<int*>(kv + 2 * 2 * BK * LD);   // [2][BK]
+  int* kvpos = reinterpret_cast<int*>(kv + 2 * 2 * BK * LD);    // [2][BK]
 
   const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
   const int split = blockIdx.y;
   const int C = CT > 0 ? CT : a.C;
-  const int R = C * a.G, G = a.G, BS = a.BS;
+  const int R = C * a.G, G = a.G, BS = a.BS, BSg = a.BSg;
   const int rg0 = blockIdx.z * GROUPS * 16;      // the CTA's first row
   const int start = a.start[b], last = start + C - 1;
   const int* table = a.tables + (size_t)b * a.MB;
@@ -152,8 +175,9 @@ __device__ __forceinline__ void attend_split(const Args& a) {
   auto row_pos = [&](int r) {    // position of row r (decode: rows past G too)
     return CT == 1 ? start : start + r / G;
   };
+  auto col_pos = [&](int j) { return j * BSg + a.off; };   // its key 0
   auto live = [&](int j) {
-    const int k0 = j * BS;
+    const int k0 = col_pos(j);
     return table[j] >= 0 && k0 <= last &&
            !(a.window > 0 && k0 + BS - 1 <= start - a.window);
   };
@@ -169,6 +193,7 @@ __device__ __forceinline__ void attend_split(const Args& a) {
     for (int r = rg0 + tid; r < min(R, rg0 + GROUPS * 16); r += blockDim.x) {
       if (direct) {
         for (int d = 0; d < D; ++d) out[row_off(r) + d] = from_f32<T>(0.f);
+        if (a.lse) a.lse[row_off(r) / D] = -INFINITY;
       } else {
         a.part_ml[prow + r] = make_float2(NEG_INF, 0.f);
       }
@@ -186,7 +211,8 @@ __device__ __forceinline__ void attend_split(const Args& a) {
     };
     attn::load_kv_pair<T, D, W * 32>(kd, kd + BK * LD, kp, vp, off);
     for (int i = tid; i < BK; i += blockDim.x)
-      kvalid[buf * BK + i] = off(i) >= 0;
+      kvpos[buf * BK + i] =
+          off(i) >= 0 ? col_pos(tile + i / BS) + i % BS : INT_MAX;
     attn::cp_commit();
   };
   load(jt, 0);
@@ -210,19 +236,21 @@ __device__ __forceinline__ void attend_split(const Args& a) {
     else attn::cp_commit();
     attn::cp_wait_one();
     __syncthreads();
-    const int k0 = jt * BS;                      // position of tile key 0
     const int nkeys = (min(jt + ncol, j1) - jt) * BS;
-    const int jmax = wr0 < R && nkeys > kw && wq_last >= k0 + kw
+    // tile keys at positions <= the warp's last row's (they ascend)
+    const int dlt = wq_last - col_pos(jt);
+    const int nvis = dlt < 0 ? 0 : dlt / BSg * BS + min(BS, dlt % BSg + 1);
+    const int jmax = wr0 < R && nkeys > kw && nvis > kw
                          ? min(min(NJ, (nkeys - kw + 7) / 8),
-                               (wq_last - k0 - kw) / 8 + 1)
+                               (nvis - kw + 7) / 8)
                          : 0;
     if (jmax > 0) {                              // warp-uniform
       const T* kd = kv + buf * 2 * BK * LD;
-      const int* ok = kvalid + buf * BK;
+      const int* kpp = kvpos + buf * BK;
       st.template step<NJ, true>(qf, kd, kd + BK * LD, NJ * part, jmax,
                                  a.scale, [&](int r, int key) {
-        const int kpos = k0 + key;
-        return ok[key] && kpos <= qpos[r] &&
+        const int kpos = kpp[key];               // INT_MAX: a dead key
+        return kpos <= qpos[r] &&
                (a.window == 0 || kpos > qpos[r] - a.window);
       });
     }
@@ -242,6 +270,7 @@ __device__ __forceinline__ void attend_split(const Args& a) {
     if (row >= R) continue;
     if (direct) {
       const float inv = 1.f / (st.l[r] == 0.f ? 1.f : st.l[r]);
+      if (a.lse && t == 0) a.lse[row_off(row) / D] = row_lse(st.m[r], st.l[r]);
       T* o = out + row_off(row) + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -303,8 +332,9 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
   }
   const float inv = 1.f / (L == 0.f ? 1.f : L);
   const int r = row % R, bh = row / R, b = bh / a.Hkv, h = bh % a.Hkv;
-  T* o = static_cast<T*>(a.out) +
-         (((size_t)b * C + r / a.G) * a.Hq + h * a.G + r % a.G) * D + lane;
+  const size_t orow = ((size_t)b * C + r / a.G) * a.Hq + h * a.G + r % a.G;
+  if (a.lse && lane == 0) a.lse[orow] = row_lse(M, L);
+  T* o = static_cast<T*>(a.out) + orow * D + lane;
 #pragma unroll
   for (int e = 0; e < D / 32; ++e) o[32 * e] = from_f32<T>(acc[e] * inv);
 }
@@ -342,21 +372,25 @@ int launch(const Args& a, bool decode, cudaStream_t s) {
 
 // Check the arguments both entries share, build Args and launch.
 int run(const void* q, const void* k, const void* v, const int* tables,
-        const int* start, void* out, float* part_acc, float* part_ml, int B,
-        int C, int Hq, int Hkv, int D, int BS, int MB, int cols_per_split,
-        long long s_blk, long long s_tok, long long s_head, int window,
-        int dtype, bool decode, void* stream) {
+        const int* start, void* out, float* part_acc, float* part_ml,
+        float* lse, int B, int C, int Hq, int Hkv, int D, int BS, int BSg,
+        int off, int MB, int cols_per_split, long long s_blk, long long s_tok,
+        long long s_head, int window, int dtype, bool decode, void* stream) {
+  // cp.async copies 16 bytes of a key row at a time: the base and every
+  // pool stride in elements must keep each row 16-byte aligned
+  const long long al = 16 / (dtype == 0 ? 4 : 2);
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || BS > 32 ||
-      MB < 0 || cols_per_split <= 0 || window < 0 ||
-      (uintptr_t)k % 16 != 0 || (uintptr_t)v % 16 != 0)
+      off < 0 || off + BS > BSg || MB < 0 || cols_per_split <= 0 ||
+      window < 0 || (uintptr_t)k % 16 != 0 || (uintptr_t)v % 16 != 0 ||
+      s_blk % al != 0 || s_tok % al != 0 || s_head % al != 0)
     return (int)cudaErrorInvalidValue;
   const int nsplit = max(1, (MB + cols_per_split - 1) / cols_per_split);
   if (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, tables, start, out, part_acc,
-               reinterpret_cast<float2*>(part_ml), B, C, Hq, Hkv, Hq / Hkv,
-               BS, MB, cols_per_split, nsplit, s_blk, s_tok, s_head, window,
-               1.f / sqrtf((float)D)};
+               reinterpret_cast<float2*>(part_ml), lse, B, C, Hq, Hkv,
+               Hq / Hkv, BS, MB, cols_per_split, nsplit, BSg, off, s_blk,
+               s_tok, s_head, window, 1.f / sqrtf((float)D)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (D) {
@@ -380,29 +414,34 @@ extern "C" {
 // The table walk is split into ceil(MB / cols_per_split) ranges (at least
 // one); with more than one, part_acc [nsplit * B * Hkv * R * D] and
 // part_ml [nsplit * B * Hkv * R * 2] are f32 scratch the caller allocates
-// (R = C G rows a kv head; decode: R = G). k and v must be 16-byte aligned
-// (cp.async).
+// (R = C G rows a kv head; decode: R = G). k and v are read through their
+// element strides s_blk, s_tok, s_head (unit stride along D); the base and
+// the strides must keep every key row 16-byte aligned (cp.async). BSg, off:
+// the global block size and the pool slice's first offset (partial mode;
+// BSg == BS and off 0 for a whole pool); lse: [B, C, Hq] f32 or NULL.
 int paged_attention_decode(const void* q, const void* k, const void* v,
                            const int* tables, const int* pos, void* out,
-                           float* part_acc, float* part_ml, int B, int Hq,
-                           int Hkv, int D, int BS, int MB, int cols_per_split,
+                           float* part_acc, float* part_ml, float* lse,
+                           int B, int Hq, int Hkv, int D, int BS, int BSg,
+                           int off, int MB, int cols_per_split,
                            long long s_blk, long long s_tok, long long s_head,
                            int window, int dtype, void* stream) {
-  return run(q, k, v, tables, pos, out, part_acc, part_ml, B, 1, Hq, Hkv, D,
-             BS, MB, cols_per_split, s_blk, s_tok, s_head, window, dtype,
-             true, stream);
+  return run(q, k, v, tables, pos, out, part_acc, part_ml, lse, B, 1, Hq,
+             Hkv, D, BS, BSg, off, MB, cols_per_split, s_blk, s_tok, s_head,
+             window, dtype, true, stream);
 }
 
 int paged_attention_prefill(const void* q, const void* k, const void* v,
                             const int* tables, const int* start, void* out,
-                            float* part_acc, float* part_ml, int B, int C,
-                            int Hq, int Hkv, int D, int BS, int MB,
-                            int cols_per_split, long long s_blk,
-                            long long s_tok, long long s_head, int window,
-                            int dtype, void* stream) {
-  return run(q, k, v, tables, start, out, part_acc, part_ml, B, C, Hq, Hkv,
-             D, BS, MB, cols_per_split, s_blk, s_tok, s_head, window, dtype,
-             false, stream);
+                            float* part_acc, float* part_ml, float* lse,
+                            int B, int C, int Hq, int Hkv, int D, int BS,
+                            int BSg, int off, int MB, int cols_per_split,
+                            long long s_blk, long long s_tok,
+                            long long s_head, int window, int dtype,
+                            void* stream) {
+  return run(q, k, v, tables, start, out, part_acc, part_ml, lse, B, C, Hq,
+             Hkv, D, BS, BSg, off, MB, cols_per_split, s_blk, s_tok, s_head,
+             window, dtype, false, stream);
 }
 
 }  // extern "C"

@@ -14,6 +14,10 @@ q head ``h`` attending kv head ``h // G``; out ``[B, S, Hq, D]`` in q's
 dtype. ``kernels/ops.py`` routes by device and raises the JAX wrapper's
 ``ValueError`` for a non-causal S that is not a multiple of the block.
 
+A query offset (``q_offset``, the forward only: a rank's block of query
+rows under q-seq sharding) puts query i at position ``q_offset + i``
+against keys ``0 .. Sk - 1`` of k/v ``[B, Sk, Hkv, D]``, ``Sq <= Sk``.
+
 The backward has no TPU kernel to port (the JAX package trains through its
 plain attention): ``flash_attention_backward_cuda`` launches
 ``csrc/flash_attention_bwd.cu`` (f32) on the row log-sum-exp the training
@@ -40,19 +44,23 @@ def tpu_block(s: int) -> int:
     return min(128, max(8, s))
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
-    """Plain version of the kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D]
-    -> [B, S, Hq, D], f32 arithmetic, q's dtype out."""
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
+                          q_offset: int = 0):
+    """Plain version of the kernel: q [B, S, Hq, D], k/v [B, Sk, Hkv, D]
+    (Sk == S unless ``q_offset`` places the queries at positions
+    ``q_offset .. q_offset + S - 1`` of Sk keys) -> [B, S, Hq, D], f32
+    arithmetic, q's dtype out."""
     flash_attention_plain.calls += 1
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    pos = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[:, None] >= pos[None, :]
+        mask &= q_pos[:, None] >= k_pos[None, :]
     if window:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= q_pos[:, None] - k_pos[None, :] < window
     qg = q.reshape(b, s, hkv, g, d).float()
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
     logits = logits.masked_fill(~mask, NEG_INF)
@@ -69,7 +77,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
 flash_attention_plain.calls = 0
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, q_offset: int = 0) -> None:
     """Raise on anything the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
@@ -86,10 +94,12 @@ def _check(q, k, v) -> None:
                          f"{tuple(q.shape)} / {tuple(k.shape)} / "
                          f"{tuple(v.shape)}")
     b, s, hq, d = q.shape
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or \
+    sk_ok = (k.shape[1] >= s and q_offset >= 0 if q_offset
+             else k.shape[1] == s)
+    if k.shape[0] != b or not sk_ok or k.shape[3] != d or \
             hq % k.shape[2] or 0 in q.shape:
-        raise ValueError(f"q {tuple(q.shape)} does not group over k "
-                         f"{tuple(k.shape)}")
+        raise ValueError(f"q {tuple(q.shape)} at offset {q_offset} does not "
+                         f"group over k {tuple(k.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -100,12 +110,14 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False, q_offset: int = 0):
     """Launch the kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D] (read in
     place through their strides) -> contiguous [B, S, Hq, D]; with
     ``return_lse`` (float32 only) also each row's log-sum-exp [B Hq, S]
-    (1e30 for a row that sees no key), which the backward kernel takes."""
-    _check(q, k, v)
+    (1e30 for a row that sees no key), which the backward kernel takes.
+    ``q_offset``: the queries sit at positions ``q_offset ..`` of k/v's
+    Sk >= S keys (module docstring)."""
+    _check(q, k, v, q_offset)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if return_lse and q.dtype != torch.float32:
@@ -121,7 +133,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, s, hq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(bool(causal)), int(window), _DTYPES[q.dtype],
+            *v.stride()[:3], int(bool(causal)), int(window), k.shape[1],
+            int(q_offset), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "flash_attention_forward")
     return (out, lse) if return_lse else out

@@ -18,6 +18,14 @@ Python, so ``serve/graphs.py`` reads these counters around a capture
 (``counts``), puts them back (``set_counts``) and adds the capture's
 difference on every replay (``add_counts``).
 
+Partial launches. A rank of a sequence-sharded attention layer (kv-seq over
+a position-split pool, q-seq over its block of query rows) calls its own
+wrappers, ``paged_attention_partial``, ``paged_prefill_partial`` and
+``flash_attention_offset``: the same kernels in their partial and query-offset
+modes, counted apart from the whole-pool and self-attention launches so a
+run shows which it took. Their CPU route counts its calls in
+``plain_calls`` (the plain versions' ``calls`` count every mode).
+
 Gradients. On CPU tensors autograd runs through the plain versions. On
 CUDA tensors ``flash_attention`` and ``ssd_scan`` run inside
 ``torch.autograd.Function``s whose backward launches a hand-written kernel
@@ -186,15 +194,21 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     return grads
 
 
-def _paged_dry(name, q, k_pages, tables, c: int, window: int):
+def _paged_dry(name, q, k_pages, tables, c: int, window: int, pos_base=None):
     """A paged kernel on tensors without storage: the table holds no data,
-    so the cost booked is a full table's (``cost.full_table``)."""
+    so the cost booked is a full table's (``cost.full_table``); a partial
+    call (``pos_base``) also returns its rows' log-sum-exp."""
     _, bs, hkv, d = k_pages.shape
     b, mb = tables.shape
+    bs_g = pos_base[0] if pos_base is not None else bs
     _book(name, cost.paged_attention(
         q.shape[-2], hkv, d, bs, q.element_size(), c, window,
-        *cost.full_table(b, mb, bs, c)))
-    return q.new_empty(q.shape)
+        *cost.full_table(b, mb, bs_g, c), pos_base=pos_base,
+        lse=pos_base is not None))
+    out = q.new_empty(q.shape)
+    if pos_base is None:
+        return out
+    return out, q.new_empty(q.shape[:-1], dtype=torch.float32)
 
 
 def paged_attention(q, k_pages, v_pages, tables, pos, window: int = 0):
@@ -227,6 +241,70 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, start,
                           q.shape[1], window)
     out = _pa.paged_prefill_cuda(q, k_pages, v_pages, tables, start, window)
     paged_prefill_attention.launches += 1
+    return out
+
+
+def paged_attention_partial(q, k_pages, v_pages, tables, pos, window: int,
+                            pos_base):
+    """The decode kernel's partial mode: ``k_pages`` / ``v_pages`` hold
+    in-block offsets ``[off, off + BS)`` of every block of ``BS_g``
+    positions (``pos_base = (BS_g, off)``). Returns (out [B, Hq, D], each
+    row's log-sum-exp [B, Hq] f32, -inf where the slice held no visible
+    key), which ``sharding.merge_partials`` combines over the ranks."""
+    if q.device.type == "cpu":
+        paged_attention_partial.plain_calls += 1
+        return _pa.paged_attention_plain(q, k_pages, v_pages, tables, pos,
+                                         window, pos_base, return_lse=True)
+    _refuse_grad("paged_attention_partial", q, k_pages, v_pages)
+    if _storage_less(q):
+        return _paged_dry("paged_attention_partial", q, k_pages, tables, 1,
+                          window, pos_base)
+    res = _pa.paged_attention_cuda(q, k_pages, v_pages, tables, pos, window,
+                                   pos_base, return_lse=True)
+    paged_attention_partial.launches += 1
+    return res
+
+
+def paged_prefill_partial(q, k_pages, v_pages, tables, start, window: int,
+                          pos_base):
+    """The prefill kernel's partial mode (``paged_attention_partial``'s
+    pool slice): q [B, C, Hq, D] -> (out [B, C, Hq, D], log-sum-exp
+    [B, C, Hq] f32)."""
+    if q.device.type == "cpu":
+        paged_prefill_partial.plain_calls += 1
+        return _pa.paged_prefill_attention_plain(
+            q, k_pages, v_pages, tables, start, window, pos_base,
+            return_lse=True)
+    _refuse_grad("paged_prefill_partial", q, k_pages, v_pages)
+    if _storage_less(q):
+        return _paged_dry("paged_prefill_partial", q, k_pages, tables,
+                          q.shape[1], window, pos_base)
+    res = _pa.paged_prefill_cuda(q, k_pages, v_pages, tables, start, window,
+                                 pos_base, return_lse=True)
+    paged_prefill_partial.launches += 1
+    return res
+
+
+def flash_attention_offset(q, k, v, q_offset: int, *, causal: bool = True,
+                           window: int = 0):
+    """Flash attention for a block of query rows: q [B, Sq, Hq, D] at
+    positions ``q_offset .. q_offset + Sq - 1`` against k, v
+    [B, Sk, Hkv, D] at ``0 .. Sk - 1`` (Sq <= Sk) -> [B, Sq, Hq, D]. The
+    forward only: with grad mode on and an input that requires grad it
+    raises, as the paged kernels do."""
+    if q.device.type == "cpu":
+        flash_attention_offset.plain_calls += 1
+        return _fa.flash_attention_plain(q, k, v, causal, window, q_offset)
+    _refuse_grad("flash_attention_offset", q, k, v)
+    if _storage_less(q):
+        b, s, hq, d = q.shape
+        _book("flash_attention_offset", cost.flash_attention(
+            b, s, hq, k.shape[2], d, q.element_size(), causal, window,
+            q_offset=q_offset, sk=k.shape[1]))
+        return q.new_empty(q.shape)
+    out = _fa.flash_attention_cuda(q, k, v, causal, window,
+                                   q_offset=q_offset)
+    flash_attention_offset.launches += 1
     return out
 
 
@@ -304,6 +382,14 @@ ssd_scan.launches = 0
 grouped_matmul.launches = 0
 flash_attention_backward.launches = 0
 ssd_scan_backward.launches = 0
+paged_attention_partial.launches = 0
+paged_prefill_partial.launches = 0
+flash_attention_offset.launches = 0
+#: the partial and query-offset wrappers' CPU calls (not in ``COUNTERS``:
+#: a graph captures CUDA work only)
+paged_attention_partial.plain_calls = 0
+paged_prefill_partial.plain_calls = 0
+flash_attention_offset.plain_calls = 0
 
 #: every counter above, as (function, attribute). The counts are plain
 #: ``+=`` on a function attribute, not atomic across threads: where several
@@ -312,7 +398,9 @@ COUNTERS = tuple(
     [(f, "launches") for f in (flash_attention, paged_attention,
                                paged_prefill_attention, ssd_scan,
                                grouped_matmul, flash_attention_backward,
-                               ssd_scan_backward)]
+                               ssd_scan_backward, paged_attention_partial,
+                               paged_prefill_partial,
+                               flash_attention_offset)]
     + [(f, "calls") for f in (_fa.flash_attention_plain,
                               _pa.paged_attention_plain,
                               _pa.paged_prefill_attention_plain,

@@ -28,7 +28,18 @@ Layouts are the JAX wrappers' (``kernels/ops.py``): q ``[B, Hq, D]``
 (decode) or ``[B, C, Hq, D]`` (prefill) with q heads grouped per kv head
 (head ``h`` reads kv head ``h // G``); pools ``[NB, BS, Hkv, D]``; tables
 ``[B, MB]`` int32 with -1 for an unassigned column; ``pos`` / ``start``
-``[B]`` int32; ``window`` an int, 0 for full attention.
+``[B]`` int32; ``window`` an int, 0 for full attention. The kernels read
+the pools through their strides (a KV-head slice of a pool is a view),
+with a unit stride along D and every key row 16-byte aligned.
+
+Partial mode (``pos_base``, ``return_lse``): a rank whose pool holds only
+in-block offsets ``[off, off + BS)`` of every block of the global block
+size ``BS_g`` passes that slice with ``pos_base = (BS_g, off)``; local key
+j of table column c sits at position ``c BS_g + off + j``. With
+``return_lse`` the call also returns each row's log-sum-exp over the keys
+it saw, f32 ``[B, Hq]`` (decode) or ``[B, C, Hq]`` (prefill), -inf for a
+row that saw none: the ranks' partial outputs merge by it
+(``dist/sharding.py:merge_partials``) into the whole pool's output.
 """
 from __future__ import annotations
 
@@ -78,12 +89,25 @@ def paged_kv_gather(k_pages, v_pages, tables):
     return kg, vg, k_pos, assigned
 
 
-def _attend_plain(q, k_pages, v_pages, tables, start, window: int):
-    """q [B, C, Hq, D] at positions start[b] + c -> [B, C, Hq, D]."""
+def key_positions(mb: int, bs: int, pos_base, device) -> torch.Tensor:
+    """[MB BS] positions of a gathered table's keys: column c's local key
+    j at ``c BS_g + off + j`` (``pos_base = (BS_g, off)``; None: the whole
+    pool, ``c BS + j``)."""
+    bs_g, off = pos_base if pos_base is not None else (bs, 0)
+    col = torch.arange(mb, device=device)[:, None] * bs_g + off
+    return (col + torch.arange(bs, device=device)[None, :]).reshape(-1)
+
+
+def _attend_plain(q, k_pages, v_pages, tables, start, window: int,
+                  pos_base=None, return_lse: bool = False):
+    """q [B, C, Hq, D] at positions start[b] + c -> [B, C, Hq, D] (and,
+    with ``return_lse``, the rows' log-sum-exp [B, C, Hq] f32)."""
     b, c, hq, d = q.shape
     hkv = k_pages.shape[2]
     g = hq // hkv
-    kg, vg, k_pos, assigned = paged_kv_gather(k_pages, v_pages, tables)
+    kg, vg, _, assigned = paged_kv_gather(k_pages, v_pages, tables)
+    k_pos = key_positions(tables.shape[1], k_pages.shape[1], pos_base,
+                           q.device)
     q_pos = (start.long()[:, None]
              + torch.arange(c, device=q.device)[None, :])[:, :, None]
     valid = assigned[:, None, :] & (k_pos <= q_pos)            # [B, C, K]
@@ -97,23 +121,36 @@ def _attend_plain(q, k_pages, v_pages, tables, start, window: int):
     m = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.exp(logits - m) * mask
     l = p.sum(dim=-1, keepdim=True)
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -math.inf))
     l = torch.where(l == 0, torch.ones_like(l), l)
     out = torch.einsum("bhgck,bkhd->bchgd", p / l, vg.float())
-    return out.reshape(b, c, hq, d).to(q.dtype)
+    out = out.reshape(b, c, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    # [B, Hkv, G, C, 1] -> [B, C, Hq]
+    return out, lse[..., 0].permute(0, 3, 1, 2).reshape(b, c, hq)
 
 
-def paged_attention_plain(q, k_pages, v_pages, tables, pos, window: int = 0):
-    """Plain version of the decode kernel: q [B, Hq, D] -> [B, Hq, D]."""
+def paged_attention_plain(q, k_pages, v_pages, tables, pos, window: int = 0,
+                          pos_base=None, return_lse: bool = False):
+    """Plain version of the decode kernel: q [B, Hq, D] -> [B, Hq, D]
+    (with ``return_lse``, and the rows' log-sum-exp [B, Hq])."""
     paged_attention_plain.calls += 1
-    return _attend_plain(q[:, None], k_pages, v_pages, tables, pos,
-                         window)[:, 0]
+    res = _attend_plain(q[:, None], k_pages, v_pages, tables, pos, window,
+                        pos_base, return_lse)
+    if return_lse:
+        return res[0][:, 0], res[1][:, 0]
+    return res[:, 0]
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, tables, start,
-                                  window: int = 0):
-    """Plain version of the prefill kernel: q [B, C, Hq, D] -> same."""
+                                  window: int = 0, pos_base=None,
+                                  return_lse: bool = False):
+    """Plain version of the prefill kernel: q [B, C, Hq, D] -> same (with
+    ``return_lse``, and the rows' log-sum-exp [B, C, Hq])."""
     paged_prefill_attention_plain.calls += 1
-    return _attend_plain(q, k_pages, v_pages, tables, start, window)
+    return _attend_plain(q, k_pages, v_pages, tables, start, window,
+                         pos_base, return_lse)
 
 
 #: calls of each plain version, so a device run can show it never fell
@@ -122,7 +159,8 @@ paged_attention_plain.calls = 0
 paged_prefill_attention_plain.calls = 0
 
 
-def _check(q, k_pages, v_pages, tables, start, qdim: int) -> None:
+def _check(q, k_pages, v_pages, tables, start, qdim: int,
+           pos_base=None) -> None:
     """Raise on anything the kernels do not take."""
     if q.dim() != qdim or 0 in q.shape[1:]:
         raise ValueError(f"q must be a {qdim}-d tensor with non-empty "
@@ -156,14 +194,23 @@ def _check(q, k_pages, v_pages, tables, start, qdim: int) -> None:
     if tables.dim() != 2 or tables.shape[0] != b or start.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / start "
                          f"{tuple(start.shape)} do not match batch {b}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("tables", tables), ("start", start)):
+    if pos_base is not None:
+        bs_g, off = pos_base
+        if off < 0 or off + bs > bs_g:
+            raise ValueError(f"pos_base {tuple(pos_base)}: a slice of {bs} "
+                             f"offsets at {off} must lie inside a block of "
+                             f"{bs_g}")
+    for name, t in (("q", q), ("tables", tables), ("start", start)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
-                             "copy it 16 bytes at a time)")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous along head_dim")
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in t.stride()[:3]):
+            raise ValueError(f"{name} must be 16-byte aligned, its base and "
+                             f"its strides {t.stride()} (the kernels copy "
+                             "a key row 16 bytes at a time)")
 
 
 def _pool_args(k_pages, window: int):
@@ -172,14 +219,16 @@ def _pool_args(k_pages, window: int):
 
 
 def _launch(entry: str, q, k_pages, v_pages, tables, start, window: int,
-            keys: int):
+            keys: int, pos_base=None, return_lse: bool = False):
     """Run the C entry ``entry`` on q [B, C, Hq, D] (decode: C is 1 and q
     passes as [B, Hq, D]) over a table walk split by ``split_plan``; with
     more than one split the partials go to f32 scratch allocated here and a
-    second kernel merges them (both launched by one C call)."""
+    second kernel merges them (both launched by one C call). ``pos_base``
+    and ``return_lse``: the partial mode (module docstring)."""
     out = torch.empty_like(q)
     lib = build.library()
     _, bs, hkv, d = k_pages.shape
+    bs_g, off = pos_base if pos_base is not None else (bs, 0)
     mb = tables.shape[1]
     cps, nsplit = split_plan(mb, bs, keys)
     acc = ml = None
@@ -189,28 +238,35 @@ def _launch(entry: str, q, k_pages, v_pages, tables, start, window: int,
                               device=q.device)
         acc = scratch.data_ptr()              # [rows, D], then (m, l) [rows, 2]
         ml = acc + 4 * rows * d
+    lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), start.data_ptr(), out.data_ptr(), acc, ml,
-            *q.shape[:-1], hkv, d, bs, mb, cps,
+            None if lse is None else lse.data_ptr(),
+            *q.shape[:-1], hkv, d, bs, int(bs_g), int(off), mb, cps,
             *_pool_args(k_pages, window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, entry)
-    return out
+    return (out, lse) if return_lse else out
 
 
-def paged_attention_cuda(q, k_pages, v_pages, tables, pos, window: int = 0):
-    """Launch the decode kernel: q [B, Hq, D] -> [B, Hq, D] (q's dtype),
-    the table walk split every ``DECODE_SPLIT_KEYS`` keys."""
-    _check(q, k_pages, v_pages, tables, pos, 3)
+def paged_attention_cuda(q, k_pages, v_pages, tables, pos, window: int = 0,
+                         pos_base=None, return_lse: bool = False):
+    """Launch the decode kernel: q [B, Hq, D] -> [B, Hq, D] (q's dtype;
+    with ``return_lse``, and the rows' log-sum-exp [B, Hq] f32), the table
+    walk split every ``DECODE_SPLIT_KEYS`` keys."""
+    _check(q, k_pages, v_pages, tables, pos, 3, pos_base)
     return _launch("paged_attention_decode", q, k_pages, v_pages, tables,
-                   pos, window, DECODE_SPLIT_KEYS)
+                   pos, window, DECODE_SPLIT_KEYS, pos_base, return_lse)
 
 
-def paged_prefill_cuda(q, k_pages, v_pages, tables, start, window: int = 0):
-    """Launch the prefill kernel: q [B, C, Hq, D] -> same (q's dtype), the
-    table walk split every ``SPLIT_KEYS`` keys."""
-    _check(q, k_pages, v_pages, tables, start, 4)
+def paged_prefill_cuda(q, k_pages, v_pages, tables, start, window: int = 0,
+                       pos_base=None, return_lse: bool = False):
+    """Launch the prefill kernel: q [B, C, Hq, D] -> same (q's dtype; with
+    ``return_lse``, and the rows' log-sum-exp [B, C, Hq] f32), the table
+    walk split every ``SPLIT_KEYS`` keys."""
+    _check(q, k_pages, v_pages, tables, start, 4, pos_base)
     return _launch("paged_attention_prefill", q, k_pages, v_pages, tables,
-                   start, window, SPLIT_KEYS)
+                   start, window, SPLIT_KEYS, pos_base, return_lse)

@@ -36,12 +36,15 @@ counting mode that records
 The program is the port's own plan. Parameters are the local blocks of
 ``serve/sharded.py:realized`` on ``param_pspecs``; the decode cache the
 local blocks of ``cache_pspecs`` with the splits the port realizes (rows
-over the batch axes, KV heads over 'model' where attention runs
-head-sharded); a leaf the port holds whole where the reference splits it
-counts whole, and the record lists it under ``held_replicated``. Batch
-rows split over the batch axes when those divide the batch. The program
-runs under ``axis_rules(mesh, production_rules_table(...))`` with the
-reference's ``kv_seq`` override. Modes: ``train`` is the port's train step
+over the batch axes; for the attention families KV heads over 'model'
+where attention runs head-sharded, and the sequence over the axis the
+reference splits it, 'model' for KV heads that do not divide it, 'data'
+for long_500k, where the layer runs kv-seq over that axis); a leaf the
+port holds whole where the reference splits it counts whole, and the
+record lists it under ``held_replicated``. Batch rows split over the
+batch axes when those divide the batch. The program runs under
+``axis_rules(mesh, production_rules_table(...))`` with the reference's
+``kv_seq`` override, and the cache's sequence axis (``cache_seq``). Modes: ``train`` is the port's train step
 (``Model.loss``, backward, clip and AdamW as ``train/trainer.py`` runs it,
 under ``--remat``; with ZeRO-1 the update runs on this rank's shards of
 the gradients, moments and params); ``prefill`` is ``Model.forward``;
@@ -412,9 +415,13 @@ class Program:
     args: tuple
     run: Callable
     held_replicated: list = field(default_factory=list)
+    #: the mesh axis the decode cache's sequence is split over (None:
+    #: whole, or no cache)
+    cache_seq: Optional[str] = None
 
     def rules(self):
-        return shd.axis_rules(self.mesh, self.table)
+        return shd.axis_rules(self.mesh, self.table,
+                              cache_seq=self.cache_seq)
 
     def count(self) -> dict:
         """Run once under the counting modes; the counts and the outputs'
@@ -465,17 +472,21 @@ def _cut_view(x, spec, mesh):
 
 def _cache_layout(cfg, cspec, mesh, batch_axes, heads: bool) -> dict:
     """The splits of the decode cache the port realizes: rows over the
-    batch axes, and KV heads over 'model' where attention runs
-    head-sharded (the attention families); every other split (a sequence
-    split over 'model' or 'data', the SSM states' heads, the hybrid's and
-    encdec's leaves) is held whole."""
-    from repro_torch.serve.sharded import TP_FAMILIES
-    m = axis_sizes(mesh)["model"]
-    kv_model = (cfg.family in TP_FAMILIES and (m == 1 or (
-        heads and cfg.n_kv_heads % m == 0)))
+    batch axes; for the attention families' K/V (``serve/sharded.py:
+    cache_layout``) KV heads over 'model' where attention runs
+    head-sharded and the sequence over the axis the reference splits it;
+    every other split (the SSM states' heads, the hybrid's and encdec's
+    leaves) is held whole."""
+    from repro_torch.serve.sharded import TP_FAMILIES, cache_layout
+    sizes = axis_sizes(mesh)
+    kv = cache_layout(cfg, {n: cspec[n] for n in ("k", "v") if n in cspec},
+                      sizes, heads, keep_axes=batch_axes) \
+        if cfg.family in TP_FAMILIES else {}
 
     def keep(path, spec):
         name = "/".join(str(p) for p in path)
+        if name in kv:
+            return kv[name]
         # the rows: [L, B, ...], or [G, E, B, ...] for the hybrid's states
         rows = 2 if len(spec) == 6 or (len(spec) == 5
                                        and name.endswith("conv")) else 1
@@ -483,9 +494,6 @@ def _cache_layout(cfg, cspec, mesh, batch_axes, heads: bool) -> dict:
         for d, e in enumerate(spec):
             axes = set(shd._flat(e))
             if d == rows and axes and axes <= set(batch_axes):
-                out.append(e)
-            elif (e == "model" and kv_model and name in ("k", "v")
-                  and d == len(spec) - 2):
                 out.append(e)
             else:
                 out.append(None)
@@ -499,7 +507,8 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
     (module docstring): its meta arguments, cut to the port's plan."""
     from repro_torch.models.api import (build_model, cache_specs,
                                         input_specs, params_specs)
-    from repro_torch.serve.sharded import _replicated, heads_shard, realized
+    from repro_torch.models.layers import heads_sharded
+    from repro_torch.serve.sharded import _replicated, cache_seq, realized
     from repro_torch.train.optimizer import (adamw, constant, leaves,
                                              tree_map)
     sizes = axis_sizes(mesh)
@@ -513,12 +522,12 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
     with shd.axis_rules(mesh, table) as rules:
         pshape = params_specs(cfg)
         pspec = shd.param_pspecs(pshape, rules)
-        heads = heads_shard(cfg, rules)
+        heads = heads_sharded(cfg)
     m = sizes["model"]
     layout = tree_map_with_path(
         lambda path, s: realized(cfg, next(
-            (k for k in reversed(path) if isinstance(k, str)), ""), s, m,
-            heads), pspec)
+            (k for k in reversed(path) if isinstance(k, str)), ""), s, m),
+        pspec)
     held = _replicated(pspec, layout, sizes)
     batch = input_specs(cfg, rows, ishape.seq_len, ishape.mode)
     common = dict(cfg=cfg, mesh=mesh, table=table)
@@ -547,7 +556,8 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
             with torch.no_grad():
                 return model.decode_step(params, cache, tokens, pos)
         return Program(args=(params, cache, tokens), run=decode,
-                       held_replicated=held, **common)
+                       held_replicated=held,
+                       cache_seq=cache_seq(clayout, sizes), **common)
 
     # train: the port's train step on this rank's blocks
     optimizer = adamw(constant(1e-4))

@@ -11,13 +11,28 @@ Sharded (``dist/sharding.py``): a layer computes on whatever local blocks
 its parameters hold and issues the collective that the reference's
 ``shard`` site implies where a leaf is split over 'model' — its local
 shape says so, off the mesh every leaf is whole and nothing is issued.
-Attention runs on this rank's q heads (and KV heads when they divide
-'model'; when they do not, the rank computes every KV head, caches them
-all, and attends over the ones its q heads read); ``wo`` and ``w_down``
-are row-parallel and their partial sums are reduced over 'model'; the
-embedding is vocab-parallel (a masked lookup, then a reduce) and the
-logits are gathered over 'model'. Inside ``sharding.split_rows`` a decode
-step computes this rank's rows of the bucket, and every K/V write first
+``wq`` / ``wk`` / ``wv`` and their biases are column blocks of the flat
+head dimension and ``wo`` its row block. Attention takes one of the
+reference's schemes (``attention_scheme``):
+
+  * head-sharded (``heads_sharded``): the rank's q heads are whole heads
+    of its column block; its KV heads too where they divide 'model', else
+    the rank gathers every KV head's columns, caches them all and attends
+    over the ones its q heads read (``kv_heads_read``);
+  * otherwise the rank gathers the q, k and v columns over 'model' into
+    whole heads and attends over all of them: kv-seq where the decode
+    cache's positions are split over a mesh axis (``cache_seq_axis``:
+    each rank attends over its own keys, the partial outputs merged by
+    ``sharding.merge_partials``), q-seq for a causal pass whose length
+    'model' divides (a rank's block of query rows through flash with a
+    query offset, the rows gathered back), and the whole attention
+    elsewhere, as the reference's batch-only branch;
+
+then ``wo`` multiplies the rank's columns of the output and the partial
+sums are reduced over 'model', as ``w_down``'s are; the embedding is
+vocab-parallel (a masked lookup, then a reduce) and the logits are
+gathered over 'model'. Inside ``sharding.split_rows`` a decode step
+computes this rank's rows of the bucket, and every K/V write first
 gathers the bucket's rows over 'data', since each 'data' rank holds the
 whole pool.
 """
@@ -171,15 +186,64 @@ def init_attention(cfg, dtype, generator) -> dict:
     return p
 
 
-def _qkv(p, cfg, x):
-    """x [B, S, D] -> q [B, S, Hq, D], k / v [B, S, Hkv, D] on this rank's
-    heads (all of them off the mesh): the local head counts are the local
-    projections' widths over the head dim."""
+#: the families whose attention layers compute tensor-parallel
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
+def _axis_ranks(axis: str) -> int:
+    """The ranks of mesh ``axis`` under the installed rules (1 off the
+    mesh)."""
+    rules = shd.current_rules()
+    return rules.sizes.get(axis, 1) if rules is not None else 1
+
+
+def heads_sharded(cfg) -> bool:
+    """Whether attention runs head-sharded under the installed rules: the
+    layer's scheme (``plan_attention_scheme``, the reference's) splits the
+    q heads over 'model', and each rank's q heads read a whole number of
+    KV groups or one KV head (so the kernels see one G); the TP families
+    only."""
+    m = _axis_ranks("model")
+    if m <= 1 or cfg.family not in TP_FAMILIES or not cfg.n_kv_heads:
+        return False
+    scheme = plan_attention_scheme(cfg, 1, 1, 1)
+    if scheme is None or scheme["q"][2] != "model":
+        return False
+    per, g = cfg.n_heads_eff // m, cfg.n_heads_eff // cfg.n_kv_heads
+    return cfg.n_kv_heads % m == 0 or per % g == 0 or g % per == 0
+
+
+def _whole(ts, fulls):
+    """Column blocks [B, S, w_i] of flat head projections -> all of each
+    [B, S, full_i] (``ts`` as they are when whole): one gather over
+    'model' of the blocks side by side, each cut back out in rank order."""
+    if all(t.shape[-1] == f for t, f in zip(ts, fulls)):
+        return ts
+    widths = [t.shape[-1] for t in ts]
+    parts = shd.gather_over(torch.cat(ts, dim=-1)[None], 0, "model")
+    out, c = [], 0
+    for w in widths:                   # [m, B, S, w] -> [B, S, m w]
+        out.append(parts[..., c:c + w].movedim(0, -2).flatten(-2))
+        c += w
+    return out
+
+
+def _qkv(p, cfg, x, heads: bool):
+    """x [B, S, D] -> q [B, S, Hq, D], k / v [B, S, Hkv, D]. ``heads``
+    (the layer runs head-sharded): q on this rank's heads, k / v on its KV
+    heads where they divide 'model', else every KV head (their columns
+    gathered); otherwise every head of all three (gathered where the
+    projections hold a column block). Off the mesh every leaf is whole."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    full_kv = cfg.n_kv_heads * hd
+    if not heads:
+        q, k, v = _whole((q, k, v), (cfg.n_heads_eff * hd, full_kv, full_kv))
+    elif cfg.n_kv_heads % _axis_ranks("model"):
+        k, v = _whole((k, v), (full_kv, full_kv))
     return (q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
             v.reshape(b, s, -1, hd))
 
@@ -209,11 +273,78 @@ def kv_heads_read(cfg, n_q: int, n_kv: int) -> Optional[slice]:
 
 def _heads_sum(p, cfg, out):
     """``out @ wo`` of the local heads, summed over 'model' when ``wo``
-    holds a row block (the reference's residual ``shard`` site)."""
+    holds a row block (the reference's residual ``shard`` site); an
+    ``out`` of every head against a row block multiplies this rank's
+    columns of it."""
+    w = p["wo"].shape[0]
+    if out.shape[-1] != w:
+        r = shd.axis_index("model")
+        out = out[..., r * w:(r + 1) * w]
     y = out @ p["wo"]
-    if p["wo"].shape[0] != cfg.n_heads_eff * cfg.resolved_head_dim:
+    if w != cfg.n_heads_eff * cfg.resolved_head_dim:
         y = shd.reduce_over(y, "model")
     return y
+
+
+def _q_seq(cfg, b: int, s: int, q) -> bool:
+    """Whether the layer's scheme for a causal pass of ``s`` positions is
+    q-seq: the query sequence split over 'model' (``attention_scheme``).
+    Flash's query offset runs forward only, so a pass that needs the
+    gradient of ``q`` computes every row instead (the dry-run's train
+    programs)."""
+    if torch.is_grad_enabled() and q.requires_grad:
+        return False
+    scheme = plan_attention_scheme(cfg, b, s, s)
+    return scheme is not None and scheme["q"][1] == "model"
+
+
+def _q_seq_attention(q, k, v, window: int):
+    """Causal attention of every head, a block of query rows a 'model'
+    rank: rank r's rows ``[r S/m, (r + 1) S/m)`` against keys
+    ``[0, (r + 1) S/m)`` through flash with a query offset, the rows
+    gathered over 'model' in rank order."""
+    n = q.shape[1] // _axis_ranks("model")
+    r0 = shd.axis_index("model") * n
+    out = kops.flash_attention_offset(q[:, r0:r0 + n], k[:, :r0 + n],
+                                      v[:, :r0 + n], r0, causal=True,
+                                      window=window)
+    return shd.gather_over(out, 1, "model")
+
+
+def _masked_logits(q, k, mask, no_repeat: bool):
+    """``mha``'s scores in f32, NEG_INF where ``mask`` is False -> (logits,
+    grouped): [B, Hkv, G, Sq, Sk] when ``grouped`` (``no_repeat`` and
+    G > 1: q viewed as [B, Sq, Hkv, G, D], a 4-d mask gains the group
+    axis), else [B, Hq, Sq, Sk] against the KV heads repeated."""
+    b, sq, hq, d = q.shape
+    g = hq // k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    grouped = no_repeat and g > 1
+    if grouped:
+        qg = q.reshape(b, sq, k.shape[2], g, d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+        if mask is not None and mask.dim() == 4:
+            mask = mask[:, :, None]
+    else:
+        if g > 1:
+            k = k.repeat_interleave(g, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return logits, grouped
+
+
+def _weighted_values(probs, v, grouped: bool, dtype):
+    """``probs`` in ``_masked_logits``'s layout, cast to ``dtype``, times
+    v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]."""
+    probs = probs.to(dtype)
+    if grouped:
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return out.flatten(2, 3)
+    g = probs.shape[1] // v.shape[2]
+    if g > 1:
+        v = v.repeat_interleave(g, dim=2)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def mha(q, k, v, mask, no_repeat: bool = False):
@@ -224,26 +355,27 @@ def mha(q, k, v, mask, no_repeat: bool = False):
     its group of q heads instead (``layers.py:216-238``): q is viewed as
     [B, Sq, Hkv, G, D] and the KV heads are never repeated; a 4-d mask
     [B, 1|H, 1|Q, K] gains the group axis."""
-    b, sq, hq, d = q.shape
-    g = hq // k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    if no_repeat and g > 1:
-        qg = q.reshape(b, sq, k.shape[2], g, d)
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
-        if mask is not None:
-            logits = logits.masked_fill(
-                ~(mask[:, :, None] if mask.dim() == 4 else mask), NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-        return out.reshape(b, sq, hq, d)
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    logits, grouped = _masked_logits(q, k, mask, no_repeat)
+    return _weighted_values(torch.softmax(logits, dim=-1), v, grouped,
+                            q.dtype)
+
+
+def mha_partial(q, k, v, mask, no_repeat: bool = False):
+    """``mha`` over a slice of the keys (kv-seq: this rank's positions of
+    a split cache) -> (out [B, Sq, Hq, D] normalized over the slice, each
+    row's log-sum-exp over it [B, Sq, Hq] f32, -inf where the slice holds
+    no visible key, whose output is 0): ``sharding.merge_partials``
+    combines the ranks' into ``mha`` over every key."""
+    b, sq, hq, _ = q.shape
+    logits, grouped = _masked_logits(q, k, mask, no_repeat)
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.exp(logits - m)           # a masked key's NEG_INF gives 0
+    l = p.sum(dim=-1, keepdim=True)
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -math.inf))
+    out = _weighted_values(p / torch.where(l == 0, torch.ones_like(l), l), v,
+                           grouped, q.dtype)
+    return out, lse.reshape(b, hq, sq).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -295,22 +427,31 @@ def plan_decode_backend(cfg, kv_cache) -> str:
     return backend
 
 
-def paged_kv_write(pkv: PagedKV, k, v, positions, valid=None) -> None:
+def paged_kv_write(pkv: PagedKV, k, v, positions, valid=None,
+                   pos_base=None) -> None:
     """Write k/v [B, C, Hkv, D] at logical ``positions`` [B, C] through the
     block table, in place. A position whose table column is unassigned (or
     past the table), or whose ``valid`` [B, C] entry is False, is written to
     the scratch block instead — a redirect, not a boolean mask, so the write
     never syncs with the host. Inside ``sharding.split_rows`` the rows of
-    every 'data' rank are gathered and written (each holds the pool)."""
+    every 'data' rank are gathered and written (each holds the pool).
+    ``pos_base = (BS_g, off)``: the pool holds in-block offsets
+    ``[off, off + BS)`` of blocks of ``BS_g`` positions (a position-split
+    pool), and a position at another rank's offset goes to the scratch
+    block too."""
     nb, bs = pkv.k_buf.shape[0] - 1, pkv.k_buf.shape[1]
+    bs_g, off0 = pos_base if pos_base is not None else (bs, 0)
     mb = pkv.tables.shape[1]
     p = positions.long()
-    blk = pkv.tables.long().gather(1, (p // bs).clamp(0, mb - 1))
-    keep = (blk >= 0) & (p // bs < mb)
+    blk = pkv.tables.long().gather(1, (p // bs_g).clamp(0, mb - 1))
+    keep = (blk >= 0) & (p // bs_g < mb)
+    off = p % bs_g - off0
+    if pos_base is not None:           # another rank's slice holds it
+        keep &= (off >= 0) & (off < bs)
+        off = off.clamp(0, bs - 1)
     if valid is not None:
         keep &= valid
     blk = torch.where(keep, blk, torch.full_like(blk, nb))
-    off = p % bs
     if shd.rows_split():
         at = shd.gather_rows(blk * bs + off)
         kv = shd.gather_rows(torch.stack([k, v], dim=1))
@@ -329,15 +470,34 @@ def paged_decode_attention(cfg, q, k, v, pkv: PagedKV, positions, window: int,
     positions from the write, their query rows are discarded by the
     caller). CUDA tensors launch the kernels, CPU tensors take their plain
     versions. ``heads`` (``kv_heads_read``) attends over those KV heads of
-    the pool only. Both routes read each KV head once for its group of q
-    heads, so ``cfg.gqa_no_repeat`` (the reference's grouped ``mha`` on its
-    plain paged path, ``layers.py:374``) changes nothing here. Returns the
-    attention output [B, C, Hq, D]."""
+    the pool only (a strided view of it). Both routes read each KV head
+    once for its group of q heads, so ``cfg.gqa_no_repeat`` (the
+    reference's grouped ``mha`` on its plain paged path, ``layers.py:374``)
+    changes nothing here. A pool whose in-block positions are split over a
+    mesh axis (``sharding.cache_seq_axis``) is this rank's slice: the
+    write keeps the positions it holds, the kernels run in their partial
+    mode over its keys and ``merge_partials`` combines the ranks' outputs
+    (kv-seq). Returns the attention output [B, C, Hq, D]."""
     c = q.shape[1]
-    paged_kv_write(pkv, k, v, positions, valid)
+    axis = shd.cache_seq_axis()
+    pos_base = None
+    if axis is not None:
+        bs = pkv.k_buf.shape[1]
+        pos_base = (bs * _axis_ranks(axis), shd.axis_index(axis) * bs)
+    paged_kv_write(pkv, k, v, positions, valid, pos_base)
     kp, vp = pkv.k, pkv.v
     if heads is not None:
         kp, vp = kp[:, :, heads], vp[:, :, heads]
+    if pos_base is not None:
+        if c == 1:
+            o, lse = kops.paged_attention_partial(
+                q[:, 0], kp, vp, pkv.tables, positions[:, 0], window,
+                pos_base)
+            return shd.merge_partials(o, lse, axis)[:, None]
+        o, lse = kops.paged_prefill_partial(
+            q, kp, vp, pkv.tables, positions[:, 0].contiguous(), window,
+            pos_base)
+        return shd.merge_partials(o, lse, axis)
     if c == 1:
         return kops.paged_attention(q[:, 0], kp, vp, pkv.tables,
                                     positions[:, 0], window)[:, None]
@@ -357,7 +517,8 @@ def decode_positions(b: int, pos, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Contiguous decode cache
 # ---------------------------------------------------------------------------
-def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
+def update_kv_cache(ck, cv, k, v, cache_pos, valid=None,
+                    first: Optional[int] = None):
     """Write one decode step's k/v [B, 1, H, D] into one layer's cache
     [B, S, H, D] at ``cache_pos`` (an int for every row, or an int32 [B]
     tensor of per-row positions), in place. Returns (ck, cv, k_pos, cpos)
@@ -375,12 +536,21 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
     this rank's rows of a bucket whose every row ``ck`` / ``cv`` hold: the
     rows of every 'data' rank are gathered and written, and the returned
     caches and positions are this rank's rows.
+
+    ``first``: the cache holds positions ``[first, first + S)`` of a cache
+    whose positions are split over a mesh axis (None: all of them). A row
+    writes only where its position falls inside (the others keep the
+    masked write's old value), and ``k_pos`` are global positions.
     """
     k_pos = torch.arange(ck.shape[1], device=ck.device)
+    if first is not None:
+        k_pos = k_pos + first
     if not torch.is_tensor(cache_pos) or cache_pos.dim() == 0:
         p = int(cache_pos)
-        ck[:, p:p + 1] = k.to(ck.dtype)
-        cv[:, p:p + 1] = v.to(cv.dtype)
+        lp = p - (first or 0)
+        if 0 <= lp < ck.shape[1]:
+            ck[:, lp:lp + 1] = k.to(ck.dtype)
+            cv[:, lp:lp + 1] = v.to(cv.dtype)
         return ck, cv, k_pos, p
     rows = torch.arange(ck.shape[0], device=ck.device)
     mine = pos = cache_pos.long()
@@ -394,6 +564,11 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None):
             pos = shd.gather_rows(mine)
         new = shd.gather_rows(torch.stack([new_k, new_v], dim=1))
         new_k, new_v = new[:, 0], new[:, 1]
+    if first is not None:               # another rank's slice holds it
+        pos = pos - first
+        inside = (pos >= 0) & (pos < ck.shape[1])
+        valid = inside if valid is None else valid & inside
+        pos = pos.clamp(0, ck.shape[1] - 1)
     new_k, new_v = new_k.to(ck.dtype), new_v.to(cv.dtype)
     if valid is not None:
         keep = valid[:, None, None]
@@ -431,7 +606,17 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     ``kv_valid`` masks K/V writes: [B, C] chunk validity for paged prefill
     lanes, or a [B, 1] per-row freeze mask for decode. ``flash=False``
     keeps the no-cache branch on plain ``mha``, as the reference's dense
-    forward does (``transformer.py:107``). Returns (out, new_kv_cache).
+    forward does (``transformer.py:107``), except under q-seq, whose
+    block of query rows a rank always runs flash with a query offset.
+    Returns (out, new_kv_cache).
+
+    On the mesh the layer takes the reference's scheme (module
+    docstring): head-sharded, kv-seq over a cache whose positions are
+    split (``sharding.cache_seq_axis``), q-seq for a causal pass without a
+    cache whose length 'model' divides and that needs no gradient (flash
+    with a query offset, on either flag), else every head whole. The
+    returned (k, v) hold this rank's KV heads head-sharded where they
+    divide 'model', else every KV head, at every position of x.
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -443,7 +628,11 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
             q = q + p["bq"]
         out = mha(q.reshape(b, s, -1, hd), *cross_kv, None, no_repeat)
         return _heads_sum(p, cfg, out.reshape(b, s, -1)), None
-    q, k, v = _qkv(p, cfg, x)
+    seq_axis = shd.cache_seq_axis() if kv_cache is not None else None
+    split = p["wq"].shape[1] != cfg.n_heads_eff * hd    # a column block
+    # a cache split over 'model' by position holds every KV head: whole
+    # heads; split over 'data' (long_500k) it keeps the head split
+    q, k, v = _qkv(p, cfg, x, seq_axis != "model" and heads_sharded(cfg))
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -455,9 +644,12 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
                 (kv_cache.k, kv_cache.v))
     if kv_cache is not None:
         ck, cv = kv_cache
+        first = (None if seq_axis is None
+                 else shd.axis_index(seq_axis) * ck.shape[1])
         ck, cv, k_pos, cpos = update_kv_cache(
             ck, cv, k, v, cache_pos,
-            valid=kv_valid[:, 0] if kv_valid is not None else None)
+            valid=kv_valid[:, 0] if kv_valid is not None else None,
+            first=first)
         valid = k_pos <= cpos
         if window:
             valid &= k_pos > cpos - window
@@ -465,11 +657,18 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
         mask = valid[None, :] if valid.dim() == 1 else valid[:, None, None, :]
         if heads is not None:
             ck, cv = ck[:, :, heads], cv[:, :, heads]
-        out = mha(q, ck, cv, mask, no_repeat)
+        if seq_axis is not None:
+            out = shd.merge_partials(*mha_partial(q, ck, cv, mask, no_repeat),
+                                     seq_axis)
+        else:
+            out = mha(q, ck, cv, mask, no_repeat)
         return _heads_sum(p, cfg, out.reshape(b, s, -1)), (ck, cv)
     ka, va = (k, v) if heads is None else (k[:, :, heads].contiguous(),
                                            v[:, :, heads].contiguous())
-    if causal and flash:
+    if (causal and split and q.shape[2] == cfg.n_heads_eff
+            and _q_seq(cfg, b, s, q)):
+        out = _q_seq_attention(q, ka, va, window)
+    elif causal and flash:
         out = kops.flash_attention(q, ka, va, causal=True, window=window)
     else:
         pos = torch.arange(s, device=x.device)

@@ -116,7 +116,7 @@ def _banded_attention(cfg, p, x, positions, window: int):
     b, s, _ = x.shape
     w = window
     nb = s // w
-    q, k, v = L._qkv(p, cfg, x)
+    q, k, v = L._qkv(p, cfg, x, L.heads_sharded(cfg))
     if cfg.pos_emb == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)

@@ -90,7 +90,10 @@ A ``sharding`` plan (``serve/sharded.py``) serves TP/DP-sharded over a
 ("data", "model") mesh of ranks, one process each, every rank running this
 same loop on the same requests (``engine.py:348-439``): the engine keeps
 this rank's blocks of the params, builds its pools at this rank's KV
-heads, enters the plan's rules around each run, rounds bucket widths up to
+heads and positions (``ServeSharding.pool_shape``: a position-split pool
+holds its slice of every block or row, while the block manager, its tables
+and the scheduler keep the global block size and ``max_len``), enters the
+plan's rules around each run, rounds bucket widths up to
 a multiple ``dmult`` of the 'data' axis (``_bucket``), and computes a
 bucket a part a 'data' rank when 'data' divides its width and ``dmult``
 has not collapsed, the selected tokens gathered over 'data' (a collapsed
@@ -434,17 +437,22 @@ class ServeEngine:
             return self.pool, self._state
         self.graphs.reset()
         self.pool = self._state = None       # free the old tensors first
+        buf_len, buf_bs = (self.sharding.pool_shape(self.max_len,
+                                                    self.block_size)
+                           if self.sharding is not None
+                           else (self.max_len, self.block_size))
         if self.cache_kind == "paged":
             pool = BlockManager(self._cache_model, n_slots, self.max_len,
                                 block_size=self.block_size,
                                 n_blocks=self.n_blocks,
                                 watermark=self.watermark,
                                 prefix_cache=self.prefix_cache,
-                                device=self.device, tracer=self.tracer)
+                                device=self.device, tracer=self.tracer,
+                                buffer_block_size=buf_bs)
             max_blocks = pool.max_blocks
         else:
             pool = CachePool(self._cache_model, n_slots, self.max_len,
-                             device=self.device)
+                             device=self.device, buffer_len=buf_len)
             max_blocks = None
         if self.sharding is not None:
             pool.buffers = self.sharding.reshard_cache(pool.buffers)
@@ -484,7 +492,10 @@ class ServeEngine:
         logits, (k, v) = self.model.module.forward(self.cfg, self.params,
                                                    tokens, return_cache=True)
         pad = (0, 0, 0, 0, 0, self.max_len - tokens.shape[1])  # [L,B,S,H,D]
-        return logits[:, -1:], {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+        row = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+        if self.sharding is not None:        # this rank's positions
+            row = self.sharding.local_cache_row(row)
+        return logits[:, -1:], row
 
     # -- the engine loop ---------------------------------------------------------
     def run(self, requests: List[ServeRequest]

@@ -13,22 +13,29 @@ A ``ServeSharding`` plan holds what the engine needs to serve over a
     cache_pspecs``, the dry-run's specs), and the bucketed token / pos /
     table shardings of each compacted decode width (``bucket_shardings``);
   * the layout each leaf actually has on this rank (``param_layout``,
-    ``cache_layout``). The port realizes head-sharded attention (q heads
-    over 'model'; KV heads too where they divide it), vocab-parallel
-    embeddings and logits, ffn-parallel MLPs and expert-parallel MoE. A
-    leaf whose reference spec it does not realize is held replicated over
-    'model' and listed in ``held_replicated``: attention whose scheme is q-seq
-    or kv-seq sharded (a head count that 'model' does not divide), a leaf
-    whose spec splits a head, the fused expert gate/up split by width, the
-    mamba2 weights and states (the sanitizer splits the fused
-    ``in_proj`` flat) and every leaf of the hybrid and encdec families.
-    The pools are held whole over 'data' (the paged pool by the
-    reference's spec; the contiguous pool in this slice): new K/V rows are
-    gathered over 'data' before each write.
+    ``cache_layout``). For the attention families the port realizes every
+    'model' split of the reference: the attention leaves split flat over
+    the heads (``heads_flat``: whole heads where 'model' divides the head
+    count, else a column block that cuts a head, whose columns the layer
+    gathers), vocab-parallel embeddings and logits, ffn-parallel MLPs,
+    expert-parallel MoE, KV heads over 'model' where they divide it, and
+    where they do not, the pools' positions over 'model' (the paged
+    pool's in-block offsets, the contiguous pool's sequence; the layer
+    runs kv-seq over them, ``models/layers.py``). A leaf whose reference
+    spec it does not realize is held replicated over 'model' and listed in
+    ``held_replicated``: the fused expert gate/up split by width, the
+    mamba2 weights and states (the sanitizer splits the fused ``in_proj``
+    flat) and every leaf of the hybrid and encdec families. The pools are
+    held whole over 'data' (the paged pool by the reference's spec; the
+    contiguous pool in this slice): new K/V rows are gathered over 'data'
+    before each write.
 
 ``shard_params`` cuts a full param tree into this rank's blocks (the
 counterpart of ``jax.device_put(params, param_sharding)``); ``cache_cfg``
-is the config the pools are built from (this rank's KV heads). A decode
+is the config the pools are built from (this rank's KV heads) and
+``pool_shape`` their local positions (the block size or ``max_len`` over
+the position split), while the host side (the block manager and its
+tables, the scheduler's lengths) stays at the global ones. A decode
 bucket whose width the 'data' axis divides is computed a part a 'data'
 rank (``split_rows``), for the attention families; everything else every
 rank computes whole. The engine runs the same host loop on every rank, so
@@ -51,9 +58,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.api import build_model, params_specs
 
 #: families whose layers the port computes tensor-parallel
-TP_FAMILIES = ("dense", "vlm", "moe")
-_HEAD_LEAVES = ("wq", "bq", "wo")
-_KV_LEAVES = ("wk", "wv", "bk", "bv")
+TP_FAMILIES = L.TP_FAMILIES
 
 
 def param_shapes(cfg) -> dict:
@@ -76,39 +81,56 @@ def cache_shapes(cfg, n_slots: int, max_len: int, *, paged: bool,
     return {k: tuple(v.shape) for k, v in cache.items()}
 
 
-def heads_shard(cfg, rules) -> bool:
-    """Whether attention runs head-sharded under ``rules`` (installed): the
-    layer's scheme (``layers.plan_attention_scheme``, the reference's)
-    splits the q heads over 'model', and each rank's q heads read a whole
-    number of KV groups or one KV head (so the kernels see one G)."""
-    m = rules.sizes.get("model", 1)
-    if m <= 1 or cfg.family not in TP_FAMILIES or not cfg.n_kv_heads:
-        return False
-    scheme = L.plan_attention_scheme(cfg, 1, 1, 1)
-    if scheme is None or scheme["q"][2] != "model":
-        return False
-    per, g = cfg.n_heads_eff // m, cfg.n_heads_eff // cfg.n_kv_heads
-    return cfg.n_kv_heads % m == 0 or per % g == 0 or g % per == 0
-
-
-def realized(cfg, name: str, spec: shd.Spec, m: int,
-             heads: bool) -> shd.Spec:
+def realized(cfg, name: str, spec: shd.Spec, m: int) -> shd.Spec:
     """The spec a parameter leaf named ``name`` runs with: the reference's
     ``spec``, or it with 'model' (of ``m`` ranks) dropped where the port
-    does not realize that split (module docstring); ``heads``: attention
-    runs head-sharded (``heads_shard``)."""
+    does not realize that split (module docstring)."""
     if m == 1 or "model" not in (a for e in spec for a in shd._flat(e)):
         return spec
     keep = cfg.family in TP_FAMILIES
-    if name in _HEAD_LEAVES:
-        keep = keep and heads
-    elif name in _KV_LEAVES:
-        keep = keep and heads and cfg.n_kv_heads % m == 0
-    elif name in ("we_gate_up", "we_down"):  # [E, D, 2F] / [E, F, D]:
+    if name in ("we_gate_up", "we_down"):    # [E, D, 2F] / [E, F, D]:
         keep = keep and spec[-3] == "model"  # experts over 'model' only
     if keep:
         return spec
     return shd.Spec(*(None if "model" in shd._flat(e) else e for e in spec))
+
+
+def cache_layout(cfg, cspec: dict, sizes: dict, heads: bool,
+                 keep_axes=()) -> dict:
+    """The splits of a pool's reference specs ``cspec`` ({"k", "v"} of
+    ``[L, NB | B, BS | S, kv, hd]``) the port realizes, the attention
+    families only: KV heads over 'model' where attention runs head-sharded
+    (``heads``) and 'model' divides them, the positions (dim 2) over the
+    axis the reference splits them, dim 1 over ``keep_axes`` (the
+    dry-run's batch rows) and any entry over axes of one rank; every other
+    entry whole."""
+    m = sizes.get("model", 1)
+    kv_model = m == 1 or (heads and cfg.n_kv_heads % m == 0)
+    tp = cfg.family in TP_FAMILIES
+
+    def keep(name, d, e, ndim):
+        if name not in ("k", "v") or e is None:
+            return False
+        if all(sizes.get(a, 1) == 1 for a in shd._flat(e)):
+            return True                  # a split over one rank cuts nothing
+        if d == ndim - 2:
+            return kv_model
+        if d == 2:
+            return tp
+        return d == 1 and set(shd._flat(e)) <= set(keep_axes)
+    return {name: shd.Spec(*(e if keep(name, d, e, len(spec)) else None
+                             for d, e in enumerate(spec)))
+            for name, spec in cspec.items()}
+
+
+def cache_seq(clayout: dict, sizes: dict):
+    """The mesh axis a realized pool layout splits the positions over
+    (dim 2 of its "k" leaf, of more than one rank), else None."""
+    spec = clayout.get("k")
+    if spec is None or len(spec) < 3 or spec[2] is None:
+        return None
+    axes = shd._flat(spec[2])
+    return axes[0] if len(axes) == 1 and sizes.get(axes[0], 1) > 1 else None
 
 
 @dataclass
@@ -127,10 +149,47 @@ class ServeSharding:
     #: ('/'-joined paths, per-layer leaves as layers/*/..., the pool's
     #: leaves as cache/...)
     held_replicated: tuple = ()
+    #: the pools' global shape: max_len, block size, paged or contiguous
+    max_len: int = 0
+    block_size: int = 0
+    paged: bool = False
 
     def rules(self):
-        """Context manager installing the logical-axis rules."""
-        return shd.axis_rules(self.mesh, self.table)
+        """Context manager installing the logical-axis rules (and the
+        pools' position split, ``cache_seq_axis``)."""
+        return shd.axis_rules(self.mesh, self.table,
+                              cache_seq=self.cache_seq_axis)
+
+    @property
+    def cache_seq_axis(self) -> Optional[str]:
+        """The mesh axis the pools' positions are split over (None:
+        whole)."""
+        return cache_seq(self.cache_layout or {}, axis_sizes(self.mesh))
+
+    @property
+    def seq_shards(self) -> int:
+        """The ranks the pools' positions are split over (1: whole)."""
+        axis = self.cache_seq_axis
+        return 1 if axis is None else self.axis_size(axis)
+
+    def pool_shape(self, max_len: int, block_size: int):
+        """(max_len, block size) of this rank's pool buffers: a
+        position-split pool holds ``max_len / n`` positions a slot
+        (contiguous) or ``block_size / n`` offsets a block (paged)."""
+        n = self.seq_shards
+        if self.paged:
+            return max_len, block_size // n
+        return max_len // n, block_size
+
+    def local_cache_row(self, row: dict) -> dict:
+        """This rank's positions of a batch-1 contiguous cache row (the
+        prefill's, at ``max_len``) for ``CachePool.write``."""
+        axis = self.cache_seq_axis
+        if axis is None:
+            return row
+        n = row["k"].shape[2] // self.seq_shards
+        r = self.mesh.coord(axis)
+        return {name: t.narrow(2, r * n, n) for name, t in row.items()}
 
     def axis_size(self, name: str) -> int:
         """Size of one mesh axis (1 when the mesh does not carry it)."""
@@ -176,7 +235,7 @@ class ServeSharding:
         """The config the pools are built from: this rank's KV heads."""
         m = self.axis_size("model")
         spec = self.cache_layout.get("k") if self.cache_layout else None
-        if spec is not None and "model" in spec:
+        if spec is not None and spec[-2] == "model":
             return self.cfg.replace(n_kv_heads=self.cfg.n_kv_heads // m)
         return self.cfg
 
@@ -203,14 +262,19 @@ class ServeSharding:
     def reshard_cache(self, buffers):
         """The pool after a host-side write or a growth: every rank's
         buffers are its own blocks already (the host loop writes the same
-        rows on every rank), so this checks each leaf's local shape against
-        the plan and returns the buffers."""
+        rows on every rank), so this checks each leaf's local KV heads and
+        positions against the plan and returns the buffers."""
         want = self.cache_cfg.n_kv_heads
+        max_len, bs = self.pool_shape(self.max_len, self.block_size)
+        npos = bs if self.paged else max_len
         for name in ("k", "v"):
-            if name in self.cache_layout and buffers[name].shape[-2] != want:
+            if name not in self.cache_layout:
+                continue
+            shape = buffers[name].shape
+            if shape[-2] != want or (npos and shape[2] != npos):
                 raise RuntimeError(
-                    f"cache leaf {name} holds {buffers[name].shape[-2]} KV "
-                    f"heads, the plan {want}")
+                    f"cache leaf {name} holds {shape[-2]} KV heads at "
+                    f"{shape[2]} positions a row, the plan {want} at {npos}")
         return buffers
 
 
@@ -253,7 +317,7 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
 
     with shd.axis_rules(mesh, table) as rules:
         pspec = shd.param_pspecs(param_shapes(cfg), rules)
-        heads = heads_shard(cfg, rules)
+        heads = L.heads_sharded(cfg)
 
     paged = cache == "paged"
     if paged and n_blocks is None:
@@ -266,14 +330,10 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
     m = sizes["model"]
     layout = shd.tree_map_with_path(
         lambda path, s: realized(cfg, next(
-            (k for k in reversed(path) if isinstance(k, str)), ""), s, m,
-            heads), pspec)
-    kv_model = m == 1 or (heads and cfg.n_kv_heads % m == 0)
-    # the pools: whole over 'data'; KV heads over 'model' where realized
-    clayout = {name: shd.Spec(*(
-        e if (kv_model and name in ("k", "v") and d == len(spec) - 2)
-        else None for d, e in enumerate(spec)))
-        for name, spec in cspec.items()}
+            (k for k in reversed(path) if isinstance(k, str)), ""), s, m),
+        pspec)
+    # the pools: whole over 'data'; KV heads or positions over 'model'
+    clayout = cache_layout(cfg, cspec, sizes, heads)
     return ServeSharding(
         mesh=mesh,
         table=table,
@@ -287,6 +347,7 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
         held_replicated=tuple(
             _replicated(pspec, layout, sizes)
             + [f"cache/{p}" for p in _replicated(cspec, clayout, sizes)]),
+        max_len=max_len, block_size=block_size, paged=paged,
     )
 
 

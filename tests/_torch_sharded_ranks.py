@@ -40,8 +40,13 @@ def _engine_run(sc, cfg, params, mesh, device):
                          arrival_time=a) for p, m, a in sc["requests"]]
     shd.reset_stats()
     ops.set_counts((0,) * len(ops.COUNTERS))
+    partial = (ops.paged_attention_partial, ops.paged_prefill_partial,
+               ops.flash_attention_offset)
+    for f in partial:
+        f.plain_calls = 0
     out, stats = eng.run(reqs)
     launches = {f.__name__: n for (f, _), n in zip(ops.COUNTERS, ops.counts())}
+    partial_plain = {f.__name__: f.plain_calls for f in partial}
     scales = ([(e["ev"], e.get("dmult")) for e in tracer.events
                if e["ev"] in ("scale_up", "scale_down")]
               if tracer is not None else [])
@@ -52,7 +57,8 @@ def _engine_run(sc, cfg, params, mesh, device):
         graphs="eager" if eng.graphs.is_eager else "captured",
         scale_ups=stats.scale_ups, scale_downs=stats.scale_downs,
         held=list(eng.sharding.held_replicated),
-        collectives=dict(shd.STATS), scales=scales, launches=launches)
+        collectives=dict(shd.STATS), scales=scales, launches=launches,
+        partial_plain=partial_plain)
 
 
 def _capture(sc, cfg, params, mesh, device):

@@ -752,3 +752,87 @@ def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
         assert not any(n for k, n in run["launches"].items()
                        if k.endswith("_plain"))
         assert "cannot be captured" in res["capture"]["error"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_read_a_kv_head_slice_of_the_pool(cuda_device, dtype):
+    """A KV-head slice of a pool (what a head-sharded rank reads when its
+    KV heads are whole, ``layers.kv_heads_read``) is a strided view: both
+    kernels read it in place and agree with the plain version; a pool
+    whose strides break 16-byte rows raises."""
+    q, kp, vp, tables, start = _case(cuda_device, dtype, 4, 16, 9)
+    ks, vs = kp[:, :, 1:2], vp[:, :, 1:2]          # kv head 1 of 2
+    assert not ks.is_contiguous()
+    qh = q[:, :, 7:].contiguous()                  # its 7 q heads
+    for out, exp in (
+            (ops.paged_prefill_attention(qh, ks, vs, tables, start),
+             pa.paged_prefill_attention_plain(qh, ks, vs, tables, start)),
+            (ops.paged_attention(qh[:, 0].contiguous(), ks, vs, tables,
+                                 start),
+             pa.paged_attention_plain(qh[:, 0], ks, vs, tables, start))):
+        torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+    wide = torch.zeros(*kp.shape[:2], 1, kp.shape[3] + 1, dtype=dtype,
+                       device=cuda_device)[..., :kp.shape[3]]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention(qh[:, 0].contiguous(), wide, wide, tables, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 5])
+def test_partial_mode_matches_plain_and_merges_to_the_whole(
+        cuda_device, dtype, window):
+    """The paged kernels' partial mode over 4 in-block slices of a
+    16-position pool: each rank's output and row log-sum-exp against the
+    plain version, and the merged slices against one whole-pool call."""
+    from repro_torch.dist import sharding as shd
+    for c in (1, 16):
+        q, kp, vp, tables, start = _case(cuda_device, dtype,
+                                         8 if c == 1 else 4, c, 20 + window)
+        q = q[:, 0] if c == 1 else q
+        wrapper = (ops.paged_attention_partial if c == 1
+                   else ops.paged_prefill_partial)
+        plain = (pa.paged_attention_plain if c == 1
+                 else pa.paged_prefill_attention_plain)
+        whole = ops.paged_attention if c == 1 else ops.paged_prefill_attention
+        parts = []
+        for r in range(4):
+            ks, vs = (t[:, 4 * r:4 * r + 4].contiguous() for t in (kp, vp))
+            o, lse = wrapper(q, ks, vs, tables, start, window, (16, 4 * r))
+            eo, el = plain(q, ks, vs, tables, start, window, (16, 4 * r),
+                           return_lse=True)
+            torch.testing.assert_close(o.float(), eo.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            seen = torch.isfinite(el)
+            assert torch.equal(torch.isfinite(lse), seen)
+            torch.testing.assert_close(lse[seen], el[seen], atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+            parts.append((o, lse))
+        merged = shd.combine_partials(torch.stack([o for o, _ in parts]),
+                                      torch.stack([l for _, l in parts]))
+        torch.testing.assert_close(
+            merged, whole(q, kp, vp, tables, start, window).float(),
+            atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q0,sq,sk,window", [(192, 64, 256, 0),
+                                             (0, 40, 40, 0),
+                                             (100, 37, 200, 9)])
+def test_flash_query_offset_matches_plain(cuda_device, dtype, q0, sq, sk,
+                                          window):
+    q, _, _ = _flash_case(cuda_device, dtype, sq, 14, 2, 64, q0 + 1)
+    _, k, v = _flash_case(cuda_device, dtype, sk, 14, 2, 64, sk)
+    before = ops.flash_attention_offset.launches
+    out = ops.flash_attention_offset(q, k, v, q0, window=window)
+    assert ops.flash_attention_offset.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_plain(q, k, v, True, window,
+                                              q0).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    with pytest.raises(RuntimeError, match="no backward"):
+        with torch.enable_grad():
+            ops.flash_attention_offset(q.requires_grad_(), k, v, q0)

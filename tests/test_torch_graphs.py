@@ -222,9 +222,9 @@ def test_launch_counters_snapshot_and_add():
     bookkeeping of a capture's launches, over every wrapper and plain
     version."""
     before = ops.counts()
-    assert len(before) == 12
+    assert len(before) == 15
     try:
-        ops.add_counts((1,) * 12)
+        ops.add_counts((1,) * 15)
         assert ops.paged_attention.launches == before[1] + 1
         assert ops.counts() == tuple(v + 1 for v in before)
     finally:

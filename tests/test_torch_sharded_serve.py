@@ -9,9 +9,12 @@ JAX ``Model.init``; the parent computes the JAX engine's tokens meanwhile.
 Every rank must give the same tokens, and they must equal the JAX
 engine's: qwen2 and olmoe on both caches on mesh (2, 2) with the request
 sets of ``test_serve.py:386-396``, ``:457-494`` and
-``test_paged.py:353-365``; mamba2 (``test_serve.py:416-423``); qwen2 with
-``pad_q_heads=8`` on mesh (1, 4), its KV heads whole over 'model'; a
-``device_fail`` / ``device_join`` pair under which ``dmult`` collapses
+``test_paged.py:353-365``; mamba2 (``test_serve.py:416-423``); qwen2 on
+mesh (1, 4), unpadded and with ``pad_q_heads=8``, on both caches: its 2
+KV heads do not divide 'model', so the pools' positions split over it and
+decode runs kv-seq, nothing held whole; qwen2 with 6 q heads on mesh
+(1, 4) (contiguous), whose prompts of a length 4 divides prefill q-seq;
+a ``device_fail`` / ``device_join`` pair under which ``dmult`` collapses
 and comes back. ``Model.forward`` of llama3.2-1b under the rules stays
 within 1e-4 of the off-mesh forward (``test_sharding.py:220-236``).
 """
@@ -26,7 +29,8 @@ import jax
 import numpy as np
 import pytest
 
-from _torch_parity import jax_engine, numpy_params
+from _torch_parity import JaxEngine, jax_build, jax_config, jax_engine, \
+    numpy_params
 from repro.serve import ServeRequest as JaxRequest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -66,6 +70,12 @@ SCENARIOS = {
                               "contiguous", "bucketed", BUCKETED, None),
     "qwen2-pad8-paged": ("qwen2-0.5b", "qwen2-pad8", (1, 4), "paged",
                          "bucketed", BUCKETED, None),
+    "qwen2-contiguous-1x4": ("qwen2-0.5b", "qwen2-0.5b", (1, 4),
+                             "contiguous", "bucketed", BUCKETED, None),
+    "qwen2-paged-1x4": ("qwen2-0.5b", "qwen2-0.5b", (1, 4), "paged",
+                        "bucketed", BUCKETED, None),
+    "qwen2-h6-contiguous": ("qwen2-0.5b", "qwen2-h6", (1, 4), "contiguous",
+                            "bucketed", BUCKETED, None),
     "qwen2-device-fail": ("qwen2-0.5b", "qwen2-0.5b", (2, 2), "paged",
                           "bucketed", dict(BUCKETED, decode_horizon=2),
                           "device_fail@2:blocks=0:restore_after=3"),
@@ -80,7 +90,12 @@ REFS = {
                        dict(max_len=32, decode_horizon=1)),
     "qwen2-paged": ("qwen2-0.5b", "paged", dict(max_len=32)),
     "mamba2-ssm": ("mamba2-780m", "ssm", dict(max_len=32)),
+    "qwen2-h6-bucketed": ("qwen2-0.5b", "bucketed",
+                          dict(max_len=32, decode_horizon=1)),
 }
+#: config overrides of a params tree and of the JAX run held to it
+OVERRIDES = {"qwen2-pad8": dict(pad_q_heads=8), "qwen2-h6": dict(n_heads=6),
+             "qwen2-h6-bucketed": dict(n_heads=6)}
 REF_OF = {
     "qwen2-contiguous-decode": "qwen2-decode",
     "qwen2-contiguous": "qwen2-bucketed", "qwen2-paged": "qwen2-bucketed",
@@ -88,6 +103,9 @@ REF_OF = {
     "qwen2-paged-4-slots": "qwen2-paged", "mamba2-contiguous": "mamba2-ssm",
     "qwen2-pad8-contiguous": "qwen2-bucketed",
     "qwen2-pad8-paged": "qwen2-bucketed",
+    "qwen2-contiguous-1x4": "qwen2-bucketed",
+    "qwen2-paged-1x4": "qwen2-bucketed",
+    "qwen2-h6-contiguous": "qwen2-h6-bucketed",
     "qwen2-device-fail": "qwen2-bucketed",
 }
 
@@ -125,14 +143,15 @@ def _spec(port):
               for a in ("qwen2-0.5b", "olmoe-1b-7b", "mamba2-780m",
                         "llama3.2-1b")}
     params["qwen2-pad8"] = _padded(params["qwen2-0.5b"], 8)
+    params["qwen2-h6"] = _h6_params()
     scenarios = []
     for name, (arch, pname, mesh, cache, set_name, kw, faults) in \
             SCENARIOS.items():
         sc = dict(name=name, arch=arch, params=pname, mesh=mesh,
                   engine=dict(kw, cache=cache),
                   requests=_prompts(set_name), faults=faults)
-        if pname == "qwen2-pad8":
-            sc["overrides"] = dict(pad_q_heads=8)
+        if pname in OVERRIDES:
+            sc["overrides"] = OVERRIDES[pname]
         scenarios.append(sc)
     tokens = np.random.default_rng(1).integers(
         0, VOCAB, size=(4, 64)).astype(np.int64)
@@ -148,11 +167,31 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _h6_params():
+    """qwen2's smoke model with 6 q heads (over its 2 KV heads): JAX
+    ``Model.init`` weights, the layer matrices scaled by 3 as
+    ``numpy_params`` scales qwen2's."""
+    cfg = jax_config("qwen2-0.5b", smoke=True, **OVERRIDES["qwen2-h6"])
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_build(cfg).init(jax.random.key(0)))
+    for group in ("attn", "mlp"):
+        for name, a in tree["layers"][group].items():
+            if a.ndim == 3:
+                tree["layers"][group][name] = a * np.float32(3.0)
+    return tree
+
+
 def _jax_tokens(ref):
     arch, set_name, kw = REFS[ref]
     reqs = [JaxRequest(p.copy(), max_new_tokens=b)
             for p, b, _ in _prompts(set_name)]
-    out, _ = jax_engine(arch, **kw).run(reqs)
+    if ref in OVERRIDES:
+        cfg = jax_config(arch, smoke=True, **OVERRIDES[ref])
+        engine = JaxEngine(cfg, params=jax.tree_util.tree_map(
+            jax.numpy.asarray, _h6_params()), **kw)
+    else:
+        engine = jax_engine(arch, **kw)
+    out, _ = engine.run(reqs)
     return [list(map(int, r.output)) for r in out]
 
 
@@ -212,11 +251,37 @@ def test_collectives_by_mesh(runs):
     'model' and its rows unsplit, so it issues none; the (1, 4) mesh
     splits no rows."""
     ranks, _ = runs
-    for name in ("qwen2-paged", "olmoe-contiguous", "qwen2-pad8-paged"):
+    for name in ("qwen2-paged", "olmoe-contiguous", "qwen2-pad8-paged",
+                 "qwen2-paged-1x4", "qwen2-contiguous-1x4",
+                 "qwen2-h6-contiguous"):
         c = ranks[0][name]["collectives"]
         assert c["all_reduce"] > 0 and c["all_gather"] > 0, name
     assert ranks[0]["mamba2-contiguous"]["collectives"] == {
         "all_reduce": 0, "all_gather": 0, "seconds": 0.0}
+
+
+def test_seq_sharded_runs_take_the_partial_paths(runs):
+    """On mesh (1, 4) the pools' positions split: the paged runs call the
+    kernels' partial mode on every rank (here the partial wrappers' CPU
+    route, counted apart from the whole-pool calls), the 6-head contiguous
+    run's prompt of 8 prefills q-seq (flash with a query offset), and the
+    ranks' merges gather (output, log-sum-exp) pairs, as many as the
+    unsharded layers' own collectives would not explain. The runs whose
+    layers keep whole pools and self-attention take none of these."""
+    ranks, _ = runs
+    for res in ranks:
+        for name in ("qwen2-paged-1x4", "qwen2-pad8-paged"):
+            calls = res[name]["partial_plain"]
+            assert calls["paged_attention_partial"] > 0, name
+            assert calls["paged_prefill_partial"] > 0, name
+            assert calls["flash_attention_offset"] == 0, name
+        assert res["qwen2-h6-contiguous"]["partial_plain"][
+            "flash_attention_offset"] > 0
+        for name in ("qwen2-paged", "qwen2-contiguous"):
+            assert not any(res[name]["partial_plain"].values()), name
+    whole = ranks[0]["qwen2-contiguous"]["collectives"]["all_gather"]
+    assert ranks[0]["qwen2-contiguous-1x4"]["collectives"][
+        "all_gather"] > whole
 
 
 def test_held_replicated_leaves(runs):
@@ -227,8 +292,12 @@ def test_held_replicated_leaves(runs):
     assert ranks[0]["qwen2-contiguous"]["held"] == pool
     assert ranks[0]["qwen2-paged"]["held"] == []
     assert ranks[0]["olmoe-paged"]["held"] == []
-    kv = [f"layers/*/attn/{n}" for n in ("wk", "wv", "bk", "bv")]
-    assert ranks[0]["qwen2-pad8-paged"]["held"] == kv + pool
+    # mesh (1, 4): the KV heads split flat and the pools' positions over
+    # 'model', unpadded and padded, on both caches
+    for name in ("qwen2-pad8-paged", "qwen2-pad8-contiguous",
+                 "qwen2-paged-1x4", "qwen2-contiguous-1x4",
+                 "qwen2-h6-contiguous"):
+        assert ranks[0][name]["held"] == [], name
     assert ranks[0]["mamba2-contiguous"]["held"] == [
         "emb/tok_emb"] + [f"layers/*/{n}" for n in (
             "in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D",

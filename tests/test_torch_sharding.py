@@ -234,19 +234,27 @@ def test_serve_sharding_table_and_specs(arch):
                                         ((1, 8), True)])
 def test_heads_held_whole_where_the_scheme_does_not_split_them(shape, held):
     """qwen2-0.5b's 14 q heads: head-sharded over 'model' 2 (the scheme's
-    head branch), held whole over 4 and 8 (q-seq / kv-seq schemes); its 2
-    KV heads are whole wherever 'model' exceeds 2."""
+    head branch); over 4 and 8 the scheme is q-seq / kv-seq, whose heads
+    the reference holds whole in the attention while its weights split
+    flat. The port realizes every split (nothing is held whole): the
+    attention leaves split over 'model' at every 'model' size, and where
+    the 2 KV heads do not divide 'model' the paged pool's in-block
+    positions split over it instead (the layer runs kv-seq)."""
     cfg = get_config("qwen2-0.5b")
     plan = make_serve_sharding(cfg, 8, 256, pmesh(shape), cache="paged")
     with jshd.axis_rules(jmesh(shape), plan.table):
         scheme = jshd.attention_scheme(1, 1, cfg.n_heads, 256)
     assert (scheme["q"][2] is None) == held
-    got = "layers/*/attn/wq" in plan.held_replicated
-    assert got == held
-    assert ("layers/*/attn/wk" in plan.held_replicated) == (shape[1] > 2)
-    if not held:
-        wq = plan.param_layout["layers"][0]["attn"]["wq"]
-        assert wq == (None, "model")
+    assert plan.held_replicated == ()
+    for name in ("wq", "wk", "wv"):
+        assert plan.param_layout["layers"][0]["attn"][name] == (None,
+                                                                 "model")
+    assert plan.param_layout["layers"][0]["attn"]["wo"] == ("model", None)
+    assert plan.cache_layout == plan.cache_pspec
+    seq = shape[1] > 2
+    assert plan.cache_layout["k"][2] == ("model" if seq else None)
+    assert plan.cache_seq_axis == ("model" if seq else None)
+    assert plan.pool_shape(256, 16) == (256, 16 // shape[1] if seq else 16)
 
 
 def test_bucket_shardings_axis_choice():

@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""Run the kernel checks or the sharded phase of ``chip_smoke.py`` alone, on
+one NVIDIA GPU.
+
+    python3 tools/chip_phases.py [kernels] [sharded]
+
+Builds the kernels (with the build phase's tensor-core check), then, as
+asked (both by default): ``kernels`` holds the paged kernels at the
+engine's and the other engines' shapes, their partial mode, flash with a
+query offset and flash against their plain versions and prints the
+``kernels`` record of those timed cases (no launch counts: no engine runs);
+``sharded`` draws the engine phase's seed-0 qwen2-0.5b weights and runs
+the sharded phase (two ranks on meshes (1, 2) and (2, 1), four on (1, 4)),
+printing its lines and each kernel's launches by path. Prints the card's
+name and power limit first. The functions are ``chip_smoke.py``'s, so a
+reading here is the full script's, minus the phases before it.
+"""
+import gc
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(what) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("tools/chip_phases.py needs an NVIDIA GPU")
+    t0 = time.perf_counter()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lib, ptxas = cs.build.build()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    cs.print_ptxas(ptxas)
+    cs.check_tensor_cores(lib)
+    cs.build.library()
+    if "kernels" in what:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        rec = cs.check_kernels(flush)
+        cs.check_engine_shapes(flush, rec)
+        rec.update(cs.check_partial(flush))
+        rec["flash_attention_offset"] = cs.check_flash_offset(flush)
+        rec["flash_attention"] = cs.check_flash(flush)
+        print(json.dumps({"kernels": list(rec.values())}), flush=True)
+        del flush
+        print(f"kernels done {time.perf_counter() - t0:.1f} s", flush=True)
+    if "sharded" in what:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = cs.get_config("qwen2-0.5b")
+        params = cs.build_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0))
+        print(json.dumps(cs.run_sharded({}, params)), flush=True)
+        print(f"sharded done {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["kernels", "sharded"])
