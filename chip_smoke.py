@@ -52,9 +52,11 @@ Phases, each printed as it runs; any failure exits non-zero:
                  timed beside torch.bmm; the SSD
                  scan at mamba2-780m's forward shape ([2, 4096] tokens, 48
                  heads of 64, state 128, chunk 256), at zamba2-7b's ([1,
-                 4096], 112 heads of 64, state 64, chunk 256), the smoke
-                 widths, a chunk that halves (S 96), S 64 with chunk 128,
-                 a_log = -40 (memoryless) and B = H = 1 (tolerance 5e-4;
+                 4096], 112 heads of 64, state 64, chunk 256), at a
+                 mamba2-780m rank's of the sharded phase's (1, 2) forward
+                 ([1, 512], 24 heads, timed), the smoke widths, a chunk
+                 that halves (S 96), S 64 with chunk 128, a_log = -40
+                 (memoryless) and B = H = 1 (tolerance 5e-4;
                  no PyTorch call computes it, so no library time), the
                  mamba2 time printed beside the SIMT kernel's it replaced;
                  flash also at whisper-large-v3's decoder shape ([1, 448,
@@ -211,10 +213,29 @@ Phases, each printed as it runs; any failure exits non-zero:
                  over a rank's quarter of max_len); every rank's tokens
                  equal the single-process run's, the partial kernels
                  (paged) or flash with an offset (contiguous) launch on
-                 every rank, no plain call. Prints the collective counts
-                 by kind and the share of the wall spent in them, ms a
-                 decode step sharded and single-process, and the phase's
-                 seconds. A rank that fails fails the phase;
+                 every rank, no plain call. In the two-rank group, after
+                 the qwen2 runs, the recurrent families tensor-parallel on
+                 mesh (1, 2) (serve/sharded.py, models/mamba2.py): the
+                 fused in_proj split flat, the conv over its channels, the
+                 SSM states over their heads, the K/V by head:
+                 mamba2-780m at full width and depth (a rank holds 24 of
+                 the 48 SSM heads), zamba2-7b at full width and 12 of its
+                 81 Mamba2 blocks (two shared-block calls),
+                 whisper-large-v3 at full width and 4 of its 32 decoder
+                 layers, each on 4 slots serving 6 requests of 8-16
+                 prompt tokens and 4-12 new ones; every rank's tokens
+                 equal the single-process eager run's, collectives issued
+                 through gloo, programs eager, nothing held whole, no
+                 kernel and no plain version launched (serving steps the
+                 decode, as in the reference); then mamba2-780m's forward
+                 on [1, 512] tokens under the (1, 2) rules: the SSD kernel
+                 48 times a rank at 24 heads, no plain version, logits
+                 within 3e-4 of the largest |logit| of the single-process
+                 forward (printed beside that forward's own gap when only
+                 the scan's rounding changes). Prints the collective
+                 counts by kind and the share of the wall spent in them,
+                 ms a decode step sharded and single-process, and the
+                 phase's seconds. A rank that fails fails the phase;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (64 experts top-8) cut to 8 of its 16
                  layers (~3.5 B float32 weights from a seed; 16 until the
@@ -556,6 +577,21 @@ SEQ_PROMPTS = (64, 96, 128, 160, 192, 224, 256, 120)
 OFF_SQ, OFF_Q0, OFF_SK = 64, 192, 256
 #: the rank processes' device type
 SHARD_DEVICE = "cuda"
+#: the recurrent families served tensor-parallel on mesh (1, 2) after the
+#: qwen2 runs: zamba2's 81 Mamba2 blocks cut to 12 (two shared-block
+#: calls), whisper's 32 decoder layers to 4, mamba2 whole; each serves
+#: REC_SHARD_N requests of 8-16 prompt tokens and 4-12 new ones on 4
+#: slots, horizon 8, max_len 64 (freed slots are reused)
+REC_SHARD_N, REC_SHARD_SLOTS, REC_SHARD_MAX_LEN = 6, 4, 64
+Z_SHARD_LAYERS, W_SHARD_LAYERS = 12, 4
+#: the tensor-parallel mamba2-780m forward on mesh (1, 2): [1, S] tokens,
+#: held to the single-process forward within this share of its largest
+#: |logit|. 1e-4 holds at smoke depth on the CPU; through 48 random
+#: layers the split products' other summation orders reach 1.24e-4 on an
+#: H100 (1.18e-3 of 9.52), as the single-process forward's own gap does
+#: when only the SSD scan's rounding changes (1.14e-4, ``plain_gap``,
+#: printed beside it); the limit is about 2.5x those readings
+M2_SHARD_S, M2_SHARD_TOL = 512, 3e-4
 #: mamba2-780m: SSM heads, head dim, state, chunk; the forward phase's
 #: batch and sequence
 M2_H, M2_P, M2_N, M2_Q, M2_B, M2_S = 48, 64, 128, 256, 2, 4096
@@ -1329,19 +1365,22 @@ def ssd_case(b: int, s: int, h: int, p: int, n: int, seed: int):
 
 def check_ssd(flush: torch.Tensor) -> dict:
     """The SSD scan against its plain version at mamba2-780m's and
-    zamba2-7b's forward shapes and at edge shapes (tolerance 5e-4,
-    tests/test_kernels.py:134's); time both full-width calls (zamba2's in
-    ``other_shapes``)."""
+    zamba2-7b's forward shapes, at a mamba2-780m rank's of the sharded
+    phase's (1, 2) forward (24 of the 48 heads) and at edge shapes
+    (tolerance 5e-4, tests/test_kernels.py:134's); time the three
+    full-width calls (zamba2's and the rank's in ``other_shapes``)."""
     cases = [  # (B, S, H, P, N, chunk, what)
         (M2_B, M2_S, M2_H, M2_P, M2_N, M2_Q, "mamba2-780m forward"),
         (1, Z_S, Z_H, Z_P, Z_N, Z_Q, "zamba2-7b forward"),
+        (1, M2_SHARD_S, M2_H // 2, M2_P, M2_N, M2_Q,
+         "mamba2-780m sharded rank (1, 2)"),
         (2, 256, 16, 32, 16, 32, "smoke widths"),
         (2, 96, 4, M2_P, M2_N, M2_Q, "S 96: the chunk halves to 32"),
         (2, 64, 4, M2_P, M2_N, 128, "S 64 with chunk 128"),
         (2, 128, 8, M2_P, M2_N, 64, "a_log = -40 (memoryless)"),
         (1, 512, 1, M2_P, M2_N, M2_Q, "B = H = 1"),
     ]
-    rec = None
+    rec, others = None, []
     for (b, s, h, p, n, chunk, what) in cases:
         x, a, bm, cm = ssd_case(b, s, h, p, n, s + h + n)
         if "memoryless" in what:
@@ -1358,7 +1397,7 @@ def check_ssd(flush: torch.Tensor) -> dict:
             want = (cm * bm).sum(-1, keepdim=True) * x
             _compare(f"ssd_scan {what} against (C.B) x", out, want,
                      torch.float32, tol=5e-4)
-        if what.startswith("mamba2"):
+        if what == "mamba2-780m forward":
             ms = time_ms(lambda: ops.ssd_scan(x, a, bm, cm, chunk=q), flush)
             plain_ms = time_ms(
                 lambda: ssd.ssd_scan_plain(x, a, bm, cm, chunk=q), flush,
@@ -1371,8 +1410,8 @@ def check_ssd(flush: torch.Tensor) -> dict:
                 err, ms, plain_ms, *ssd_bound(b, s, h, p, n, q), None,
                 dict(B=b, S=s, H=h, P=p, N=n, Q=q, dtype="float32"),
                 ssd_bound(b, s, h, p, n, q, mma=False)[1])
-        if what.startswith("zamba2"):
-            zamba = _record(
+        if what.startswith(("zamba2", "mamba2-780m sharded")):
+            others.append(_record(
                 "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:66",
                 err, time_ms(lambda: ops.ssd_scan(x, a, bm, cm, chunk=q),
                              flush),
@@ -1380,9 +1419,9 @@ def check_ssd(flush: torch.Tensor) -> dict:
                         flush, reps=10),
                 *ssd_bound(b, s, h, p, n, q), None,
                 dict(path=what, B=b, S=s, H=h, P=p, N=n, Q=q,
-                     dtype="float32"))
+                     dtype="float32")))
         del x, a, bm, cm, out
-    rec["other_shapes"] = [{k: zamba[k] for k in SHAPE_KEYS}]
+    rec["other_shapes"] = [{k: o[k] for k in SHAPE_KEYS} for o in others]
     return rec
 
 
@@ -4071,11 +4110,26 @@ def dry_on_card(name: str, knobs: dict) -> dict:
 # ---------------------------------------------------------------------------
 # sharded
 # ---------------------------------------------------------------------------
+def _recurrent(cfg) -> bool:
+    """Whether ``cfg`` serves on the recurrent engines (its prefill steps
+    the decode): the SSM, hybrid and encdec families."""
+    return cfg.family in ("ssm", "hybrid", "encdec")
+
+
+def _shard_slots(cfg) -> tuple:
+    """(slots, max_len) of the sharded phase's engine of ``cfg``."""
+    if _recurrent(cfg):
+        return REC_SHARD_SLOTS, REC_SHARD_MAX_LEN
+    return SLOTS, MAX_LEN
+
+
 def shard_engine(cfg, device, plan=None, params=None, cache="paged"):
     """The sharded phase's engine (the engine phase's options; the
-    contiguous one at the same slots, max_len and horizon) on ``device``;
-    weights drawn from seed 0 unless given."""
-    return ServeEngine(cfg, params=params, max_len=MAX_LEN, n_slots=SLOTS,
+    contiguous one at the same slots, max_len and horizon; the recurrent
+    families' at ``REC_SHARD_*``) on ``device``; weights drawn from seed 0
+    unless given."""
+    slots, max_len = _shard_slots(cfg)
+    return ServeEngine(cfg, params=params, max_len=max_len, n_slots=slots,
                        cache=cache, block_size=BS, prefill_lanes=4,
                        decode_horizon=8, device=device, seed=0,
                        sharding=plan)
@@ -4085,35 +4139,51 @@ def shard_requests(cfg, rate: float, cache: str = "paged"):
     """The engine phase's request set (its prompts and shared prefix), cut
     to ``SHARD_N`` requests of ``SHARD_NEW`` new tokens; the contiguous
     run's: prompts of the ``SEQ_PROMPTS`` lengths (multiples of 4) drawn
-    from seed 0."""
+    from seed 0; the recurrent families': ``REC_SHARD_N`` prompts of 8-16
+    tokens and budgets of 4-12, drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    if _recurrent(cfg):
+        lengths = rng.integers(8, 17, size=REC_SHARD_N)
+        budgets = rng.integers(4, 13, size=REC_SHARD_N)
+        return [ServeRequest(rng.integers(1, cfg.vocab_size, size=int(n))
+                             .astype(np.int32), max_new_tokens=int(m),
+                             arrival_time=0.0)
+                for n, m in zip(lengths, budgets)]
     if cache == "paged":
         return serve_cli.make_requests(cfg, SHARD_N, 256, SHARD_NEW, rate,
                                        seed=0, shared_prefix=64)
-    rng = np.random.default_rng(0)
     return [ServeRequest(rng.integers(1, cfg.vocab_size, size=n)
                          .astype(np.int32), max_new_tokens=SHARD_NEW,
                          arrival_time=0.0) for n in SEQ_PROMPTS]
 
 
-#: the sharded phase's runs: (name, mesh shape, layers, arrival rate,
-#: cache), by process group size
+#: the sharded phase's runs: (name, arch, mesh shape, layers, arrival
+#: rate, cache), by process group size
 SHARD_RUNS = {
-    2: (("tp", (1, 2), None, 0.0, "paged"),
-        ("dp", (2, 1), SHARD_DP_LAYERS, SHARD_DP_RATE, "paged")),
-    SEQ_M: (("kv-seq", (1, SEQ_M), None, 0.0, "paged"),
-            ("q-seq", (1, SEQ_M), SEQ_CONTIG_LAYERS, 0.0, "contiguous")),
+    2: (("tp", "qwen2-0.5b", (1, 2), None, 0.0, "paged"),
+        ("dp", "qwen2-0.5b", (2, 1), SHARD_DP_LAYERS, SHARD_DP_RATE,
+         "paged"),
+        ("mamba2", "mamba2-780m", (1, 2), None, 0.0, "contiguous"),
+        ("zamba2", "zamba2-7b", (1, 2), Z_SHARD_LAYERS, 0.0, "contiguous"),
+        ("whisper", "whisper-large-v3", (1, 2), W_SHARD_LAYERS, 0.0,
+         "contiguous")),
+    SEQ_M: (("kv-seq", "qwen2-0.5b", (1, SEQ_M), None, 0.0, "paged"),
+            ("q-seq", "qwen2-0.5b", (1, SEQ_M), SEQ_CONTIG_LAYERS, 0.0,
+             "contiguous")),
 }
-#: the kernels each run's ranks must launch (ops counter names)
+#: the kernels each run's ranks must launch (ops counter names; the
+#: recurrent engines reach none, as in the reference)
 SHARD_KERNELS = {
     "tp": ("paged_attention", "paged_prefill_attention"),
     "dp": ("paged_attention", "paged_prefill_attention"),
     "kv-seq": ("paged_attention_partial", "paged_prefill_partial"),
     "q-seq": ("flash_attention_offset",),
+    "mamba2": (), "zamba2": (), "whisper": (),
 }
 
 
-def _shard_cfg(layers):
-    cfg = get_config("qwen2-0.5b")
+def _shard_cfg(arch, layers):
+    cfg = get_config(arch)
     return cfg if layers is None else cfg.replace(n_layers=layers)
 
 
@@ -4137,6 +4207,48 @@ def _shard_run(engine, cfg, rate: float, cache: str = "paged") -> dict:
                 prefill_dispatches=stats.prefill_dispatches)
 
 
+def _tp_forward(cfg, plan) -> dict:
+    """mamba2-780m's ``Model.forward`` on [1, M2_SHARD_S] tokens, single
+    process on the seed-0 weights and then on this rank's blocks of them
+    under the plan's rules (counters set to 0 just before the sharded
+    forward and read just after; the heads each block's SSD scan takes,
+    read from its local ``A_log``)."""
+    from repro_torch.dist import sharding as shd
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (1, M2_SHARD_S),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1), device="cuda", dtype=torch.int32)
+    local = plan.shard_params(params)
+    # the heads each block hands the scan: its local A_log's (mamba2._blocks)
+    heads = sorted({int(p["A_log"].shape[0]) for p in local["layers"]})
+    with torch.inference_mode():
+        model.forward(params, {"tokens": toks})      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        single_ms = 1e3 * (time.perf_counter() - t0)
+        with plain_ssd():           # the same function, other roundings
+            plain_gap = float((model.forward(params, {"tokens": toks})
+                               - off).abs().max())
+        del params
+        ops.set_counts((0,) * len(ops.COUNTERS))
+        shd.reset_stats()
+        t0 = time.perf_counter()
+        with plan.rules():
+            on = model.forward(local, {"tokens": toks})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(zip(COUNTER_NAMES, ops.counts()))
+        return dict(launches=launches, heads=heads, shape=tuple(on.shape),
+                    plain_gap=plain_gap,
+                    finite=bool(torch.isfinite(on).all()),
+                    max_abs=float((on - off).abs().max()),
+                    scale=float(off.abs().max()), ms=ms,
+                    single_ms=single_ms, collectives=dict(shd.STATS))
+
+
 def _shard_rank(rank: int, port: int, world: int, runs, queue) -> None:
     """One rank process: join the ``world``-rank gloo group on cuda:0,
     serve each of ``runs`` ((name, mesh shape, layers, arrival rate,
@@ -4155,12 +4267,13 @@ def _shard_rank(rank: int, port: int, world: int, runs, queue) -> None:
                                 world_size=world, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         res = {}
-        for name, shape, layers, rate, cache in runs:
-            cfg = _shard_cfg(layers)
+        for name, arch, shape, layers, rate, cache in runs:
+            cfg = _shard_cfg(arch, layers)
             mesh = Mesh(shape, ("data", "model"), DeviceMesh(
                 SHARD_DEVICE, torch.arange(world).reshape(shape),
                 mesh_dim_names=("data", "model")))
-            plan = make_serve_sharding(cfg, SLOTS, MAX_LEN, mesh,
+            slots, max_len = _shard_slots(cfg)
+            plan = make_serve_sharding(cfg, slots, max_len, mesh,
                                        cache=cache, block_size=BS)
             engine = shard_engine(cfg, SHARD_DEVICE, plan, cache=cache)
             res[name] = _shard_run(engine, cfg, rate, cache)
@@ -4170,6 +4283,10 @@ def _shard_rank(rank: int, port: int, world: int, runs, queue) -> None:
             del engine
             gc.collect()
             torch.cuda.empty_cache()
+            if name == "mamba2":
+                res["mamba2 forward"] = _tp_forward(cfg, plan)
+                gc.collect()
+                torch.cuda.empty_cache()
         dist.destroy_process_group()
         queue.put((rank, res))
     except BaseException:
@@ -4195,9 +4312,12 @@ def _shard_group(world: int, params) -> tuple:
         p.start()
     try:
         single = {}
-        for name, _, layers, rate, cache in runs:
-            cfg = _shard_cfg(layers)
-            sub = dict(params, layers=params["layers"][:cfg.n_layers])
+        for name, arch, _, layers, rate, cache in runs:
+            cfg = _shard_cfg(arch, layers)
+            # qwen2 on the engine phase's weights; the others drawn from
+            # seed 0, as the ranks draw them
+            sub = (dict(params, layers=params["layers"][:cfg.n_layers])
+                   if arch == "qwen2-0.5b" else None)
             with graphs.eager():
                 single[name] = _shard_run(
                     shard_engine(cfg, "cuda", params=sub, cache=cache), cfg,
@@ -4224,11 +4344,47 @@ def _shard_group(world: int, params) -> tuple:
     return [ranks[r] for r in range(world)], single
 
 
+def check_tp_forward(ranks, cfg, shape) -> int:
+    """Each rank's tensor-parallel mamba2-780m forward (``_tp_forward``):
+    the SSD kernel launched once a layer at the rank's heads and never its
+    plain version, collectives issued, logits finite and within
+    ``M2_SHARD_TOL`` of the largest |logit| of the single-process forward
+    (printed beside the single-process forward's gap to itself with the
+    plain scan). Returns the launches summed over the ranks."""
+    what = f"sharded mamba2-780m forward [1, {M2_SHARD_S}] mesh {shape}"
+    heads = cfg.n_ssm_heads // shape[1]
+    for r, x in enumerate(ranks):
+        calls = {k: v for k, v in x["launches"].items() if v}
+        print(json.dumps({"sharded_forward": what, "rank": r, **{
+            k: x[k] for k in ("launches", "heads", "max_abs",
+                              "plain_gap", "scale", "ms", "single_ms",
+                              "collectives")}}),
+              flush=True)
+        if (x["launches"]["ssd_scan"] != cfg.n_layers
+                or x["heads"] != [heads]
+                or any(k.endswith("_plain") for k in calls)):
+            raise SystemExit(f"FAIL: {what}: rank {r} launches {calls} at "
+                             f"{x['heads']} heads, not ssd_scan "
+                             f"{cfg.n_layers} times at {heads}")
+        if not (x["collectives"]["all_reduce"] > 0
+                and x["collectives"]["all_gather"] > 0):
+            raise SystemExit(f"FAIL: {what}: rank {r} issued "
+                             f"{x['collectives']}")
+        if not x["finite"] or x["max_abs"] > M2_SHARD_TOL * x["scale"]:
+            raise SystemExit(f"FAIL: {what}: rank {r} logits "
+                             f"{x['max_abs']:.3e} from the single-process "
+                             f"forward's (largest |logit| {x['scale']:.3e})"
+                             f", finite {x['finite']}")
+    return sum(x["launches"]["ssd_scan"] for x in ranks)
+
+
 def run_sharded(summary: dict, params) -> dict:
     """The sharded phase (module docstring): two ranks on meshes (1, 2)
-    and (2, 1), then four on (1, 4). Returns, by kernel, the launches
-    summed over the ranks of the full-width (1, 2) and (1, 4) runs and of
-    the contiguous (1, 4) run, by path."""
+    and (2, 1) (qwen2-0.5b, then mamba2-780m, zamba2-7b and
+    whisper-large-v3 on (1, 2) and mamba2-780m's forward), then four on
+    (1, 4). Returns, by kernel, the launches summed over the ranks of the
+    full-width (1, 2) and (1, 4) runs, of the contiguous (1, 4) run and of
+    the mamba2 forward, by path."""
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4237,34 +4393,43 @@ def run_sharded(summary: dict, params) -> dict:
     paths = {}
     for world in SHARD_RUNS:
         ranks, single = _shard_group(world, params)
-        for name, shape, layers, rate, cache in SHARD_RUNS[world]:
-            layers = _shard_cfg(layers).n_layers
+        for name, arch, shape, layers, rate, cache in SHARD_RUNS[world]:
+            cfg = _shard_cfg(arch, layers)
+            layers = cfg.n_layers
             ref, got = single[name], [x[name] for x in ranks]
-            what = f"sharded {name} mesh {shape} {cache} at {layers} layers"
+            what = (f"sharded {name} {arch} mesh {shape} {cache} at {layers} "
+                    "layers")
             if any(x["tokens"] != ref["tokens"] for x in got):
                 raise SystemExit(f"FAIL: {what}: the ranks' tokens differ "
                                  "from each other or from the "
                                  "single-process run")
             for r, x in enumerate(got):
                 calls = {k: v for k, v in x["launches"].items() if v}
+                c = x["collectives"]
                 if (any(x["launches"][k] <= 0 for k in SHARD_KERNELS[name])
                         or any(k.endswith("_plain") for k in calls)
-                        or x["graphs"] != "eager" or x["backend"] != "gloo"):
+                        or x["graphs"] != "eager" or x["backend"] != "gloo"
+                        or not (c["all_reduce"] > 0 or c["all_gather"] > 0)):
                     raise SystemExit(f"FAIL: {what}: rank {r} launches "
                                      f"{calls}, graphs {x['graphs']}, "
-                                     f"{x['backend']}")
-                if world == SEQ_M and (x["held_replicated"]
-                                       or x["cache_seq"] != "model"):
+                                     f"{x['backend']}, collectives {c}")
+                if shape[0] == 1 and x["held_replicated"]:
+                    raise SystemExit(f"FAIL: {what}: rank {r} holds "
+                                     f"{x['held_replicated']} whole")
+                if world == SEQ_M and x["cache_seq"] != "model":
                     raise SystemExit(
-                        f"FAIL: {what}: rank {r} holds "
-                        f"{x['held_replicated']} whole, pool positions "
-                        f"split over {x['cache_seq']}")
+                        f"FAIL: {what}: rank {r}'s pool positions split "
+                        f"over {x['cache_seq']}")
+                if _recurrent(cfg) and not (c["all_reduce"] > 0
+                                            and c["all_gather"] > 0):
+                    raise SystemExit(f"FAIL: {what}: rank {r} computes "
+                                     f"whole: collectives {c}")
             if name == "dp" and not got[0]["decode_rows_saved"] > 0:
                 raise SystemExit(f"FAIL: {what}: no decode rows saved")
             a = got[0]
             rec[name] = {
-                "mesh": shape, "cache": cache, "layers": layers,
-                "arrival_rate": rate,
+                "arch": arch, "mesh": shape, "cache": cache,
+                "layers": layers, "arrival_rate": rate,
                 "tokens": sum(len(t) for t in ref["tokens"]),
                 "steps": a["steps"],
                 "decode_dispatches": a["decode_dispatches"],
@@ -4288,8 +4453,9 @@ def run_sharded(summary: dict, params) -> dict:
                   f"{[{k: v for k, v in c.items() if k != 'seconds'} for c in rec[name]['collectives']]}; "
                   f"decode ms a step {rec[name]['decode_ms_per_step']} "
                   f"against single-process eager "
-                  f"{rec[name]['single_decode_ms_per_step']:.3f} ({smi})",
-                  flush=True)
+                  f"{rec[name]['single_decode_ms_per_step']:.3f}; gloo "
+                  f"{rec[name]['collective_share_of_wall']} of the wall "
+                  f"({smi})", flush=True)
             if name in ("tp", "kv-seq", "q-seq"):
                 path = (f"qwen2-0.5b sharded {cache} ({world} ranks, mesh "
                         f"{shape})")
@@ -4303,11 +4469,22 @@ def run_sharded(summary: dict, params) -> dict:
                     n = sum(x["launches"][counter] for x in got)
                     if n:
                         paths.setdefault(kern, {})[path] = n
+            if name == "mamba2":
+                fw = [x["mamba2 forward"] for x in ranks]
+                n = check_tp_forward(fw, cfg, shape)
+                paths.setdefault("ssd_scan", {})[
+                    f"mamba2-780m sharded forward ({world} ranks, mesh "
+                    f"{shape})"] = n
+                rec["mamba2 forward"] = {
+                    k: [x[k] for x in fw] for k in (
+                        "heads", "max_abs", "plain_gap", "scale", "ms",
+                        "single_ms")}
+                rec["mamba2 forward"]["launches"] = n
     rec["phase_s"] = time.perf_counter() - t0
     print(f"sharded: every run's tokens agree across the ranks and with the "
           f"single-process eager runs ({smi}); phase {rec['phase_s']:.1f} s",
           flush=True)
-    summary["qwen2-0.5b sharded"] = rec
+    summary["sharded"] = rec
     return paths
 
 

@@ -36,10 +36,11 @@ counting mode that records
 The program is the port's own plan. Parameters are the local blocks of
 ``serve/sharded.py:realized`` on ``param_pspecs``; the decode cache the
 local blocks of ``cache_pspecs`` with the splits the port realizes (rows
-over the batch axes; for the attention families KV heads over 'model'
-where attention runs head-sharded, and the sequence over the axis the
-reference splits it, 'model' for KV heads that do not divide it, 'data'
-for long_500k, where the layer runs kv-seq over that axis); a leaf the
+over the batch axes; KV heads over 'model' where attention runs
+head-sharded, and the sequence over the axis the reference splits it,
+'model' for KV heads that do not divide it, 'data' for long_500k, where
+the layer runs kv-seq over that axis; the conv states' channels and the
+SSM states' heads over 'model'); a leaf the
 port holds whole where the reference splits it counts whole, and the
 record lists it under ``held_replicated``. Batch rows split over the
 batch axes when those divide the batch. The program runs under
@@ -471,34 +472,13 @@ def _cut_view(x, spec, mesh):
 
 
 def _cache_layout(cfg, cspec, mesh, batch_axes, heads: bool) -> dict:
-    """The splits of the decode cache the port realizes: rows over the
-    batch axes; for the attention families' K/V (``serve/sharded.py:
-    cache_layout``) KV heads over 'model' where attention runs
-    head-sharded and the sequence over the axis the reference splits it;
-    every other split (the SSM states' heads, the hybrid's and encdec's
-    leaves) is held whole."""
-    from repro_torch.serve.sharded import TP_FAMILIES, cache_layout
-    sizes = axis_sizes(mesh)
-    kv = cache_layout(cfg, {n: cspec[n] for n in ("k", "v") if n in cspec},
-                      sizes, heads, keep_axes=batch_axes) \
-        if cfg.family in TP_FAMILIES else {}
-
-    def keep(path, spec):
-        name = "/".join(str(p) for p in path)
-        if name in kv:
-            return kv[name]
-        # the rows: [L, B, ...], or [G, E, B, ...] for the hybrid's states
-        rows = 2 if len(spec) == 6 or (len(spec) == 5
-                                       and name.endswith("conv")) else 1
-        out = []
-        for d, e in enumerate(spec):
-            axes = set(shd._flat(e))
-            if d == rows and axes and axes <= set(batch_axes):
-                out.append(e)
-            else:
-                out.append(None)
-        return P(*out)
-    return tree_map_with_path(keep, cspec)
+    """The splits of the decode cache the port realizes: the serve plan's
+    (``serve/sharded.py:cache_layout``: every split over 'model', the
+    positions over the axis the reference splits them), and the rows over
+    the batch axes."""
+    from repro_torch.serve.sharded import cache_layout
+    return cache_layout(cfg, cspec, axis_sizes(mesh), heads,
+                        keep_axes=batch_axes)
 
 
 def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
@@ -525,7 +505,7 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
         heads = heads_sharded(cfg)
     m = sizes["model"]
     layout = tree_map_with_path(
-        lambda path, s: realized(cfg, next(
+        lambda path, s: realized(next(
             (k for k in reversed(path) if isinstance(k, str)), ""), s, m),
         pspec)
     held = _replicated(pspec, layout, sizes)

@@ -16,7 +16,10 @@ Parameters: ``{"emb", "enc_layers": [...], "dec_layers": [...],
 "enc_norm", "dec_norm"}`` (the reference stacks the layers). The cache is
 the reference's ``{"k", "v": [L, B, S, Hkv, D], "ck", "cv": [L, B,
 enc_seq, Hkv, D]}``: self-attention K/V and the cross K/V that
-``prefill_cross_kv`` fills; both update in place.
+``prefill_cross_kv`` fills; both update in place. On the mesh the
+layers compute tensor-parallel over 'model' as ``models/layers.py`` sets
+out, and the serve plan builds the cache at a rank's KV heads (or
+positions).
 """
 from __future__ import annotations
 
@@ -90,7 +93,7 @@ def encode(cfg, params, frames):
         a, _ = L.attention(p["attn"], cfg, h, positions, causal=False)
         x = x + a
         h = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h)
+        return x + L.mlp(p["mlp"], h, cfg.d_ff)
 
     body = L.remat(cfg, body, dots=False)        # encdec.py:71-72
     for p in params["enc_layers"]:
@@ -100,15 +103,19 @@ def encode(cfg, params, frames):
 
 def _cross_kv(cfg, p, enc_out):
     """One decoder layer's cross K/V [B, enc_seq, Hkv, D] from the encoder
-    output (``p`` the layer's ``cross_attn``)."""
+    output (``p`` the layer's ``cross_attn``). On the mesh: this rank's KV
+    heads where attention runs head-sharded and they divide 'model', else
+    every KV head (a column block of ``wk`` / ``wv`` gathered), as the
+    cross pool ``ck`` / ``cv`` holds them."""
     b, s, _ = enc_out.shape
-    hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    k = (enc_out @ p["wk"]).reshape(b, s, nkv, hd)
-    v = (enc_out @ p["wv"]).reshape(b, s, nkv, hd)
+    hd = cfg.resolved_head_dim
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
     if cfg.qkv_bias:
-        k = k + p["bk"].reshape(nkv, hd)
-        v = v + p["bv"].reshape(nkv, hd)
-    return k, v
+        k, v = k + p["bk"], v + p["bv"]
+    if L.whole_kv(cfg, L.heads_sharded(cfg)):
+        full = cfg.n_kv_heads * hd
+        k, v = L._whole((k, v), (full, full))
+    return k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +136,7 @@ def _dec_layer(cfg, p, x, positions, enc_out=None, cross_kv=None,
     a, _ = L.attention(p["cross_attn"], cfg, h, positions, cross_kv=cross_kv)
     x = x + a
     h = L.rmsnorm(x, p["norm3"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h), new_cache
+    return x + L.mlp(p["mlp"], h, cfg.d_ff), new_cache
 
 
 def decode_train(cfg, params, tokens, enc_out):

@@ -107,10 +107,18 @@ def remat(cfg, fn: Callable, dots: bool = True) -> Callable:
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
-def rmsnorm(x, weight, eps: float):
+def rmsnorm(x, weight, eps: float, width: Optional[int] = None):
+    """RMSNorm over the last dimension in the (1 + w) form. ``width``: the
+    full row width where ``x`` holds a column block of it over 'model'
+    (the sum of squares then reduced over 'model', ``weight`` the block's
+    slice); None or the last dimension's size: whole rows."""
     dtype = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if width is None or width == x.shape[-1]:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = shd.reduce_over(x.square().sum(dim=-1, keepdim=True),
+                              "model") / width
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
 
@@ -186,10 +194,6 @@ def init_attention(cfg, dtype, generator) -> dict:
     return p
 
 
-#: the families whose attention layers compute tensor-parallel
-TP_FAMILIES = ("dense", "vlm", "moe")
-
-
 def _axis_ranks(axis: str) -> int:
     """The ranks of mesh ``axis`` under the installed rules (1 off the
     mesh)."""
@@ -201,10 +205,9 @@ def heads_sharded(cfg) -> bool:
     """Whether attention runs head-sharded under the installed rules: the
     layer's scheme (``plan_attention_scheme``, the reference's) splits the
     q heads over 'model', and each rank's q heads read a whole number of
-    KV groups or one KV head (so the kernels see one G); the TP families
-    only."""
+    KV groups or one KV head (so the kernels see one G)."""
     m = _axis_ranks("model")
-    if m <= 1 or cfg.family not in TP_FAMILIES or not cfg.n_kv_heads:
+    if m <= 1 or not cfg.n_kv_heads:
         return False
     scheme = plan_attention_scheme(cfg, 1, 1, 1)
     if scheme is None or scheme["q"][2] != "model":
@@ -228,6 +231,13 @@ def _whole(ts, fulls):
     return out
 
 
+def whole_kv(cfg, heads: bool) -> bool:
+    """Whether a layer's k / v columns are gathered into every KV head:
+    when attention is not head-sharded (``heads`` False), or its KV heads
+    do not divide 'model'."""
+    return not heads or cfg.n_kv_heads % _axis_ranks("model") != 0
+
+
 def _qkv(p, cfg, x, heads: bool):
     """x [B, S, D] -> q [B, S, Hq, D], k / v [B, S, Hkv, D]. ``heads``
     (the layer runs head-sharded): q on this rank's heads, k / v on its KV
@@ -242,7 +252,7 @@ def _qkv(p, cfg, x, heads: bool):
     full_kv = cfg.n_kv_heads * hd
     if not heads:
         q, k, v = _whole((q, k, v), (cfg.n_heads_eff * hd, full_kv, full_kv))
-    elif cfg.n_kv_heads % _axis_ranks("model"):
+    elif whole_kv(cfg, heads):
         k, v = _whole((k, v), (full_kv, full_kv))
     return (q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
             v.reshape(b, s, -1, hd))
@@ -271,19 +281,24 @@ def kv_heads_read(cfg, n_q: int, n_kv: int) -> Optional[slice]:
     return slice(first // g, (first + n_q - 1) // g + 1)
 
 
-def _heads_sum(p, cfg, out):
-    """``out @ wo`` of the local heads, summed over 'model' when ``wo``
-    holds a row block (the reference's residual ``shard`` site); an
-    ``out`` of every head against a row block multiplies this rank's
-    columns of it."""
-    w = p["wo"].shape[0]
-    if out.shape[-1] != w:
+def row_parallel(x, w, full: int):
+    """``x @ w`` for a ``w`` [full | full / m, D] that may hold a row block
+    over 'model': the partial sums reduced over 'model' (the reference's
+    residual ``shard`` site); an ``x`` of every column against a row block
+    multiplies this rank's columns of it."""
+    n = w.shape[0]
+    if x.shape[-1] != n:
         r = shd.axis_index("model")
-        out = out[..., r * w:(r + 1) * w]
-    y = out @ p["wo"]
-    if w != cfg.n_heads_eff * cfg.resolved_head_dim:
+        x = x[..., r * n:(r + 1) * n]
+    y = x @ w
+    if n != full:
         y = shd.reduce_over(y, "model")
     return y
+
+
+def _heads_sum(p, cfg, out):
+    """``out @ wo`` of the local heads (``row_parallel``)."""
+    return row_parallel(out, p["wo"], cfg.n_heads_eff * cfg.resolved_head_dim)
 
 
 def _q_seq(cfg, b: int, s: int, q) -> bool:
@@ -616,7 +631,9 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     cache whose length 'model' divides and that needs no gradient (flash
     with a query offset, on either flag), else every head whole. The
     returned (k, v) hold this rank's KV heads head-sharded where they
-    divide 'model', else every KV head, at every position of x.
+    divide 'model', else every KV head, at every position of x. Cross
+    attention runs head-sharded over cross K/V of the same layout, or
+    gathers q into every head over whole cross K/V.
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -626,7 +643,14 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
         q = x @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
-        out = mha(q.reshape(b, s, -1, hd), *cross_kv, None, no_repeat)
+        if not heads_sharded(cfg):   # whole heads over whole cross K/V
+            (q,) = _whole((q,), (cfg.n_heads_eff * hd,))
+        q = q.reshape(b, s, -1, hd)
+        ck, cv = cross_kv
+        heads = kv_heads_read(cfg, q.shape[2], ck.shape[2])
+        if heads is not None:
+            ck, cv = ck[:, :, heads], cv[:, :, heads]
+        out = mha(q, ck, cv, None, no_repeat)
         return _heads_sum(p, cfg, out.reshape(b, s, -1)), None
     seq_axis = shd.cache_seq_axis() if kv_cache is not None else None
     split = p["wq"].shape[1] != cfg.n_heads_eff * hd    # a column block

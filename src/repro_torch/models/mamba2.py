@@ -12,7 +12,9 @@ in the reference.
 Parameters are a dict with a list of per-layer dicts (the reference stacks
 them for ``lax.scan``; here the layers are a Python loop). The cache is
 ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, N, P]}``; ``decode_step``
-updates it in place.
+updates it in place. On the mesh a block computes tensor-parallel over
+'model' (the section below); the serve plan builds the cache at a rank's
+conv channels and heads.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -89,9 +92,11 @@ def causal_conv1d(x, w, b):
 
 def _project(cfg, p, x):
     """Input projection, split into z [.., di], xBC [.., conv_ch]
-    (pre-conv) and dt [.., H]."""
-    di, _, _, _, _, conv_ch = _dims(cfg)
-    zxbcdt = x @ p["in_proj"]
+    (pre-conv) and dt [.., H]. An ``in_proj`` column block of the flat
+    ``2 di + 2 G N + H`` (``inner_flat`` over 'model') is gathered into
+    every column first."""
+    di, g, n, h, _, conv_ch = _dims(cfg)
+    (zxbcdt,) = L._whole((x @ p["in_proj"],), (2 * di + 2 * g * n + h,))
     return (zxbcdt[..., :di], zxbcdt[..., di:di + conv_ch],
             zxbcdt[..., di + conv_ch:])
 
@@ -109,6 +114,62 @@ def _split_xbc(cfg, xBC):
             C.repeat_interleave(rep, dim=-2))
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over 'model'
+#
+# The reference splits ``in_proj``'s flat columns, ``conv_w`` / ``conv_b``
+# and the conv state over the flat conv channels, ``A_log`` / ``dt_bias`` /
+# ``D`` and the SSM state over the heads and ``out_proj`` over its d_inner
+# rows, each where 'model' divides it (``inner_flat`` / ``heads``). A rank
+# gathers the projection, convolves its channel block (B and C live on the
+# last channels, so the conv output is gathered too), runs the SSM on its
+# heads, normalizes its d_inner columns with the sum of squares reduced over
+# 'model' and multiplies ``out_proj``'s row block, the partial sums reduced.
+# Each leaf's local shape says whether it is split: a whole leaf (off the
+# mesh, or a split 'model' does not divide) is used whole.
+# ---------------------------------------------------------------------------
+def _blocks(cfg, p):
+    """(c0, c, h0, nh): the first index and count of this rank's conv
+    channels and SSM heads (0 and every one where the leaf is whole)."""
+    _, _, _, h, _, conv_ch = _dims(cfg)
+    c, nh = p["conv_w"].shape[-1], p["A_log"].shape[0]
+    r = shd.axis_index("model")
+    return (0 if c == conv_ch else r * c), c, (0 if nh == h else r * nh), nh
+
+
+def _channels(x, c0: int, c: int):
+    """Channels ``[c0, c0 + c)`` of ``x`` [.., C] (``x`` when all)."""
+    return x if c == x.shape[-1] else x[..., c0:c0 + c]
+
+
+def _local_heads(cfg, xBC, dt, z, h0: int, nh: int):
+    """x [.., nh, P], B / C [.., nh, N], dt [.., nh] and z [.., nh P] of
+    heads ``[h0, h0 + nh)`` from the whole conv output ``xBC``, the whole
+    dt and z."""
+    xs, B, C = _split_xbc(cfg, xBC)
+    if nh == cfg.n_ssm_heads:
+        return xs, B, C, dt, z
+    ph = cfg.ssm_headdim
+    hs = slice(h0, h0 + nh)
+    return (xs[..., hs, :], B[..., hs, :], C[..., hs, :], dt[..., hs],
+            z[..., h0 * ph:(h0 + nh) * ph])
+
+
+def _gate_out(cfg, p, y, z):
+    """``rmsnorm(y * silu(z)) @ out_proj`` over d_inner, ``y`` / ``z``
+    this rank's block of its columns: the sum of squares reduced over
+    'model' (the replicated ``gate_norm`` sliced to the block), then the
+    row-parallel product."""
+    di = cfg.d_inner
+    v = y * F.silu(z)
+    w, g = v.shape[-1], p["gate_norm"]
+    if w != di:
+        c0 = shd.axis_index("model") * w
+        g = g[c0:c0 + w]
+    v = L.rmsnorm(v, g, cfg.norm_eps, width=di)
+    return L.row_parallel(v, p["out_proj"], di)
+
+
 def _decay_inputs(p, dt):
     """dt (softplus of the raw dt plus its bias) and A = -exp(A_log), f32."""
     dt = F.softplus(dt.float() + p["dt_bias"].float())
@@ -120,31 +181,36 @@ def _decay_inputs(p, dt):
 # ---------------------------------------------------------------------------
 def block_fwd(cfg, p, x):
     """x: [B, S, D] -> [B, S, D] (pre-norm residual applied by the caller).
-    The scan runs ``ops.ssd_scan`` with ``chunk=cfg.ssm_chunk``."""
-    di = cfg.d_inner
+    The scan runs ``ops.ssd_scan`` with ``chunk=cfg.ssm_chunk`` on this
+    rank's heads (every head off the mesh)."""
+    conv_ch = _dims(cfg)[-1]
+    c0, c, h0, nh = _blocks(cfg, p)
     z, xBC, dt = _project(cfg, p, x)
-    xBC = F.silu(causal_conv1d(xBC, p["conv_w"], p["conv_b"]))
-    xs, B, C = _split_xbc(cfg, xBC)
+    xBC = F.silu(causal_conv1d(_channels(xBC, c0, c), p["conv_w"],
+                               p["conv_b"]))
+    (xBC,) = L._whole((xBC,), (conv_ch,))
+    xs, B, C, dt, z = _local_heads(cfg, xBC, dt, z, h0, nh)
     dt, A = _decay_inputs(p, dt)
     a_log = dt * A                                   # log decay, [B,S,H]
     xdt = xs.float() * dt[..., None]
     y = kops.ssd_scan(xdt, a_log, B.float(), C.float(), chunk=cfg.ssm_chunk)
     y = y + p["D"].float()[None, None, :, None] * xs.float()
-    y = y.to(x.dtype).reshape(*x.shape[:-1], di)
-    y = L.rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = y.to(x.dtype).reshape(*x.shape[:-1], -1)
+    return _gate_out(cfg, p, y, z)
 
 
 def block_decode(cfg, p, x, conv_state, ssm_state):
     """Single-token recurrent step. x: [B, 1, D]; conv_state:
-    [B, K-1, conv_ch]; ssm_state: [B, H, N, P]. Returns (out [B, 1, D],
-    new conv state, new ssm state)."""
-    di = cfg.d_inner
+    [B, K-1, C] (this rank's conv channels); ssm_state: [B, H, N, P] (its
+    heads). Returns (out [B, 1, D], new conv state, new ssm state)."""
+    conv_ch = _dims(cfg)[-1]
+    c0, c, h0, nh = _blocks(cfg, p)
     z, xBC, dt = _project(cfg, p, x)                 # [B,1,...]
-    full = torch.cat([conv_state, xBC], dim=1)       # [B, K, C]
+    full = torch.cat([conv_state, _channels(xBC, c0, c)], dim=1)  # [B,K,C]
     y_conv = torch.einsum("bkc,kc->bc", full, p["conv_w"]) + p["conv_b"]
     new_conv = full[:, 1:, :]
-    xs, B, C = _split_xbc(cfg, F.silu(y_conv)[:, None, :])
+    (xBC,) = L._whole((F.silu(y_conv)[:, None, :],), (conv_ch,))
+    xs, B, C, dt, z = _local_heads(cfg, xBC, dt, z, h0, nh)
     dt, A = _decay_inputs(p, dt)
     a = torch.exp(dt * A)[:, 0]                      # [B,H]
     xdt = (xs.float() * dt[..., None])[:, 0]         # [B,H,P]
@@ -153,9 +219,9 @@ def block_decode(cfg, p, x, conv_state, ssm_state):
                  + torch.einsum("bhn,bhp->bhnp", Bv, xdt))
     y = torch.einsum("bhn,bhnp->bhp", Cv, new_state)
     y = y + p["D"].float()[None, :, None] * xs.float()[:, 0]
-    y = y.to(x.dtype).reshape(x.shape[0], 1, di)
-    y = L.rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], new_conv, new_state.to(ssm_state.dtype)
+    y = y.to(x.dtype).reshape(x.shape[0], 1, -1)
+    return (_gate_out(cfg, p, y, z), new_conv,
+            new_state.to(ssm_state.dtype))
 
 
 # ---------------------------------------------------------------------------

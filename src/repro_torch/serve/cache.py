@@ -46,14 +46,14 @@ class CachePool:
 
     Slots are recycled FIFO: freed slots go to the back of the free queue,
     so a request never lands in the most recently vacated row.
-    ``buffer_len`` (default ``max_len``): the positions a slot of the
-    buffers holds, a slice of ``max_len`` when the cache's positions are
-    split over ranks (``write`` then takes rows of that length);
-    ``max_len`` stays what a request may span.
+    ``model`` is anything with the model's ``init_cache``: under a serve
+    plan its ``pools``, whose leaves are this rank's blocks (a slot then
+    holds a slice of ``max_len`` where the positions are split over
+    ranks, and ``write`` takes rows of that shape); ``max_len`` stays
+    what a request may span.
     """
 
-    def __init__(self, model, n_slots: int, max_len: int, device="cuda",
-                 buffer_len: Optional[int] = None):
+    def __init__(self, model, n_slots: int, max_len: int, device="cuda"):
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
@@ -61,8 +61,7 @@ class CachePool:
         probe_b = model.init_cache(5, max_len, device="meta")
         self.batch_axes = {name: _batch_axis(probe_a[name], probe_b[name])
                            for name in probe_a}
-        self.buffers = model.init_cache(n_slots, buffer_len or max_len,
-                                        device=device)
+        self.buffers = model.init_cache(n_slots, max_len, device=device)
         self._free = deque(range(n_slots))
         self._in_use: set = set()
         #: slots revoked by a scale-down: still in the buffers, withheld

@@ -89,10 +89,11 @@ neither attached nothing waits.
 A ``sharding`` plan (``serve/sharded.py``) serves TP/DP-sharded over a
 ("data", "model") mesh of ranks, one process each, every rank running this
 same loop on the same requests (``engine.py:348-439``): the engine keeps
-this rank's blocks of the params, builds its pools at this rank's KV
-heads and positions (``ServeSharding.pool_shape``: a position-split pool
-holds its slice of every block or row, while the block manager, its tables
-and the scheduler keep the global block size and ``max_len``), enters the
+this rank's blocks of the params, builds its pools at this rank's
+blocks (``ServeSharding.pools``: KV heads or positions, conv channels, SSM
+heads; a position-split pool holds its slice of every block or row, while
+the block manager, its tables and the scheduler keep the global block size
+and ``max_len``), and the recurrent prefill's row the same way, enters the
 plan's rules around each run, rounds bucket widths up to
 a multiple ``dmult`` of the 'data' axis (``_bucket``), and computes a
 bucket a part a 'data' rank when 'data' divides its width and ``dmult``
@@ -343,8 +344,8 @@ class ServeEngine:
         self.cfg = cfg
         self.model: Model = build_model(cfg)
         self.sharding = sharding
-        #: the pools' model: this rank's KV heads under a plan
-        self._cache_model = (build_model(sharding.cache_cfg)
+        #: the pools' constructors: this rank's blocks under a plan
+        self._cache_model = (sharding.pools(self.model)
                              if sharding is not None else self.model)
         #: the mesh bucketing multiple: a device_fail collapses it to 1, a
         #: device_join restores it
@@ -437,22 +438,17 @@ class ServeEngine:
             return self.pool, self._state
         self.graphs.reset()
         self.pool = self._state = None       # free the old tensors first
-        buf_len, buf_bs = (self.sharding.pool_shape(self.max_len,
-                                                    self.block_size)
-                           if self.sharding is not None
-                           else (self.max_len, self.block_size))
         if self.cache_kind == "paged":
             pool = BlockManager(self._cache_model, n_slots, self.max_len,
                                 block_size=self.block_size,
                                 n_blocks=self.n_blocks,
                                 watermark=self.watermark,
                                 prefix_cache=self.prefix_cache,
-                                device=self.device, tracer=self.tracer,
-                                buffer_block_size=buf_bs)
+                                device=self.device, tracer=self.tracer)
             max_blocks = pool.max_blocks
         else:
             pool = CachePool(self._cache_model, n_slots, self.max_len,
-                             device=self.device, buffer_len=buf_len)
+                             device=self.device)
             max_blocks = None
         if self.sharding is not None:
             pool.buffers = self.sharding.reshard_cache(pool.buffers)
@@ -471,11 +467,12 @@ class ServeEngine:
         (the reference scans), its position ``t`` a [1] int32 device tensor
         copied into the graph's static input before each replay (the
         hybrid's shared block and the decoder write their K/V there); the
-        cache is the engine's until the next prefill."""
+        cache is the engine's until the next prefill, at this rank's
+        blocks under a plan, as the pool's."""
         if self.cfg.family not in _ATTN_FAMILIES:
             if self._row is None:
-                self._row = self.model.init_cache(1, self.max_len,
-                                                  device=self.device)
+                self._row = self._cache_model.init_cache(1, self.max_len,
+                                                         device=self.device)
             row = self._row
             for buf in row.values():
                 buf.zero_()

@@ -72,16 +72,17 @@ class BlockManager:
     ``flush_prefix``, ``audit``). ``tracer`` (an ``obs.Tracer``) records
     the pool's events (``block_alloc``, ``block_grow``, ``block_free``,
     ``prefix_evict``) at the engine's clock, ``tracer.step``.
-    ``buffer_block_size`` (default ``block_size``): the offsets a block of
-    the device buffers holds, a slice of ``block_size`` when the pool's
-    positions are split over ranks; every host-side count and table stays
-    at ``block_size``."""
+    ``model`` is anything with the model's ``init_paged_cache``: under a
+    serve plan its ``pools``, whose buffers are this rank's blocks (a
+    block then holds a slice of ``block_size`` offsets where the pool's
+    positions are split over ranks); every host-side count and table
+    stays at ``block_size``."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  watermark: float = 0.05, dtype=None,
                  prefix_cache: bool = False, device="cuda",
-                 tracer=NULL_TRACER, buffer_block_size: Optional[int] = None):
+                 tracer=NULL_TRACER):
         self.model = model
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.n_slots = n_slots
@@ -93,8 +94,7 @@ class BlockManager:
                          else n_slots * self.max_blocks)
         self.watermark = float(watermark)   # fraction; re-applied on reshape
         self._dtype, self._device = dtype, device
-        self._buffer_bs = buffer_block_size or block_size
-        self.buffers = model.init_paged_cache(self._blocks0, self._buffer_bs,
+        self.buffers = model.init_paged_cache(self._blocks0, block_size,
                                               dtype, device=device)
         #: blocks the pool buffers hold (grows with ``grow_physical``)
         self._total_blocks = self._blocks0
@@ -441,7 +441,7 @@ class BlockManager:
         if n <= 0:
             return 0
         old_total = self._total_blocks
-        new = self.model.init_paged_cache(old_total + n, self._buffer_bs,
+        new = self.model.init_paged_cache(old_total + n, self.block_size,
                                           self._dtype, device=self._device)
         for name in ("k", "v"):
             new[name][:, :old_total].copy_(self.buffers[name])

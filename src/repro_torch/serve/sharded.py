@@ -13,34 +13,35 @@ A ``ServeSharding`` plan holds what the engine needs to serve over a
     cache_pspecs``, the dry-run's specs), and the bucketed token / pos /
     table shardings of each compacted decode width (``bucket_shardings``);
   * the layout each leaf actually has on this rank (``param_layout``,
-    ``cache_layout``). For the attention families the port realizes every
-    'model' split of the reference: the attention leaves split flat over
-    the heads (``heads_flat``: whole heads where 'model' divides the head
+    ``cache_layout``). The port realizes every 'model' split of the
+    reference, in every family: the attention leaves split flat over the
+    heads (``heads_flat``: whole heads where 'model' divides the head
     count, else a column block that cuts a head, whose columns the layer
     gathers), vocab-parallel embeddings and logits, ffn-parallel MLPs,
-    expert-parallel MoE, KV heads over 'model' where they divide it, and
-    where they do not, the pools' positions over 'model' (the paged
-    pool's in-block offsets, the contiguous pool's sequence; the layer
-    runs kv-seq over them, ``models/layers.py``). A leaf whose reference
-    spec it does not realize is held replicated over 'model' and listed in
-    ``held_replicated``: the fused expert gate/up split by width, the
-    mamba2 weights and states (the sanitizer splits the fused ``in_proj``
-    flat) and every leaf of the hybrid and encdec families. The pools are
-    held whole over 'data' (the paged pool by the reference's spec; the
-    contiguous pool in this slice): new K/V rows are gathered over 'data'
-    before each write.
+    expert-parallel MoE, the Mamba2 leaves (the fused ``in_proj`` split
+    flat, the conv over its channels, the SSM over its heads,
+    ``out_proj`` row-parallel; ``models/mamba2.py``), KV heads over
+    'model' where they divide it, and where they do not, the pools'
+    positions over 'model' (the paged pool's in-block offsets, the
+    contiguous pool's sequence, the hybrid's shared-block K/V; the layer
+    runs kv-seq over them, ``models/layers.py``), the conv states over
+    their channels and the SSM states over their heads. A leaf whose
+    reference spec it does not realize is held replicated over 'model'
+    and listed in ``held_replicated``: the fused expert gate/up split by
+    width. The pools are held whole over 'data' (the paged pool by the
+    reference's spec; the contiguous pools in this slice): new K/V rows
+    are gathered over 'data' before each write.
 
 ``shard_params`` cuts a full param tree into this rank's blocks (the
-counterpart of ``jax.device_put(params, param_sharding)``); ``cache_cfg``
-is the config the pools are built from (this rank's KV heads) and
-``pool_shape`` their local positions (the block size or ``max_len`` over
-the position split), while the host side (the block manager and its
-tables, the scheduler's lengths) stays at the global ones. A decode
-bucket whose width the 'data' axis divides is computed a part a 'data'
-rank (``split_rows``), for the attention families; everything else every
-rank computes whole. The engine runs the same host loop on every rank, so
-the scheduler, the block manager and the counters agree; the selected
-tokens are gathered over 'data'.
+counterpart of ``jax.device_put(params, param_sharding)``); ``pools``
+builds every pool, contiguous or paged, at this rank's block of its
+global shape (``local_shape``: the global shape cut by the layout), while
+the host side (the block manager and its tables, the scheduler's lengths)
+stays at the global one. A decode bucket whose width the 'data' axis
+divides is computed a part a 'data' rank (``split_rows``), for the attention
+families; everything else every rank computes whole. The engine runs the
+same host loop on every rank, so the scheduler, the block manager and the
+counters agree; the selected tokens are gathered over 'data'.
 
 Every sharded engine runs its programs eager: a gloo collective cannot be
 captured into a CUDA graph (one issued during a capture raises), and
@@ -51,14 +52,19 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
+import torch
+
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.dryrun import cache_pspecs
 from repro_torch.launch.mesh import axis_sizes, make_host_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.api import build_model, params_specs
+from repro_torch.models.transformer import PagedCache
 
-#: families whose layers the port computes tensor-parallel
-TP_FAMILIES = L.TP_FAMILIES
+#: families whose decode buckets split over 'data' (``splits_rows``)
+ROW_FAMILIES = ("dense", "vlm", "moe")
+#: the pool leaves of K/V heads [L | G, B | NB, S | BS, kv, hd]
+KV_LEAVES = ("k", "v", "attn_k", "attn_v", "ck", "cv")
 
 
 def param_shapes(cfg) -> dict:
@@ -81,43 +87,49 @@ def cache_shapes(cfg, n_slots: int, max_len: int, *, paged: bool,
     return {k: tuple(v.shape) for k, v in cache.items()}
 
 
-def realized(cfg, name: str, spec: shd.Spec, m: int) -> shd.Spec:
+def realized(name: str, spec: shd.Spec, m: int) -> shd.Spec:
     """The spec a parameter leaf named ``name`` runs with: the reference's
     ``spec``, or it with 'model' (of ``m`` ranks) dropped where the port
-    does not realize that split (module docstring)."""
+    does not realize that split: the fused expert gate/up and down
+    ([E, D, 2F] / [E, F, D]) split by width, not by expert (module
+    docstring)."""
     if m == 1 or "model" not in (a for e in spec for a in shd._flat(e)):
         return spec
-    keep = cfg.family in TP_FAMILIES
-    if name in ("we_gate_up", "we_down"):    # [E, D, 2F] / [E, F, D]:
-        keep = keep and spec[-3] == "model"  # experts over 'model' only
-    if keep:
+    if name not in ("we_gate_up", "we_down") or spec[-3] == "model":
         return spec
     return shd.Spec(*(None if "model" in shd._flat(e) else e for e in spec))
 
 
+def rows_dim(name: str, ndim: int) -> int:
+    """A pool leaf's slot (or block) dimension: 2 for the hybrid's
+    per-group states ``gconv`` [G, E, B, K-1, C] and ``gssm``
+    [G, E, B, H, N, P], else 1."""
+    return 2 if ndim == 6 or (ndim == 5 and name.endswith("conv")) else 1
+
+
 def cache_layout(cfg, cspec: dict, sizes: dict, heads: bool,
                  keep_axes=()) -> dict:
-    """The splits of a pool's reference specs ``cspec`` ({"k", "v"} of
-    ``[L, NB | B, BS | S, kv, hd]``) the port realizes, the attention
-    families only: KV heads over 'model' where attention runs head-sharded
-    (``heads``) and 'model' divides them, the positions (dim 2) over the
-    axis the reference splits them, dim 1 over ``keep_axes`` (the
-    dry-run's batch rows) and any entry over axes of one rank; every other
-    entry whole."""
+    """The splits of a pool's reference specs ``cspec`` the port realizes:
+    every split over 'model' (the K/V leaves' heads where attention runs
+    head-sharded and 'model' divides them, the positions over the axis the
+    reference splits them, the conv channels, the SSM heads), the rows
+    over ``keep_axes`` (the dry-run's batch axes) and any entry over axes
+    of one rank; every other entry whole (the rows over 'data' in
+    serving)."""
     m = sizes.get("model", 1)
     kv_model = m == 1 or (heads and cfg.n_kv_heads % m == 0)
-    tp = cfg.family in TP_FAMILIES
 
     def keep(name, d, e, ndim):
-        if name not in ("k", "v") or e is None:
+        if e is None:
             return False
-        if all(sizes.get(a, 1) == 1 for a in shd._flat(e)):
+        axes = shd._flat(e)
+        if all(sizes.get(a, 1) == 1 for a in axes):
             return True                  # a split over one rank cuts nothing
-        if d == ndim - 2:
+        if d == rows_dim(name, ndim):
+            return set(axes) <= set(keep_axes)
+        if name in KV_LEAVES and d == ndim - 2:
             return kv_model
-        if d == 2:
-            return tp
-        return d == 1 and set(shd._flat(e)) <= set(keep_axes)
+        return True
     return {name: shd.Spec(*(e if keep(name, d, e, len(spec)) else None
                              for d, e in enumerate(spec)))
             for name, spec in cspec.items()}
@@ -125,12 +137,44 @@ def cache_layout(cfg, cspec: dict, sizes: dict, heads: bool,
 
 def cache_seq(clayout: dict, sizes: dict):
     """The mesh axis a realized pool layout splits the positions over
-    (dim 2 of its "k" leaf, of more than one rank), else None."""
-    spec = clayout.get("k")
+    (dim 2 of its "k" or "attn_k" leaf, of more than one rank), else
+    None."""
+    spec = clayout.get("k", clayout.get("attn_k"))
     if spec is None or len(spec) < 3 or spec[2] is None:
         return None
     axes = shd._flat(spec[2])
     return axes[0] if len(axes) == 1 and sizes.get(axes[0], 1) > 1 else None
+
+
+class LocalPools:
+    """A model's pool constructors at this rank's blocks
+    (``ServeSharding.pools``): each builds the pool at its global shape on
+    ``meta`` and allocates every leaf at its block under the plan's
+    layout (a conv channel block of the flat ``d_inner + 2 G N`` has no
+    config that describes it; the paged pools' in-block offsets split
+    where their positions do)."""
+
+    def __init__(self, plan, model):
+        self.plan, self.model = plan, model
+        self.cfg = model.cfg
+
+    def _local(self, name: str, t: torch.Tensor, device) -> torch.Tensor:
+        return torch.zeros(self.plan.local_shape(name, t.shape),
+                           dtype=t.dtype, device=device)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device="cuda") -> dict:
+        full = self.model.init_cache(batch, max_len, dtype, device="meta")
+        return {name: self._local(name, t, device)
+                for name, t in full.items()}
+
+    def init_paged_cache(self, n_blocks: int, block_size: int, dtype=None,
+                         device="cuda") -> PagedCache:
+        # the buffers [L, NB + 1, BS, kv, hd] (the scratch block too)
+        full = self.model.init_paged_cache(n_blocks, block_size, dtype,
+                                           device="meta")
+        return PagedCache(self._local("k", full.k_buf, device),
+                          self._local("v", full.v_buf, device))
 
 
 @dataclass
@@ -149,10 +193,8 @@ class ServeSharding:
     #: ('/'-joined paths, per-layer leaves as layers/*/..., the pool's
     #: leaves as cache/...)
     held_replicated: tuple = ()
-    #: the pools' global shape: max_len, block size, paged or contiguous
-    max_len: int = 0
-    block_size: int = 0
-    paged: bool = False
+    #: the pools' global shape, each leaf's
+    cache_shape: dict = field(default_factory=dict, repr=False)
 
     def rules(self):
         """Context manager installing the logical-axis rules (and the
@@ -172,14 +214,19 @@ class ServeSharding:
         axis = self.cache_seq_axis
         return 1 if axis is None else self.axis_size(axis)
 
-    def pool_shape(self, max_len: int, block_size: int):
-        """(max_len, block size) of this rank's pool buffers: a
-        position-split pool holds ``max_len / n`` positions a slot
-        (contiguous) or ``block_size / n`` offsets a block (paged)."""
-        n = self.seq_shards
-        if self.paged:
-            return max_len, block_size // n
-        return max_len // n, block_size
+    def local_shape(self, name: str, shape) -> tuple:
+        """The shape of this rank's block of pool leaf ``name`` at global
+        ``shape`` (each dimension over the ranks its layout splits it)."""
+        sizes = axis_sizes(self.mesh)
+        out = list(shape)
+        for d, entry in enumerate(self.cache_layout.get(name, ())):
+            for a in shd._flat(entry):
+                out[d] //= sizes[a]
+        return tuple(out)
+
+    def pools(self, model) -> LocalPools:
+        """``model``'s pool constructors at this rank's blocks."""
+        return LocalPools(self, model)
 
     def local_cache_row(self, row: dict) -> dict:
         """This rank's positions of a batch-1 contiguous cache row (the
@@ -211,8 +258,9 @@ class ServeSharding:
 
     @property
     def splits_rows(self) -> bool:
-        """Whether decode buckets split over 'data' (attention families)."""
-        return self.cfg.family in TP_FAMILIES and self.axis_size("data") > 1
+        """Whether decode buckets split over 'data' (attention families;
+        the others' pools keep their rows whole over 'data')."""
+        return self.cfg.family in ROW_FAMILIES and self.axis_size("data") > 1
 
     def replicated(self) -> shd.NamedSharding:
         """Fully replicated (the decode state: a few int32 a slot,
@@ -229,15 +277,6 @@ class ServeSharding:
         return {name: shd.named(shd.Spec(*spec), self.mesh)
                 for name, spec in (("tokens", (ax, None)), ("pos", (ax,)),
                                    ("tables", (ax, None)))}
-
-    @property
-    def cache_cfg(self):
-        """The config the pools are built from: this rank's KV heads."""
-        m = self.axis_size("model")
-        spec = self.cache_layout.get("k") if self.cache_layout else None
-        if spec is not None and spec[-2] == "model":
-            return self.cfg.replace(n_kv_heads=self.cfg.n_kv_heads // m)
-        return self.cfg
 
     def shard_params(self, params):
         """This rank's blocks of a full param tree (each leaf cut by its
@@ -262,19 +301,18 @@ class ServeSharding:
     def reshard_cache(self, buffers):
         """The pool after a host-side write or a growth: every rank's
         buffers are its own blocks already (the host loop writes the same
-        rows on every rank), so this checks each leaf's local KV heads and
-        positions against the plan and returns the buffers."""
-        want = self.cache_cfg.n_kv_heads
-        max_len, bs = self.pool_shape(self.max_len, self.block_size)
-        npos = bs if self.paged else max_len
-        for name in ("k", "v"):
-            if name not in self.cache_layout:
-                continue
-            shape = buffers[name].shape
-            if shape[-2] != want or (npos and shape[2] != npos):
+        rows on every rank), so this checks each leaf against its layout
+        (every dimension but the slots' or blocks', which a growth
+        changes) and returns the buffers."""
+        for name, shape in self.cache_shape.items():
+            buf = buffers[name]
+            want = self.local_shape(name, shape)
+            rows = rows_dim(name, buf.dim())
+            got = tuple(buf.shape)
+            if got[:rows] + got[rows + 1:] != want[:rows] + want[rows + 1:]:
                 raise RuntimeError(
-                    f"cache leaf {name} holds {shape[-2]} KV heads at "
-                    f"{shape[2]} positions a row, the plan {want} at {npos}")
+                    f"cache leaf {name} is {got} on this rank, the plan's "
+                    f"block {want} (slots or blocks aside)")
         return buffers
 
 
@@ -329,10 +367,10 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
 
     m = sizes["model"]
     layout = shd.tree_map_with_path(
-        lambda path, s: realized(cfg, next(
+        lambda path, s: realized(next(
             (k for k in reversed(path) if isinstance(k, str)), ""), s, m),
         pspec)
-    # the pools: whole over 'data'; KV heads or positions over 'model'
+    # the pools: whole over 'data'; every split over 'model'
     clayout = cache_layout(cfg, cspec, sizes, heads)
     return ServeSharding(
         mesh=mesh,
@@ -347,7 +385,7 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
         held_replicated=tuple(
             _replicated(pspec, layout, sizes)
             + [f"cache/{p}" for p in _replicated(cspec, clayout, sizes)]),
-        max_len=max_len, block_size=block_size, paged=paged,
+        cache_shape=cshape,
     )
 
 

@@ -57,6 +57,7 @@ def _engine_run(sc, cfg, params, mesh, device):
         graphs="eager" if eng.graphs.is_eager else "captured",
         scale_ups=stats.scale_ups, scale_downs=stats.scale_downs,
         held=list(eng.sharding.held_replicated),
+        cache_seq=eng.sharding.cache_seq_axis,
         collectives=dict(shd.STATS), scales=scales, launches=launches,
         partial_plain=partial_plain)
 

@@ -263,6 +263,30 @@ def test_probe_extrapolation_is_the_full_count_on_a_uniform_stack():
     assert rec["args_gib_per_device"] == round(expect / 2**30, 3)
 
 
+@pytest.mark.parametrize("arch,shape", [
+    ("mamba2-780m", "decode_32k"), ("zamba2-7b", "decode_32k"),
+    ("zamba2-7b", "long_500k"), ("whisper-large-v3", "decode_32k")])
+def test_recurrent_families_run_the_reference_layout(arch, shape):
+    """The SSM, hybrid and encdec records on the pod mesh hold nothing
+    whole: their arguments a GPU are the reference's ``sharded_arg_bytes``
+    of the params and the cache (the fused ``in_proj`` split flat, the
+    conv over its channels, the SSM states over their heads, the K/V
+    pools by head or by position)."""
+    rec, prog = dryrun.lower_combo(arch, shape, False, probe=False)
+    ishape = INPUT_SHAPES[shape]
+    pshape = api.params_specs(prog.cfg)
+    cshape = api.cache_specs(prog.cfg, ishape.global_batch, ishape.seq_len)
+    with prog.rules() as rules:
+        pspec = shd.param_pspecs(pshape, rules)
+    cspec = dryrun.cache_pspecs(prog.cfg, cshape, prog.mesh,
+                                seq_shard=shape == "long_500k",
+                                batch=ishape.global_batch)
+    expect = (dryrun.sharded_arg_bytes(pshape, pspec, prog.mesh)
+              + dryrun.sharded_arg_bytes(cshape, cspec, prog.mesh))
+    assert rec["held_replicated"] == []
+    assert rec["args_gib_per_device"] == round(expect / 2**30, 3)
+
+
 def test_bytes_count_storage_extents_and_live_bytes():
     """An expanded input counts by its storage extent; a storage's bytes
     are live from its creation to its free."""

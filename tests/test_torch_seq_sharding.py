@@ -303,10 +303,10 @@ def test_plan_realizes_every_model_split(arch, m, cache):
     seq = cfg.n_kv_heads % m != 0
     assert plan.cache_seq_axis == ("model" if seq else None)
     kv = cfg.n_kv_heads if seq else cfg.n_kv_heads // m
-    assert plan.cache_cfg.n_kv_heads == kv
-    assert plan.pool_shape(256, 16) == (
-        (256, 16 // m) if seq and cache == "paged"
-        else (256 // m, 16) if seq else (256, 16))
+    local = plan.local_shape("k", plan.cache_shape["k"])
+    assert local[3] == kv
+    assert local[2] == ((16 // m if seq else 16) if cache == "paged"
+                        else 256 // m if seq else 256)
 
 
 @pytest.mark.parametrize("arch,before", [("qwen2-0.5b", 1.687),

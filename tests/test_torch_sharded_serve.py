@@ -15,9 +15,14 @@ KV heads do not divide 'model', so the pools' positions split over it and
 decode runs kv-seq, nothing held whole; qwen2 with 6 q heads on mesh
 (1, 4) (contiguous), whose prompts of a length 4 divides prefill q-seq;
 a ``device_fail`` / ``device_join`` pair under which ``dmult`` collapses
-and comes back. ``Model.forward`` of llama3.2-1b under the rules stays
+and comes back; the recurrent families tensor-parallel over 'model':
+mamba2 on (2, 2) and (1, 4), zamba2 and whisper on (2, 2) (request set
+``ssm``) and with 6 heads and 6 KV heads on (1, 4), whose self-attention
+pools split by position (kv-seq) while whisper's cross attention gathers
+q over whole cross K/V. ``Model.forward`` of llama3.2-1b under the rules stays
 within 1e-4 of the off-mesh forward (``test_sharding.py:220-236``).
 """
+import functools
 import os
 import pickle
 import socket
@@ -79,6 +84,21 @@ SCENARIOS = {
     "qwen2-device-fail": ("qwen2-0.5b", "qwen2-0.5b", (2, 2), "paged",
                           "bucketed", dict(BUCKETED, decode_horizon=2),
                           "device_fail@2:blocks=0:restore_after=3"),
+    # the recurrent families tensor-parallel over 'model': mamba2's fused
+    # in_proj of 1072 columns cut 268 a rank across z / xBC / dt
+    "mamba2-1x4": ("mamba2-780m", "mamba2-780m", (1, 4), "contiguous",
+                   "ssm", dict(n_slots=8, max_len=32), None),
+    "zamba2-2x2": ("zamba2-7b", "zamba2-7b", (2, 2), "contiguous", "ssm",
+                   dict(n_slots=8, max_len=32), None),
+    # 6 heads on 'model' 4: the shared block's leaves split flat, kv-seq
+    "zamba2-h6-1x4": ("zamba2-7b", "zamba2-h6", (1, 4), "contiguous", "ssm",
+                      dict(n_slots=8, max_len=32), None),
+    "whisper-2x2": ("whisper-large-v3", "whisper-large-v3", (2, 2),
+                    "contiguous", "ssm", dict(n_slots=8, max_len=32), None),
+    # self-attention kv-seq; cross attention gathers q over whole K/V
+    "whisper-h6-1x4": ("whisper-large-v3", "whisper-h6", (1, 4),
+                       "contiguous", "ssm", dict(n_slots=8, max_len=32),
+                       None),
 }
 #: the JAX single-device run each scenario is held to:
 #: (arch, request set, engine options)
@@ -92,10 +112,22 @@ REFS = {
     "mamba2-ssm": ("mamba2-780m", "ssm", dict(max_len=32)),
     "qwen2-h6-bucketed": ("qwen2-0.5b", "bucketed",
                           dict(max_len=32, decode_horizon=1)),
+    "zamba2-ssm": ("zamba2-7b", "ssm", dict(max_len=32)),
+    "zamba2-h6-ssm": ("zamba2-7b", "ssm", dict(max_len=32)),
+    "whisper-ssm": ("whisper-large-v3", "ssm", dict(max_len=32)),
+    "whisper-h6-ssm": ("whisper-large-v3", "ssm", dict(max_len=32)),
 }
+H6 = dict(n_heads=6, n_kv_heads=6)
 #: config overrides of a params tree and of the JAX run held to it
 OVERRIDES = {"qwen2-pad8": dict(pad_q_heads=8), "qwen2-h6": dict(n_heads=6),
-             "qwen2-h6-bucketed": dict(n_heads=6)}
+             "qwen2-h6-bucketed": dict(n_heads=6), "zamba2-h6": H6,
+             "zamba2-h6-ssm": H6, "whisper-h6": H6, "whisper-h6-ssm": H6}
+#: the arch of each params tree drawn at its overrides
+OVERRIDDEN = {"qwen2-h6": "qwen2-0.5b", "zamba2-h6": "zamba2-7b",
+              "whisper-h6": "whisper-large-v3"}
+#: the params tree of each JAX run with overrides
+REF_PARAMS = {"qwen2-h6-bucketed": "qwen2-h6", "zamba2-h6-ssm": "zamba2-h6",
+              "whisper-h6-ssm": "whisper-h6"}
 REF_OF = {
     "qwen2-contiguous-decode": "qwen2-decode",
     "qwen2-contiguous": "qwen2-bucketed", "qwen2-paged": "qwen2-bucketed",
@@ -107,6 +139,9 @@ REF_OF = {
     "qwen2-paged-1x4": "qwen2-bucketed",
     "qwen2-h6-contiguous": "qwen2-h6-bucketed",
     "qwen2-device-fail": "qwen2-bucketed",
+    "mamba2-1x4": "mamba2-ssm", "zamba2-2x2": "zamba2-ssm",
+    "zamba2-h6-1x4": "zamba2-h6-ssm", "whisper-2x2": "whisper-ssm",
+    "whisper-h6-1x4": "whisper-h6-ssm",
 }
 
 
@@ -141,9 +176,10 @@ def _padded(tree, pad):
 def _spec(port):
     params = {a: jax.tree_util.tree_map(np.asarray, numpy_params(a))
               for a in ("qwen2-0.5b", "olmoe-1b-7b", "mamba2-780m",
-                        "llama3.2-1b")}
+                        "llama3.2-1b", "zamba2-7b", "whisper-large-v3")}
     params["qwen2-pad8"] = _padded(params["qwen2-0.5b"], 8)
-    params["qwen2-h6"] = _h6_params()
+    for name in OVERRIDDEN:
+        params[name] = _h6_params(name)
     scenarios = []
     for name, (arch, pname, mesh, cache, set_name, kw, faults) in \
             SCENARIOS.items():
@@ -167,17 +203,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _h6_params():
-    """qwen2's smoke model with 6 q heads (over its 2 KV heads): JAX
-    ``Model.init`` weights, the layer matrices scaled by 3 as
-    ``numpy_params`` scales qwen2's."""
-    cfg = jax_config("qwen2-0.5b", smoke=True, **OVERRIDES["qwen2-h6"])
+@functools.lru_cache(maxsize=None)
+def _h6_params(name):
+    """The smoke model of ``OVERRIDDEN[name]`` at ``OVERRIDES[name]``: JAX
+    ``Model.init`` weights; qwen2's layer matrices scaled by 3 as
+    ``numpy_params`` scales them."""
+    arch = OVERRIDDEN[name]
+    cfg = jax_config(arch, smoke=True, **OVERRIDES[name])
     tree = jax.tree_util.tree_map(
         np.asarray, jax_build(cfg).init(jax.random.key(0)))
-    for group in ("attn", "mlp"):
-        for name, a in tree["layers"][group].items():
-            if a.ndim == 3:
-                tree["layers"][group][name] = a * np.float32(3.0)
+    if arch == "qwen2-0.5b":
+        for group in ("attn", "mlp"):
+            for key, a in tree["layers"][group].items():
+                if a.ndim == 3:
+                    tree["layers"][group][key] = a * np.float32(3.0)
     return tree
 
 
@@ -188,7 +227,7 @@ def _jax_tokens(ref):
     if ref in OVERRIDES:
         cfg = jax_config(arch, smoke=True, **OVERRIDES[ref])
         engine = JaxEngine(cfg, params=jax.tree_util.tree_map(
-            jax.numpy.asarray, _h6_params()), **kw)
+            jax.numpy.asarray, _h6_params(REF_PARAMS[ref])), **kw)
     else:
         engine = jax_engine(arch, **kw)
     out, _ = engine.run(reqs)
@@ -246,18 +285,23 @@ def test_device_fail_collapses_and_join_restores_dmult(runs):
     assert (res["scale_downs"], res["scale_ups"]) == (1, 1)
 
 
+#: the runs of the recurrent families, tensor-parallel over 'model'
+RECURRENT = ("mamba2-contiguous", "mamba2-1x4", "zamba2-2x2",
+             "zamba2-h6-1x4", "whisper-2x2", "whisper-h6-1x4")
+
+
 def test_collectives_by_mesh(runs):
-    """TP runs reduce and gather over 'model'; mamba2 is held whole over
-    'model' and its rows unsplit, so it issues none; the (1, 4) mesh
+    """TP runs reduce and gather over 'model', the recurrent families'
+    too (mamba2's projection and conv output gathered, its norm's sum of
+    squares and ``out_proj``'s partial sums reduced); the (1, 4) mesh
     splits no rows."""
     ranks, _ = runs
     for name in ("qwen2-paged", "olmoe-contiguous", "qwen2-pad8-paged",
                  "qwen2-paged-1x4", "qwen2-contiguous-1x4",
-                 "qwen2-h6-contiguous"):
-        c = ranks[0][name]["collectives"]
-        assert c["all_reduce"] > 0 and c["all_gather"] > 0, name
-    assert ranks[0]["mamba2-contiguous"]["collectives"] == {
-        "all_reduce": 0, "all_gather": 0, "seconds": 0.0}
+                 "qwen2-h6-contiguous") + RECURRENT:
+        for res in ranks:
+            c = res[name]["collectives"]
+            assert c["all_reduce"] > 0 and c["all_gather"] > 0, name
 
 
 def test_seq_sharded_runs_take_the_partial_paths(runs):
@@ -296,12 +340,23 @@ def test_held_replicated_leaves(runs):
     # 'model', unpadded and padded, on both caches
     for name in ("qwen2-pad8-paged", "qwen2-pad8-contiguous",
                  "qwen2-paged-1x4", "qwen2-contiguous-1x4",
-                 "qwen2-h6-contiguous"):
+                 "qwen2-h6-contiguous", "mamba2-1x4", "zamba2-h6-1x4",
+                 "whisper-h6-1x4"):
         assert ranks[0][name]["held"] == [], name
-    assert ranks[0]["mamba2-contiguous"]["held"] == [
-        "emb/tok_emb"] + [f"layers/*/{n}" for n in (
-            "in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D",
-            "out_proj")] + ["cache/conv", "cache/ssm"]
+    # mesh (2, 2): every 'model' split realized; the pools' rows over
+    # 'data' stay whole (the recurrent families split no decode rows)
+    assert ranks[0]["mamba2-contiguous"]["held"] == ["cache/conv",
+                                                     "cache/ssm"]
+    assert ranks[0]["zamba2-2x2"]["held"] == [
+        f"cache/{n}" for n in ("attn_k", "attn_v", "gconv", "gssm",
+                               "tconv", "tssm")]
+    assert ranks[0]["whisper-2x2"]["held"] == [
+        f"cache/{n}" for n in ("k", "v", "ck", "cv")]
+    # 6 KV heads on 'model' 4: the self-attention pools' positions split
+    for res in ranks:
+        for name in RECURRENT:
+            want = "model" if name.endswith("h6-1x4") else None
+            assert res[name]["cache_seq"] == want, name
 
 
 def test_forward_under_rules_matches_off_mesh(runs):

@@ -230,6 +230,51 @@ def test_serve_sharding_table_and_specs(arch):
     assert table["kv_seq"] == ("model" if retarget else None)
 
 
+def _width_split(name, spec) -> bool:
+    """A fused expert leaf the sanitizer splits by width over 'model' (its
+    experts do not divide 'model'): the port holds it whole."""
+    return (name in ("we_gate_up", "we_down") and spec[-3] != "model"
+            and any("model" in shd._flat(e) for e in spec))
+
+
+def _model(spec) -> list:
+    return ["model" in shd._flat(e) for e in spec]
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("arch", CACHE_ARCHS)
+def test_plan_realizes_the_reference_layout(arch, shape):
+    """Each family's plan at smoke size: every parameter leaf runs at the
+    reference plan's spec (but a fused expert leaf split by width, held
+    whole: olmoe's 4 experts on 'model' 8), every pool leaf splits over
+    'model' where ``cache_pspecs`` does, and on a 'model'-only mesh
+    nothing else is held whole."""
+    cfg, jcfg = get_config(arch, smoke=True), jax_config(arch, smoke=True)
+    plan = make_serve_sharding(cfg, 8, 32, pmesh(shape))
+    ref = jax_plan(jcfg, 8, 32, jmesh(shape))
+    want = jax.tree_util.tree_map(
+        lambda s: tuple(s.spec), ref.param_sharding,
+        is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
+    is_spec = lambda x: isinstance(x, tuple)        # noqa: E731
+    got = jax.tree_util.tree_flatten_with_path(
+        _stacked(plan.param_layout), is_leaf=is_spec)[0]
+    want = jax.tree_util.tree_flatten_with_path(want, is_leaf=is_spec)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    held = set()
+    for (path, g), (_, w) in zip(got, want):
+        name = path[-1].key
+        if _width_split(name, w):
+            held.add(name)
+            assert not any(_model(g)), (name, g)
+        else:
+            assert g == w, (name, g, w)
+    assert set(plan.cache_layout) == set(plan.cache_pspec)
+    for name, spec in plan.cache_pspec.items():
+        assert _model(plan.cache_layout[name]) == _model(spec), name
+    if shape[0] == 1:
+        assert {p.rsplit("/", 1)[-1] for p in plan.held_replicated} == held
+
+
 @pytest.mark.parametrize("shape,held", [((4, 2), False), ((2, 4), True),
                                         ((1, 8), True)])
 def test_heads_held_whole_where_the_scheme_does_not_split_them(shape, held):
@@ -254,7 +299,10 @@ def test_heads_held_whole_where_the_scheme_does_not_split_them(shape, held):
     seq = shape[1] > 2
     assert plan.cache_layout["k"][2] == ("model" if seq else None)
     assert plan.cache_seq_axis == ("model" if seq else None)
-    assert plan.pool_shape(256, 16) == (256, 16 // shape[1] if seq else 16)
+    local = plan.local_shape("k", plan.cache_shape["k"])
+    assert local[2] == (16 // shape[1] if seq else 16)
+    assert local[3] == (cfg.n_kv_heads if seq
+                        else cfg.n_kv_heads // shape[1])
 
 
 def test_bucket_shardings_axis_choice():

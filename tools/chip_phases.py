@@ -7,10 +7,12 @@ one NVIDIA GPU.
 Builds the kernels (with the build phase's tensor-core check), then, as
 asked (both by default): ``kernels`` holds the paged kernels at the
 engine's and the other engines' shapes, their partial mode, flash with a
-query offset and flash against their plain versions and prints the
+query offset, flash and the SSD scan against their plain versions and
+prints the
 ``kernels`` record of those timed cases (no launch counts: no engine runs);
 ``sharded`` draws the engine phase's seed-0 qwen2-0.5b weights and runs
-the sharded phase (two ranks on meshes (1, 2) and (2, 1), four on (1, 4)),
+the sharded phase (two ranks on meshes (1, 2) and (2, 1), with the
+recurrent families and mamba2-780m's forward on (1, 2), four on (1, 4)),
 printing its lines and each kernel's launches by path. Prints the card's
 name and power limit first. The functions are ``chip_smoke.py``'s, so a
 reading here is the full script's, minus the phases before it.
@@ -51,6 +53,7 @@ def main(what) -> None:
         rec.update(cs.check_partial(flush))
         rec["flash_attention_offset"] = cs.check_flash_offset(flush)
         rec["flash_attention"] = cs.check_flash(flush)
+        rec["ssd_scan"] = cs.check_ssd(flush)
         print(json.dumps({"kernels": list(rec.values())}), flush=True)
         del flush
         print(f"kernels done {time.perf_counter() - t0:.1f} s", flush=True)
