@@ -32,7 +32,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  G 1), at the chaos phase's (14/2 heads of 64, MB 16, a
                  96-block pool, decode B 8 and prefill [4, 16] at positions
                  32-96), at one sharded rank's (7/1 heads of 64, G 7, MB
-                 64, the engine's 512-block pool, positions 192-384) and
+                 64, the engine's 512-block pool, positions 192-384), at
+                 one 'data' rank's (14/2 heads, decode W 4, prefill [2,
+                 16], the same pool and positions) and
                  at the gemma3-27b engine's (32/16 heads of 128, G 2, MB
                  96, a 384-block pool, positions 960-1432 across its 1024
                  window); f32 and bf16, window 0 and 5 (gemma3: 0 and
@@ -194,13 +196,21 @@ Phases, each printed as it runs; any failure exits non-zero:
                  14 q heads and 1 of the 2 KV heads, half the vocabulary
                  and half of every MLP, and serves the engine phase's
                  paged request set cut to 8 requests and 32 new tokens;
-                 then mesh (2, 1) at 4 layers with staggered arrivals
-                 (0.5 a step), so decode buckets shrink and split over
-                 'data'. Both ranks' tokens must equal each other and a
+                 then mesh (2, 1) at full width with staggered arrivals
+                 (2 a step): the paged engine (the pool whole on each
+                 rank; decode buckets and prefill rounds whose width 2
+                 divides split over 'data', each rank's new K/V gathered
+                 and written on both), and the contiguous engine on
+                 prompts of 64-256 tokens (each rank holds 4 of the 8
+                 slots and decodes the bucket rows of its own slots; every
+                 prompt prefills on both ranks, through plain mha as the
+                 dense forward attends, and is stored by its slot's rank).
+                 Both ranks' tokens must equal each other and a
                  single-process eager run of the same engine on the same
-                 weights in this process; each rank must launch both paged
-                 kernels and never their plain versions; the data run must
-                 save decode rows. Then four rank processes on mesh (1,
+                 weights in this process; each paged rank must launch
+                 both paged kernels, no rank a plain version; the paged
+                 data run must save decode rows and split prefill rounds.
+                 Then four rank processes on mesh (1,
                  4), where 'model' divides neither the 14 q heads nor the
                  2 KV heads: the attention leaves split flat and the
                  pools' positions over 'model' (nothing held whole), at
@@ -223,7 +233,10 @@ Phases, each printed as it runs; any failure exits non-zero:
                  81 Mamba2 blocks (two shared-block calls),
                  whisper-large-v3 at full width and 4 of its 32 decoder
                  layers, each on 4 slots serving 6 requests of 8-16
-                 prompt tokens and 4-12 new ones; every rank's tokens
+                 prompt tokens and 4-12 new ones, and mamba2-780m at full
+                 width and depth on mesh (2, 1) (2 of the 4 slots' states
+                 a rank, each bucket row stepped at its slot's rank);
+                 every rank's tokens
                  equal the single-process eager run's, collectives issued
                  through gloo, programs eager, nothing held whole, no
                  kernel and no plain version launched (serving steps the
@@ -232,10 +245,18 @@ Phases, each printed as it runs; any failure exits non-zero:
                  48 times a rank at 24 heads, no plain version, logits
                  within 3e-4 of the largest |logit| of the single-process
                  forward (printed beside that forward's own gap when only
-                 the scan's rounding changes). Prints the collective
-                 counts by kind and the share of the wall spent in them,
-                 ms a decode step sharded and single-process, and the
-                 phase's seconds. A rank that fails fails the phase;
+                 the scan's rounding changes). No rank of any run holds a
+                 leaf whole where the reference splits it; a contiguous
+                 run's pool holds n_slots / d slots a rank over 'data' d;
+                 each rank prints its pool leaves' shapes and bytes and
+                 the decode rows, their tokens and the prefill lanes it
+                 computed as its part and whole, which summed over the
+                 'data' ranks (the whole ones once) must give the
+                 single-process run's tokens and lanes and the host loop's
+                 rows. Prints the collective counts by kind and the share
+                 of the wall spent in them, ms a decode step sharded and
+                 single-process, and the phase's seconds. A rank that
+                 fails fails the phase;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (64 experts top-8) cut to 8 of its 16
                  layers (~3.5 B float32 weights from a seed; 16 until the
@@ -559,12 +580,16 @@ PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_H, OL_D, 256 // BS, 64, 4, 4,
                  96, (0, 5), F32_FULL),
                 ("qwen2-0.5b sharded rank", HQ // 2, HKV // 2, D, MB, NB,
                  SLOTS, 4, 192, 384, (0, 5), F32_FULL),
+                ("qwen2-0.5b data rank", HQ, HKV, D, MB, NB, SLOTS // 2, 2,
+                 192, 384, (0, 5), F32_FULL),
                 ("gemma3-27b paged", G3_H, G3_KV, G3_D, G3_MAX_LEN // BS,
                  G3_SLOTS * G3_MAX_LEN // BS, G3_SLOTS, G3_LANES, 960,
                  G3_LENGTHS[1] + G3_NEW, (0, G3_W), (torch.bfloat16, G3_W)))
-#: the sharded phase (module docstring): its request set, the data run's
-#: depth and arrival rate, and the rank processes' time limit (s)
-SHARD_N, SHARD_NEW, SHARD_DP_LAYERS, SHARD_DP_RATE = 8, 32, 4, 0.5
+#: the sharded phase (module docstring): its request set, the data runs'
+#: arrival rate (two a step: at 0.5 every paged prefill round held one
+#: lane, which 'data' 2 does not split), and the rank processes' time
+#: limit (s)
+SHARD_N, SHARD_NEW, SHARD_DP_RATE = 8, 32, 2.0
 SHARD_TIMEOUT = 400
 #: the sequence-sharded runs on mesh (1, 4): the ranks the pools' positions
 #: split over (qwen2-0.5b's 2 KV heads do not divide 4: a paged rank holds
@@ -4138,9 +4163,10 @@ def shard_engine(cfg, device, plan=None, params=None, cache="paged"):
 def shard_requests(cfg, rate: float, cache: str = "paged"):
     """The engine phase's request set (its prompts and shared prefix), cut
     to ``SHARD_N`` requests of ``SHARD_NEW`` new tokens; the contiguous
-    run's: prompts of the ``SEQ_PROMPTS`` lengths (multiples of 4) drawn
+    runs': prompts of the ``SEQ_PROMPTS`` lengths (multiples of 4) drawn
     from seed 0; the recurrent families': ``REC_SHARD_N`` prompts of 8-16
-    tokens and budgets of 4-12, drawn from seed 0."""
+    tokens and budgets of 4-12, drawn from seed 0. A ``rate`` spaces the
+    paged and contiguous sets' arrivals at 1 / rate steps."""
     rng = np.random.default_rng(0)
     if _recurrent(cfg):
         lengths = rng.integers(8, 17, size=REC_SHARD_N)
@@ -4154,16 +4180,19 @@ def shard_requests(cfg, rate: float, cache: str = "paged"):
                                        seed=0, shared_prefix=64)
     return [ServeRequest(rng.integers(1, cfg.vocab_size, size=n)
                          .astype(np.int32), max_new_tokens=SHARD_NEW,
-                         arrival_time=0.0) for n in SEQ_PROMPTS]
+                         arrival_time=i / rate if rate else 0.0)
+            for i, n in enumerate(SEQ_PROMPTS)]
 
 
 #: the sharded phase's runs: (name, arch, mesh shape, layers, arrival
 #: rate, cache), by process group size
 SHARD_RUNS = {
     2: (("tp", "qwen2-0.5b", (1, 2), None, 0.0, "paged"),
-        ("dp", "qwen2-0.5b", (2, 1), SHARD_DP_LAYERS, SHARD_DP_RATE,
-         "paged"),
+        ("dp", "qwen2-0.5b", (2, 1), None, SHARD_DP_RATE, "paged"),
+        ("dp-contiguous", "qwen2-0.5b", (2, 1), None, SHARD_DP_RATE,
+         "contiguous"),
         ("mamba2", "mamba2-780m", (1, 2), None, 0.0, "contiguous"),
+        ("dp-mamba2", "mamba2-780m", (2, 1), None, 0.0, "contiguous"),
         ("zamba2", "zamba2-7b", (1, 2), Z_SHARD_LAYERS, 0.0, "contiguous"),
         ("whisper", "whisper-large-v3", (1, 2), W_SHARD_LAYERS, 0.0,
          "contiguous")),
@@ -4172,10 +4201,13 @@ SHARD_RUNS = {
              "contiguous")),
 }
 #: the kernels each run's ranks must launch (ops counter names; the
-#: recurrent engines reach none, as in the reference)
+#: recurrent engines reach none, as in the reference, and neither does the
+#: dense contiguous engine: its prefill and decode attend through plain
+#: mha, as the reference's dense forward does)
 SHARD_KERNELS = {
     "tp": ("paged_attention", "paged_prefill_attention"),
     "dp": ("paged_attention", "paged_prefill_attention"),
+    "dp-contiguous": (), "dp-mamba2": (),
     "kv-seq": ("paged_attention_partial", "paged_prefill_partial"),
     "q-seq": ("flash_attention_offset",),
     "mamba2": (), "zamba2": (), "whisper": (),
@@ -4197,6 +4229,7 @@ def _shard_run(engine, cfg, rate: float, cache: str = "paged") -> dict:
     torch.cuda.synchronize()
     out, stats = engine.run(reqs)
     torch.cuda.synchronize()
+    bufs = engine.pool.buffers
     return dict(tokens=[list(map(int, r.output)) for r in out],
                 launches=dict(zip(COUNTER_NAMES, ops.counts())),
                 collectives=dict(shd.STATS),
@@ -4204,7 +4237,18 @@ def _shard_run(engine, cfg, rate: float, cache: str = "paged") -> dict:
                 steps=stats.steps, decode_s=stats.decode_s,
                 wall_s=stats.wall_s, decode_rows_saved=stats.decode_rows_saved,
                 decode_dispatches=stats.decode_dispatches,
-                prefill_dispatches=stats.prefill_dispatches)
+                prefill_dispatches=stats.prefill_dispatches,
+                # the host loop's decode rows (a bucket's rows times its
+                # steps), as decode_rows_saved derives from them
+                rows_dispatched=round((1.0 - stats.decode_rows_saved)
+                                      * stats.steps * engine.pool.n_slots),
+                work=dict(engine.work),
+                pool={k: [list(bufs[k].shape),
+                          bufs[k].numel() * bufs[k].element_size()]
+                      for k in ("k", "v")} if cache == "paged" else
+                {k: [list(t.shape), t.numel() * t.element_size()]
+                 for k, t in bufs.items()},
+                pool_axes=getattr(engine.pool, "batch_axes", None))
 
 
 def _tp_forward(cfg, plan) -> dict:
@@ -4380,11 +4424,11 @@ def check_tp_forward(ranks, cfg, shape) -> int:
 
 def run_sharded(summary: dict, params) -> dict:
     """The sharded phase (module docstring): two ranks on meshes (1, 2)
-    and (2, 1) (qwen2-0.5b, then mamba2-780m, zamba2-7b and
-    whisper-large-v3 on (1, 2) and mamba2-780m's forward), then four on
-    (1, 4). Returns, by kernel, the launches summed over the ranks of the
-    full-width (1, 2) and (1, 4) runs, of the contiguous (1, 4) run and of
-    the mamba2 forward, by path."""
+    and (2, 1) (qwen2-0.5b paged on both and contiguous on (2, 1), then
+    mamba2-780m on both, zamba2-7b and whisper-large-v3 on (1, 2) and
+    mamba2-780m's forward), then four on (1, 4). Returns, by kernel, the
+    launches summed over the ranks of the qwen2 runs and of the mamba2
+    forward, by path."""
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4413,19 +4457,46 @@ def run_sharded(summary: dict, params) -> dict:
                     raise SystemExit(f"FAIL: {what}: rank {r} launches "
                                      f"{calls}, graphs {x['graphs']}, "
                                      f"{x['backend']}, collectives {c}")
-                if shape[0] == 1 and x["held_replicated"]:
+                if x["held_replicated"]:
                     raise SystemExit(f"FAIL: {what}: rank {r} holds "
                                      f"{x['held_replicated']} whole")
+                if cache == "contiguous" and any(
+                        shp[x["pool_axes"][k]] != _shard_slots(cfg)[0]
+                        // shape[0] for k, (shp, _) in x["pool"].items()):
+                    raise SystemExit(f"FAIL: {what}: rank {r}'s pool "
+                                     f"{x['pool']} does not hold "
+                                     f"{_shard_slots(cfg)[0]} / {shape[0]} "
+                                     "slots")
+                print(json.dumps({"sharded_rank": name, "rank": r,
+                                  "pool": x["pool"], "work": x["work"]}),
+                      flush=True)
                 if world == SEQ_M and x["cache_seq"] != "model":
                     raise SystemExit(
                         f"FAIL: {what}: rank {r}'s pool positions split "
                         f"over {x['cache_seq']}")
-                if _recurrent(cfg) and not (c["all_reduce"] > 0
-                                            and c["all_gather"] > 0):
+                if (_recurrent(cfg) and shape[1] > 1
+                        and not (c["all_reduce"] > 0
+                                 and c["all_gather"] > 0)):
                     raise SystemExit(f"FAIL: {what}: rank {r} computes "
                                      f"whole: collectives {c}")
-            if name == "dp" and not got[0]["decode_rows_saved"] > 0:
-                raise SystemExit(f"FAIL: {what}: no decode rows saved")
+            if name == "dp" and not (got[0]["decode_rows_saved"] > 0 and all(
+                    x["work"].get("lanes", 0) > 0 for x in got)):
+                raise SystemExit(f"FAIL: {what}: no decode rows saved, or "
+                                 "no prefill round split over 'data'")
+            # the 'data' ranks' parts, plus what every one computed whole,
+            # are the run's: tokens and prefill lanes the single-process
+            # run's, decode rows the host loop's (whose buckets round up to
+            # a multiple of 'data')
+            data = got[::shape[1]]
+            work = {k: sum(x["work"].get(k, 0) for x in data)
+                    + data[0]["work"].get(k + "_whole", 0)
+                    for k in ("rows", "tokens", "lanes")}
+            want = {"rows": got[0]["rows_dispatched"],
+                    "tokens": ref["work"]["tokens"],
+                    "lanes": ref["work"]["lanes"]}
+            if work != want:
+                raise SystemExit(f"FAIL: {what}: the ranks' work {work} is "
+                                 f"not the run's {want}")
             a = got[0]
             rec[name] = {
                 "arch": arch, "mesh": shape, "cache": cache,
@@ -4442,6 +4513,13 @@ def run_sharded(summary: dict, params) -> dict:
                              for x in got],
                 "held_replicated": a["held_replicated"],
                 "cache_seq": a["cache_seq"],
+                "work": [x["work"] for x in got],
+                "single_work": ref["work"],
+                "rows_dispatched": a["rows_dispatched"],
+                "pool_bytes": [sum(b for _, b in x["pool"].values())
+                               for x in got],
+                "single_pool_bytes": sum(b for _, b in
+                                         ref["pool"].values()),
                 "decode_ms_per_step": [1e3 * x["decode_s"] / x["steps"]
                                        for x in got],
                 "single_decode_ms_per_step": (1e3 * ref["decode_s"]
@@ -4456,10 +4534,11 @@ def run_sharded(summary: dict, params) -> dict:
                   f"{rec[name]['single_decode_ms_per_step']:.3f}; gloo "
                   f"{rec[name]['collective_share_of_wall']} of the wall "
                   f"({smi})", flush=True)
-            if name in ("tp", "kv-seq", "q-seq"):
+            if name in ("tp", "dp", "dp-contiguous", "kv-seq", "q-seq"):
                 path = (f"qwen2-0.5b sharded {cache} ({world} ranks, mesh "
                         f"{shape})")
                 for kern, counter in (
+                        ("flash_attention", "flash_attention"),
                         ("paged_decode", "paged_attention"),
                         ("paged_prefill", "paged_prefill_attention"),
                         ("paged_decode_partial", "paged_attention_partial"),

@@ -33,9 +33,10 @@ unchanged on each rank's heads, and the model calls, at the reference's
   * ``gather_over(x, dim, "model")``: the pieces of a column-parallel
     output along ``dim`` (the vocab-parallel logits, the router's expert
     logits);
-  * ``gather_rows(x)``: a decode bucket's rows over ``"data"`` while
-    ``split_rows`` is open (new K/V before a write into a pool that every
-    ``data`` rank holds, the selected tokens);
+  * ``gather_rows(x)``: a decode bucket's or a prefill round's rows over
+    ``"data"`` while ``split_rows`` is open (the selected tokens, a MoE
+    round's expert counts, new K/V before a write into the paged pool,
+    which every ``data`` rank holds whole);
   * ``merge_partials(o, lse, axis)``: the whole attention output from each
     rank's partial output over its own keys and the rows' log-sum-exp
     (kv-seq attention over a decode cache whose positions are split over
@@ -90,7 +91,7 @@ __all__ = [
     "shard_spec", "attention_scheme", "production_rules_table",
     "param_pspecs", "named", "NamedSharding", "PARAM_LOGICAL_AXES",
     "reduce_over", "gather_over", "gather_rows", "split_rows", "local_rows",
-    "rows_split", "merge_partials", "combine_partials", "cache_seq_axis",
+    "rows_split", "rank_rows", "RowSplit", "merge_partials", "combine_partials", "cache_seq_axis",
     "axis_index", "local_block", "STATS",
 ]
 
@@ -169,7 +170,7 @@ class Mesh:
 # ---------------------------------------------------------------------------
 class Rules:
     """An installed (mesh, logical-axis table) pair. ``rows`` is the open
-    ``split_rows`` range of a decode bucket, None outside one;
+    ``split_rows`` block's ``RowSplit``, None outside one;
     ``cache_seq`` the mesh axis the decode cache's positions are split over
     (the serve plan's or the dry-run's pool layout), None when whole."""
 
@@ -181,7 +182,7 @@ class Rules:
             for k, v in dict(table).items()
         }
         self.sizes: Dict[str, int] = dict(mesh.sizes)
-        self.rows: Optional[Tuple[int, int]] = None
+        self.rows = None
         self.cache_seq = cache_seq
 
     def mesh_axes(self, logical: Optional[str]) -> MeshAxes:
@@ -662,27 +663,85 @@ def combine_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # data-parallel decode rows
 # ---------------------------------------------------------------------------
+class RowSplit:
+    """An open ``split_rows`` block: ``index``, this rank's bucket
+    positions (int64), padded to the largest rank's part, ``n`` of them
+    real (the padding comes last), and ``order``: each bucket row's
+    position among the gathered parts (None: the parts are the bucket in
+    order)."""
+
+    def __init__(self, mine, n: int, order, device):
+        self.n = n
+        self.index = torch.as_tensor(mine, dtype=torch.int64, device=device)
+        self.order = (None if order is None else
+                      torch.as_tensor(order, dtype=torch.int64,
+                                      device=device))
+
+
+def _parts(rows, n: int):
+    """The bucket positions each of ``n`` 'data' ranks computes under
+    ``split_rows(rows)``, or None when the block does not split."""
+    if rows is None or n == 1:
+        return None
+    if isinstance(rows, int):
+        if rows % n:
+            return None
+        per = rows // n
+        return [list(range(r * per, (r + 1) * per)) for r in range(n)]
+    parts = [list(p) for p in rows]
+    if (len(parts) != n or sorted(i for p in parts for i in p)
+            != list(range(sum(map(len, parts))))):
+        raise ValueError(f"split_rows: {parts} does not give each of the "
+                         f"bucket's rows to one of {n} 'data' ranks")
+    return parts
+
+
+def rank_rows(rows) -> Optional[List[int]]:
+    """This rank's bucket positions under ``split_rows(rows)`` (the host's
+    view: no tensor), None where the block would not split."""
+    rules = current_rules()
+    parts = _parts(rows, rules.sizes.get("data", 1) if rules else 1)
+    return None if parts is None else parts[rules.mesh.coord("data")]
+
+
 @contextlib.contextmanager
-def split_rows(width: int):
-    """Split a decode bucket of ``width`` rows over 'data' for the block:
-    this rank computes rows ``[r0, r1)`` (``local_rows``) and
-    ``gather_rows`` joins the ranks' rows. A no-op off-mesh, and when
-    'data' has one rank or does not divide ``width``."""
+def split_rows(rows, device=None):
+    """Split a decode bucket's (or a prefill round's) rows over 'data' for
+    the block. ``rows``: the bucket's width, cut into equal consecutive
+    parts where 'data' divides it, or one list of bucket positions a
+    'data' rank, in rank order (each position in one list: the rows whose
+    pool rows that rank holds). This rank computes its part
+    (``local_rows``), padded to the largest part with its first position
+    (position 0 where it has none), so that every rank computes as many
+    rows and joins every collective, and ``gather_rows`` joins the ranks'
+    parts in bucket order without the padding (gloo's all-gather takes
+    equal pieces). A no-op off-mesh, with 'data' of one rank, for ``rows``
+    None and for a width 'data' does not divide; the index tensors go to
+    ``device``."""
     rules = current_rules()
     n = rules.sizes.get("data", 1) if rules is not None else 1
-    if n == 1 or width % n:
+    parts = _parts(rows, n)
+    if parts is None:
         yield None
         return
-    per = width // n
-    r0 = rules.mesh.coord("data") * per
-    prev, rules.rows = rules.rows, (r0, r0 + per)
+    pad = max(len(p) for p in parts)
+    mine = parts[rules.mesh.coord("data")]
+    order = [0] * sum(len(p) for p in parts)
+    for r, part in enumerate(parts):
+        for j, pos in enumerate(part):
+            order[pos] = r * pad + j
+    if order == list(range(n * pad)):
+        order = None
+    split = RowSplit(mine + [mine[0] if mine else 0] * (pad - len(mine)),
+                     len(mine), order, device)
+    prev, rules.rows = rules.rows, split
     try:
-        yield rules.rows
+        yield split
     finally:
         rules.rows = prev
 
 
-def _rows() -> Optional[Tuple[int, int]]:
+def _rows() -> Optional[RowSplit]:
     rules = current_rules()
     return rules.rows if rules is not None else None
 
@@ -693,16 +752,23 @@ def rows_split() -> bool:
     return _rows() is not None
 
 
-def local_rows(x: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of a bucket-wide ``x`` (dim 0) inside
-    ``split_rows``; ``x`` elsewhere."""
-    rows = _rows()
-    return x if rows is None else x[rows[0]:rows[1]]
-
-
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every 'data' rank's rows of ``x`` (dim 0) inside ``split_rows``;
-    ``x`` elsewhere."""
-    if _rows() is None:
+def local_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's rows (padding included) of a bucket-wide ``x`` along
+    ``dim`` inside ``split_rows``; ``x`` elsewhere."""
+    split = _rows()
+    if split is None:
         return x
-    return gather_over(x, 0, "data")
+    return x.index_select(dim, split.index.to(x.device))
+
+
+def gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every 'data' rank's rows of ``x`` along ``dim`` inside
+    ``split_rows``, in bucket order without the padding; ``x``
+    elsewhere."""
+    split = _rows()
+    if split is None:
+        return x
+    out = gather_over(x, dim, "data")
+    if split.order is None:
+        return out
+    return out.index_select(dim, split.order.to(out.device))

@@ -33,17 +33,15 @@ counting mode that records
     ``book_collective``), as the reference sums the output bytes of the
     HLO's collectives.
 
-The program is the port's own plan. Parameters are the local blocks of
-``serve/sharded.py:realized`` on ``param_pspecs``; the decode cache the
-local blocks of ``cache_pspecs`` with the splits the port realizes (rows
-over the batch axes; KV heads over 'model' where attention runs
-head-sharded, and the sequence over the axis the reference splits it,
-'model' for KV heads that do not divide it, 'data' for long_500k, where
+The program is the port's own plan, which realizes every split of the
+reference: parameters are the local blocks of ``param_pspecs``; the
+decode cache the local blocks of ``cache_pspecs`` (rows over the batch
+axes; KV heads over 'model' where they divide it, else the sequence over
+the axis the reference splits it, 'model', or 'data' for long_500k, where
 the layer runs kv-seq over that axis; the conv states' channels and the
-SSM states' heads over 'model'); a leaf the
-port holds whole where the reference splits it counts whole, and the
-record lists it under ``held_replicated``. Batch rows split over the
-batch axes when those divide the batch. The program runs under
+SSM states' heads over 'model'). The record's ``held_replicated`` (leaves
+held whole where the reference splits them) is empty. Batch rows split
+over the batch axes when those divide the batch. The program runs under
 ``axis_rules(mesh, production_rules_table(...))`` with the reference's
 ``kv_seq`` override, and the cache's sequence axis (``cache_seq``). Modes: ``train`` is the port's train step
 (``Model.loss``, backward, clip and AdamW as ``train/trainer.py`` runs it,
@@ -409,7 +407,8 @@ class CountingMode(TorchDispatchMode):
 class Program:
     """One rank's program: ``run(*args)`` on ``args`` (meta tensors here;
     real ones of the same shapes on a card), its config, mesh and rules
-    table, and the leaves it holds whole where the reference splits them."""
+    table, and the leaves it holds whole where the reference splits them
+    (none: the layouts are the reference's specs)."""
     cfg: object
     mesh: object
     table: dict
@@ -471,24 +470,13 @@ def _cut_view(x, spec, mesh):
     return x
 
 
-def _cache_layout(cfg, cspec, mesh, batch_axes, heads: bool) -> dict:
-    """The splits of the decode cache the port realizes: the serve plan's
-    (``serve/sharded.py:cache_layout``: every split over 'model', the
-    positions over the axis the reference splits them), and the rows over
-    the batch axes."""
-    from repro_torch.serve.sharded import cache_layout
-    return cache_layout(cfg, cspec, axis_sizes(mesh), heads,
-                        keep_axes=batch_axes)
-
-
 def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
                   seq_shard: bool = False) -> Program:
     """The local program of one rank for ``cfg`` at ``ishape`` on ``mesh``
     (module docstring): its meta arguments, cut to the port's plan."""
     from repro_torch.models.api import (build_model, cache_specs,
                                         input_specs, params_specs)
-    from repro_torch.models.layers import heads_sharded
-    from repro_torch.serve.sharded import _replicated, cache_seq, realized
+    from repro_torch.serve.sharded import cache_seq
     from repro_torch.train.optimizer import (adamw, constant, leaves,
                                              tree_map)
     sizes = axis_sizes(mesh)
@@ -501,14 +489,7 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
     rows = bsz // basz if _div(bsz, basz) else bsz
     with shd.axis_rules(mesh, table) as rules:
         pshape = params_specs(cfg)
-        pspec = shd.param_pspecs(pshape, rules)
-        heads = heads_sharded(cfg)
-    m = sizes["model"]
-    layout = tree_map_with_path(
-        lambda path, s: realized(next(
-            (k for k in reversed(path) if isinstance(k, str)), ""), s, m),
-        pspec)
-    held = _replicated(pspec, layout, sizes)
+        layout = shd.param_pspecs(pshape, rules)
     batch = input_specs(cfg, rows, ishape.seq_len, ishape.mode)
     common = dict(cfg=cfg, mesh=mesh, table=table)
 
@@ -518,17 +499,14 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
         def prefill(params, batch):
             with torch.no_grad():
                 return model.forward(params, batch)
-        return Program(args=(params, batch), run=prefill,
-                       held_replicated=held, **common)
+        return Program(args=(params, batch), run=prefill, **common)
 
     if ishape.mode == "decode":
         params = _local(pshape, layout, mesh)
         cshape = cache_specs(cfg, bsz, ishape.seq_len)
         cspec = cache_pspecs(cfg, cshape, mesh, seq_shard=seq_shard,
                              batch=bsz)
-        clayout = _cache_layout(cfg, cspec, mesh, ba, heads)
-        held += [f"cache/{p}" for p in _replicated(cspec, clayout, sizes)]
-        cache = _local(cshape, clayout, mesh)
+        cache = _local(cshape, cspec, mesh)
         tokens = batch["tokens"]
         pos = ishape.seq_len - 1
 
@@ -536,16 +514,12 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
             with torch.no_grad():
                 return model.decode_step(params, cache, tokens, pos)
         return Program(args=(params, cache, tokens), run=decode,
-                       held_replicated=held,
-                       cache_seq=cache_seq(clayout, sizes), **common)
+                       cache_seq=cache_seq(cspec, sizes), **common)
 
     # train: the port's train step on this rank's blocks
     optimizer = adamw(constant(1e-4))
     params = _local(pshape, layout, mesh, requires_grad=True)
     olayout = opt_state_pspecs(layout, pshape, mesh) if zero1 else layout
-    if zero1:
-        ospec = opt_state_pspecs(pspec, pshape, mesh)
-        held += [f"opt/{p}" for p in _replicated(ospec, olayout, sizes)]
     moments = tree_map_with_path(
         lambda path, t: _block(t.to(torch.float32), _at(olayout, path),
                                mesh), pshape)
@@ -592,8 +566,7 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
         for p in leaves(params):
             p.grad = None
         return loss.detach(), gnorm
-    return Program(args=(params, opt, batch), run=train,
-                   held_replicated=held, **common)
+    return Program(args=(params, opt, batch), run=train, **common)
 
 
 def _shard_only(spec, ospec) -> P:

@@ -31,10 +31,11 @@ reference's schemes (``attention_scheme``):
 then ``wo`` multiplies the rank's columns of the output and the partial
 sums are reduced over 'model', as ``w_down``'s are; the embedding is
 vocab-parallel (a masked lookup, then a reduce) and the logits are
-gathered over 'model'. Inside ``sharding.split_rows`` a decode step
-computes this rank's rows of the bucket, and every K/V write first
-gathers the bucket's rows over 'data', since each 'data' rank holds the
-whole pool.
+gathered over 'model'. Inside ``sharding.split_rows`` a decode step (or
+a paged prefill round) computes this rank's rows: a contiguous pool split
+over 'data' holds just those rows, so the write is local, while a paged
+K/V write first gathers every 'data' rank's rows, since each 'data' rank
+holds the whole paged pool.
 """
 from __future__ import annotations
 
@@ -449,7 +450,8 @@ def paged_kv_write(pkv: PagedKV, k, v, positions, valid=None,
     past the table), or whose ``valid`` [B, C] entry is False, is written to
     the scratch block instead — a redirect, not a boolean mask, so the write
     never syncs with the host. Inside ``sharding.split_rows`` the rows of
-    every 'data' rank are gathered and written (each holds the pool).
+    every 'data' rank are gathered and written (each holds the whole
+    paged pool).
     ``pos_base = (BS_g, off)``: the pool holds in-block offsets
     ``[off, off + BS)`` of blocks of ``BS_g`` positions (a position-split
     pool), and a position at another rank's offset goes to the scratch
@@ -547,11 +549,6 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None,
     of frozen rows are always inside the cache), which keeps the write free
     of host syncs and leaves the row untouched.
 
-    Inside ``sharding.split_rows`` k, v, ``cache_pos`` and ``valid`` are
-    this rank's rows of a bucket whose every row ``ck`` / ``cv`` hold: the
-    rows of every 'data' rank are gathered and written, and the returned
-    caches and positions are this rank's rows.
-
     ``first``: the cache holds positions ``[first, first + S)`` of a cache
     whose positions are split over a mesh axis (None: all of them). A row
     writes only where its position falls inside (the others keep the
@@ -568,17 +565,8 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None,
             cv[:, lp:lp + 1] = v.to(cv.dtype)
         return ck, cv, k_pos, p
     rows = torch.arange(ck.shape[0], device=ck.device)
-    mine = pos = cache_pos.long()
+    cpos = pos = cache_pos.long()
     new_k, new_v = k[:, 0], v[:, 0]
-    if shd.rows_split():
-        if valid is not None:        # a dropped row travels as pos -1
-            pos = shd.gather_rows(torch.where(valid, mine, -1))
-            valid = pos >= 0
-            pos = pos.clamp(min=0)
-        else:
-            pos = shd.gather_rows(mine)
-        new = shd.gather_rows(torch.stack([new_k, new_v], dim=1))
-        new_k, new_v = new[:, 0], new[:, 1]
     if first is not None:               # another rank's slice holds it
         pos = pos - first
         inside = (pos >= 0) & (pos < ck.shape[1])
@@ -591,8 +579,7 @@ def update_kv_cache(ck, cv, k, v, cache_pos, valid=None,
         new_v = torch.where(keep, new_v, cv[rows, pos])
     ck[rows, pos] = new_k
     cv[rows, pos] = new_v
-    return (shd.local_rows(ck), shd.local_rows(cv), k_pos[None, :],
-            mine[:, None])
+    return ck, cv, k_pos[None, :], cpos[:, None]
 
 
 def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,

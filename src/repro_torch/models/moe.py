@@ -23,7 +23,14 @@ Sharded (``dist/sharding.py``, ``moe.py:137-144`` of the reference): the
 experts split over 'model'. The router's expert logits are gathered over
 'model', so every rank routes every token the same way; a rank runs its
 own experts' FFNs on their dispatch buffers and the combined partial
-output is reduced over 'model'.
+output is reduced over 'model'. Where 'model' does not divide the
+experts, the reference's sanitizer splits the expert FFNs by width
+instead: ``we_gate_up`` [E, D, 2F] flat over its 2F columns (a rank's
+block cuts across gate and up, as mamba2's fused ``in_proj``) and
+``we_down`` [E, F, D] over its F rows. A rank then gathers the gate/up
+block's columns into all 2F, multiplies its F rows' columns of the
+activation by its ``we_down`` rows, and the combined partial output is
+reduced over 'model'.
 """
 from __future__ import annotations
 
@@ -160,8 +167,14 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
         keep = keep & (flat_e >= 0) & (flat_e < n_local)
         flat_e = flat_e.clamp(0, n_local - 1)
     gu = torch.einsum("becd,edf->becf", buf, p["we_gate_up"])
+    f = cfg.d_ff
+    gu, = L._whole((gu,), (2 * f,))       # a column block of gate/up
     g, u = gu.chunk(2, dim=-1)
     h = F.silu(g) * u
+    f_local = p["we_down"].shape[-2]
+    if f_local != f:                      # this rank's F rows: partial sums
+        r = shd.axis_index("model")
+        h = h[..., r * f_local:(r + 1) * f_local]
     out_buf = torch.einsum("becf,efd->becd", h, p["we_down"])
 
     # combine: the reference's segment_sum over each row's assignments; a
@@ -171,7 +184,7 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     w = torch.where(keep, flat_p, torch.zeros_like(flat_p))
     y = out_buf[rows, flat_e, safe_pos] * w[..., None].to(out_buf.dtype)
     out = y.view(b, s, k, d).sum(dim=2)
-    if n_local != e:
+    if n_local != e or f_local != f:
         out = shd.reduce_over(out, "model")
     if counts is not None:
         return out, aux, cnt0 + one.sum(dim=1, dtype=torch.int32)

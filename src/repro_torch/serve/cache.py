@@ -23,6 +23,12 @@ an entire slot row in place, so a recycled slot never sees its previous
 tenant's state. Elastic serving revokes idle slots (``shrink``) and
 returns them (``expand``); ``capacity`` counts the live slots. The
 buffers never reallocate.
+
+Under a serve plan whose pool splits its slots over 'data' the buffers
+hold this rank's block of slots (``held``: global slot ``s`` at local row
+``s - held.start``), while the free list, ``alloc`` / ``free`` /
+``shrink`` / ``expand`` stay global and the same on every rank; ``write``
+checks a row on every rank and stores it at its owner only.
 """
 from __future__ import annotations
 
@@ -49,8 +55,9 @@ class CachePool:
     ``model`` is anything with the model's ``init_cache``: under a serve
     plan its ``pools``, whose leaves are this rank's blocks (a slot then
     holds a slice of ``max_len`` where the positions are split over
-    ranks, and ``write`` takes rows of that shape); ``max_len`` stays
-    what a request may span.
+    ranks, and ``write`` takes rows of that shape; its ``held_slots`` says
+    which slots the rank holds); ``max_len`` stays what a request may
+    span.
     """
 
     def __init__(self, model, n_slots: int, max_len: int, device="cuda"):
@@ -62,6 +69,9 @@ class CachePool:
         self.batch_axes = {name: _batch_axis(probe_a[name], probe_b[name])
                            for name in probe_a}
         self.buffers = model.init_cache(n_slots, max_len, device=device)
+        held = getattr(model, "held_slots", None)
+        #: the global slots whose rows this rank's buffers hold
+        self.held = held(n_slots) if held is not None else range(n_slots)
         self._free = deque(range(n_slots))
         self._in_use: set = set()
         #: slots revoked by a scale-down: still in the buffers, withheld
@@ -132,9 +142,10 @@ class CachePool:
     # -- buffer access ---------------------------------------------------------
     def write(self, slot: int, row_cache: dict) -> None:
         """Install a batch-1 cache dict (same ``max_len``) into ``slot``, in
-        place. A row whose non-batch dimensions or dtype disagree with the
-        pool (a ``max_len`` mismatch, most commonly) is rejected — a short
-        row broadcast across a longer slot would corrupt the decode mask's
+        place, on the rank that holds it (``held``). A row whose non-batch
+        dimensions or dtype disagree with the pool (a ``max_len``
+        mismatch, most commonly) is rejected on every rank — a short row
+        broadcast across a longer slot would corrupt the decode mask's
         invariants."""
         if slot not in self._in_use:
             raise ValueError(f"slot {slot} is not allocated")
@@ -150,11 +161,18 @@ class CachePool:
             if row.dtype != buf.dtype:
                 raise ValueError(f"row cache dtype {row.dtype} does not "
                                  f"match the pool's {buf.dtype}")
+        if slot not in self.held:
+            return
+        row = slot - self.held.start
         for name, buf in self.buffers.items():
-            buf.select(self.batch_axes[name], slot).copy_(
+            buf.select(self.batch_axes[name], row).copy_(
                 row_cache[name].select(self.batch_axes[name], 0))
 
-    def read_slot(self, slot: int) -> dict:
-        """The slot's cache row as a batch-1 dict (tests / debugging)."""
-        return {name: buf.narrow(self.batch_axes[name], slot, 1)
+    def read_slot(self, slot: int) -> Optional[dict]:
+        """The slot's cache row as a batch-1 dict on the rank that holds it,
+        None on the others (tests / debugging)."""
+        if slot not in self.held:
+            return None
+        return {name: buf.narrow(self.batch_axes[name],
+                                 slot - self.held.start, 1)
                 for name, buf in self.buffers.items()}

@@ -90,17 +90,23 @@ A ``sharding`` plan (``serve/sharded.py``) serves TP/DP-sharded over a
 ("data", "model") mesh of ranks, one process each, every rank running this
 same loop on the same requests (``engine.py:348-439``): the engine keeps
 this rank's blocks of the params, builds its pools at this rank's
-blocks (``ServeSharding.pools``: KV heads or positions, conv channels, SSM
-heads; a position-split pool holds its slice of every block or row, while
-the block manager, its tables and the scheduler keep the global block size
-and ``max_len``), and the recurrent prefill's row the same way, enters the
-plan's rules around each run, rounds bucket widths up to
-a multiple ``dmult`` of the 'data' axis (``_bucket``), and computes a
-bucket a part a 'data' rank when 'data' divides its width and ``dmult``
-has not collapsed, the selected tokens gathered over 'data' (a collapsed
-multiple leaves every 'data' rank computing every row until a
-``device_join``: degraded but exact). The decode state is whole on every
-rank. Host-side pool writes are checked against the plan
+blocks (``ServeSharding.pools``: slots, KV heads or positions, conv
+channels, SSM heads; a position-split pool holds its slice of every block
+or row, while the slots' free list, the block manager, its tables and the
+scheduler keep the global slot count, block size and ``max_len``), and
+the recurrent prefill's row the same way (every slot), enters the plan's
+rules around each run and rounds bucket widths up to a multiple ``dmult``
+of the 'data' axis (``_bucket``). A contiguous pool whose slots split over
+'data' decodes each bucket row at the rank that holds its slot, from and
+into its own rows, every family alike (``_decode_rows``), and a prompt row,
+which every rank computes, is stored by its owner; the paged pool is whole
+on every rank, and a decode bucket or a prefill round over it is computed
+a part a 'data' rank where 'data' divides its width and ``dmult`` has not
+collapsed (a collapsed multiple leaves every 'data' rank computing every
+such row until a ``device_join``: degraded but exact). The selected
+tokens are gathered over 'data', so every rank carries the whole bucket;
+the decode state is whole on every rank. ``work`` counts the rows this
+rank computed. Host-side pool writes are checked against the plan
 (``reshard_cache``). A sharded engine's programs run eager
 (``graphs.is_eager``; the CLI summary's ``graphs``).
 """
@@ -304,7 +310,13 @@ class ServeEngine:
 
     ``sharding`` (a ``ServeSharding``) serves sharded over its mesh; the
     params, given or drawn from ``seed``, are the full tree, of which the
-    engine keeps this rank's blocks.
+    engine keeps this rank's blocks. ``work`` counts the last run's decode
+    rows (a bucket's rows times its steps), their tokens and the prefill
+    lanes (a round's width, or one a contiguous prompt) this rank computed
+    as its part (``rows``, ``tokens``, ``lanes``) and those every one of
+    several 'data' ranks computed whole (``rows_whole``, ``tokens_whole``,
+    ``lanes_whole``): the parts summed over the 'data' ranks, plus one
+    rank's whole counts, are the run's.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, max_len: int = 256,
@@ -400,6 +412,7 @@ class ServeEngine:
         self.graphs = GraphRunner(self.device, eager=sharding is not None)
         #: the recurrent prefill's batch-1 state (read by its graph)
         self._row = None
+        self.work: Counter = Counter()
 
     def full_params(self):
         """The full param tree: under a plan, this rank's blocks gathered
@@ -413,15 +426,45 @@ class ServeEngine:
         return (self.sharding.rules() if self.sharding is not None
                 else contextlib.nullcontext())
 
-    def _rows(self, width: int):
-        """Split a decode bucket of ``width`` rows over 'data' (the
-        attention families, while ``dmult`` is whole); a no-op
-        otherwise."""
-        plan = self.sharding
-        if (plan is None or not plan.splits_rows
-                or self._dmult != self._dmult_full):
-            return contextlib.nullcontext()
-        return shd.split_rows(width)
+    def _data_ranks(self) -> int:
+        return (self.sharding.axis_size("data") if self.sharding is not None
+                else 1)
+
+    def _even(self, width: int) -> Optional[int]:
+        """``split_rows``' rows of a decode bucket or a prefill round over
+        the paged pool, which every rank holds whole: its width (equal
+        parts where 'data' divides it) while ``dmult`` is whole; None
+        (every rank computes every row) unsharded or once it collapsed."""
+        if self.sharding is None or self._dmult != self._dmult_full:
+            return None
+        return width
+
+    def _decode_rows(self, pool, idx: np.ndarray):
+        """``split_rows``' rows of a decode bucket of slot ids ``idx``: over
+        a contiguous pool split over 'data', each rank's bucket positions
+        of the slots it holds (their owner computes them, whatever
+        ``dmult``: the pool rows never move); over the paged pool
+        ``_even``; None where every rank computes every row."""
+        if self.cache_kind == "paged":
+            return self._even(len(idx))
+        per = len(pool.held)
+        if self._data_ranks() == 1 or per == pool.n_slots:
+            return None
+        owner = idx // per
+        return [np.flatnonzero(owner == r).tolist()
+                for r in range(self._data_ranks())]
+
+    def _count_work(self, split, **per_row) -> None:
+        """Book one dispatch into ``work``: each keyword's amounts, one a
+        bucket position (or lane), this rank's part of them under
+        ``split_rows(split)``, or all of them, under ``<name>_whole`` where
+        every one of several 'data' ranks computes them."""
+        mine = shd.rank_rows(split)
+        whole = mine is None and self._data_ranks() > 1
+        for name, amounts in per_row.items():
+            a = np.asarray(amounts, np.int64)
+            n = int(a.sum() if mine is None else a[mine].sum())
+            self.work[name + "_whole" if whole else name] += n
 
     def _pool_and_state(self, n_slots: int):
         """The run's pool and decode state: the last run's, reset in place,
@@ -509,6 +552,7 @@ class ServeEngine:
             self.elastic.reset()
         self.allocation = self._allocation0
         self.migrations = []
+        self.work = Counter()
         self._dmult = self._dmult_full
         c = RunObs(self.tracer)
         tr = c.tracer
@@ -1079,25 +1123,24 @@ class ServeEngine:
         the bucket's slot ids, at step ``step0 + k``), token feedback,
         per-row pos advance and the budget/EOS stop masks, all on the
         device. A row is live while ``p < s``; frozen rows keep (token,
-        pos), write no KV and emit -1. Inside a 'data' split (``_rows``)
-        ``step_fn`` computes this rank's rows and the picked tokens are
-        gathered, so every rank carries the whole bucket. Returns (t, p,
-        s, token block [W, h])."""
+        pos), write no KV and emit -1. Inside a 'data' split
+        (``split_rows``) ``step_fn`` computes this rank's rows and the
+        picked tokens are gathered, so every rank carries the whole
+        bucket. Returns (t, p, s, token block [W, h])."""
         emitted = []
-        with self._rows(t.shape[0]):
-            lanes = shd.local_rows(idx)
-            for k in range(h):
-                active = p < s
-                logits = step_fn(shd.local_rows(t), shd.local_rows(p),
-                                 shd.local_rows(active))
-                nxt = shd.gather_rows(self._pick(logits[:, -1], lanes,
-                                                 step0 + k))
-                emitted.append(torch.where(active, nxt,
-                                           torch.full_like(nxt, -1)))
-                t = torch.where(active[:, None], nxt[:, None], t)
-                p = p + active.to(torch.int32)
-                if self.eos_token is not None:
-                    s = torch.where(active & (nxt == self.eos_token), p, s)
+        lanes = shd.local_rows(idx)
+        for k in range(h):
+            active = p < s
+            logits = step_fn(shd.local_rows(t), shd.local_rows(p),
+                             shd.local_rows(active))
+            nxt = shd.gather_rows(self._pick(logits[:, -1], lanes,
+                                             step0 + k))
+            emitted.append(torch.where(active, nxt,
+                                       torch.full_like(nxt, -1)))
+            t = torch.where(active[:, None], nxt[:, None], t)
+            p = p + active.to(torch.int32)
+            if self.eos_token is not None:
+                s = torch.where(active & (nxt == self.eos_token), p, s)
         return t, p, s, torch.stack(emitted, dim=1)
 
     @staticmethod
@@ -1112,10 +1155,11 @@ class ServeEngine:
             state.tok[ix], state.pos[ix], state.stop[ix] = t, p, s
 
     def _paged_horizon(self, pool: BlockManager, state: _DecodeState, idx,
-                       step0, h: int, full: bool) -> torch.Tensor:
+                       step0, h: int, full: bool, rows=None) -> torch.Tensor:
         """Up to ``h`` paged decode steps over the bucket ``idx`` (int64
         slot ids on the device; ``step0`` the scheduler step, an int64
-        device scalar): the bucket gathers tokens, positions, stops and
+        device scalar; ``rows`` the bucket's 'data' split,
+        ``_decode_rows``): the bucket gathers tokens, positions, stops and
         block tables only (compaction through the tables is free). Returns
         the [W, h] int32 token block (still on the device)."""
         if full:
@@ -1130,14 +1174,16 @@ class ServeEngine:
                 self.params, pool.buffers, t, p, shd.local_rows(tb),
                 write_valid=active)[0]
 
-        t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
+        with shd.split_rows(rows, self.device):
+            t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
         self._put_rows(state, ix, t, p, s)
         return blk
 
     def _contiguous_horizon(self, pool: CachePool, state: _DecodeState, idx,
-                            step0, h: int, full: bool) -> torch.Tensor:
+                            step0, h: int, full: bool,
+                            rows=None) -> torch.Tensor:
         """Up to ``h`` contiguous decode steps over the bucket ``idx``
-        (``engine.py:539-598``; ``idx`` and ``step0`` as in
+        (``engine.py:539-598``; ``idx``, ``step0`` and ``rows`` as in
         ``_paged_horizon``): gather the bucket's cache rows along each
         leaf's batch axis with ``index_select`` (unless ``full``: every
         slot decodes, idle rows frozen and inert), decode with
@@ -1145,29 +1191,39 @@ class ServeEngine:
         ``index_copy_``. The recurrent, hybrid and encdec families decode
         without ``write_valid``, as the reference's unmasked path does:
         their frozen rows recompute state (and rewrite K/V at their frozen
-        position) that slot reuse overwrites.
-        Returns the [W, h] int32 token block."""
+        position) that slot reuse overwrites. Over a pool split over
+        'data' a rank gathers, decodes and scatters back the rows of its
+        own slots (``full``: its whole block in place); its padding rows
+        (``split_rows``) decode a copy of one of its rows, never written
+        back. Returns the [W, h] int32 token block."""
         if full:
-            ix, sub = None, pool.buffers
             t, p, s = state.tok, state.pos, state.stop
         else:
-            ix = idx
-            sub = {name: buf.index_select(pool.batch_axes[name], ix)
-                   for name, buf in pool.buffers.items()}
-            t, p, s = state.tok[ix], state.pos[ix], state.stop[ix]
-
+            t, p, s = state.tok[idx], state.pos[idx], state.stop[idx]
         masked = self.cfg.family in _ATTN_FAMILIES
+        held = pool.held
+        with shd.split_rows(rows, self.device) as split:
+            if full:
+                ix, sub = None, pool.buffers
+            else:
+                # this rank's pool rows of the bucket rows it computes
+                ix = idx if split is None else (
+                    shd.local_rows(idx) - held.start).clamp(0, len(held) - 1)
+                sub = {name: buf.index_select(pool.batch_axes[name], ix)
+                       for name, buf in pool.buffers.items()}
 
-        def step(t, p, active):
-            return self.model.decode_step(
-                self.params, sub, t, p,
-                write_valid=active if masked else None)[0]
+            def step(t, p, active):
+                return self.model.decode_step(
+                    self.params, sub, t, p,
+                    write_valid=active if masked else None)[0]
 
-        t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
+            t, p, s, blk = self._scan_horizon(step, t, p, s, idx, step0, h)
         if ix is not None:
+            n = len(ix) if split is None else split.n
             for name, buf in pool.buffers.items():
-                buf.index_copy_(pool.batch_axes[name], ix, sub[name])
-        self._put_rows(state, ix, t, p, s)
+                ax = pool.batch_axes[name]
+                buf.index_copy_(ax, ix[:n], sub[name].narrow(ax, 0, n))
+        self._put_rows(state, None if full else idx, t, p, s)
         return blk
 
     def _decode_boundary(self, sched, pool, state, c, n_slots,
@@ -1189,10 +1245,12 @@ class ServeEngine:
             idle = [s for s in range(n_slots) if s not in sched.active]
             idx = np.asarray(act + idle[:bc - len(act)], np.int64)
             rows = list(range(len(act)))     # compacted row order
+        split = self._decode_rows(pool, idx)
         t0 = time.perf_counter()
         blk = self.graphs(
             (self.cache_kind, len(idx), h, full),
-            lambda ix, step0: self._horizon(pool, state, ix, step0, h, full),
+            lambda ix, step0: self._horizon(pool, state, ix, step0, h, full,
+                                            split),
             torch.from_numpy(idx), torch.tensor(int(sched.step)))
         c.inc("decode_dispatches")
         blk = blk.cpu().numpy()              # the one [W, h] int32 fetch
@@ -1211,6 +1269,9 @@ class ServeEngine:
                         obs=c)
         counts = self._unpack_horizon(sched, act, rows, blk, h, n_slots, c)
         c.inc("rows_decoded", len(idx) * h)
+        emitted = np.zeros(len(idx), np.int64)
+        emitted[rows] = counts
+        self._count_work(split, rows=np.full(len(idx), h), tokens=emitted)
         c.hi("max_active", len(act))
         c.inc("steps", h)
         c.metrics.observe("horizon_k", h)
@@ -1269,7 +1330,8 @@ class ServeEngine:
                                          device=self.device)[None, :]
                 logits, row = self._prefill(tokens)
                 c.inc("prefill_dispatches")
-                pool.write(r.slot, row)
+                self._count_work(None, lanes=[1])
+                pool.write(r.slot, row)          # at the slot's owner
                 lane = torch.tensor([r.slot], device=dev)
                 tok = int(self._pick(logits[:, -1], lane,
                                      ~int(sched.step))[0])  # one id fetch
@@ -1346,7 +1408,11 @@ class ServeEngine:
         take each lane's expert counts (from the prefix cache on a hit,
         else zeros; padding lanes zeros) and capacity ``caps``, with the
         dispatch buffers sized by the static ``max_len``, and give each lane
-        its column of the new counts, kept on the device."""
+        its column of the new counts, kept on the device. Under a plan a
+        round is computed ``w / d`` lanes a 'data' rank where 'data' ``d``
+        divides its width ``w`` (``_even``): a rank's lanes write their K/V
+        into the whole paged pool of every rank, and the picked tokens and
+        the MoE counts are gathered."""
         if not reqs:
             return
         bs, mb = pool.block_size, pool.max_blocks
@@ -1355,10 +1421,17 @@ class ServeEngine:
 
         def round_ids(tokens, starts, n_valid, tables, lanes, step,
                       state=None, caps=None):
-            logits, _, new_state = self.model.paged_prefill_chunk(
-                self.params, pool.buffers, tokens, starts, tables, state,
-                cap_static, n_valid=n_valid, cap_rows=caps)
-            ids = self._pick(logits[:, -1], lanes, step)
+            loc = shd.local_rows
+            with shd.split_rows(self._even(tokens.shape[0]), self.device):
+                logits, _, new_state = self.model.paged_prefill_chunk(
+                    self.params, pool.buffers, loc(tokens), loc(starts),
+                    loc(tables), None if state is None else loc(state, 1),
+                    cap_static, n_valid=loc(n_valid),
+                    cap_rows=None if caps is None else loc(caps))
+                ids = shd.gather_rows(self._pick(logits[:, -1], loc(lanes),
+                                                 step))
+                if new_state is not None:
+                    new_state = shd.gather_rows(new_state, 1)
             return ids if new_state is None else (ids, new_state)
 
         zeros = (self.model.paged_prefill_state(1, self.device) if is_moe
@@ -1404,6 +1477,7 @@ class ServeEngine:
             if is_moe:
                 ids, new_state = ids
             c.inc("prefill_dispatches")
+            self._count_work(self._even(w), lanes=np.ones(w))
             if tr or prof:
                 if prof and self.device.type == "cuda":
                     # the round's device work, not its launch: a wait no

@@ -12,36 +12,40 @@ A ``ServeSharding`` plan holds what the engine needs to serve over a
     (``param_pspecs``) and the pooled decode cache (``launch.dryrun.
     cache_pspecs``, the dry-run's specs), and the bucketed token / pos /
     table shardings of each compacted decode width (``bucket_shardings``);
-  * the layout each leaf actually has on this rank (``param_layout``,
-    ``cache_layout``). The port realizes every 'model' split of the
-    reference, in every family: the attention leaves split flat over the
-    heads (``heads_flat``: whole heads where 'model' divides the head
-    count, else a column block that cuts a head, whose columns the layer
+  * the layout each leaf has on this rank (``param_layout``,
+    ``cache_layout``): the reference's specs, every split realized. Over
+    'model': the attention leaves split flat over the heads
+    (``heads_flat``: whole heads where 'model' divides the head count,
+    else a column block that cuts a head, whose columns the layer
     gathers), vocab-parallel embeddings and logits, ffn-parallel MLPs,
-    expert-parallel MoE, the Mamba2 leaves (the fused ``in_proj`` split
-    flat, the conv over its channels, the SSM over its heads,
-    ``out_proj`` row-parallel; ``models/mamba2.py``), KV heads over
-    'model' where they divide it, and where they do not, the pools'
-    positions over 'model' (the paged pool's in-block offsets, the
-    contiguous pool's sequence, the hybrid's shared-block K/V; the layer
-    runs kv-seq over them, ``models/layers.py``), the conv states over
-    their channels and the SSM states over their heads. A leaf whose
-    reference spec it does not realize is held replicated over 'model'
-    and listed in ``held_replicated``: the fused expert gate/up split by
-    width. The pools are held whole over 'data' (the paged pool by the
-    reference's spec; the contiguous pools in this slice): new K/V rows
-    are gathered over 'data' before each write.
+    expert-parallel MoE, or where 'model' does not divide the experts
+    their fused ``we_gate_up`` split flat by width and ``we_down`` by rows
+    (``models/moe.py``), the Mamba2 leaves (the fused ``in_proj`` split
+    flat, the conv over its channels, the SSM over its heads, ``out_proj``
+    row-parallel; ``models/mamba2.py``), KV heads where they divide
+    'model', and where they do not, the pools' positions (the paged pool's
+    in-block offsets, the contiguous pool's sequence, the hybrid's
+    shared-block K/V; the layer runs kv-seq over them,
+    ``models/layers.py``), the conv states over their channels and the SSM
+    states over their heads. Over 'data': the contiguous pools' slots
+    wherever 'data' divides the slot count (global slot ``s`` on 'data'
+    rank ``s // (n_slots / d)``, at local row ``s % (n_slots / d)``);
+    the paged pool is whole over 'data', by the reference's spec.
+    ``held_replicated`` lists the leaves held whole where the reference's
+    spec splits them: none.
 
 ``shard_params`` cuts a full param tree into this rank's blocks (the
 counterpart of ``jax.device_put(params, param_sharding)``); ``pools``
 builds every pool, contiguous or paged, at this rank's block of its
 global shape (``local_shape``: the global shape cut by the layout), while
-the host side (the block manager and its tables, the scheduler's lengths)
-stays at the global one. A decode bucket whose width the 'data' axis
-divides is computed a part a 'data' rank (``split_rows``), for the attention
-families; everything else every rank computes whole. The engine runs the
-same host loop on every rank, so the scheduler, the block manager and the
-counters agree; the selected tokens are gathered over 'data'.
+the host side (the slots' free list, the block manager and its tables,
+the scheduler's lengths) stays at the global one. A decode bucket over a
+contiguous pool split over 'data' is computed at its slots' ranks, each
+rank its own rows; one over the paged pool, and a paged prefill round,
+a part a 'data' rank where 'data' divides its width (``split_rows``);
+everything else every rank computes whole. The engine runs the same host
+loop on every rank, so the scheduler, the block manager and the counters
+agree; the selected tokens are gathered over 'data'.
 
 Every sharded engine runs its programs eager: a gloo collective cannot be
 captured into a CUDA graph (one issued during a capture raises), and
@@ -57,14 +61,8 @@ import torch
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.dryrun import cache_pspecs
 from repro_torch.launch.mesh import axis_sizes, make_host_mesh
-from repro_torch.models import layers as L
 from repro_torch.models.api import build_model, params_specs
 from repro_torch.models.transformer import PagedCache
-
-#: families whose decode buckets split over 'data' (``splits_rows``)
-ROW_FAMILIES = ("dense", "vlm", "moe")
-#: the pool leaves of K/V heads [L | G, B | NB, S | BS, kv, hd]
-KV_LEAVES = ("k", "v", "attn_k", "attn_v", "ck", "cv")
 
 
 def param_shapes(cfg) -> dict:
@@ -87,52 +85,11 @@ def cache_shapes(cfg, n_slots: int, max_len: int, *, paged: bool,
     return {k: tuple(v.shape) for k, v in cache.items()}
 
 
-def realized(name: str, spec: shd.Spec, m: int) -> shd.Spec:
-    """The spec a parameter leaf named ``name`` runs with: the reference's
-    ``spec``, or it with 'model' (of ``m`` ranks) dropped where the port
-    does not realize that split: the fused expert gate/up and down
-    ([E, D, 2F] / [E, F, D]) split by width, not by expert (module
-    docstring)."""
-    if m == 1 or "model" not in (a for e in spec for a in shd._flat(e)):
-        return spec
-    if name not in ("we_gate_up", "we_down") or spec[-3] == "model":
-        return spec
-    return shd.Spec(*(None if "model" in shd._flat(e) else e for e in spec))
-
-
 def rows_dim(name: str, ndim: int) -> int:
     """A pool leaf's slot (or block) dimension: 2 for the hybrid's
     per-group states ``gconv`` [G, E, B, K-1, C] and ``gssm``
     [G, E, B, H, N, P], else 1."""
     return 2 if ndim == 6 or (ndim == 5 and name.endswith("conv")) else 1
-
-
-def cache_layout(cfg, cspec: dict, sizes: dict, heads: bool,
-                 keep_axes=()) -> dict:
-    """The splits of a pool's reference specs ``cspec`` the port realizes:
-    every split over 'model' (the K/V leaves' heads where attention runs
-    head-sharded and 'model' divides them, the positions over the axis the
-    reference splits them, the conv channels, the SSM heads), the rows
-    over ``keep_axes`` (the dry-run's batch axes) and any entry over axes
-    of one rank; every other entry whole (the rows over 'data' in
-    serving)."""
-    m = sizes.get("model", 1)
-    kv_model = m == 1 or (heads and cfg.n_kv_heads % m == 0)
-
-    def keep(name, d, e, ndim):
-        if e is None:
-            return False
-        axes = shd._flat(e)
-        if all(sizes.get(a, 1) == 1 for a in axes):
-            return True                  # a split over one rank cuts nothing
-        if d == rows_dim(name, ndim):
-            return set(axes) <= set(keep_axes)
-        if name in KV_LEAVES and d == ndim - 2:
-            return kv_model
-        return True
-    return {name: shd.Spec(*(e if keep(name, d, e, len(spec)) else None
-                             for d, e in enumerate(spec)))
-            for name, spec in cspec.items()}
 
 
 def cache_seq(clayout: dict, sizes: dict):
@@ -152,21 +109,30 @@ class LocalPools:
     ``meta`` and allocates every leaf at its block under the plan's
     layout (a conv channel block of the flat ``d_inner + 2 G N`` has no
     config that describes it; the paged pools' in-block offsets split
-    where their positions do)."""
+    where their positions do). The slot dimension is cut only for the
+    plan's own slot count: a batch-1 prefill row, or a probe of another
+    batch size, keeps its rows."""
 
     def __init__(self, plan, model):
         self.plan, self.model = plan, model
         self.cfg = model.cfg
 
-    def _local(self, name: str, t: torch.Tensor, device) -> torch.Tensor:
-        return torch.zeros(self.plan.local_shape(name, t.shape),
+    def _local(self, name: str, t: torch.Tensor, device,
+               slots: bool = True) -> torch.Tensor:
+        return torch.zeros(self.plan.local_shape(name, t.shape, slots),
                            dtype=t.dtype, device=device)
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    device="cuda") -> dict:
         full = self.model.init_cache(batch, max_len, dtype, device="meta")
-        return {name: self._local(name, t, device)
+        slots = batch == self.plan.n_slots
+        return {name: self._local(name, t, device, slots)
                 for name, t in full.items()}
+
+    def held_slots(self, n_slots: int) -> range:
+        """The global slots of a pool of ``n_slots`` this rank holds
+        (``ServeSharding.held_slots``)."""
+        return self.plan.held_slots(n_slots)
 
     def init_paged_cache(self, n_blocks: int, block_size: int, dtype=None,
                          device="cuda") -> PagedCache:
@@ -189,12 +155,15 @@ class ServeSharding:
     param_pspec: object = field(default=None, repr=False)
     param_layout: object = field(default=None, repr=False)
     cache_layout: object = field(default=None, repr=False)
-    #: leaves held whole where the reference's spec splits them
-    #: ('/'-joined paths, per-layer leaves as layers/*/..., the pool's
-    #: leaves as cache/...)
+    #: leaves held whole where the reference's spec splits them: none,
+    #: every layout is the reference's spec
     held_replicated: tuple = ()
     #: the pools' global shape, each leaf's
     cache_shape: dict = field(default_factory=dict, repr=False)
+    #: the slot count the pool specs were made for, and whether the pool
+    #: is the paged one (whose block dimension a growth changes)
+    n_slots: int = 0
+    paged: bool = False
 
     def rules(self):
         """Context manager installing the logical-axis rules (and the
@@ -214,15 +183,32 @@ class ServeSharding:
         axis = self.cache_seq_axis
         return 1 if axis is None else self.axis_size(axis)
 
-    def local_shape(self, name: str, shape) -> tuple:
+    def local_shape(self, name: str, shape, slots: bool = True) -> tuple:
         """The shape of this rank's block of pool leaf ``name`` at global
-        ``shape`` (each dimension over the ranks its layout splits it)."""
+        ``shape`` (each dimension over the ranks its layout splits it; the
+        slot dimension whole unless ``slots``)."""
         sizes = axis_sizes(self.mesh)
         out = list(shape)
+        keep = None if slots else rows_dim(name, len(out))
         for d, entry in enumerate(self.cache_layout.get(name, ())):
             for a in shd._flat(entry):
-                out[d] //= sizes[a]
+                if d != keep:
+                    out[d] //= sizes[a]
         return tuple(out)
+
+    def held_slots(self, n_slots: int) -> range:
+        """The global slots of a contiguous pool of ``n_slots`` this rank
+        holds: its 'data' block of the plan's pool (the reference's block
+        layout of a ``P(..., "data", ...)`` dimension), every slot of a
+        whole pool, of the paged pool or of another slot count."""
+        name, spec = next(iter(self.cache_layout.items()))
+        entry = spec[rows_dim(name, len(spec))]
+        if self.paged or entry is None or n_slots != self.n_slots:
+            return range(n_slots)
+        d = self.axis_size(entry)
+        per = n_slots // d
+        r = self.mesh.coord("data")
+        return range(r * per, (r + 1) * per)
 
     def pools(self, model) -> LocalPools:
         """``model``'s pool constructors at this rank's blocks."""
@@ -255,12 +241,6 @@ class ServeSharding:
             return None
         import torch.distributed as dist
         return dist.get_backend(self.mesh.group(self.mesh.axis_names[0]))
-
-    @property
-    def splits_rows(self) -> bool:
-        """Whether decode buckets split over 'data' (attention families;
-        the others' pools keep their rows whole over 'data')."""
-        return self.cfg.family in ROW_FAMILIES and self.axis_size("data") > 1
 
     def replicated(self) -> shd.NamedSharding:
         """Fully replicated (the decode state: a few int32 a slot,
@@ -300,19 +280,21 @@ class ServeSharding:
 
     def reshard_cache(self, buffers):
         """The pool after a host-side write or a growth: every rank's
-        buffers are its own blocks already (the host loop writes the same
-        rows on every rank), so this checks each leaf against its layout
-        (every dimension but the slots' or blocks', which a growth
-        changes) and returns the buffers."""
+        buffers are its own blocks already (a row is written at its owner,
+        the paged pool on every rank), so this checks each leaf against
+        its layout (every dimension, but the paged pool's blocks, which a
+        growth changes) and returns the buffers."""
         for name, shape in self.cache_shape.items():
-            buf = buffers[name]
-            want = self.local_shape(name, shape)
-            rows = rows_dim(name, buf.dim())
-            got = tuple(buf.shape)
-            if got[:rows] + got[rows + 1:] != want[:rows] + want[rows + 1:]:
+            got, want = tuple(buffers[name].shape), self.local_shape(name,
+                                                                     shape)
+            if self.paged:
+                got, want = got[:1] + got[2:], want[:1] + want[2:]
+            if got != want:
                 raise RuntimeError(
-                    f"cache leaf {name} is {got} on this rank, the plan's "
-                    f"block {want} (slots or blocks aside)")
+                    f"cache leaf {name} is {tuple(buffers[name].shape)} on "
+                    f"this rank, the plan's block "
+                    f"{self.local_shape(name, shape)}"
+                    + (" (blocks aside)" if self.paged else ""))
         return buffers
 
 
@@ -322,31 +304,11 @@ def _at(tree, path):
     return tree
 
 
-def _replicated(ref, layout, sizes, prefix="") -> list:
-    """Paths whose layout spec dropped a mesh axis of more than one rank
-    from the reference's."""
-    if isinstance(ref, dict):
-        return [p for k in ref for p in _replicated(ref[k], layout[k], sizes,
-                                                    f"{prefix}{k}/")]
-    if isinstance(ref, list):
-        # one entry per distinct per-layer leaf: every layer is alike
-        found = []
-        for i in range(len(ref)):
-            for p in _replicated(ref[i], layout[i], sizes, prefix + "*/"):
-                if p not in found:
-                    found.append(p)
-        return found
-    kept = {a for e in layout for a in shd._flat(e)}
-    dropped = {a for e in ref for a in shd._flat(e)} - kept
-    return [prefix[:-1]] if any(sizes[a] > 1 for a in dropped) else []
-
-
 def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
                         cache: str = "contiguous", block_size: int = 16,
                         n_blocks=None) -> ServeSharding:
     """Build the sharding plan for a pooled serve engine (the reference's
-    table, param and cache specs; the port's realized layout beside
-    them)."""
+    table, param and cache specs, and the port's layout of them)."""
     mesh = mesh if mesh is not None else make_host_mesh()
     sizes = axis_sizes(mesh)
     table = shd.production_rules_table("pod" in mesh.axis_names)
@@ -355,7 +317,6 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
 
     with shd.axis_rules(mesh, table) as rules:
         pspec = shd.param_pspecs(param_shapes(cfg), rules)
-        heads = L.heads_sharded(cfg)
 
     paged = cache == "paged"
     if paged and n_blocks is None:
@@ -365,13 +326,6 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
     cspec = cache_pspecs(cfg, cshape, mesh, seq_shard=False, batch=n_slots,
                          paged=paged)
 
-    m = sizes["model"]
-    layout = shd.tree_map_with_path(
-        lambda path, s: realized(next(
-            (k for k in reversed(path) if isinstance(k, str)), ""), s, m),
-        pspec)
-    # the pools: whole over 'data'; every split over 'model'
-    clayout = cache_layout(cfg, cspec, sizes, heads)
     return ServeSharding(
         mesh=mesh,
         table=table,
@@ -380,12 +334,11 @@ def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,
         cache_pspec=cspec,
         cfg=cfg,
         param_pspec=pspec,
-        param_layout=layout,
-        cache_layout=clayout,
-        held_replicated=tuple(
-            _replicated(pspec, layout, sizes)
-            + [f"cache/{p}" for p in _replicated(cspec, clayout, sizes)]),
+        param_layout=pspec,
+        cache_layout=cspec,
         cache_shape=cshape,
+        n_slots=n_slots,
+        paged=paged,
     )
 
 

@@ -7,7 +7,8 @@ each; "cuda": every rank on cuda:0), rendezvous at
 shape the scenarios name, runs every scenario in order and pickles its
 results to ``OUTDIR/rank<r>.pkl``. A scenario is a sharded engine run
 (the full params as numpy leaves, the request set, engine options, an
-optional fault spec) or a ``Model.forward`` under the rules against the
+optional fault spec; a tracer records the host loop's dispatches) or a
+``Model.forward`` under the rules against the
 off-mesh forward, or (kind "capture") a collective issued inside a CUDA
 graph capture, which must raise. Imports no jax: the caller holds the
 results to the JAX package.
@@ -30,11 +31,10 @@ def _engine_run(sc, cfg, params, mesh, device):
     from repro_torch.serve import (FaultInjector, FaultSchedule,
                                    ServeRequest, sharded_engine)
     kw = dict(sc.get("engine", {}))
-    tracer = None
     if sc.get("faults"):
         kw["injector"] = FaultInjector(FaultSchedule.from_spec(sc["faults"]),
                                        seed=0)
-        kw["tracer"] = tracer = Tracer()
+    kw["tracer"] = tracer = Tracer()
     eng = sharded_engine(cfg, params=params, mesh=mesh, device=device, **kw)
     reqs = [ServeRequest(np.asarray(p, np.int32).copy(), max_new_tokens=m,
                          arrival_time=a) for p, m, a in sc["requests"]]
@@ -47,9 +47,9 @@ def _engine_run(sc, cfg, params, mesh, device):
     out, stats = eng.run(reqs)
     launches = {f.__name__: n for (f, _), n in zip(ops.COUNTERS, ops.counts())}
     partial_plain = {f.__name__: f.plain_calls for f in partial}
-    scales = ([(e["ev"], e.get("dmult")) for e in tracer.events
-               if e["ev"] in ("scale_up", "scale_down")]
-              if tracer is not None else [])
+    ev = tracer.events
+    scales = [(e["ev"], e.get("dmult")) for e in ev
+              if e["ev"] in ("scale_up", "scale_down")]
     return dict(
         tokens=[list(map(int, r.output)) for r in out],
         decode_rows_saved=stats.decode_rows_saved,
@@ -59,7 +59,20 @@ def _engine_run(sc, cfg, params, mesh, device):
         held=list(eng.sharding.held_replicated),
         cache_seq=eng.sharding.cache_seq_axis,
         collectives=dict(shd.STATS), scales=scales, launches=launches,
-        partial_plain=partial_plain)
+        partial_plain=partial_plain, work=dict(eng.work),
+        pool_shapes={k: tuple(eng.pool.buffers[k].shape)
+                     for k in eng.sharding.cache_shape},
+        held_slots=(list(eng.pool.held) if hasattr(eng.pool, "held")
+                    else None),
+        pool_axes=getattr(eng.pool, "batch_axes", None),
+        # the host loop's dispatches, the same on every rank: a decode
+        # horizon's bucket rows times its steps, a paged round's width, a
+        # contiguous prompt
+        rows_total=sum(e["width"] * e["k"] for e in ev
+                       if e["ev"] == "decode_horizon"),
+        lanes_total=sum(e["width"] if e["ev"] == "prefill_round" else 1
+                        for e in ev if e["ev"] in ("prefill",
+                                                   "prefill_round")))
 
 
 def _capture(sc, cfg, params, mesh, device):

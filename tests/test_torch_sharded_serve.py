@@ -15,7 +15,11 @@ KV heads do not divide 'model', so the pools' positions split over it and
 decode runs kv-seq, nothing held whole; qwen2 with 6 q heads on mesh
 (1, 4) (contiguous), whose prompts of a length 4 divides prefill q-seq;
 a ``device_fail`` / ``device_join`` pair under which ``dmult`` collapses
-and comes back; the recurrent families tensor-parallel over 'model':
+and comes back, on both caches; the contiguous pools' slots over 'data'
+(qwen2 and mamba2 on mesh (4, 1), 2 slots a rank, a rank with no live row
+in a bucket computing padding); olmoe with 6 experts on mesh (1, 4), whose
+expert FFNs split by width; the recurrent families tensor-parallel over
+'model':
 mamba2 on (2, 2) and (1, 4), zamba2 and whisper on (2, 2) (request set
 ``ssm``) and with 6 heads and 6 KV heads on (1, 4), whose self-attention
 pools split by position (kv-seq) while whisper's cross attention gathers
@@ -99,6 +103,23 @@ SCENARIOS = {
     "whisper-h6-1x4": ("whisper-large-v3", "whisper-h6", (1, 4),
                        "contiguous", "ssm", dict(n_slots=8, max_len=32),
                        None),
+    # the contiguous pools' slots over 'data', 2 a rank: the first
+    # bucket's live rows both sit on rank 0, ranks 2 and 3 own none
+    "qwen2-contiguous-4x1": ("qwen2-0.5b", "qwen2-0.5b", (4, 1),
+                             "contiguous", "bucketed", BUCKETED, None),
+    "mamba2-4x1": ("mamba2-780m", "mamba2-780m", (4, 1), "contiguous",
+                   "ssm", dict(n_slots=8, max_len=32), None),
+    # dmult collapses to 1: the buckets narrow, each row still decodes at
+    # its slot's rank
+    "qwen2-contiguous-device-fail": (
+        "qwen2-0.5b", "qwen2-0.5b", (2, 2), "contiguous", "bucketed",
+        dict(BUCKETED, decode_horizon=2),
+        "device_fail@2:blocks=0:restore_after=3"),
+    # 6 experts on 'model' 4: the expert FFNs split by width
+    "olmoe-e6-1x4": ("olmoe-1b-7b", "olmoe-e6", (1, 4), "contiguous",
+                     "bucketed", BUCKETED, None),
+    "olmoe-e6-paged-1x4": ("olmoe-1b-7b", "olmoe-e6", (1, 4), "paged",
+                           "bucketed", BUCKETED, None),
 }
 #: the JAX single-device run each scenario is held to:
 #: (arch, request set, engine options)
@@ -116,18 +137,23 @@ REFS = {
     "zamba2-h6-ssm": ("zamba2-7b", "ssm", dict(max_len=32)),
     "whisper-ssm": ("whisper-large-v3", "ssm", dict(max_len=32)),
     "whisper-h6-ssm": ("whisper-large-v3", "ssm", dict(max_len=32)),
+    "olmoe-e6-bucketed": ("olmoe-1b-7b", "bucketed",
+                          dict(max_len=32, decode_horizon=1)),
 }
 H6 = dict(n_heads=6, n_kv_heads=6)
+E6 = dict(n_experts=6)
 #: config overrides of a params tree and of the JAX run held to it
 OVERRIDES = {"qwen2-pad8": dict(pad_q_heads=8), "qwen2-h6": dict(n_heads=6),
              "qwen2-h6-bucketed": dict(n_heads=6), "zamba2-h6": H6,
-             "zamba2-h6-ssm": H6, "whisper-h6": H6, "whisper-h6-ssm": H6}
+             "zamba2-h6-ssm": H6, "whisper-h6": H6, "whisper-h6-ssm": H6,
+             "olmoe-e6": E6, "olmoe-e6-bucketed": E6}
 #: the arch of each params tree drawn at its overrides
 OVERRIDDEN = {"qwen2-h6": "qwen2-0.5b", "zamba2-h6": "zamba2-7b",
-              "whisper-h6": "whisper-large-v3"}
+              "whisper-h6": "whisper-large-v3", "olmoe-e6": "olmoe-1b-7b"}
 #: the params tree of each JAX run with overrides
 REF_PARAMS = {"qwen2-h6-bucketed": "qwen2-h6", "zamba2-h6-ssm": "zamba2-h6",
-              "whisper-h6-ssm": "whisper-h6"}
+              "whisper-h6-ssm": "whisper-h6",
+              "olmoe-e6-bucketed": "olmoe-e6"}
 REF_OF = {
     "qwen2-contiguous-decode": "qwen2-decode",
     "qwen2-contiguous": "qwen2-bucketed", "qwen2-paged": "qwen2-bucketed",
@@ -142,6 +168,10 @@ REF_OF = {
     "mamba2-1x4": "mamba2-ssm", "zamba2-2x2": "zamba2-ssm",
     "zamba2-h6-1x4": "zamba2-h6-ssm", "whisper-2x2": "whisper-ssm",
     "whisper-h6-1x4": "whisper-h6-ssm",
+    "qwen2-contiguous-4x1": "qwen2-bucketed", "mamba2-4x1": "mamba2-ssm",
+    "qwen2-contiguous-device-fail": "qwen2-bucketed",
+    "olmoe-e6-1x4": "olmoe-e6-bucketed",
+    "olmoe-e6-paged-1x4": "olmoe-e6-bucketed",
 }
 
 
@@ -280,9 +310,10 @@ def test_sharded_engine_matches_jax_single_device(runs, name):
 
 def test_device_fail_collapses_and_join_restores_dmult(runs):
     ranks, _ = runs
-    res = ranks[0]["qwen2-device-fail"]
-    assert res["scales"] == [("scale_down", 1), ("scale_up", 2)]
-    assert (res["scale_downs"], res["scale_ups"]) == (1, 1)
+    for name in ("qwen2-device-fail", "qwen2-contiguous-device-fail"):
+        res = ranks[0][name]
+        assert res["scales"] == [("scale_down", 1), ("scale_up", 2)], name
+        assert (res["scale_downs"], res["scale_ups"]) == (1, 1), name
 
 
 #: the runs of the recurrent families, tensor-parallel over 'model'
@@ -329,34 +360,51 @@ def test_seq_sharded_runs_take_the_partial_paths(runs):
 
 
 def test_held_replicated_leaves(runs):
-    """The leaves the port holds whole where the reference's spec splits
-    them (ROADMAP: open layout work)."""
+    """No rank of any scenario holds a leaf whole where the reference's
+    spec splits it, and each rank's contiguous pool holds its block of
+    ``n_slots / d`` slots (ROADMAP A10)."""
     ranks, _ = runs
-    pool = ["cache/k", "cache/v"]
-    assert ranks[0]["qwen2-contiguous"]["held"] == pool
-    assert ranks[0]["qwen2-paged"]["held"] == []
-    assert ranks[0]["olmoe-paged"]["held"] == []
-    # mesh (1, 4): the KV heads split flat and the pools' positions over
-    # 'model', unpadded and padded, on both caches
-    for name in ("qwen2-pad8-paged", "qwen2-pad8-contiguous",
-                 "qwen2-paged-1x4", "qwen2-contiguous-1x4",
-                 "qwen2-h6-contiguous", "mamba2-1x4", "zamba2-h6-1x4",
-                 "whisper-h6-1x4"):
-        assert ranks[0][name]["held"] == [], name
-    # mesh (2, 2): every 'model' split realized; the pools' rows over
-    # 'data' stay whole (the recurrent families split no decode rows)
-    assert ranks[0]["mamba2-contiguous"]["held"] == ["cache/conv",
-                                                     "cache/ssm"]
-    assert ranks[0]["zamba2-2x2"]["held"] == [
-        f"cache/{n}" for n in ("attn_k", "attn_v", "gconv", "gssm",
-                               "tconv", "tssm")]
-    assert ranks[0]["whisper-2x2"]["held"] == [
-        f"cache/{n}" for n in ("k", "v", "ck", "cv")]
+    for name, (_, _, mesh, cache, _, kw, _) in SCENARIOS.items():
+        d, m = mesh
+        n = kw["n_slots"]
+        for rank, res in enumerate(ranks):
+            x = res[name]
+            assert x["held"] == [], (name, rank)
+            if cache == "contiguous":
+                per = n // d
+                r = rank // m
+                assert x["held_slots"] == list(range(r * per, (r + 1) * per))
+                for leaf, shape in x["pool_shapes"].items():
+                    assert shape[x["pool_axes"][leaf]] == per, (name, leaf)
     # 6 KV heads on 'model' 4: the self-attention pools' positions split
     for res in ranks:
         for name in RECURRENT:
             want = "model" if name.endswith("h6-1x4") else None
             assert res[name]["cache_seq"] == want, name
+
+
+def test_data_ranks_split_the_work(runs):
+    """Summed over the 'data' ranks (each with the rows that every 'data'
+    rank computed whole counted once), the decode rows and the prefill
+    lanes are the host loop's, and the decode tokens the JAX engine's. A
+    contiguous pool split over 'data' computes every decode row at one
+    rank (a rank may own none: qwen2 and mamba2 on (4, 1)); the paged runs
+    split their prefill rounds."""
+    ranks, refs = runs
+    for name, (_, _, mesh, cache, _, _, _) in SCENARIOS.items():
+        d, m = mesh
+        got = [ranks[r * m][name] for r in range(d)]
+        ref = refs[REF_OF[name]]
+        want = {"rows": got[0]["rows_total"], "lanes": got[0]["lanes_total"],
+                "tokens": sum(len(t) for t in ref) - len(ref)}
+        for key, total in want.items():
+            parts = sum(x["work"].get(key, 0) for x in got)
+            assert parts + got[0]["work"].get(key + "_whole", 0) == total, (
+                name, key)
+        if d > 1 and cache == "contiguous":
+            assert got[0]["work"].get("rows_whole", 0) == 0, name
+        if d > 1 and cache == "paged":
+            assert all(x["work"]["lanes"] > 0 for x in got), name
 
 
 def test_forward_under_rules_matches_off_mesh(runs):

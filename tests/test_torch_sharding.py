@@ -28,7 +28,7 @@ from repro_torch.launch.dryrun import cache_pspecs
 from repro_torch.launch.mesh import axis_sizes, make_host_mesh
 from repro_torch.models.convert import jax_layout
 from repro_torch.serve.sharded import (cache_shapes, make_serve_sharding,
-                                       param_shapes)
+                                       param_shapes, rows_dim)
 
 MESHES = [(4, 2), (2, 4), (8, 1), (1, 8)]
 NAMES = ("data", "model")
@@ -230,25 +230,13 @@ def test_serve_sharding_table_and_specs(arch):
     assert table["kv_seq"] == ("model" if retarget else None)
 
 
-def _width_split(name, spec) -> bool:
-    """A fused expert leaf the sanitizer splits by width over 'model' (its
-    experts do not divide 'model'): the port holds it whole."""
-    return (name in ("we_gate_up", "we_down") and spec[-3] != "model"
-            and any("model" in shd._flat(e) for e in spec))
-
-
-def _model(spec) -> list:
-    return ["model" in shd._flat(e) for e in spec]
-
-
 @pytest.mark.parametrize("shape", MESHES)
 @pytest.mark.parametrize("arch", CACHE_ARCHS)
 def test_plan_realizes_the_reference_layout(arch, shape):
     """Each family's plan at smoke size: every parameter leaf runs at the
-    reference plan's spec (but a fused expert leaf split by width, held
-    whole: olmoe's 4 experts on 'model' 8), every pool leaf splits over
-    'model' where ``cache_pspecs`` does, and on a 'model'-only mesh
-    nothing else is held whole."""
+    reference plan's spec (a fused expert leaf split by width too:
+    olmoe's 4 experts on 'model' 8), every pool leaf at ``cache_pspecs``'
+    spec (the slots over 'data' too), and nothing is held whole."""
     cfg, jcfg = get_config(arch, smoke=True), jax_config(arch, smoke=True)
     plan = make_serve_sharding(cfg, 8, 32, pmesh(shape))
     ref = jax_plan(jcfg, 8, 32, jmesh(shape))
@@ -260,19 +248,53 @@ def test_plan_realizes_the_reference_layout(arch, shape):
         _stacked(plan.param_layout), is_leaf=is_spec)[0]
     want = jax.tree_util.tree_flatten_with_path(want, is_leaf=is_spec)[0]
     assert [p for p, _ in got] == [p for p, _ in want]
-    held = set()
     for (path, g), (_, w) in zip(got, want):
-        name = path[-1].key
-        if _width_split(name, w):
-            held.add(name)
-            assert not any(_model(g)), (name, g)
-        else:
-            assert g == w, (name, g, w)
-    assert set(plan.cache_layout) == set(plan.cache_pspec)
-    for name, spec in plan.cache_pspec.items():
-        assert _model(plan.cache_layout[name]) == _model(spec), name
-    if shape[0] == 1:
-        assert {p.rsplit("/", 1)[-1] for p in plan.held_replicated} == held
+        assert g == w, (path[-1].key, g, w)
+    assert plan.cache_layout == _tuple(ref.cache_pspec)
+    assert plan.held_replicated == ()
+
+
+#: the meshes every registered configuration's serve plan is held on
+PLAN_MESHES = [(2, 1), (2, 2), (4, 2), (1, 8)]
+
+
+def _block(shape, spec, sizes) -> tuple:
+    """The block of a leaf of global ``shape`` one rank holds under
+    ``spec`` (each dimension over the ranks of its entry's axes)."""
+    out = []
+    for n, entry in zip(shape, spec):
+        for a in shd._flat(entry):
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_plan_holds_nothing_whole(arch):
+    """Every registered configuration at full width, 8 slots, on each of
+    ``PLAN_MESHES`` and both caches where its family serves on both: the
+    plan holds nothing whole, and each contiguous pool leaf's local shape
+    is its block of the reference's ``cache_pspecs`` (the slots over
+    'data', a rank ``8 / d`` of them)."""
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    caches = (["contiguous", "paged"] if cfg.family in ("dense", "vlm", "moe")
+              else ["contiguous"])
+    jshape = jax_cache_specs(jcfg, 8, 256)
+    for shape in PLAN_MESHES:
+        plans = {cache: make_serve_sharding(cfg, 8, 256, pmesh(shape),
+                                            cache=cache) for cache in caches}
+        for cache, plan in plans.items():
+            assert plan.held_replicated == (), (shape, cache)
+        plan = plans["contiguous"]
+        want = jax_cache_pspecs(jcfg, jshape, jmesh(shape), seq_shard=False,
+                                batch=8)
+        assert set(plan.cache_shape) == set(want)
+        for name, spec in want.items():
+            block = _block(jshape[name].shape, tuple(spec),
+                           dict(zip(NAMES, shape)))
+            local = plan.local_shape(name, plan.cache_shape[name])
+            assert local == block, (shape, name)
+            assert local[rows_dim(name, len(local))] == 8 // shape[0]
 
 
 @pytest.mark.parametrize("shape,held", [((4, 2), False), ((2, 4), True),

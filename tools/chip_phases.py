@@ -11,8 +11,9 @@ query offset, flash and the SSD scan against their plain versions and
 prints the
 ``kernels`` record of those timed cases (no launch counts: no engine runs);
 ``sharded`` draws the engine phase's seed-0 qwen2-0.5b weights and runs
-the sharded phase (two ranks on meshes (1, 2) and (2, 1), with the
-recurrent families and mamba2-780m's forward on (1, 2), four on (1, 4)),
+the sharded phase (two ranks on meshes (1, 2) and (2, 1): qwen2-0.5b paged
+on both and contiguous on (2, 1), mamba2-780m on both, zamba2-7b, whisper
+and mamba2-780m's forward on (1, 2); four on (1, 4)),
 printing its lines and each kernel's launches by path. Prints the card's
 name and power limit first. The functions are ``chip_smoke.py``'s, so a
 reading here is the full script's, minus the phases before it.
