@@ -64,17 +64,21 @@ Phases, each printed as it runs; any failure exits non-zero:
                  flash also at whisper-large-v3's decoder shape ([1, 448,
                  20, 64], causal, G 1, a partial row tile), timed beside
                  its bound and SDPA; then the two backward kernels (no TPU
-                 kernel has one; tensor cores, three TF32 passes), through
+                 kernel has one; tensor cores, three TF32 passes for f32,
+                 one bf16 pass for bf16), through
                  the autograd Functions of
                  ops.flash_attention and ops.ssd_scan, against autograd of
                  the plain versions (each gradient's largest error over its
-                 largest value: 2e-5 for flash, 5e-4 for the SSD scan):
-                 flash at phi-3-vision-4.2b's train step ([2, 1024, 32,
-                 96]), olmoe-1b-7b's [1, 256, 16, 128] and
+                 largest value: 2e-5 for flash in f32 and 2e-2 in bf16,
+                 against the plain version on the bf16 inputs upcast to
+                 f32; 5e-4 for the SSD scan):
+                 flash in f32 and in bf16 at phi-3-vision-4.2b's train step
+                 ([2, 1024, 32, 96]), olmoe-1b-7b's [1, 256, 16, 128] and
                  whisper-large-v3's [1, 448, 20, 64], each timed beside its
                  bound, the plain backward and SDPA's forward +
-                 autograd.grad, a GQA / window / ragged-S edge and D 128
-                 with GQA 16/4 and a window; the SSD scan at mamba2-780m's
+                 autograd.grad in the same dtype, a GQA / window / ragged-S
+                 edge and D 128 with GQA 16/4 and a window; the SSD scan at
+                 mamba2-780m's
                  train step ([2, 4096, 48, 64], N 128) and zamba2-7b's ([1,
                  4096, 112, 64], N 64), timed beside the bound and the
                  plain backward (no library time), the smoke widths and a
@@ -105,8 +109,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                  the same paths on the CPU (plain versions, which the CPU
                  tests hold against the JAX package); each decode chain
                  also against its forward's logits (2e-3);
-  5. engine    — the full-width qwen2-0.5b paged engine (24 layers, random
-                 weights from a seed) built by repro_torch.launch.serve's own
+  5. engine    — the full-width qwen2-0.5b paged engine (12 of its 24
+                 layers, random weights from a seed) built by repro_torch.launch.serve's own
                  build function: 16 requests of 128-256 tokens after a shared
                  64-token prefix, 64 new tokens each, 8 slots, 4 prefill
                  lanes, decode horizon 8, block 16, max_len 1024, float32.
@@ -192,7 +196,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                  both ranks on cuda:0, each drawing the engine phase's
                  seeded weights and keeping its own blocks; the plan's
                  programs run eager, gloo collectives cannot be captured).
-                 First mesh (1, 2) at full width: each rank holds 7 of the
+                 First mesh (1, 2) at full width and the engine phase's
+                 12 layers: each rank holds 7 of the
                  14 q heads and 1 of the 2 KV heads, half the vocabulary
                  and half of every MLP, and serves the engine phase's
                  paged request set cut to 8 requests and 32 new tokens;
@@ -214,7 +219,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                  4), where 'model' divides neither the 14 q heads nor the
                  2 KV heads: the attention leaves split flat and the
                  pools' positions over 'model' (nothing held whole), at
-                 full width the paged engine on the same request set (a
+                 full width and 6 of the 24 layers the paged engine on
+                 the same request set (a
                  rank holds 4 of every block's 16 offsets; decode and
                  prefill chunks run kv-seq: the paged kernels' partial
                  mode, merge_partials), and the contiguous engine at 4
@@ -228,13 +234,13 @@ Phases, each printed as it runs; any failure exits non-zero:
                  mesh (1, 2) (serve/sharded.py, models/mamba2.py): the
                  fused in_proj split flat, the conv over its channels, the
                  SSM states over their heads, the K/V by head:
-                 mamba2-780m at full width and depth (a rank holds 24 of
-                 the 48 SSM heads), zamba2-7b at full width and 12 of its
-                 81 Mamba2 blocks (two shared-block calls),
-                 whisper-large-v3 at full width and 4 of its 32 decoder
-                 layers, each on 4 slots serving 6 requests of 8-16
+                 mamba2-780m at full width and 12 of its 48 layers (a
+                 rank holds 24 of the 48 SSM heads), zamba2-7b at full
+                 width and 6 of its 81 Mamba2 blocks (one shared-block
+                 call), whisper-large-v3 at full width and 2 of its 32
+                 decoder layers, each on 4 slots serving 6 requests of 8-16
                  prompt tokens and 4-12 new ones, and mamba2-780m at full
-                 width and depth on mesh (2, 1) (2 of the 4 slots' states
+                 width and 24 of its 48 layers on mesh (2, 1) (2 of the 4 slots' states
                  a rank, each bucket row stepped at its slot's rank);
                  every rank's tokens
                  equal the single-process eager run's, collectives issued
@@ -242,7 +248,7 @@ Phases, each printed as it runs; any failure exits non-zero:
                  kernel and no plain version launched (serving steps the
                  decode, as in the reference); then mamba2-780m's forward
                  on [1, 512] tokens under the (1, 2) rules: the SSD kernel
-                 48 times a rank at 24 heads, no plain version, logits
+                 once a layer a rank at 24 heads, no plain version, logits
                  within 3e-4 of the largest |logit| of the single-process
                  forward (printed beside that forward's own gap when only
                  the scan's rounding changes). No rank of any run holds a
@@ -258,9 +264,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  single-process, and the phase's seconds. A rank that
                  fails fails the phase;
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
-                 contiguous engine (64 experts top-8) cut to 8 of its 16
-                 layers (~3.5 B float32 weights from a seed; 16 until the
-                 gemma3 phase came), its three runs as in phase 5:
+                 contiguous engine (64 experts top-8) cut to 4 of its 16
+                 layers (float32 weights from a seed; 16 until the gemma3
+                 phase came, then 8), its three runs as in phase 5:
                  8 requests of 64-128 tokens, 64 new tokens each, 4 slots,
                  decode horizon 8, max_len 256. Every layer of every prefill
                  (eager: each prompt at its exact length) must launch the
@@ -270,7 +276,7 @@ Phases, each printed as it runs; any failure exits non-zero:
                  does): it launches 0 times on both paths. Then the profile
                  of phase 6 over the same requests;
   8. olmoe paged — the full-width olmoe-1b-7b paged engine on the same
-                 weights (8 layers): 8 requests of 64-128 tokens after a
+                 weights (4 layers): 8 requests of 64-128 tokens after a
                  shared 32-token prefix (two full blocks), 64 new tokens
                  each, 4 slots, 4 prefill lanes, horizon 8, block 16,
                  max_len 256;
@@ -297,10 +303,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  horizon 8, block 16, max_len 512, its three runs and a
                  profiled replayed run as in phase 8;
      synergy   — with the phase's weights freed, one Trainer of
-                 phi-3-vision-4.2b at full width, 16 of its 32 layers (32
-                 until the gemma3 phase came), with remat "full" (seeded
-                 weights, AdamW: ~31 GB of f32 weights, gradients and
-                 moments), and the Synergy optimistic profiler
+                 phi-3-vision-4.2b at full width, 8 of its 32 layers (32
+                 until the gemma3 phase came, then 16), with remat "full"
+                 (seeded f32 weights, gradients and AdamW moments), and the Synergy optimistic profiler
                  (repro_torch.core.profiler, the paper's ServerSpec and the
                  default ProfilerConfig) live on the card for a 1-GPU
                  phi-3-vision-4.2b job of resnet18's workload class (image,
@@ -332,6 +337,25 @@ Phases, each printed as it runs; any failure exits non-zero:
                  Synergy-OPT on 4 servers and 40 jobs; every job must
                  finish and tune keep within 3% of proportional's average
                  JCT and 5% of its makespan;
+     train-bf16 — phi-3-vision-4.2b in bf16 (dtype and param_dtype, the
+                 dry-run's train overrides) at full width and depth (32
+                 layers, d_model 3072, 32 heads of 96, 3.82 B parameters,
+                 7.6 GB of weights from a seed), remat "full", on [2, 1024]
+                 tokens with [2, 576, 3072] patch embeddings (bf16 values):
+                 first one forward and backward against the same step in
+                 f32 on the same values (the f32 weights the bf16 ones
+                 upcast, full depth), both through the flash kernels
+                 (forward 64 launches, backward 32, plain 0); fails unless
+                 the losses agree within 1e-2 relative and every leaf's
+                 gradient cosine is at least 0.99 (the gap and the lowest
+                 cosine printed). Then a Trainer (AdamW, lr 3e-4 after a
+                 one-step warm-up) takes a warm step and 4 timed steps on
+                 that batch; fails unless flash launches 64 times a step
+                 (forward and recomputed) and its bf16 backward 32 times,
+                 the plain version never, the params stay bf16 and every
+                 loss and gradient norm is finite, and the loss falls.
+                 Prints ms a step, tokens/s, the peak memory and the
+                 losses;
  10. mamba2    — with the phi-3-vision engine freed, full-width
                  mamba2-780m (48 layers, d_model 1536, 48 SSM heads of 64, state 128, ~780 M
                  float32 weights from a seed): Model.forward and Model.loss
@@ -340,15 +364,17 @@ Phases, each printed as it runs; any failure exits non-zero:
                  recurrent decode steps on a [1, 256] prefix against the
                  forward's logits there (2e-3), then torch.profiler over one
                  more forward;
- 11. mamba2 engine — the full-width mamba2-780m contiguous engine, its three
+ 11. mamba2 engine — the full-width mamba2-780m contiguous engine at 12 of
+                 its 48 layers (48 until the train-bf16 phase came, then
+                 24), its three
                  runs as in phase 5: 4 requests of 64-128 tokens, 32 new
                  tokens each, 4 slots, decode horizon 8, max_len 256 (8
                  requests until the sharded phase came: the script keeps
                  to its time). Its prefill replays one captured batch-1
                  decode step per prompt token, so the SSD kernel launches 0
                  times here, as in the reference. Then the profile of
-                 phase 6 over the same requests (~2000 kernel launches a
-                 step);
+                 phase 6 over the same requests (~500 kernel launches a
+                 step at 12 layers);
  11b. train    — launch/train.py's build_cfg("mamba2-780m", "full") with
                  remat "full" (the CLI has no remat flag, as the reference's
                  has none) and a DataPipeline of one batch of [2, 4096]
@@ -387,9 +413,10 @@ Phases, each printed as it runs; any failure exits non-zero:
                  version never); the forward again with the scan's plain
                  version on the card; 128 decode steps against both
                  forwards' logits (held to 2e-3 against the kernel's);
-     zamba2 engine — its contiguous engine on the same weights cut to 27
-                 of the 81 Mamba2 blocks (4 shared-block calls and the 3
-                 trailing blocks; 81 until the gemma3 phase came), three
+     zamba2 engine — its contiguous engine on the same weights cut to 15
+                 of the 81 Mamba2 blocks (2 shared-block calls and the 3
+                 trailing blocks; 81 until the gemma3 phase came, then
+                 27), three
                  runs as in phase 5 (8 requests of 32-64 tokens, 32 new
                  tokens each, 4 slots, horizon 8, max_len 256; the prefill
                  replays a captured batch-1 decode step a token, so the
@@ -403,20 +430,22 @@ Phases, each printed as it runs; any failure exits non-zero:
                  cross attention run plain mha, as in the reference), the
                  forward again with flash's plain version, then
                  prefill_cross_kv and 64 decode steps against both (2e-3);
-     whisper engine — its contiguous engine on the same weights, cut to 16
-                 of the 32 decoder layers (32 until the gemma3 phase came),
+     whisper engine — its contiguous engine on the same weights, cut to 8
+                 of the 32 decoder layers (32 until the gemma3 phase came,
+                 then 16),
                  text only as in the reference (cross K/V zero), the
                  zamba2 engine's
                  request set at max_len 448: three runs (flash launches 0
                  times) and a profiled replayed run;
- 13b. gemma3-27b — with whisper freed, full-width gemma3-27b in bf16 (62
-                 layers, d_model 5376, 32/16 heads of 128, d_ff 21504,
-                 vocab 262144 tied, window 1024 with every 6th layer
-                 global; 27.0 B parameters, 54.0 GB drawn from a seed on
-                 the card): its paged engine (the serve CLI's build over
+ 13b. gemma3-27b — with whisper freed, full-width gemma3-27b in bf16 cut
+                 to 12 of its 62 layers (d_model 5376, 32/16 heads of 128,
+                 d_ff 21504, vocab 262144 tied, window 1024 with every 6th
+                 layer global, so 2 global layers; 62 until the script
+                 overran its time on a slower host; the weights drawn from
+                 a seed on the card): its paged engine (the serve CLI's build over
                  the bf16 config: the CLI has no dtype flag, as the
                  reference's has none):
-                 6 requests of 1100-1400 tokens after a shared 64-token
+                 5 requests of 1100-1400 tokens after a shared 64-token
                  prefix, 32 new tokens each, 4 slots, 4 lanes, horizon 8,
                  block 16, max_len 1536, through run_paged_engine (three
                  runs, the checks of phase 5, a profiled replayed run);
@@ -455,7 +484,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                  then the graphs_vs_eager summary line.
 
 The last two lines are the kernels record (one entry per TPU kernel and
-per backward kernel, its launches summed over the paths that run it, by
+per backward kernel, the flash backward once in f32 and once in bf16
+(``flash_attention_backward_bf16``, launched by the train-bf16 phase),
+its launches summed over the paths that run it, by
 path in ``launches_by_path``, the other shapes in ``other_shapes``) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -534,6 +565,10 @@ ENGINE_ARGS = ["--arch", "qwen2-0.5b", "--preset", "full", "--engine",
                "--decode-horizon", "8", "--seed", "0", "--device", "cuda"]
 #: the sampled phase's request set
 SAMPLED_ARGS = ENGINE_ARGS + ["--batch", "8", "--max-new", "16"]
+#: the depth every qwen2-0.5b engine of the engine, sampled, chaos, obs
+#: and sharded phases serves at: 12 of its 24 layers (24 until the script
+#: overran its time on a slower host; the width stays whole)
+Q_ENGINE_LAYERS = 12
 OLMOE_ARGS = ["--arch", "olmoe-1b-7b", "--preset", "full", "--engine",
               "continuous", "--cache", "contiguous", "--slots", "4",
               "--batch", "8", "--prompt-len", "128", "--max-new", "64",
@@ -557,12 +592,17 @@ OL_H, OL_D, OL_E, OL_C, OL_DM, OL_F = 16, 128, 64, 40, 2048, 1024
 PHI_H, PHI_D, PHI_S, PHI_P = 32, 96, 1024, 576
 #: gemma3-27b served in bf16 (the gemma3 phase): q / kv heads, head_dim,
 #: the local layers' window, max_len, slots and prefill lanes; its request
-#: set (6 requests of 1100-1400 tokens after a shared 64-token prefix, 32
-#: new tokens each, so the prompts pass the window and freed slots are
-#: reused) and the banded-against-scanned forward's length
+#: set (5 requests of 1100-1400 tokens after a shared 64-token prefix, 32
+#: new tokens each, so the prompts pass the window and a freed slot is
+#: reused; 6 until the train-bf16 phase came) and the banded-against-scanned
+#: forward's length
 G3_H, G3_KV, G3_D, G3_W, G3_MAX_LEN, G3_SLOTS, G3_LANES = (32, 16, 128, 1024,
                                                           1536, 4, 4)
-G3_N, G3_PREFIX, G3_LENGTHS, G3_NEW, G3_S = 6, 64, (1100, 1400), 32, 4096
+G3_N, G3_PREFIX, G3_LENGTHS, G3_NEW, G3_S = 5, 64, (1100, 1400), 32, 4096
+#: the depth gemma3-27b serves at: 12 of its 62 layers (layers 6 and 12
+#: global, the rest local; 62 until the script overran its time on a
+#: slower host), at full width
+G3_LAYERS = 12
 #: the largest |logit| share within which the banded forward must agree
 #: with the scanned one, and beyond which a forward's top-2 margin holds the
 #: paged engine's first token (bf16: ~3 significant digits)
@@ -596,6 +636,9 @@ SHARD_TIMEOUT = 400
 #: 4 of each block's 16 offsets), the contiguous run's depth and its
 #: prompts' lengths, each a multiple of 4 so every prefill runs q-seq
 SEQ_M, SEQ_CONTIG_LAYERS = 4, 4
+#: the paged (1, 4) run's depth: 6 of qwen2-0.5b's 24 layers (24 until the
+#: train-bf16 phase came, then 12: the script keeps to its time)
+SEQ_PAGED_LAYERS = 6
 SEQ_PROMPTS = (64, 96, 128, 160, 192, 224, 256, 120)
 #: the flash query-offset case: a contiguous rank's block of 64 query rows
 #: at offset 192 over 256 keys (rank 3 of a 256-token prompt on (1, 4))
@@ -603,12 +646,15 @@ OFF_SQ, OFF_Q0, OFF_SK = 64, 192, 256
 #: the rank processes' device type
 SHARD_DEVICE = "cuda"
 #: the recurrent families served tensor-parallel on mesh (1, 2) after the
-#: qwen2 runs: zamba2's 81 Mamba2 blocks cut to 12 (two shared-block
-#: calls), whisper's 32 decoder layers to 4, mamba2 whole; each serves
+#: qwen2 runs: zamba2's 81 Mamba2 blocks cut to 6 (one shared-block call),
+#: whisper's 32 decoder layers to 2, mamba2's 48 layers to 12 (12, 4 and
+#: 48 until the train-bf16 phase came, then 6, 2 and 24), and mamba2 on
+#: mesh (2, 1) to 24 (48 until then); each serves
 #: REC_SHARD_N requests of 8-16 prompt tokens and 4-12 new ones on 4
 #: slots, horizon 8, max_len 64 (freed slots are reused)
 REC_SHARD_N, REC_SHARD_SLOTS, REC_SHARD_MAX_LEN = 6, 4, 64
-Z_SHARD_LAYERS, W_SHARD_LAYERS = 12, 4
+Z_SHARD_LAYERS, W_SHARD_LAYERS, M2_SHARD_LAYERS = 6, 2, 12
+M2_DP_SHARD_LAYERS = 24
 #: the tensor-parallel mamba2-780m forward on mesh (1, 2): [1, S] tokens,
 #: held to the single-process forward within this share of its largest
 #: |logit|. 1e-4 holds at smoke depth on the CPU; through 48 random
@@ -658,12 +704,15 @@ ZAMBA2_ARGS = ["--arch", "zamba2-7b", "--preset", "full", "--engine",
                "--device", "cuda"]
 WHISPER_ARGS = ZAMBA2_ARGS[:1] + ["whisper-large-v3"] + ZAMBA2_ARGS[2:] + [
     "--max-len", str(W_S)]
-#: the depths the olmoe, zamba2 and whisper engines serve at, cut so the
-#: script keeps to its time once the gemma3 phase came: olmoe's 16 layers
-#: to 8, zamba2's 81 Mamba2 blocks to 27 (four shared-block calls, then the
-#: 3 trailing blocks), whisper's 32 decoder layers to 16 (its encoder does
-#: not serve); every width, and the forward phases' depths, stay whole
-OL_ENGINE_LAYERS, Z_ENGINE_LAYERS, W_ENGINE_LAYERS = 8, 27, 16
+#: the depths the olmoe, zamba2, whisper and mamba2 engines serve at, cut
+#: so the script keeps to its time: olmoe's 16 layers to 4, zamba2's 81
+#: Mamba2 blocks to 15 (two shared-block calls, then the 3 trailing
+#: blocks), whisper's 32 decoder layers to 8 (its encoder does not serve),
+#: mamba2's 48 layers to 12 (8, 27, 16 and 24 until the script overran its
+#: time on a slower host); every width, and the forward phases' depths,
+#: stay whole
+OL_ENGINE_LAYERS, Z_ENGINE_LAYERS, W_ENGINE_LAYERS = 4, 15, 8
+M2_ENGINE_LAYERS = 12
 #: the decode chains' tolerance against the forward's logits (the mamba2
 #: chain's, tests/test_smoke_archs.py:82-95)
 CHAIN_TOL = 2e-3
@@ -689,8 +738,8 @@ CHAOS_FAULTS = ("defer_storm@2:duration=3,tenant_slowdown@4:tenant=batch:"
 #: phi-3-vision-4.2b on one GPU, batches of SYN_B sequences of PHI_S
 #: tokens, SYN_PROBE_ITERS timed steps a probe (the runtime's default), its
 #: Trainer SYN_LAYERS of the 32 layers deep at full width (32 until the
-#: gemma3 phase came: the script's time)
-SYN_B, SYN_PROBE_ITERS, SYN_LAYERS = 2, 2, 16
+#: gemma3 phase came, then 16: the script's time)
+SYN_B, SYN_PROBE_ITERS, SYN_LAYERS = 2, 2, 8
 #: its simulator runs: 16 of the paper's servers (128 GPUs) on a Philly
 #: trace under SRTF for each allocator, then Synergy-OPT on 4 servers and
 #: tests/test_scheduler.py:163's trace cut to 40 jobs
@@ -1481,14 +1530,17 @@ def _compare_grads(what: str, got, want, tol: float) -> float:
 
 
 def flash_bwd_bound(b: int, s: int, hq: int, hkv: int, d: int,
-                    mma: bool = True):
-    """Least time for one causal flash backward: q, k, v, o, do read once
-    and dq, dk, dv written once over HBM bandwidth; the five products of
-    the visible pairs (scores, do.v, P^T do, dS^T q, dS k: 10 D flops a
-    pair and q head) at ``cost.bound_ms``'s rate for f32. (bytes ms,
-    ops ms)."""
-    return cost.bound_ms(*cost.flash_attention_backward(b, s, hq, hkv, d),
-                         mma=mma)
+                    mma: bool = True, dtype=torch.float32):
+    """Least time for one causal flash backward in ``dtype``: q, k, v, o, do
+    read once and dq, dk, dv written once at its width, and the f32 row
+    log-sum-exp read once, over HBM bandwidth; the five products of the
+    visible pairs (scores, do.v, P^T do, dS^T q, dS k: 10 D flops a pair
+    and q head) at ``cost.bound_ms``'s rate for the dtype (three TF32
+    passes for f32, one bf16 pass). (bytes ms, ops ms)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return cost.bound_ms(*cost.flash_attention_backward(b, s, hq, hkv, d,
+                                                        elem),
+                         f32=dtype is torch.float32, mma=mma)
 
 
 def sdpa_backward(q, k, v, do):
@@ -1505,60 +1557,83 @@ def sdpa_backward(q, k, v, do):
     return run
 
 
-def check_flash_backward(flush: torch.Tensor) -> dict:
+def check_flash_backward(flush: torch.Tensor) -> tuple:
     """The flash backward through ops.flash_attention's autograd Function
     against autograd of the plain version at phi-3-vision-4.2b's train
-    step ([2, 1024, 32, 96], the kernels-line entry), olmoe-1b-7b's
-    [1, 256, 16, 128] and whisper-large-v3's [1, 448, 20, 64] (causal,
-    f32), and at two GQA / window / ragged-S edges (D 64 and 128); each
-    model shape timed, with the forward's log-sum-exp as the autograd
-    Function hands it over, beside its bound, the plain backward and SDPA's
-    forward + backward."""
+    step ([2, 1024, 32, 96], the kernels-line entries), olmoe-1b-7b's
+    [1, 256, 16, 128] and whisper-large-v3's [1, 448, 20, 64] (causal),
+    and at two GQA / window / ragged-S edges (D 64 and 128), each in f32
+    (within FLASH_BWD_TOL of the largest |gradient|) and in bf16 (the
+    plain version on the same inputs upcast to f32, within TOL's 2e-2);
+    each model shape timed in both dtypes, with the forward's log-sum-exp
+    as the autograd Function hands it over, beside its bound, the plain
+    backward and SDPA's forward + backward in the same dtype. Returns the
+    f32 and the bf16 kernels-line entries."""
     cases = [(SYN_B, PHI_S, PHI_H, PHI_H, PHI_D, 0,
               "phi-3-vision-4.2b train step"),
              (1, 256, OL_H, OL_H, OL_D, 0, "olmoe-1b-7b"),
              (1, W_S, W_H, W_H, W_D, 0, "whisper-large-v3"),
              (1, 200, 14, 2, 64, 5, "GQA 14/2, window 5, ragged S"),
              (1, 300, 16, 4, 128, 40, "D 128, GQA 16/4, window 40, ragged S")]
-    rec, others = None, []
+    recs = {torch.float32: [], torch.bfloat16: []}
     for (b, s, hq, hkv, d, window, what) in cases:
-        g = torch.Generator(device="cuda").manual_seed(s + hq + d + 1)
-        q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda")
-                   for h in (hq, hkv, hkv))
-        do = torch.randn(b, s, hq, d, generator=g, device="cuda")
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        ops.flash_attention(*leaves, window=window).backward(do)
-        want = fa.flash_attention_backward_plain(q, k, v, do, True, window)
-        err = _compare_grads(f"flash backward [{b}, {s}, {hq}/{hkv}, {d}] "
-                             f"window={window} ({what})",
-                             [t.grad for t in leaves], want, FLASH_BWD_TOL)
-        del leaves, want
-        if window:
-            continue
-        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
-        r = _record(
-            "flash_attention_backward", "flash_attention_bwd.cu",
-            "src/repro/kernels/flash_attention.py:86", err,
-            time_ms(lambda: ops.flash_attention_backward(q, k, v, o, do,
-                                                         lse=lse),
-                    flush, reps=20),
-            time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, do),
-                    flush, reps=5),
-            *flash_bwd_bound(b, s, hq, hkv, d),
-            time_ms(sdpa_backward(q, k, v, do), flush, reps=20),
-            dict(path=what, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=True,
-                 window=0, dtype="float32"),
-            flash_bwd_bound(b, s, hq, hkv, d, mma=False)[1])
-        r["note"] = ("the backward of flash_attention_bhsd, which has no "
-                     "TPU backward kernel; tensor cores, 3xTF32: a dq and "
-                     "a dk/dv kernel on the forward's log-sum-exp")
-        if rec is None:
-            rec = r
-        else:
-            others.append(r)
-        del q, k, v, o, lse, do
-    rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
-    return rec
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            g = torch.Generator(device="cuda").manual_seed(s + hq + d + 1)
+            q, k, v = (torch.randn(b, s, h, d, generator=g,
+                                   device="cuda").to(dtype)
+                       for h in (hq, hkv, hkv))
+            do = torch.randn(b, s, hq, d, generator=g,
+                             device="cuda").to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ops.flash_attention(*leaves, window=window).backward(do)
+            want = fa.flash_attention_backward_plain(
+                *(t.float() for t in (q, k, v, do)), True, window)
+            got = [t.grad for t in leaves]
+            if any(t is None or t.dtype != dtype for t in got):
+                raise SystemExit(f"FAIL: flash backward {what} {name}: a "
+                                 f"gradient is missing or not {name}")
+            err = _compare_grads(
+                f"flash backward [{b}, {s}, {hq}/{hkv}, {d}] window="
+                f"{window} {name} ({what})", [t.float() for t in got],
+                want, FLASH_BWD_TOL if dtype is torch.float32
+                else TOL[dtype])
+            del leaves, want, got
+            if window:
+                continue
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            r = _record(
+                "flash_attention_backward" if dtype is torch.float32
+                else "flash_attention_backward_bf16",
+                "flash_attention_bwd.cu",
+                "src/repro/kernels/flash_attention.py:86", err,
+                time_ms(lambda: ops.flash_attention_backward(q, k, v, o, do,
+                                                             lse=lse),
+                        flush, reps=20),
+                time_ms(lambda: fa.flash_attention_backward_plain(q, k, v,
+                                                                  do),
+                        flush, reps=5),
+                *flash_bwd_bound(b, s, hq, hkv, d, dtype=dtype),
+                time_ms(sdpa_backward(q, k, v, do), flush, reps=20),
+                dict(path=what, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=True,
+                     window=0, dtype=name),
+                flash_bwd_bound(b, s, hq, hkv, d, mma=False,
+                                dtype=dtype)[1])
+            r["note"] = (
+                "the backward of flash_attention_bhsd, which has no TPU "
+                "backward kernel; a dq and a dk/dv kernel on the forward's "
+                "log-sum-exp, on the tensor cores: " +
+                ("3xTF32" if dtype is torch.float32 else
+                 "one bf16 m16n8k16 pass, f32 sums, P and dS rounded to "
+                 "bf16"))
+            recs[dtype].append(r)
+            del q, k, v, o, lse, do
+    out = []
+    for rs in recs.values():
+        rs[0]["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS}
+                                 for r in rs[1:]]
+        out.append(rs[0])
+    return tuple(out)
 
 
 def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
@@ -1936,6 +2011,11 @@ def _kinds(engine) -> set:
     return {k[0] for k in engine.graphs.keys}
 
 
+def qwen2_engine_cfg():
+    """qwen2-0.5b at full width, ``Q_ENGINE_LAYERS`` deep."""
+    return get_config("qwen2-0.5b").replace(n_layers=Q_ENGINE_LAYERS)
+
+
 def run_engine(summary: dict) -> tuple:
     """The full-width qwen2-0.5b paged engine (module docstring, phases 5
     and 6): ``run_paged_engine`` with a replayed and an eager profile,
@@ -1944,7 +2024,8 @@ def run_engine(summary: dict) -> tuple:
     args = serve_cli.build_parser().parse_args(ENGINE_ARGS)
     what = "qwen2-0.5b paged"
     engine, res, launches = run_paged_engine(summary, args, what, None,
-                                             modes=("replayed", "eager"))
+                                             modes=("replayed", "eager"),
+                                             cfg=qwen2_engine_cfg())
     phase("sampled")
     summary[what]["sampled_vs_greedy"] = run_sampled(engine)
     params = engine.params
@@ -2112,7 +2193,7 @@ def run_chaos(summary: dict, params) -> dict:
     """The chaos phase (module docstring) on the engine phase's
     weights. Returns each paged kernel's launches in the captured run and
     that run's result (``chaos_runs``)."""
-    cfg = get_config("qwen2-0.5b")
+    cfg = qwen2_engine_cfg()
     engine, make = chaos_engine(cfg, params, "cuda")
     res = chaos_runs(engine, make)
     base = res["captured"]
@@ -2368,7 +2449,8 @@ def run_obs(summary: dict, params, untraced: dict, chaos: dict) -> dict:
         os.remove(store_path)               # this run's records only
     args = serve_cli.build_parser().parse_args(ENGINE_ARGS + [
         "--trace", jsonl, "--profile", "--profile-store", store_path])
-    engine, _, _ = serve_cli.build(args, params=params)
+    engine, _, _ = serve_cli.build(args, params=params,
+                                   cfg=qwen2_engine_cfg())
     tracer, prof = engine.tracer, engine.profiler
     res = obs_runs(engine, args, tracer, prof)
     for name, mode, traced, profiled in OBS_RUNS:
@@ -2444,7 +2526,7 @@ def traced_chaos(params, chaos: dict) -> dict:
     """The chaos set with a tracer, graphs then eager, on a new engine: the
     ``CHAOS_EVENTS`` of the two runs (times dropped) must be equal, and
     each run's record and launches the chaos phase's captured run's."""
-    cfg = get_config("qwen2-0.5b")
+    cfg = qwen2_engine_cfg()
     engine, make = chaos_engine(cfg, params, "cuda", tracer=Tracer())
     got = {}
     for mode in ("replayed", "eager"):
@@ -2510,7 +2592,7 @@ def run_sampled(greedy) -> dict:
     args = serve_cli.build_parser().parse_args(SAMPLED_ARGS + [
         "--temperature", "0.8", "--top-k", "50"])
     greedy_args = serve_cli.build_parser().parse_args(SAMPLED_ARGS)
-    engine, _, _ = serve_cli.build(args)
+    engine, _, _ = serve_cli.build(args, cfg=qwen2_engine_cfg())
     greedy.run(serve_cli.requests(greedy_args))
     runs, times = [], {"sampled": [], "greedy": []}
     for kind in ("sampled", "sampled", "greedy", "sampled", "greedy"):
@@ -2874,8 +2956,8 @@ def _end_lease(pipe, ch, it, gen, ended, n: int) -> None:
 def run_synergy() -> dict:
     """Phase ``synergy`` (module docstring): the optimistic profiler live on
     the card against phi-3-vision-4.2b's full-width train step at
-    ``SYN_LAYERS`` layers (one Trainer, remat "full": ~31 GB of f32
-    weights, gradients and AdamW moments), a lease update and a
+    ``SYN_LAYERS`` layers (one Trainer, remat "full", f32 weights,
+    gradients and AdamW moments), a lease update and a
     termination, then the simulator.
     Returns the flash forward and backward launches."""
     cfg = get_config("phi-3-vision-4.2b").replace(remat="full",
@@ -3055,6 +3137,157 @@ def run_synergy() -> dict:
               f"plain calls {plain}")
     run_simulator()
     return {"flash_attention": launches, "flash_attention_backward": bwd}
+
+
+#: phase ``train-bf16``: phi-3-vision-4.2b at full width and depth in bf16
+#: (the dry-run's train overrides), remat "full", AdamW at TB16_LR after a
+#: one-step warm-up, on SYN_B x PHI_S tokens with PHI_P patch embeddings: a
+#: warm step and TB16_STEPS timed ones on the same batch; one step against
+#: the same step in f32 (loss within TB16_LOSS_TOL relative, every leaf's
+#: gradient cosine at least TB16_MIN_COS)
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+TB16_STEPS, TB16_LR = 4, 3e-4
+TB16_LOSS_TOL, TB16_MIN_COS = 1e-2, 0.99
+
+
+def tb16_batch(cfg) -> dict:
+    """[SYN_B, PHI_S] tokens and labels and [SYN_B, PHI_P, d_model] patch
+    embeddings on the card, the embeddings bf16 values held in f32 so the
+    bf16 and f32 steps read the same numbers."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tok = (SYN_B, PHI_S)
+    return {"tokens": torch.randint(0, cfg.vocab_size, tok, generator=g,
+                                    device="cuda", dtype=torch.int32),
+            "labels": torch.randint(0, cfg.vocab_size, tok, generator=g,
+                                    device="cuda", dtype=torch.int32),
+            "patch_embeds": (0.02 * torch.randn(
+                SYN_B, PHI_P, cfg.d_model, generator=g, device="cuda"))
+            .bfloat16().float()}
+
+
+def _flash_counts() -> tuple:
+    return (ops.flash_attention.launches,
+            ops.flash_attention_backward.launches,
+            fa.flash_attention_plain.calls)
+
+
+def _loss_grads(model, params, batch) -> tuple:
+    """(loss, gradients a leaf, device ms, flash (forward, backward, plain)
+    counts) of one forward and backward; the params' grads cleared."""
+    before = _flash_counts()
+    with torch.enable_grad():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = model.loss(params, batch)
+        loss.backward()
+        end.record()
+    end.synchronize()
+    grads = [p.grad for p in optimizer.leaves(params)]
+    for p in optimizer.leaves(params):
+        p.grad = None
+    counts = tuple(a - b for a, b in zip(_flash_counts(), before))
+    return loss.item(), grads, start.elapsed_time(end), counts
+
+
+def bf16_vs_f32(cfg, batch) -> dict:
+    """One bf16 step's loss and gradients against the same step in f32 on
+    the same values (the f32 weights the bf16 ones upcast), both through
+    the flash kernels: the loss gap, each leaf's gradient cosine."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for p in optimizer.leaves(params):
+        p.requires_grad_(True)
+    loss16, g16, ms16, n16 = _loss_grads(model, params, batch)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = optimizer.tree_map(
+        lambda p: p.detach().float().requires_grad_(True), params)
+    del params
+    loss32, g32, ms32, n32 = _loss_grads(build_model(cfg32), p32, batch)
+    del p32
+    cos = []
+    for a, b in zip(g16, g32):
+        a = a.float()
+        den = (a.norm() * b.norm()).item()
+        cos.append(1.0 if den == 0 else (a * b).sum().item() / den)
+    worst = min(range(len(cos)), key=cos.__getitem__)
+    del g16, g32
+    gap = abs(loss16 - loss32) / abs(loss32)
+    rec = {"layers": cfg.n_layers, "loss_bf16": loss16, "loss_f32": loss32,
+           "loss_gap_rel": gap, "min_grad_cosine": cos[worst],
+           "min_cosine_leaf": worst, "leaves": len(cos),
+           "fwd_bwd_ms": {"bfloat16": ms16, "float32": ms32},
+           "flash_launches": {"bfloat16": list(n16), "float32": list(n32)}}
+    print(json.dumps({"train_bf16_vs_f32": rec}), flush=True)
+    n = cfg.n_layers
+    for counts in (n16, n32):
+        if counts != (2 * n, n, 0):
+            raise SystemExit(f"FAIL: train-bf16: one step launched flash "
+                             f"(forward, backward, plain) {counts}, want "
+                             f"({2 * n}, {n}, 0)")
+    if not (math.isfinite(loss16) and gap <= TB16_LOSS_TOL
+            and cos[worst] >= TB16_MIN_COS):
+        raise SystemExit(f"FAIL: train-bf16: the bf16 step differs from the "
+                         f"f32 step: {rec}")
+    return rec
+
+
+def run_train_bf16() -> dict:
+    """Phase ``train-bf16`` (module docstring): phi-3-vision-4.2b trained in
+    bf16 at full width through the flash forward (with its log-sum-exp)
+    and the bf16 backward kernel. Returns the launches of the Trainer's
+    steps."""
+    t0 = time.perf_counter()
+    cfg = get_config("phi-3-vision-4.2b").replace(remat="full", **BF16)
+    batch = tb16_batch(cfg)
+    rec = {"arch": cfg.arch_id, "remat": cfg.remat, "dtype": cfg.dtype,
+           "batch": SYN_B, "seq": PHI_S, "patches": PHI_P,
+           "vs_f32": bf16_vs_f32(cfg, batch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, TrainerConfig(peak_lr=TB16_LR, warmup_steps=1,
+                                         total_steps=100),
+                      rng=torch.Generator(device="cuda").manual_seed(0))
+    leaves = list(optimizer.leaves(trainer.state["params"]))
+    rec["params"] = sum(p.numel() for p in leaves)
+    rec["weights_gb"] = sum(p.numel() * p.element_size()
+                            for p in leaves) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.set_counts([0] * len(ops.COUNTERS))
+    with torch.enable_grad():
+        hist = [trainer.train_step(batch) for _ in range(1 + TB16_STEPS)]
+    counts = dict(zip(COUNTER_NAMES, ops.counts()))
+    steps = [h["step_seconds"] for h in hist[1:]]
+    rec.update(steps=len(hist), losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist],
+               ms_per_step=1e3 * statistics.mean(steps),
+               ms_steps=[1e3 * x for x in steps],
+               tokens_per_s=SYN_B * PHI_S / statistics.mean(steps),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: counts[k] for k in (
+                   "flash_attention", "flash_attention_backward",
+                   "flash_attention_plain")},
+               params_dtypes=sorted({str(p.dtype)[6:] for p in leaves}))
+    del trainer, leaves, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"train_bf16": rec}), flush=True)
+    n = cfg.n_layers * len(hist)
+    if (counts["flash_attention"] != 2 * n
+            or counts["flash_attention_backward"] != n
+            or counts["flash_attention_plain"]):
+        raise SystemExit(f"FAIL: train-bf16: {rec['launches']} over "
+                         f"{len(hist)} steps (want {2 * n} forward and "
+                         f"recompute, {n} backward, 0 plain)")
+    if rec["params_dtypes"] != ["bfloat16"] or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist) or hist[-1]["loss"] >= hist[0]["loss"]:
+        raise SystemExit(f"FAIL: train-bf16: params {rec['params_dtypes']}, "
+                         f"losses {rec['losses']}, grad norms "
+                         f"{rec['grad_norms']}: not bf16, not finite or "
+                         f"not falling")
+    return counts
 
 
 def _sim_record(res, wall_s: float) -> dict:
@@ -3572,10 +3805,12 @@ def run_runtime() -> dict:
 
 
 def run_mamba2_engine(summary: dict) -> None:
-    """The full-width mamba2-780m contiguous engine (module docstring,
-    phase 11); the SSD kernel must not launch."""
+    """The full-width mamba2-780m contiguous engine at ``M2_ENGINE_LAYERS``
+    of its 48 layers (module docstring, phase 11); the SSD kernel must not
+    launch."""
+    cfg = get_config("mamba2-780m").replace(n_layers=M2_ENGINE_LAYERS)
     run_recurrent_engine(summary, MAMBA2_ARGS, "mamba2-780m contiguous",
-                         "ssd_scan_")
+                         "ssd_scan_", cfg=cfg)
 
 
 def run_recurrent_engine(summary: dict, argv, what: str, ours: str,
@@ -3845,9 +4080,10 @@ G3_ARGS = ["--arch", "gemma3-27b", "--preset", "full", "--engine",
 
 
 def gemma3_cfg():
-    """gemma3-27b at full width and depth, weights and activations bf16."""
-    return get_config("gemma3-27b").replace(dtype="bfloat16",
-                                            param_dtype="bfloat16")
+    """gemma3-27b at full width, ``G3_LAYERS`` deep, weights and
+    activations bf16."""
+    return get_config("gemma3-27b").replace(
+        n_layers=G3_LAYERS, dtype="bfloat16", param_dtype="bfloat16")
 
 
 def gemma3_requests() -> list:
@@ -4187,16 +4423,20 @@ def shard_requests(cfg, rate: float, cache: str = "paged"):
 #: the sharded phase's runs: (name, arch, mesh shape, layers, arrival
 #: rate, cache), by process group size
 SHARD_RUNS = {
-    2: (("tp", "qwen2-0.5b", (1, 2), None, 0.0, "paged"),
-        ("dp", "qwen2-0.5b", (2, 1), None, SHARD_DP_RATE, "paged"),
-        ("dp-contiguous", "qwen2-0.5b", (2, 1), None, SHARD_DP_RATE,
+    2: (("tp", "qwen2-0.5b", (1, 2), Q_ENGINE_LAYERS, 0.0, "paged"),
+        ("dp", "qwen2-0.5b", (2, 1), Q_ENGINE_LAYERS, SHARD_DP_RATE,
+         "paged"),
+        ("dp-contiguous", "qwen2-0.5b", (2, 1), Q_ENGINE_LAYERS,
+         SHARD_DP_RATE, "contiguous"),
+        ("mamba2", "mamba2-780m", (1, 2), M2_SHARD_LAYERS, 0.0,
          "contiguous"),
-        ("mamba2", "mamba2-780m", (1, 2), None, 0.0, "contiguous"),
-        ("dp-mamba2", "mamba2-780m", (2, 1), None, 0.0, "contiguous"),
+        ("dp-mamba2", "mamba2-780m", (2, 1), M2_DP_SHARD_LAYERS, 0.0,
+         "contiguous"),
         ("zamba2", "zamba2-7b", (1, 2), Z_SHARD_LAYERS, 0.0, "contiguous"),
         ("whisper", "whisper-large-v3", (1, 2), W_SHARD_LAYERS, 0.0,
          "contiguous")),
-    SEQ_M: (("kv-seq", "qwen2-0.5b", (1, SEQ_M), None, 0.0, "paged"),
+    SEQ_M: (("kv-seq", "qwen2-0.5b", (1, SEQ_M), SEQ_PAGED_LAYERS, 0.0,
+             "paged"),
             ("q-seq", "qwen2-0.5b", (1, SEQ_M), SEQ_CONTIG_LAYERS, 0.0,
              "contiguous")),
 }
@@ -4600,7 +4840,8 @@ def main() -> int:
     rec["flash_attention"] = check_flash(flush)
     rec["grouped_matmul"] = check_grouped_matmul(flush)
     rec["ssd_scan"] = check_ssd(flush)
-    rec["flash_attention_backward"] = check_flash_backward(flush)
+    (rec["flash_attention_backward"],
+     rec["flash_attention_backward_bf16"]) = check_flash_backward(flush)
     rec["ssd_scan_backward"] = check_ssd_backward(flush)
     rec.update(check_partial(flush))
     rec["flash_attention_offset"] = check_flash_offset(flush)
@@ -4666,6 +4907,15 @@ def main() -> int:
     for name, n in run_synergy().items():
         paths[name]["phi-3-vision-4.2b synergy train"] = n
     print(f"synergy phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("train-bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = run_train_bf16()
+    path = "phi-3-vision-4.2b train bf16"
+    paths["flash_attention"][path] = counts["flash_attention"]
+    paths["flash_attention_backward_bf16"][path] = counts[
+        "flash_attention_backward"]
 
     phase("mamba2")
     paths["ssd_scan"]["mamba2-780m forward"] = run_mamba2()

@@ -46,9 +46,9 @@ ARGTYPES = {
         [_VOID_P] * 5 + [_INT] * 5 + [_I64] * 9 + [_INT] * 5 + [_VOID_P],
     # csrc/flash_attention_bwd.cu: q, k, v, out, dout, lse, dq, dk, dv,
     # dsum; B, S, Hq, Hkv, D; the strides of q, k and v; causal, window,
-    # groups (the CTA shape: 0 by the kernel's rule, 4 or 2), stream
+    # groups (the CTA shape: 0 by the kernel's rule, 4 or 2), dtype, stream
     "flash_attention_backward":
-        [_VOID_P] * 10 + [_INT] * 5 + [_I64] * 9 + [_INT] * 3 + [_VOID_P],
+        [_VOID_P] * 10 + [_INT] * 5 + [_I64] * 9 + [_INT] * 4 + [_VOID_P],
     # csrc/grouped_matmul.cu: x, w, valid_rows (NULL = all), out; G, C, K,
     # N, dtype, stream
     "grouped_matmul_forward": [_VOID_P] * 4 + [_INT] * 5 + [_VOID_P],

@@ -68,9 +68,11 @@ def flash_attention_backward(b: int, s: int, hq: int, hkv: int, d: int,
                              elem: int = 4, causal: bool = True,
                              window: int = 0) -> Cost:
     """One flash backward: q, k, v, o, do read once and dq, dk, dv written
-    once; the five products of the visible pairs (scores, do.v, P^T do,
-    dS^T q, dS k: 10 D flops a pair and q head)."""
-    nbytes = elem * b * s * d * (4 * hq + 4 * hkv)
+    once, all at ``elem`` bytes (the kernel takes and writes the inputs'
+    dtype), and the forward's f32 row log-sum-exp [B Hq, S] read once; the
+    five products of the visible pairs (scores, do.v, P^T do, dS^T q,
+    dS k: 10 D flops a pair and q head)."""
+    nbytes = elem * b * s * d * (4 * hq + 4 * hkv) + 4 * b * hq * s
     flops = 10 * d * hq * b * visible_pairs(s, causal, window)
     return flops, nbytes
 

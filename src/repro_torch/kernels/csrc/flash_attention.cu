@@ -61,11 +61,12 @@
 // read the rows' positions. Offset 0 and Sq == Sk is the call above.
 //
 // The backward (flash_attention_bwd.cu) takes each row's log-sum-exp from
-// here: with a non-null `lse` ([B Hq, S] f32; f32 inputs only) an
+// here: with a non-null `lse` ([B Hq, S] f32, for f32 and bf16 inputs) an
 // instantiation of its own (LSE) has part 0 write m + log(l) of each row
 // it outputs, or 1e30 for a row that sees no key (its P is then 0 in the
-// backward, as its output is 0 here). Every serving path passes NULL and
-// runs the instantiations without it.
+// backward, as its output is 0 here). m and l are the f32 softmax state
+// (in bf16, l sums the probabilities before they are rounded for P.V).
+// Every serving path passes NULL and runs the instantiations without it.
 //
 // Interface: plain C, loaded with ctypes. The entry returns
 // cudaGetLastError() after the launch; the Python wrapper raises on non-0.
@@ -250,8 +251,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. S query rows
 // at positions q_offset .. q_offset + S - 1 against Sk >= S keys at 0 ..
-// Sk - 1 (Sk == S, q_offset 0: self-attention). lse: [B Hq, S] f32 or NULL
-// (non-NULL for float32 only). Returns a cudaError_t (0 = launched).
+// Sk - 1 (Sk == S, q_offset 0: self-attention). lse: [B Hq, S] f32 or NULL.
+// Returns a cudaError_t (0 = launched).
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int Hq,
                             int Hkv, int D, long long qb, long long qs,
@@ -274,7 +275,8 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && lse) return dispatch<float, true>(a, B, D, s);
   if (dtype == 0) return dispatch<float>(a, B, D, s);
-  if (dtype == 1 && !lse) return dispatch<__nv_bfloat16>(a, B, D, s);
+  if (dtype == 1 && lse) return dispatch<__nv_bfloat16, true>(a, B, D, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

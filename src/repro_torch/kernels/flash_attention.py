@@ -20,8 +20,9 @@ against keys ``0 .. Sk - 1`` of k/v ``[B, Sk, Hkv, D]``, ``Sq <= Sk``.
 
 The backward has no TPU kernel to port (the JAX package trains through its
 plain attention): ``flash_attention_backward_cuda`` launches
-``csrc/flash_attention_bwd.cu`` (f32) on the row log-sum-exp the training
-forward hands over (``flash_attention_cuda(..., return_lse=True)``), and
+``csrc/flash_attention_bwd.cu`` (f32 or bf16) on the row log-sum-exp the
+training forward hands over (``flash_attention_cuda(..., return_lse=True)``,
+f32 in both dtypes), and
 ``flash_attention_backward_plain`` is autograd through the plain version,
 the reference the kernel is held to.
 """
@@ -113,16 +114,14 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
                          return_lse: bool = False, q_offset: int = 0):
     """Launch the kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D] (read in
     place through their strides) -> contiguous [B, S, Hq, D]; with
-    ``return_lse`` (float32 only) also each row's log-sum-exp [B Hq, S]
-    (1e30 for a row that sees no key), which the backward kernel takes.
+    ``return_lse`` also each row's log-sum-exp [B Hq, S], float32 for
+    either input dtype (1e30 for a row that sees no key), which the
+    backward kernel takes.
     ``q_offset``: the queries sit at positions ``q_offset ..`` of k/v's
     Sk >= S keys (module docstring)."""
     _check(q, k, v, q_offset)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if return_lse and q.dtype != torch.float32:
-        raise ValueError(f"return_lse takes float32 inputs only (the "
-                         f"backward's), got {q.dtype}")
     b, s, hq, d = q.shape
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
@@ -157,13 +156,11 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
     in place through their strides), the forward's ``out``, its gradient
     ``dout`` [B, S, Hq, D] and its row log-sum-exp ``lse`` [B Hq, S]
     (``flash_attention_cuda(..., return_lse=True)``) -> (dq, dk, dv),
-    contiguous f32. f32 only. ``groups`` 0 lets the kernel pick its CTA
-    shape; 4 (D <= 96) or 2 forces four 16-row groups of two warps or two
-    of four."""
+    contiguous, in q's dtype: float32 or bfloat16 (the kernel's sums are
+    f32 in both; ``_check`` raises on any other dtype). ``groups`` 0 lets
+    the kernel pick its CTA shape; 4 (D <= 96) or 2 forces four 16-row
+    groups of two warps or two of four."""
     _check(q, k, v)
-    if q.dtype != torch.float32:
-        raise ValueError(f"the backward kernel takes float32 only, got "
-                         f"{q.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     b, s, hq, d = q.shape
@@ -171,11 +168,12 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
         raise ValueError(f"groups must be 0, 2 or (D <= 96) 4, got {groups} "
                          f"at D {d}")
     hkv = k.shape[2]
-    out, dout = out.contiguous(), dout.to(torch.float32).contiguous()
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} and dout "
+    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    if out.shape != q.shape or dout.shape != q.shape or \
+            out.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
                          f"{tuple(dout.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(q.shape)} and dtype {q.dtype}")
     if lse is None or tuple(lse.shape) != (b * hq, s) or \
             lse.dtype != torch.float32 or lse.device != q.device or \
             not lse.is_contiguous():
@@ -183,7 +181,7 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
                          f"[{b * hq}, {s}] log-sum-exp on {q.device} "
                          f"(flash_attention_cuda(..., return_lse=True))")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty((b, s, hkv, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dsum = torch.empty_like(lse)
     lib = build.library()
@@ -193,7 +191,7 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dsum.data_ptr(), b, s, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(bool(causal)), int(window), int(groups),
+            int(bool(causal)), int(window), int(groups), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "flash_attention_backward")
     return dq, dk, dv

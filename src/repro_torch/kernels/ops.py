@@ -109,13 +109,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        # the backward kernel takes f32 (bf16 raises there) and the
-        # forward's row log-sum-exp
-        if q.dtype == torch.float32:
-            out, lse = _flash_forward(q, k, v, causal, window,
-                                      return_lse=True)
-        else:
-            out, lse = _flash_forward(q, k, v, causal, window), None
+        # the backward kernel takes the forward's row log-sum-exp (f32 for
+        # f32 and bf16 inputs)
+        out, lse = _flash_forward(q, k, v, causal, window, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -170,8 +166,9 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
                              window: int = 0, lse=None):
     """(dq, dk, dv) of flash attention for the upstream gradient ``dout``
     [B, S, Hq, D] and the forward's ``out``: autograd through the plain
-    version on the CPU, the backward kernel (f32) on CUDA tensors, which
-    also takes the forward's row log-sum-exp ``lse`` [B Hq, S]."""
+    version on the CPU, the backward kernel (f32 or bf16, the gradients in
+    the inputs' dtype) on CUDA tensors, which also takes the forward's row
+    log-sum-exp ``lse`` [B Hq, S] (f32)."""
     if q.device.type == "cpu":
         return _fa.flash_attention_backward_plain(q, k, v, dout, causal,
                                                   window)
@@ -179,14 +176,14 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
         b, s, hq, d = q.shape
         hkv = k.shape[2]
         refused = None
-        if q.dtype != torch.float32:
-            refused = (f"the backward kernel takes float32 only, got "
-                       f"{q.dtype}")
+        if q.dtype not in _fa._DTYPES:
+            refused = (f"the backward kernel takes float32 and bfloat16 "
+                       f"only, got {q.dtype}")
         elif lse is None:
             refused = "the backward kernel needs the forward's log-sum-exp"
         _book("flash_attention_backward", cost.flash_attention_backward(
             b, s, hq, hkv, d, q.element_size(), causal, window), refused)
-        dk = q.new_empty((b, s, hkv, d), dtype=torch.float32)
+        dk = q.new_empty((b, s, hkv, d))
         return q.new_empty(q.shape), dk, torch.empty_like(dk)
     grads = _fa.flash_attention_backward_cuda(q, k, v, out, dout, lse,
                                               causal, window)

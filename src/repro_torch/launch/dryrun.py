@@ -19,9 +19,10 @@ counting mode that records
     books into the counting mode (``book_kernel``, found on the dispatch
     stack) for every kernel call on tensors without storage (so the count
     is the card's work, not the plain versions' scores); a call the CUDA
-    route would refuse (a bf16 flash backward: the kernel takes f32 and
-    the forward's log-sum-exp) is booked with its reason, and the record
-    lists it under ``not_runnable``;
+    route would refuse (an SSD backward whose chunk or state exceeds the
+    kernel's limits, a flash backward in a dtype other than f32 and bf16)
+    is booked with its reason, and the record lists it under
+    ``not_runnable``;
   * bytes accessed: for each op that is not a view or metadata op, the
     bytes its tensor inputs read (each by its storage extent, so an
     expanded mask counts once) and its outputs write, plus the kernels'

@@ -21,7 +21,10 @@ a tenth of the card's 5e-4), where one pass misses.
   shares (two of 32 keys, or four of 16) folded in order, and the dk/dv
   kernel's walk over key tiles of the same size, the G q heads of their
   kv head and the 64-row query tiles that see them, with transposed
-  scores, the query shares folded in order.
+  scores, the query shares folded in order. Its bf16 instantiation runs
+  the same walks with one bf16 pass a product (inputs, P and dS rounded
+  to bf16, f32 sums), held to f32 autograd of the plain version within
+  the card's bf16 tolerance.
 * The SSD backward (``csrc/ssd_scan_bwd.cu``): the reversed chunk states
   and their pass from the last chunk down, then the fused chunk pass (M1 =
   (C B^T) .* L and M2 = (dy x^T) .* L, the inter terms from the forward's
@@ -50,6 +53,8 @@ from tests._torch_tf32 import mm as tf32_mm
 #: relative to the largest gradient: the f64 decomposition, three TF32
 #: passes for flash (the card's tolerance) and for the SSD scan
 EXACT, FLASH_TOL, SSD_TOL = 1e-10, 2e-5, 5e-5
+#: the bf16 flash backward, relative to the largest gradient (the card's)
+BF16_TOL = 2e-2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -218,6 +223,39 @@ def test_flash_backward_emulation_matches_autograd(b, s, hq, hkv, d, causal,
     want = fa.flash_attention_backward_plain(q, k, v, do, causal, window)
     got = _flash_emulate(arrays, causal, window, 3, dtype, groups)
     assert max(_rel(got, want)) <= FLASH_TOL, _rel(got, want)
+
+
+def _bf16(t):
+    """Rounded to bf16 and back: a value the bf16 kernel holds."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_products(a, b):
+    """The bf16 kernel's products: one m16n8k16 pass, both operands
+    rounded to bf16 (P and dS where they enter), f32 sums."""
+    return _bf16(a) @ _bf16(b)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,groups", [
+    (*case, groups) for case in FLASH_CASES
+    for groups in ((2,) if case[4] > 96 else (4, 2))])
+def test_bf16_flash_backward_emulation_matches_autograd(b, s, hq, hkv, d,
+                                                        causal, window,
+                                                        groups):
+    """The bf16 kernel's arithmetic: q, k, v, dO and the forward's output
+    in bf16, the f32 log-sum-exp, every product one bf16 pass, f32 sums
+    and the gradients written in bf16, against autograd of
+    ``flash_attention_plain`` on the same inputs upcast to f32, within the
+    card's bf16 tolerance (2e-2 of the largest gradient)."""
+    arrays = _flash_case(b, s, hq, hkv, d, np.float32, s + hq)
+    q, k, v, do = (_bf16(torch.from_numpy(a)) for a in arrays)
+    want = fa.flash_attention_backward_plain(q, k, v, do, causal, window)
+    vis = _visible(s, causal, window)
+    o = _bf16(fa.flash_attention_plain(q, k, v, causal, window))
+    got = _flash_backward_emulated(q, k, v, o, do, _lse(q, k, vis), vis,
+                                   _bf16_products, groups)
+    rel = _rel([_bf16(g) for g in got], want)
+    assert max(rel) <= BF16_TOL, rel
 
 
 def _jax_grads(fn, arrays):

@@ -517,11 +517,14 @@ def test_kernels_launch_on_the_current_stream(cuda_device, op):
 # ---------------------------------------------------------------------------
 # backward kernels: each autograd Function against autograd of the plain
 # version. Tolerances are relative to the largest gradient: 2e-5 for flash
-# (three TF32 passes on the tensor cores against the plain version's f32
-# einsums), 5e-4 for the SSD scan (the forward's 5e-4: sums of up to a
-# chunk's 256 terms and the chunk states' recurrence, in other orders)
+# in f32 (three TF32 passes on the tensor cores against the plain version's
+# f32 einsums) and 2e-2 in bf16 (one bf16 pass, P and dS rounded to bf16,
+# against the plain version on the same inputs upcast to f32), 5e-4 for
+# the SSD scan (the forward's 5e-4: sums of up to a chunk's 256 terms and
+# the chunk states' recurrence, in other orders)
 # ---------------------------------------------------------------------------
-FLASH_BWD_TOL, SSD_BWD_TOL = 2e-5, 5e-4
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_BWD_TOL = 5e-4
 
 
 def _close_to_largest(got, want, tol):
@@ -532,6 +535,7 @@ def _close_to_largest(got, want, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hq,hkv,d,causal,window", [
     (1, 256, 16, 16, 128, True, 0),   # olmoe-1b-7b
     (2, 1024, 32, 32, 96, True, 0),   # phi-3-vision-4.2b, the train step
@@ -542,13 +546,12 @@ def _close_to_largest(got, want, tol):
     (1, 300, 16, 4, 128, True, 40),   # D 128, GQA 16/4, window, ragged S
 ])
 def test_flash_attention_gradients_match_plain(cuda_device, b, s, hq, hkv, d,
-                                               causal, window):
-    """The repair: backward through ops.flash_attention on the card gives
-    q, k and v gradients (the parent returned a tensor with no autograd
-    edge: every gradient None), equal to autograd of the plain version."""
-    q, k, v = _flash_case(cuda_device, torch.float32, s, hq, hkv, d, s + d,
-                          b=b)
-    do = torch.randn_like(q)
+                                               causal, window, dtype):
+    """Backward through ops.flash_attention on the card gives q, k and v
+    gradients in the inputs' dtype, equal to autograd of the plain version
+    on the same inputs (upcast to f32 for bf16)."""
+    q, k, v = _flash_case(cuda_device, dtype, s, hq, hkv, d, s + d, b=b)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (ops.flash_attention.launches,
               ops.flash_attention_backward.launches,
@@ -558,19 +561,60 @@ def test_flash_attention_gradients_match_plain(cuda_device, b, s, hq, hkv, d,
             ops.flash_attention_backward.launches,
             fa.flash_attention_plain.calls) == (before[0] + 1, before[1] + 1,
                                                 before[2])
-    want = fa.flash_attention_backward_plain(q, k, v, do, causal, window)
+    want = fa.flash_attention_backward_plain(
+        *(t.float() for t in (q, k, v, do)), causal, window)
     for t, w in zip(leaves, want):
-        _close_to_largest(t.grad, w, FLASH_BWD_TOL)
+        assert t.grad.dtype == dtype
+        _close_to_largest(t.grad.float(), w, FLASH_BWD_TOL[dtype])
 
 
 @pytest.mark.cuda
-def test_flash_backward_refuses_bf16(cuda_device):
-    q, k, v = _flash_case(cuda_device, torch.bfloat16, 64, 2, 2, 64, 0)
-    with pytest.raises(ValueError, match="float32"):
-        fa.flash_attention_backward_cuda(q, k, v, q, q, None)
+def test_flash_backward_refuses_float16(cuda_device):
+    """f32 and bf16 launch; float16 raises on the card (no fallback), in
+    the forward with its log-sum-exp and in the backward."""
+    q, k, v = _flash_case(cuda_device, torch.float16, 64, 2, 2, 64, 0)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_backward_cuda(q, k, v, q, q, lse)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_cuda(q, k, v, return_lse=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(*leaves)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    (2, 1024, 32, 32, 96, 0),         # phi-3-vision-4.2b's train step
+    (1, 200, 14, 2, 64, 5),           # GQA, window, ragged S
+    (1, 70, 2, 1, 32, 0),
+])
+def test_flash_forward_lse_matches_plain(cuda_device, b, s, hq, hkv, d,
+                                         window, dtype):
+    """The training forward's row log-sum-exp, f32 for either input dtype:
+    the plain version's logsumexp of the scaled visible scores on the same
+    inputs (upcast to f32), and its output the plain output."""
+    q, k, v = _flash_case(cuda_device, dtype, s, hq, hkv, d, s + hq, b=b)
+    out, lse = fa.flash_attention_cuda(q, k, v, window=window,
+                                       return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b * hq, s)
+    qf, kf = q.float(), k.float().repeat_interleave(hq // hkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / d ** 0.5
+    pos = torch.arange(s, device=cuda_device)
+    vis = (pos[:, None] >= pos[None, :])
+    if window:
+        vis &= pos[:, None] - pos[None, :] < window
+    want = torch.logsumexp(logits.masked_fill(~vis, float("-inf")), -1)
+    torch.testing.assert_close(lse, want.reshape(b * hq, s), atol=1e-4,
+                               rtol=1e-5)
+    exp = fa.flash_attention_plain(q, k, v, True, window)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hq,hkv,d,window", [
     (1, 448, 20, 20, 64, 0),          # whisper-large-v3: the rule takes 2 x 4
     (2, 1024, 32, 32, 96, 0),         # phi-3-vision-4.2b's train step: 4 x 2
@@ -578,14 +622,14 @@ def test_flash_backward_refuses_bf16(cuda_device):
     (1, 300, 16, 4, 128, 40),         # D 128: 2 x 4 only
 ])
 def test_flash_backward_cta_shapes_agree(cuda_device, b, s, hq, hkv, d,
-                                         window):
+                                         window, dtype):
     """Each CTA shape, forced, against the plain backward; the 4 x 2 shape
     is refused where its fragments do not fit (D > 96)."""
-    q, k, v = _flash_case(cuda_device, torch.float32, s, hq, hkv, d, s + d,
-                          b=b)
-    do = torch.randn_like(q)
+    q, k, v = _flash_case(cuda_device, dtype, s, hq, hkv, d, s + d, b=b)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
     o, lse = fa.flash_attention_cuda(q, k, v, window=window, return_lse=True)
-    want = fa.flash_attention_backward_plain(q, k, v, do, True, window)
+    want = fa.flash_attention_backward_plain(
+        *(t.float() for t in (q, k, v, do)), True, window)
     for groups in (4, 2):
         if groups == 4 and d > 96:
             with pytest.raises(ValueError, match="groups"):
@@ -595,7 +639,8 @@ def test_flash_backward_cta_shapes_agree(cuda_device, b, s, hq, hkv, d,
         got = fa.flash_attention_backward_cuda(q, k, v, o, do, lse,
                                                window=window, groups=groups)
         for t, w in zip(got, want):
-            _close_to_largest(t, w, FLASH_BWD_TOL)
+            assert t.dtype == dtype
+            _close_to_largest(t.float(), w, FLASH_BWD_TOL[dtype])
 
 
 @pytest.mark.cuda

@@ -210,37 +210,77 @@ def test_kernel_paths_book_cost_terms():
     assert moe["kernels"]["flash_attention_backward"]["calls"] == 2
     assert "refused" not in moe["kernels"]["flash_attention_backward"]
     assert "refused" not in m2["kernels"]["ssd_scan_backward"]
-    # the backward kernel takes f32 only: a bf16 step is booked as refused
+    # the backward kernel takes bf16 too: a bf16 step books it at bf16's
+    # bytes, with no refusal
     bf = _program("olmoe-1b-7b", "train", dtype="bfloat16",
                   param_dtype="bfloat16").count()
-    assert "float32 only" in bf["kernels"]["flash_attention_backward"][
-        "refused"]
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    f, b = cost.flash_attention_backward(4, 16, cfg.n_heads, cfg.n_kv_heads,
+                                         cfg.resolved_head_dim, 2)
+    assert bf["kernels"]["flash_attention_backward"] == {
+        "calls": cfg.n_layers, "flops": cfg.n_layers * f,
+        "bytes": cfg.n_layers * b}
     assert ops.counts() == before
 
 
 def test_unrunnable_step_is_marked_and_kept_out_of_the_store(tmp_path,
                                                             monkeypatch):
-    """A record whose step the card cannot run (the dry-run's bf16 flash
-    backward) lists the refused kernel, is marked by the roofline table
-    and is not folded into the placement profile; an explicit ``ranks``
-    wins over ``REPRO_DRYRUN_DEVICES``."""
+    """A record whose step the card cannot run (a mamba2 train step whose
+    ``ssm_chunk`` 512 exceeds the SSD backward's chunk limit of 256) lists
+    the refused kernel, is marked by the roofline table and is not folded
+    into the placement profile; an explicit ``ranks`` wins over
+    ``REPRO_DRYRUN_DEVICES``."""
     monkeypatch.setenv("REPRO_DRYRUN_DEVICES", "8")
-    rec, _ = dryrun.lower_combo("olmoe-1b-7b", "train_4k", False,
+    rec, _ = dryrun.lower_combo("mamba2-780m", "train_4k", False,
                                 probe=False, mesh_kind="host", ranks=2,
-                                extra_cfg={"smoke": True})
+                                extra_cfg={"smoke": True, "ssm_chunk": 512})
     assert rec["n_chips"] == 2 and rec["mesh_shape"] == {"data": 1,
                                                          "model": 2}
-    assert set(rec["not_runnable"]) == {"flash_attention_backward"}
-    assert roofline.fmt_row(rec).startswith("| olmoe-1b-7b (not runnable) |")
+    assert set(rec["not_runnable"]) == {"ssd_scan_backward"}
+    assert "chunk up to 256" in rec["not_runnable"]["ssd_scan_backward"]
+    assert roofline.fmt_row(rec).startswith("| mamba2-780m (not runnable) |")
     out = tmp_path / "dry.jsonl"
     out.write_text(json.dumps(rec) + "\n")
     buf = io.StringIO()
     with redirect_stdout(buf):
         roofline.main(["--jsonl", str(out), "--mesh", "host"])
-    assert "not runnable on the card: olmoe-1b-7b train_4k: " \
-        "flash_attention_backward: " in buf.getvalue()
+    assert "not runnable on the card: mamba2-780m train_4k: " \
+        "ssd_scan_backward: " in buf.getvalue()
     assert run_all_dryruns.store_from_jsonl(
         str(out), str(tmp_path / "p.jsonl")) == 0
+
+
+def test_bf16_train_record_is_runnable_and_stored(tmp_path, monkeypatch):
+    """The dry-run's bf16 train step of olmoe-1b-7b (the sweep's train
+    dtype) books the bf16 flash backward with no refusal: its record is
+    runnable, unmarked in the roofline table, and folded into the
+    placement profile Synergy reads."""
+    monkeypatch.setenv("REPRO_DRYRUN_DEVICES", "8")
+    rec, _ = dryrun.lower_combo("olmoe-1b-7b", "train_4k", False,
+                                probe=False, mesh_kind="host", ranks=2,
+                                extra_cfg={"smoke": True})
+    assert rec["not_runnable"] == {}
+    assert rec["kernels"]["flash_attention_backward"]["calls"] > 0
+    assert "refused" not in rec["kernels"]["flash_attention_backward"]
+    assert roofline.fmt_row(rec).startswith("| olmoe-1b-7b |")
+    out = tmp_path / "dry.jsonl"
+    out.write_text(json.dumps(rec) + "\n")
+    assert run_all_dryruns.store_from_jsonl(
+        str(out), str(tmp_path / "p.jsonl")) == 1
+
+
+def test_bf16_backward_bound_is_one_tensor_core_pass():
+    """The bf16 flash backward's bound at phi-3-vision-4.2b's train shape:
+    3.22e10 flops in one bf16 pass at 989 TFLOP/s (0.0326 ms) against
+    q, k, v, o, do, dq, dk and dv in bf16 and the f32 log-sum-exp (0.0301
+    ms): bound by operations. The f32 kernel's bytes are twice the eight
+    tensors' plus the same log-sum-exp."""
+    f, b = cost.flash_attention_backward(2, 1024, 32, 32, 96, 2)
+    bytes_ms, ops_ms = cost.bound_ms(f, b, f32=False)
+    assert (round(ops_ms, 4), round(bytes_ms, 4)) == (0.0326, 0.0301)
+    lse = 4 * 2 * 32 * 1024
+    f4, b4 = cost.flash_attention_backward(2, 1024, 32, 32, 96, 4)
+    assert f4 == f and b4 - lse == 2 * (b - lse)
 
 
 def test_probe_extrapolation_is_the_full_count_on_a_uniform_stack():

@@ -2,7 +2,7 @@
 """Run the kernel checks or the sharded phase of ``chip_smoke.py`` alone, on
 one NVIDIA GPU.
 
-    python3 tools/chip_phases.py [kernels] [sharded]
+    python3 tools/chip_phases.py [kernels] [backward] [train-bf16] [sharded]
 
 Builds the kernels (with the build phase's tensor-core check), then, as
 asked (both by default): ``kernels`` holds the paged kernels at the
@@ -10,7 +10,11 @@ engine's and the other engines' shapes, their partial mode, flash with a
 query offset, flash and the SSD scan against their plain versions and
 prints the
 ``kernels`` record of those timed cases (no launch counts: no engine runs);
-``sharded`` draws the engine phase's seed-0 qwen2-0.5b weights and runs
+``backward`` holds the flash and SSD backward kernels against autograd of
+their plain versions (flash in f32 and bf16) and prints their timed
+cases; ``train-bf16`` runs that phase (phi-3-vision-4.2b trained in bf16
+at full width, one step against f32); ``sharded`` draws the engine
+phase's seed-0 qwen2-0.5b weights and runs
 the sharded phase (two ranks on meshes (1, 2) and (2, 1): qwen2-0.5b paged
 on both and contiguous on (2, 1), mamba2-780m on both, zamba2-7b, whisper
 and mamba2-780m's forward on (1, 2); four on (1, 4)),
@@ -58,6 +62,18 @@ def main(what) -> None:
         print(json.dumps({"kernels": list(rec.values())}), flush=True)
         del flush
         print(f"kernels done {time.perf_counter() - t0:.1f} s", flush=True)
+    if "backward" in what:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        recs = [*cs.check_flash_backward(flush), cs.check_ssd_backward(flush)]
+        print(json.dumps({"kernels": recs}), flush=True)
+        del flush
+        print(f"backward done {time.perf_counter() - t0:.1f} s", flush=True)
+    if "train-bf16" in what:
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps(cs.run_train_bf16()), flush=True)
+        print(f"train-bf16 done {time.perf_counter() - t0:.1f} s",
+              flush=True)
     if "sharded" in what:
         gc.collect()
         torch.cuda.empty_cache()

@@ -13,12 +13,16 @@ to compare them on one card.
 Steps, at full width with random weights from seed 0 and AdamW:
 phi-3-vision-4.2b with remat "full" on [2, 1024] tokens and [2, 576, 3072]
 patch embeddings (the ``synergy`` phase's job), and mamba2-780m with remat
-"full" on [2, 4096] tokens (the ``train`` phase's). Each is warmed up by
+"full" on [2, 4096] tokens (the ``train`` phase's), and phi-3-vision-4.2b
+in bf16 (``dtype`` and ``param_dtype``, the ``train-bf16`` phase's job:
+the flash forward with its log-sum-exp and the bf16 backward kernel; a
+checkout from before that kernel raises there). Each is warmed up by
 one step and timed over two more with CUDA events (``step_ms``); then one
 step runs as ``state.make_train_step`` does, in three phases (the loss's
 forward, ``backward()``, the optimizer update) with a marker kernel
 between them, under torch.profiler. Each phase's device time is grouped by
-kernel name: ``gemm`` (cuBLAS / CUTLASS products), ``port_backward`` (the
+kernel name: ``gemm`` (cuBLAS / CUTLASS products, Hopper's bf16
+``nvjet_*`` ones too), ``port_backward`` (the
 backward kernels: ``flash_bwd_*``, ``ssd_scan_bwd_*``, the backward's
 reversed ``ssd_scan_*<.., true>``, and the parent's ``ssd_scan_dlog`` and
 ``flash_bwd_prep``), ``port_forward`` (``flash_attention_kernel`` and the
@@ -43,7 +47,8 @@ MARKER = "spin_kernel"
 
 def category(name: str) -> str:
     low = name.lower()
-    if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "cublas")):
+    if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "cublas",
+                              "nvjet")):
         return "gemm"
     if "flash_bwd" in name or "ssd_scan_bwd" in name or \
             "ssd_scan_dlog" in name or \
@@ -140,10 +145,11 @@ def step_ms(trainer, batch) -> float:
     return st.elapsed_time(en) / 2
 
 
-def run(cs, arch: str) -> dict:
+def run(cs, arch: str, dtype: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     if arch == "phi-3-vision-4.2b":
-        cfg = cs.get_config(arch).replace(remat="full")
+        cfg = cs.get_config(arch).replace(remat="full", dtype=dtype,
+                                          param_dtype=dtype)
         b, s = cs.SYN_B, cs.PHI_S
     else:
         cfg = cs.train_cli.build_cfg(arch, "full").replace(remat="full")
@@ -158,7 +164,8 @@ def run(cs, arch: str) -> dict:
     else:
         batch = {k: torch.as_tensor(v).to("cuda") for k, v in host.items()}
     with torch.enable_grad():
-        rec = {"arch": arch, "remat": cfg.remat, "batch": [b, s],
+        rec = {"arch": arch, "dtype": dtype, "remat": cfg.remat,
+               "batch": [b, s],
                "step_ms": step_ms(trainer, batch)}
         rec.update(profiled_step(cs, trainer, batch))
     del trainer, batch
@@ -177,7 +184,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    steps = [run(cs, arch) for arch in ("phi-3-vision-4.2b", "mamba2-780m")]
+    steps = [run(cs, arch, dtype) for arch, dtype in (
+        ("phi-3-vision-4.2b", "float32"), ("mamba2-780m", "float32"),
+        ("phi-3-vision-4.2b", "bfloat16"))]
     print(json.dumps({"checkout": root, "card": card, "steps": steps}))
     return 0
 

@@ -10,7 +10,9 @@ supplies the kernels and this checkout's the timing, as in
 two checkouts in one call, in turns (old, new, new, old), to compare them
 on one card.
 
-Cases, float32, each called as the training step calls it:
+Cases, float32 (the flash backward and its SDPA yardsticks in bfloat16
+too; a checkout from before the bf16 backward raises there), each called
+as the training step calls it:
   * the flash backward (``ops.flash_attention_backward`` with the forward's
     output, and its row log-sum-exp where the checkout's forward hands one
     over) at phi-3-vision-4.2b's train shape [2, 1024, 32, 96],
@@ -69,7 +71,7 @@ def kernels_per_call(fn, flush, reps: int = 10) -> dict:
     return out
 
 
-def flash_cases(cs) -> dict:
+def flash_cases(cs, dtype=torch.float32) -> dict:
     """The flash backward (with the forward's lse where the checkout's
     forward returns one), SDPA's forward + backward and SDPA's forward."""
     lse_ok = "return_lse" in inspect.signature(
@@ -79,8 +81,11 @@ def flash_cases(cs) -> dict:
     cases = {}
     for what, (b, s, h, d) in FLASH.items():
         g = torch.Generator(device="cuda").manual_seed(s + h)
-        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g,
+                                   device="cuda").to(dtype)
                        for _ in range(4))
+        if dtype is not torch.float32:
+            what = f"{what} {str(dtype)[6:]}"
         if lse_ok:
             o, lse = cs.fa.flash_attention_cuda(q, k, v, return_lse=True)
             kw = {"lse": lse}
@@ -144,7 +149,8 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     out = {}
     with torch.no_grad():
-        for cases in (flash_cases(cs), ssd_cases(cs), serve_cases(cs)):
+        for cases in (flash_cases(cs), flash_cases(cs, torch.bfloat16),
+                      ssd_cases(cs), serve_cases(cs)):
             for name, fn in cases.items():
                 if name.startswith("sdpa fwd+bwd"):
                     with torch.enable_grad():
