@@ -98,7 +98,19 @@ Phases, each printed as it runs; any failure exits non-zero:
                  blocks of a 256-token pass gathered against one
                  self-attention call); each f32 call timed beside its
                  plain version, SDPA (on the gathered local K/V, or with
-                 the explicit mask) and its bound;
+                 the explicit mask) and its bound; flash's backward at a
+                 query offset through ops.flash_attention_offset's
+                 autograd Function against autograd of the plain version
+                 at the offset (f32 and bf16, as the backward above): the
+                 sharded train-q-seq run's rank 0 and rank 3 ([2, 128,
+                 14/2, 64] at 0 and 384, over 128 and 512 keys), a pod
+                 rank's of the dry-run's qwen2-0.5b train_4k ([8, 512] at
+                 3584 over 4096 keys), a window 64 (dk = dv = 0 for the
+                 keys no row sees) and a ragged block off the tiles, the
+                 first three timed in both dtypes beside the bound, the
+                 plain backward and SDPA's forward + autograd.grad with
+                 the explicit mask; the bf16 flash forward with its
+                 log-sum-exp at [2, 1024, 32, 96] timed beside SDPA;
   4. reference — the paged prefill + decode path (qwen2-0.5b smoke), the
                  MoE one-pass forward + contiguous decode steps
                  (olmoe-1b-7b smoke), the mamba2 forward + decode chain
@@ -262,7 +274,28 @@ Phases, each printed as it runs; any failure exits non-zero:
                  rows. Prints the collective counts by kind and the share
                  of the wall spent in them, ms a decode step sharded and
                  single-process, and the phase's seconds. A rank that
-                 fails fails the phase;
+                 fails fails the phase. Then the four ranks train
+                 (train/sharded.py, SHARD_TRAIN): qwen2-0.5b at full
+                 width, f32, remat full, SHARD_TRAIN_LAYERS of 24 layers,
+                 2 rows of 512 tokens a 'data' rank, 3 AdamW steps, on
+                 mesh (1, 4) (q-seq: flash with a query offset and its
+                 backward, the logits split over the vocabulary) and
+                 (2, 2) (heads over 'model', ZeRO-1 over 'data'), while
+                 this process runs the single-process step on the same
+                 seed-0 weights and batches: the ranks' losses equal each
+                 other and the single-process losses within 1e-5
+                 relative, gradient norms within 1e-4, every rank's block
+                 of the first step's gradients within 1e-4 of its leaf's
+                 largest |gradient|, of the last params within
+                 SHARD_TRAIN_PARAM_ATOL and each leaf's distance within
+                 SHARD_TRAIN_PARAM_SHARE of the distance the leaf
+                 moved (the ranks hand their blocks over as CUDA
+                 tensors); on (1, 4) the offset flash 2 x layers and its
+                 backward once a layer a step a rank, no plain version;
+                 on (2, 2) collectives over both axes. Prints a
+                 sharded_train line a run (ms a step a rank and
+                 single-process, gloo's share of the wall, peak memory a
+                 rank, launches);
  7. olmoe     — with the qwen2 engines freed, the full-width olmoe-1b-7b
                  contiguous engine (64 experts top-8) cut to 4 of its 16
                  layers (float32 weights from a seed; 16 until the gemma3
@@ -630,7 +663,7 @@ PAGED_SHAPES = (("olmoe-1b-7b paged", OL_H, OL_H, OL_D, 256 // BS, 64, 4, 4,
 #: lane, which 'data' 2 does not split), and the rank processes' time
 #: limit (s)
 SHARD_N, SHARD_NEW, SHARD_DP_RATE = 8, 32, 2.0
-SHARD_TIMEOUT = 400
+SHARD_TIMEOUT = 600
 #: the sequence-sharded runs on mesh (1, 4): the ranks the pools' positions
 #: split over (qwen2-0.5b's 2 KV heads do not divide 4: a paged rank holds
 #: 4 of each block's 16 offsets), the contiguous run's depth and its
@@ -643,6 +676,35 @@ SEQ_PROMPTS = (64, 96, 128, 160, 192, 224, 256, 120)
 #: the flash query-offset case: a contiguous rank's block of 64 query rows
 #: at offset 192 over 256 keys (rank 3 of a 256-token prompt on (1, 4))
 OFF_SQ, OFF_Q0, OFF_SK = 64, 192, 256
+#: the sharded phase's train runs on the four-rank group: qwen2-0.5b at
+#: full width, f32, remat "full", SHARD_TRAIN_LAYERS of its 24 layers,
+#: SHARD_TRAIN_ROWS rows of SHARD_TRAIN_S tokens a 'data' rank,
+#: SHARD_TRAIN_STEPS AdamW steps at constant SHARD_TRAIN_LR (the
+#: reference's other defaults: clip 1.0, decay 0.1); (name, mesh shape):
+#: (1, 4) runs q-seq (14 heads do not divide 4), (2, 2) splits the heads
+#: over 'model' and ZeRO-1 over 'data'
+SHARD_TRAIN_LAYERS = 24
+SHARD_TRAIN_S, SHARD_TRAIN_ROWS = 512, 2
+SHARD_TRAIN_STEPS, SHARD_TRAIN_LR = 3, 3e-4
+SHARD_TRAIN = {SEQ_M: (("train-q-seq", (1, SEQ_M)), ("train-dp", (2, 2)))}
+#: the sharded train runs' params after SHARD_TRAIN_STEPS against the
+#: single-process step's, each leaf on its own: its distance within this
+#: share of the distance the leaf moved in the single-process step, and
+#: every element within one AdamW update's size (SHARD_TRAIN_LR; an update
+#: skipped, repeated or of the wrong sign moves an element by about that
+#: much a step). The readings behind both are in PERF.md section 6.
+SHARD_TRAIN_PARAM_SHARE = 1e-2
+SHARD_TRAIN_PARAM_ATOL = SHARD_TRAIN_LR
+#: flash's backward at a query offset timed in the kernels phase: (path,
+#: B, Sq, q_offset, Sk): ranks 0 and 3 of the train-q-seq run's 512-token
+#: pass, and rank 7 of 8 of the dry-run's qwen2-0.5b train_4k on the pod
+#: mesh (4096 tokens over 'model' 8, 8 rows a 'data' rank)
+OFF_BWD_SHAPES = (("train-q-seq rank 0", SHARD_TRAIN_ROWS,
+                   SHARD_TRAIN_S // SEQ_M, 0, SHARD_TRAIN_S // SEQ_M),
+                  ("train-q-seq rank 3", SHARD_TRAIN_ROWS,
+                   SHARD_TRAIN_S // SEQ_M,
+                   SHARD_TRAIN_S - SHARD_TRAIN_S // SEQ_M, SHARD_TRAIN_S),
+                  ("qwen2-0.5b train_4k pod rank 7", 8, 512, 3584, 4096))
 #: the rank processes' device type
 SHARD_DEVICE = "cuda"
 #: the recurrent families served tensor-parallel on mesh (1, 2) after the
@@ -1216,6 +1278,123 @@ def check_flash_offset(flush: torch.Tensor) -> dict:
              causal=True, window=0, dtype="float32"))
 
 
+def sdpa_offset_backward(q, k, v, do, q_offset: int):
+    """One forward and autograd.grad of scaled_dot_product_attention with
+    the explicit mask of query rows at ``q_offset`` (KV heads repeated to
+    the q heads beforehand): the library yardstick of the offset
+    backward."""
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+              .requires_grad_() for t in (k, v))
+    dot = do.transpose(1, 2)
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            <= q_offset + torch.arange(q.shape[1], device=q.device)[:, None])
+
+    def run():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+    return run
+
+
+def check_flash_offset_backward(flush: torch.Tensor) -> dict:
+    """Flash's backward at a query offset (the backward kernel with Sq
+    rows at positions q_offset .. over Sk keys) through
+    ops.flash_attention_offset's autograd Function, against autograd of
+    the plain version at the offset in f64 on the upcast inputs, f32
+    (FLASH_BWD_TOL of the largest |gradient|) and bf16 (2e-2); the plain
+    version's own f32 error against the same f64 gradients printed beside
+    the kernel's (``err_rel``, ``plain_f32_err_rel`` in the record):
+    the sharded phase's train-q-seq rank shapes (``OFF_BWD_SHAPES``: rank 0
+    and rank 3 of a 512-token pass on (1, 4)), a pod rank's of the
+    dry-run's qwen2-0.5b train_4k (rank 7 of 8), a window (keys no row
+    sees: dk = dv = 0) and a ragged block at an offset off the tiles. Each
+    ``OFF_BWD_SHAPES`` case timed in both dtypes with the forward's
+    log-sum-exp, beside its bound, the plain backward and SDPA's forward +
+    autograd.grad with the explicit mask. Returns the kernels-line entry
+    (rank 3's f32 call; the others in ``other_shapes``)."""
+    cases = [(b, sq, q0, sk, 0, what) for what, b, sq, q0, sk in
+             OFF_BWD_SHAPES]
+    cases += [(2, SHARD_TRAIN_S // SEQ_M, 384, SHARD_TRAIN_S, 64,
+               "window 64: keys below 321 seen by no row"),
+              (1, 100, 150, 300, 0, "ragged: 100 rows at 150 over 300")]
+    recs = []
+    for (b, sq, q0, sk, window, what) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            g = torch.Generator(device="cuda").manual_seed(sq + q0 + sk)
+            q, k, v, do = (torch.randn(b, n, h, D, generator=g,
+                                       device="cuda").to(dtype)
+                           for n, h in ((sq, HQ), (sk, HKV), (sk, HKV),
+                                        (sq, HQ)))
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ops.flash_attention_offset(*leaves, q0, window=window).backward(
+                do)
+            got = [t.grad for t in leaves]
+            want = fa.flash_attention_backward_plain(
+                *(t.double() for t in (q, k, v, do)), True, window, q0)
+            if any(t is None or t.dtype != dtype for t in got):
+                raise SystemExit(f"FAIL: flash offset backward {what} "
+                                 f"{name}: a gradient is missing or not "
+                                 f"{name}")
+            label = (f"flash offset backward [{b}, {sq}, {HQ}/{HKV}, {D}] "
+                     f"at {q0} over {sk} keys window={window} {name} "
+                     f"({what})")
+            err = _compare_grads(label + " against f64", got, want,
+                                 FLASH_BWD_TOL if dtype is torch.float32
+                                 else TOL[dtype])
+            rels = (_rel_err(got, want), _rel_err(
+                fa.flash_attention_backward_plain(
+                    *(t.float() for t in (q, k, v, do)), True, window, q0),
+                want))
+            print(f"{label}: against f64, the kernel {rels[0]:.3e} and the "
+                  f"plain f32 version {rels[1]:.3e} of the largest "
+                  "gradient", flush=True)
+            if window:
+                seen = q0 - window + 1
+                if any(t[:, :seen].abs().max().item() != 0
+                       for t in got[1:]):
+                    raise SystemExit(f"FAIL: flash offset backward {what} "
+                                     f"{name}: a key no row sees has a "
+                                     f"nonzero dk or dv")
+            del leaves, want, got
+            if window or what.startswith("ragged"):
+                continue
+            o, lse = fa.flash_attention_cuda(q, k, v, q_offset=q0,
+                                             return_lse=True)
+            elem = torch.empty((), dtype=dtype).element_size()
+            bytes_ms, ops_ms = cost.bound_ms(
+                *cost.flash_attention_backward(b, sq, HQ, HKV, D, elem,
+                                               True, 0, q_offset=q0, sk=sk),
+                f32=dtype is torch.float32)
+            recs.append(_record(
+                "flash_attention_offset_backward", "flash_attention_bwd.cu",
+                "src/repro/kernels/flash_attention.py:86", err,
+                time_ms(lambda: ops.flash_attention_offset_backward(
+                    q, k, v, o, do, q0, lse=lse), flush, reps=20),
+                time_ms(lambda: fa.flash_attention_backward_plain(
+                    q, k, v, do, True, 0, q0), flush, reps=5),
+                bytes_ms, ops_ms,
+                time_ms(sdpa_offset_backward(q, k, v, do, q0), flush,
+                        reps=20),
+                dict(path=what, B=b, Sq=sq, Sk=sk, q_offset=q0, Hq=HQ,
+                     Hkv=HKV, D=D, causal=True, window=0, dtype=name)))
+            recs[-1]["err_rel"], recs[-1]["plain_f32_err_rel"] = rels
+            del q, k, v, do, o, lse
+    main = next(r for r in recs if r["shape"]["q_offset"] == 384
+                and r["shape"]["dtype"] == "float32")
+    main["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS
+                             + ("err_rel", "plain_f32_err_rel")}
+                            for r in recs if r is not main]
+    main["note"] = ("the backward of flash_attention_bhsd at a query offset "
+                    "(the TPU kernel has no backward): the dq and dk/dv "
+                    "kernels over Sq rows and Sk keys, dk / dv the rows' "
+                    "part, 0 for a key no row sees; 3xTF32 (f32), one "
+                    "bf16 pass (bf16)")
+    return main
+
+
 def _record(name, source, replaces, err, ms, plain_ms, bytes_ms, ops_ms,
             lib_ms, shape, f32_simt_ms=None, times=None) -> dict:
     """The kernels-line entry of one timed case. ``launches`` is added by
@@ -1345,6 +1524,25 @@ def check_flash(flush: torch.Tensor) -> dict:
                             flush),
                     dict(path=path, B=b, S=s, Hq=hq, Hkv=hkv, D=d,
                          causal=True, window=0, dtype="float32")))
+            if ((b, s, d) == (SYN_B, PHI_S, PHI_D)
+                    and dtype is torch.bfloat16 and not window):
+                # the bf16 train step's forward, which hands its row
+                # log-sum-exp to the backward
+                others.append(_record(
+                    "flash_attention", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:86", err,
+                    time_ms(lambda: fa.flash_attention_cuda(
+                        q, k, v, return_lse=True), flush),
+                    time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                            flush, reps=10),
+                    *flash_bound(s, hq, hkv, d, dtype, True, 0, b=b),
+                    time_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True),
+                            flush),
+                    dict(path="phi-3-vision-4.2b train bf16 (with its "
+                         "log-sum-exp)", B=b, S=s, Hq=hq, Hkv=hkv, D=d,
+                         causal=True, window=0, dtype="bfloat16")))
     rec["other_shapes"] = [{k: r[k] for k in SHAPE_KEYS} for r in others]
     return rec
 
@@ -1527,6 +1725,14 @@ def _compare_grads(what: str, got, want, tol: float) -> float:
         raise SystemExit(f"FAIL: {what} disagrees with autograd of its "
                          f"plain version")
     return max(errs)
+
+
+def _rel_err(got, want) -> float:
+    """The largest of the gradients' max abs errors, each over its
+    reference's largest |value|."""
+    return max((g.double() - w).abs().max().item()
+               / max(w.abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
 
 
 def flash_bwd_bound(b: int, s: int, hq: int, hkv: int, d: int,
@@ -4533,10 +4739,247 @@ def _tp_forward(cfg, plan) -> dict:
                     single_ms=single_ms, collectives=dict(shd.STATS))
 
 
-def _shard_rank(rank: int, port: int, world: int, runs, queue) -> None:
+def shard_train_cfg():
+    """qwen2-0.5b at full width, ``SHARD_TRAIN_LAYERS`` deep, remat
+    "full": the sharded train runs' config."""
+    return get_config("qwen2-0.5b").replace(n_layers=SHARD_TRAIN_LAYERS,
+                                            remat="full")
+
+
+def shard_train_batches(cfg, d: int) -> list:
+    """The train runs' ``SHARD_TRAIN_STEPS`` global batches:
+    ``d * SHARD_TRAIN_ROWS`` rows of ``SHARD_TRAIN_S`` tokens and labels
+    each, drawn on the card from seed 1 (the same on every rank and in the
+    parent)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    shape = (d * SHARD_TRAIN_ROWS, SHARD_TRAIN_S)
+    return [{k: torch.randint(0, cfg.vocab_size, shape, generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+            for _ in range(SHARD_TRAIN_STEPS)]
+
+
+def _train_rank(shape, world: int) -> dict:
+    """One sharded train run on this rank (``SHARD_TRAIN``): the seed-0
+    weights cut to the rank's blocks, ``SHARD_TRAIN_STEPS`` steps of
+    ``train/sharded.py``'s step on the rank's rows, counters set to 0
+    just before the first and read just after the last; each step's loss,
+    gradient norm and ms, the wall's share in collectives, the rank's peak
+    memory, and its blocks of the first step's gradients (before the clip)
+    and of the last step's params (CUDA tensors, handed to the parent
+    through the queue)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.train import sharded as ts
+    cfg = shard_train_cfg()
+    mesh = Mesh(shape, ("data", "model"), DeviceMesh(
+        SHARD_DEVICE, torch.arange(world).reshape(shape),
+        mesh_dim_names=("data", "model")))
+    plan = ts.make_train_sharding(cfg, mesh)
+    model = build_model(cfg)
+    local = plan.shard_params(model.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    adamw = optimizer.adamw(optimizer.constant(SHARD_TRAIN_LR))
+    state = ts.create(local, adamw, plan)
+    step = ts.make_train_step(model.loss, adamw, plan)
+    batches = shard_train_batches(cfg, shape[0])
+    ops.set_counts((0,) * len(ops.COUNTERS))
+    ops.flash_attention_offset.plain_calls = 0
+    shd.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    losses, norms, step_ms, t0 = [], [], [], time.perf_counter()
+    for i, batch in enumerate(batches):
+        t = time.perf_counter()
+        state, m = step(state, plan.local_batch(batch), keep_grads=i == 0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        if i == 0:
+            grads = m["grads"]
+    wall = time.perf_counter() - t0
+    return dict(losses=losses, norms=norms, step_ms=step_ms, wall_s=wall,
+                launches=dict(zip(COUNTER_NAMES, ops.counts())),
+                offset_plain=ops.flash_attention_offset.plain_calls,
+                collectives=dict(shd.STATS), axes=dict(shd.AXIS_CALLS),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                coords={a: mesh.coord(a) for a in ("data", "model")},
+                grads=grads,
+                params=optimizer.tree_map(lambda p: p.detach(),
+                                          state["params"]))
+
+
+def _train_reference(d: int) -> dict:
+    """The single-process step on the same weights and batches
+    (``state.make_train_step``'s, written out to keep the first step's
+    gradients): each step's loss, gradient norm and ms, the first step's
+    gradients, the last step's params and each leaf's squared distance
+    moved."""
+    from repro_torch.train import state as train_state
+    cfg = shard_train_cfg()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    start = optimizer.tree_map(lambda p: p.detach().clone(), params)
+    adamw = optimizer.adamw(optimizer.constant(SHARD_TRAIN_LR))
+    state = train_state.create(params, adamw)
+    losses, norms, step_ms = [], [], []
+    for i, batch in enumerate(shard_train_batches(cfg, d)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model.loss(params, batch)
+        loss.backward()
+        grads = optimizer.tree_map(lambda p: p.grad, params)
+        if i == 0:
+            kept = optimizer.tree_map(lambda g: g.clone(), grads)
+        gnorm = adamw.update(grads, state["opt"], params, i)
+        for p in optimizer.leaves(params):
+            p.grad = None
+        losses.append(float(loss.detach()))
+        norms.append(float(gnorm))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    moved2 = optimizer.tree_map(
+        lambda p, s: float((p.detach() - s).square().sum()), params, start)
+    del start
+    return dict(losses=losses, norms=norms, step_ms=step_ms, grads=kept,
+                params=optimizer.tree_map(lambda p: p.detach(), params),
+                moved2=moved2)
+
+
+def check_train(name: str, shape, got: list, ref: dict) -> dict:
+    """One sharded train run's checks (module docstring): the ranks'
+    losses equal each other and the single-process step's within 1e-5
+    relative, the gradient norms within 1e-4; each rank's blocks of the
+    first step's gradients within 1e-4 of their leaf's largest |gradient|
+    (every block of every leaf, so the leaves as the ranks together hold
+    them), and of the last params within ``SHARD_TRAIN_PARAM_ATOL``, each
+    leaf's distance (each block once) within ``SHARD_TRAIN_PARAM_SHARE``
+    of the distance the leaf moved in the single-process step; on (1, 4)
+    the offset flash
+    launched 2 x layers a step (forward and recompute) and its backward
+    once a layer a step, no plain version; collectives over both axes on
+    (2, 2). Drops the ranks' tensors; returns the run's record."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import sharded as ts
+    cfg = shard_train_cfg()
+    layers = cfg.n_layers
+    what = f"sharded {name} qwen2-0.5b mesh {shape} at {layers} layers"
+    names = ("data", "model")
+    plan = ts.make_train_sharding(cfg, shd.Mesh(shape, names))
+    paths = []
+    shd.tree_map_with_path(lambda path, _: paths.append(path),
+                           plan.param_layout)
+    if any(x["losses"] != got[0]["losses"] for x in got):
+        raise SystemExit(f"FAIL: {what}: the ranks' losses differ: "
+                         f"{[x['losses'] for x in got]}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                                       ref["losses"]))
+    norm_rel = max(abs(a - b) / abs(b) for x in got
+                   for a, b in zip(x["norms"], ref["norms"]))
+    grad_err = 0.0
+    elem = dict.fromkeys(paths, 0.0)   # largest |param gap| of each leaf
+    gap2 = dict.fromkeys(paths, 0.0)   # its squared distance, blocks once
+    for x in got:
+        mesh = shd.Mesh(shape, names, coords=x["coords"])
+        for path in paths:
+            want = shd.leaf_at(ref["grads"], path)
+            block = shd.local_block(want, shd.leaf_at(plan.opt_layout, path),
+                                    mesh)
+            err = (shd.leaf_at(x["grads"], path) - block).abs().max().item()
+            grad_err = max(grad_err, err / want.abs().max().item())
+            block = shd.local_block(shd.leaf_at(ref["params"], path),
+                                    shd.leaf_at(plan.param_layout, path),
+                                    mesh)
+            diff = shd.leaf_at(x["params"], path) - block
+            elem[path] = max(elem[path], diff.abs().max().item())
+            gap2[path] += (diff.square().sum().item()
+                           / plan.copies(path, plan.param_layout))
+        x.pop("grads")
+        x.pop("params")
+    # each leaf's distance over the distance it moved (inf: a gap where
+    # the single-process step left the leaf where it was)
+    share = {}
+    for p in paths:
+        moved2 = shd.leaf_at(ref["moved2"], p)
+        share[p] = (math.sqrt(gap2[p] / moved2) if moved2
+                    else math.inf if gap2[p] else 0.0)
+    param_max = max(elem.values())
+    worst = sorted(paths, key=share.get, reverse=True)[:3]
+    print(f"{what}: losses {got[0]['losses']} against {ref['losses']} "
+          f"(largest relative gap {loss_rel:.2e}), gradient norms within "
+          f"{norm_rel:.2e}, gradients within {grad_err:.2e} of their "
+          f"leaf's largest, params within {param_max:.2e} (leaf "
+          f"{_leaf_name(max(paths, key=elem.get))}); the largest distances "
+          f"over the leaf's move: "
+          + ", ".join(f"{_leaf_name(p)} {share[p]:.2e} (its elements "
+                      f"within {elem[p]:.2e})" for p in worst), flush=True)
+    share_max = share[worst[0]]
+    if loss_rel > 1e-5 or norm_rel > 1e-4 or grad_err > 1e-4:
+        raise SystemExit(f"FAIL: {what}: loss {loss_rel:.2e} (1e-5), "
+                         f"gradient norm {norm_rel:.2e} (1e-4) or "
+                         f"gradients {grad_err:.2e} (1e-4) from the "
+                         "single-process step's")
+    if (param_max > SHARD_TRAIN_PARAM_ATOL
+            or share_max > SHARD_TRAIN_PARAM_SHARE):
+        raise SystemExit(f"FAIL: {what}: params {param_max:.2e} "
+                         f"({SHARD_TRAIN_PARAM_ATOL}) or leaf "
+                         f"{_leaf_name(worst[0])}'s distance "
+                         f"{share_max:.2e} of its move "
+                         f"({SHARD_TRAIN_PARAM_SHARE}) from the "
+                         "single-process step's")
+    for r, x in enumerate(got):
+        calls = {k: v for k, v in x["launches"].items() if v}
+        c = x["collectives"]
+        if (any(k.endswith("_plain") for k in calls) or x["offset_plain"]
+                or not c["all_reduce"]):
+            raise SystemExit(f"FAIL: {what}: rank {r} launches {calls}, "
+                             f"collectives {c}")
+        if shape[1] == SEQ_M and (
+                x["launches"]["flash_attention_offset"]
+                != 2 * layers * SHARD_TRAIN_STEPS
+                or x["launches"]["flash_attention_offset_backward"]
+                != layers * SHARD_TRAIN_STEPS):
+            raise SystemExit(f"FAIL: {what}: rank {r} launches {calls}, "
+                             f"not the offset flash {2 * layers} and its "
+                             f"backward {layers} times a step")
+        if shape[0] > 1 and not (x["axes"].get("data")
+                                 and x["axes"].get("model")):
+            raise SystemExit(f"FAIL: {what}: rank {r} issued collectives "
+                             f"over {x['axes']}, not both axes")
+    return {
+        "mesh": shape, "layers": layers,
+        "rows": shape[0] * SHARD_TRAIN_ROWS, "seq": SHARD_TRAIN_S,
+        "steps": SHARD_TRAIN_STEPS, "losses": got[0]["losses"],
+        "single_losses": ref["losses"], "loss_rel": loss_rel,
+        "grad_norm_rel": norm_rel, "grad_err": grad_err,
+        "param_max_abs": param_max, "param_leaf_share_max": share_max,
+        "param_leaf_share_worst": {_leaf_name(p): share[p] for p in worst},
+        "ms_per_step": [x["step_ms"] for x in got],
+        "single_ms_per_step": ref["step_ms"],
+        "collective_share_of_wall": [x["collectives"]["seconds"]
+                                     / x["wall_s"] for x in got],
+        "collectives": [x["collectives"] for x in got],
+        "axes": [x["axes"] for x in got],
+        "peak_bytes": [x["peak_bytes"] for x in got],
+        "launches": [{k: v for k, v in x["launches"].items() if v}
+                     for x in got]}
+
+
+def _leaf_name(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _shard_rank(rank: int, port: int, world: int, runs, queue,
+                done) -> None:
     """One rank process: join the ``world``-rank gloo group on cuda:0,
     serve each of ``runs`` ((name, mesh shape, layers, arrival rate,
-    cache)) on its mesh, put (rank, results or the error) on ``queue``."""
+    cache)) on its mesh, then take the group's ``SHARD_TRAIN`` runs, put
+    (rank, results or the error) on ``queue`` and wait for ``done`` (the
+    parent reads the train runs' tensors in place)."""
     import traceback
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -4571,16 +5014,23 @@ def _shard_rank(rank: int, port: int, world: int, runs, queue) -> None:
                 res["mamba2 forward"] = _tp_forward(cfg, plan)
                 gc.collect()
                 torch.cuda.empty_cache()
+        for name, shape in SHARD_TRAIN.get(world, ()):
+            res[name] = _train_rank(shape, world)
+            gc.collect()
+            torch.cuda.empty_cache()
         dist.destroy_process_group()
         queue.put((rank, res))
+        done.wait(SHARD_TIMEOUT)
     except BaseException:
         queue.put((rank, {"error": traceback.format_exc()}))
 
 
 def _shard_group(world: int, params) -> tuple:
-    """Spawn ``world`` rank processes serving ``SHARD_RUNS[world]`` and run
-    the same engines single-process under ``graphs.eager()`` meanwhile, on
-    the same weights. Returns (each rank's results, the single runs)."""
+    """Spawn ``world`` rank processes serving ``SHARD_RUNS[world]`` and
+    training ``SHARD_TRAIN[world]``, and run the same engines
+    single-process under ``graphs.eager()`` and the single-process train
+    steps meanwhile, on the same weights. Returns (each rank's results,
+    the single runs, each train run's record from ``check_train``)."""
     import socket
     import torch.multiprocessing as mp
     runs = SHARD_RUNS[world]
@@ -4588,9 +5038,9 @@ def _shard_group(world: int, params) -> tuple:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
+    queue, done = ctx.Queue(), ctx.Event()
     procs = [ctx.Process(target=_shard_rank,
-                         args=(r, port, world, runs, queue))
+                         args=(r, port, world, runs, queue, done))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4608,12 +5058,26 @@ def _shard_group(world: int, params) -> tuple:
                     rate, cache)
             gc.collect()
             torch.cuda.empty_cache()
+        refs = {}
+        for name, shape in SHARD_TRAIN.get(world, ()):
+            refs[name] = _train_reference(shape[0])
+            gc.collect()
+            torch.cuda.empty_cache()
         ranks = {}
         while len(ranks) < len(procs):      # stop at the first failure
             r, res = queue.get(timeout=SHARD_TIMEOUT)
             ranks[r] = res
             if "error" in res:
                 break
+        trains = {}
+        if len(ranks) == len(procs) and not any("error" in v
+                                                for v in ranks.values()):
+            for name, shape in SHARD_TRAIN.get(world, ()):
+                trains[name] = check_train(
+                    name, shape, [ranks[r][name] for r in range(world)],
+                    refs.pop(name))
+                gc.collect()
+        done.set()
         for p in procs:
             p.join(timeout=60 if len(ranks) == len(procs) else 1)
     finally:
@@ -4625,7 +5089,7 @@ def _shard_group(world: int, params) -> tuple:
     if failed or len(ranks) < len(procs) or any(p.exitcode for p in procs):
         raise SystemExit(f"FAIL: sharded: rank(s) of {world} failed "
                          f"{[p.exitcode for p in procs]}: {failed}")
-    return [ranks[r] for r in range(world)], single
+    return [ranks[r] for r in range(world)], single, trains
 
 
 def check_tp_forward(ranks, cfg, shape) -> int:
@@ -4666,9 +5130,10 @@ def run_sharded(summary: dict, params) -> dict:
     """The sharded phase (module docstring): two ranks on meshes (1, 2)
     and (2, 1) (qwen2-0.5b paged on both and contiguous on (2, 1), then
     mamba2-780m on both, zamba2-7b and whisper-large-v3 on (1, 2) and
-    mamba2-780m's forward), then four on (1, 4). Returns, by kernel, the
-    launches summed over the ranks of the qwen2 runs and of the mamba2
-    forward, by path."""
+    mamba2-780m's forward), then four on (1, 4), which then train on
+    (1, 4) and (2, 2). Returns, by kernel, the launches summed over the
+    ranks of the qwen2 runs, of the mamba2 forward and of the (1, 4)
+    train run, by path."""
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4676,7 +5141,25 @@ def run_sharded(summary: dict, params) -> dict:
     rec = {"card": smi}
     paths = {}
     for world in SHARD_RUNS:
-        ranks, single = _shard_group(world, params)
+        ranks, single, trains = _shard_group(world, params)
+        for name, shape in SHARD_TRAIN.get(world, ()):
+            rec[name] = trains[name]
+            print(json.dumps({"sharded_train": name, **{
+                k: v for k, v in trains[name].items()
+                if k not in ("collectives", "axes")}}), flush=True)
+            print(f"sharded {name}: ms a step a rank "
+                  f"{trains[name]['ms_per_step']} against single-process "
+                  f"{trains[name]['single_ms_per_step']}; gloo "
+                  f"{trains[name]['collective_share_of_wall']} of the "
+                  f"wall; peak {trains[name]['peak_bytes']} bytes a rank "
+                  f"({smi})", flush=True)
+            if shape[1] > 1 and shape[0] == 1:
+                path = (f"qwen2-0.5b sharded train ({world} ranks, mesh "
+                        f"{shape})")
+                for kern in ("flash_attention_offset",
+                             "flash_attention_offset_backward"):
+                    paths.setdefault(kern, {})[path] = sum(
+                        x[kern] for x in trains[name]["launches"])
         for name, arch, shape, layers, rate, cache in SHARD_RUNS[world]:
             cfg = _shard_cfg(arch, layers)
             layers = cfg.n_layers
@@ -4845,6 +5328,8 @@ def main() -> int:
     rec["ssd_scan_backward"] = check_ssd_backward(flush)
     rec.update(check_partial(flush))
     rec["flash_attention_offset"] = check_flash_offset(flush)
+    rec["flash_attention_offset_backward"] = check_flash_offset_backward(
+        flush)
     del flush
     torch.cuda.empty_cache()
 

@@ -18,8 +18,8 @@ values. A ``Spec`` is a tuple of mesh-axis entries and compares equal to
 
 Off the mesh (no rules installed) every helper is an exact no-op:
 ``shard`` / ``shard_spec`` return their input, ``attention_scheme``
-returns None, ``reduce_over`` / ``gather_over`` / ``gather_rows`` return
-their input.
+returns None, ``reduce_over`` / ``gather_over`` / ``fan_out`` /
+``gather_rows`` return their input.
 
 On the mesh the port computes SPMD with plain local tensors and explicit
 collectives, not DTensor dispatch. Each rank holds the local blocks of the
@@ -32,7 +32,9 @@ unchanged on each rank's heads, and the model calls, at the reference's
     expert-parallel MoE combine);
   * ``gather_over(x, dim, "model")``: the pieces of a column-parallel
     output along ``dim`` (the vocab-parallel logits, the router's expert
-    logits);
+    logits, flat head columns gathered into whole heads);
+  * ``fan_out(x, "model")``: a replicated activation entering a
+    column-parallel product (the identity; see Gradients);
   * ``gather_rows(x)``: a decode bucket's or a prefill round's rows over
     ``"data"`` while ``split_rows`` is open (the selected tokens, a MoE
     round's expert counts, new K/V before a write into the paged pool,
@@ -40,7 +42,27 @@ unchanged on each rank's heads, and the model calls, at the reference's
   * ``merge_partials(o, lse, axis)``: the whole attention output from each
     rank's partial output over its own keys and the rows' log-sum-exp
     (kv-seq attention over a decode cache whose positions are split over
-    ``axis``, ``cache_seq_axis()``).
+    ``axis``, ``cache_seq_axis()``);
+  * ``max_over`` and ``reduce_scatter_over``, without gradients: the
+    vocab-split loss's row maximum and a train step's gradients over the
+    batch axes (``train/sharded.py``).
+
+Gradients. ``reduce_over``, ``gather_over`` and ``fan_out`` are autograd
+functions, and every rank runs the same backward, issuing the conjugate
+collectives in the same order. The convention is Megatron's: an activation
+that is the same on every rank of 'model' (the residual stream) has the
+whole gradient on every rank. So the backward of ``reduce_over`` passes the
+gradient on, and ``fan_out`` (identity forward) all-reduces it at every
+column-parallel entry, where each rank's product contributes only its part.
+A call names what its output's gradient is across the ranks (``grad``,
+``GRADS``): "replicated" where what follows computes the same on every rank
+(the gather then takes this rank's block of it), "partial" where what
+follows differs by rank (the gather reduce-scatters it, the reduce
+all-reduces it): the flat head columns gathered for a rank's rows or its
+own heads (``layers._whole``), the q-seq rows gathered for ``wo``'s
+row-parallel product, a column block's sum of squares. A collective's
+ranks are fixed when it is issued (``_Span``), so the backward needs no
+rules.
 
 ``shard`` and ``shard_spec`` keep the reference's signatures and return
 their input: a local tensor's layout is the one the plan gave its leaves,
@@ -52,8 +74,9 @@ maps a spec to its DTensor placements (``Shard(d)`` / ``Replicate()`` per
 mesh dimension), the counterpart of ``NamedSharding``.
 
 The collectives run on the tensors where they lie: gloo takes CUDA
-tensors for ``all_reduce`` and ``all_gather`` (torch 2.11 on the card,
-``tools/gloo_cuda_probe.py``), so nothing is staged by hand. A gloo
+tensors for ``all_reduce``, ``all_gather`` and ``reduce_scatter_tensor``
+(torch 2.11 on the card, ``tools/gloo_cuda_probe.py``), so nothing is
+staged by hand. A gloo
 collective cannot be captured into a CUDA graph (the capture is
 invalidated): one issued while the stream captures raises first.
 ``STATS`` counts the calls by kind and the host seconds spent in them (a
@@ -61,15 +84,15 @@ gloo collective on CUDA tensors returns when its result is on the
 device, so that includes the wait for the stream).
 
 On tensors without storage (meta: the dry-run's local program of one
-rank, ``launch/dryrun.py``) ``reduce_over`` and ``gather_over`` need no
-process group: on an axis of more than one rank they return an output of
-the collective's shape, made by the same local copies as the real path,
-count the call in ``STATS`` and book its output bytes by kind and mesh
-axis into the dry-run's counting mode (the innermost mode on the
-dispatch stack that takes collective bookings), as the reference's
-dry-run sums the output bytes of each collective in the HLO.
-Their backward passes are local (the gradient, or this rank's slice of
-it); the dry-run derives the backward's collectives from the forward's.
+rank, ``launch/dryrun.py``) the collectives need no process group: on an
+axis of more than one rank they return an output of the collective's shape,
+made by the same local copies as the real path (this rank's piece standing
+for every rank's), count the call in ``STATS`` and book its output bytes by
+kind and mesh axis into the dry-run's counting mode (the innermost mode on
+the dispatch stack that takes collective bookings), as the reference's
+dry-run sums the output bytes of each collective in the HLO. The backward's
+collectives book themselves the same way, so a train program's record
+holds what its step issues.
 """
 from __future__ import annotations
 
@@ -90,9 +113,10 @@ __all__ = [
     "Spec", "P", "Mesh", "Rules", "axis_rules", "current_rules", "shard",
     "shard_spec", "attention_scheme", "production_rules_table",
     "param_pspecs", "named", "NamedSharding", "PARAM_LOGICAL_AXES",
-    "reduce_over", "gather_over", "gather_rows", "split_rows", "local_rows",
+    "reduce_over", "gather_over", "fan_out", "max_over",
+    "reduce_scatter_over", "GRADS", "gather_rows", "split_rows", "local_rows",
     "rows_split", "rank_rows", "RowSplit", "merge_partials", "combine_partials", "cache_seq_axis",
-    "axis_index", "local_block", "STATS",
+    "axis_index", "local_block", "use_rules", "STATS", "AXIS_CALLS",
 ]
 
 
@@ -125,15 +149,17 @@ class Mesh:
     """An n-d mesh of ranks with named axes. ``device_mesh`` (a
     ``torch.distributed.device_mesh.DeviceMesh`` over the same shape and
     names) gives this rank's coordinates and one process group per axis;
-    without it the mesh is shape only (spec logic, coordinates 0)."""
+    without it the mesh is shape only (spec logic; coordinates ``coords``,
+    {axis: index}, a given rank's view, 0 on an axis it omits)."""
 
-    def __init__(self, shape, axis_names, device_mesh=None):
+    def __init__(self, shape, axis_names, device_mesh=None, coords=None):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names):
             raise ValueError(f"mesh shape {self.shape} does not match its "
                              f"axis names {self.axis_names}")
         self.device_mesh = device_mesh
+        self.coords = dict(coords or {})
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -147,9 +173,10 @@ class Mesh:
         return n
 
     def coord(self, axis: str) -> int:
-        """This rank's index along ``axis`` (0 on a shape-only mesh)."""
+        """This rank's index along ``axis`` (``coords``' on a shape-only
+        mesh)."""
         if self.device_mesh is None:
-            return 0
+            return int(self.coords.get(axis, 0))
         return int(self.device_mesh.get_local_rank(axis))
 
     def group(self, axis: str):
@@ -223,7 +250,19 @@ def axis_rules(mesh, table: Dict[str, MeshAxes],
     """Install ``table`` over ``mesh`` for the dynamic extent of the block;
     ``cache_seq``: the mesh axis the decode cache's positions are split
     over (``Rules``)."""
-    rules = Rules(mesh, table, cache_seq)
+    with use_rules(Rules(mesh, table, cache_seq)) as rules:
+        yield rules
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[Rules]):
+    """Install an existing ``Rules`` (nothing for None) for the block: a
+    recomputation in the backward, which autograd may run on another
+    thread, runs under the rules its forward ran under
+    (``layers.remat``)."""
+    if rules is None:
+        yield None
+        return
     _stack().append(rules)
     try:
         yield rules
@@ -421,6 +460,32 @@ def tree_map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+def leaf_at(tree, path):
+    """The leaf of ``tree`` at ``path`` (``tree_map_with_path``'s)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def spec_ranks(spec, sizes: Dict[str, int]) -> int:
+    """The ranks ``spec`` splits a leaf over: the product of its axes'
+    sizes in ``sizes`` ({axis: size})."""
+    n = 1
+    for entry in spec or ():
+        for a in _flat(entry):
+            n *= sizes[a]
+    return n
+
+
+def mesh_index(mesh: Mesh, axes: MeshAxes) -> int:
+    """This rank's index along ``axes`` (a name, or fused names, the first
+    outermost)."""
+    sizes, c = mesh.sizes, 0
+    for a in _flat(axes):
+        c = c * sizes[a] + mesh.coord(a)
+    return c
+
+
 def param_pspecs(params, rules: Rules):
     """Spec tree for a params tree (tensors or shapes) under ``rules``.
 
@@ -497,12 +562,16 @@ def local_block(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
 # collectives (no-ops off-mesh)
 # ---------------------------------------------------------------------------
 #: collective calls by kind, and the host seconds spent in them
-STATS = {"all_reduce": 0, "all_gather": 0, "seconds": 0.0}
+STATS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+         "seconds": 0.0}
+#: collective calls by mesh axis (fused axes joined by "+")
+AXIS_CALLS: Dict[str, int] = {}
 
 
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = type(STATS[k])(0)
+    AXIS_CALLS.clear()
 
 
 def axis_index(axis: str) -> int:
@@ -513,59 +582,49 @@ def axis_index(axis: str) -> int:
     return rules.mesh.coord(axis)
 
 
-def _group(axis: str):
-    """(group, size) of ``axis`` under the active rules; (None, 1) when
-    the axis is absent or of size 1."""
+class _Span:
+    """The ranks one collective spans over a mesh axis (a name, or fused
+    names on a shape-only mesh), fixed when it is issued: a backward, which
+    autograd may run on another thread, issues its collectives over the
+    same ranks without the (thread-local) rules. ``group`` is None on
+    tensors without storage (the dry-run books instead); ``coord`` is this
+    rank's index along the (fused) axis."""
+
+    def __init__(self, label: str, n: int, group, coord: int):
+        self.label, self.n, self.group, self.coord = label, n, group, coord
+
+
+def _span(x: torch.Tensor, axis: MeshAxes) -> Optional[_Span]:
+    """The span of a collective on ``x`` over ``axis`` under the active
+    rules; None off the mesh and where the axis has one rank (or is not
+    the mesh's)."""
     rules = current_rules()
-    if rules is None or rules.sizes.get(axis, 1) == 1:
-        return None, 1
-    return rules.mesh.group(axis), rules.sizes[axis]
+    if rules is None:
+        return None
+    names = _flat(axis)
+    n = rules.axis_size(axis)
+    if n == 1 or any(a not in rules.sizes for a in names):
+        return None
+    coord = mesh_index(rules.mesh, names)
+    if x.device.type == "meta":
+        return _Span("+".join(names), n, None, coord)
+    if len(names) != 1:
+        raise ValueError(f"a collective over the fused axes {names} needs a "
+                         "process group of its own: only the dry-run's "
+                         "tensors without storage take one")
+    return _Span(names[0], n, rules.mesh.group(names[0]), coord)
 
 
-def _count(kind: str, group, x: torch.Tensor) -> None:
+def _count(kind: str, span: _Span, x: torch.Tensor) -> None:
     """Count one collective; refuse a gloo one inside a graph capture."""
-    if (x.is_cuda and torch.cuda.is_current_stream_capturing()
-            and dist.get_backend(group) == "gloo"):
+    if (span.group is not None and x.is_cuda
+            and torch.cuda.is_current_stream_capturing()
+            and dist.get_backend(span.group) == "gloo"):
         raise RuntimeError(
             f"a gloo {kind} cannot be captured into a CUDA graph: a gloo "
             "plan's programs run eager")
     STATS[kind] += 1
-
-
-def _dry_ranks(x: torch.Tensor, axis: str) -> int:
-    """The ranks of ``axis`` a collective on ``x`` spans when ``x`` has no
-    storage (the dry-run), else 0."""
-    rules = current_rules()
-    if x.device.type != "meta" or rules is None:
-        return 0
-    return rules.sizes.get(axis, 1)
-
-
-class _DryReduce(torch.autograd.Function):
-    """An all-reduce's local program on a tensor without storage."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.contiguous().clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        return g
-
-
-class _DryGather(torch.autograd.Function):
-    """An all-gather's local program on a tensor without storage (this
-    rank's piece stands for every rank's)."""
-
-    @staticmethod
-    def forward(ctx, x, dim, n):
-        ctx.dim, ctx.size = dim, x.shape[dim]
-        src = x.contiguous()
-        return torch.cat([src] * n, dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(ctx.dim, 0, ctx.size), None, None
+    AXIS_CALLS[span.label] = AXIS_CALLS.get(span.label, 0) + 1
 
 
 def _book(kind: str, axis: str, x: torch.Tensor, n: int = 1) -> None:
@@ -577,43 +636,161 @@ def _book(kind: str, axis: str, x: torch.Tensor, n: int = 1) -> None:
             return
 
 
-def reduce_over(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axis`` (a new tensor; ``x``
-    itself when off-mesh or the axis has one rank)."""
-    if _dry_ranks(x, axis) > 1:
-        STATS["all_reduce"] += 1
-        _book("all-reduce", axis, x)
-        return _DryReduce.apply(x)
-    group, n = _group(axis)
-    if group is None:
-        return x
-    _count("all_reduce", group, x)
-    t0 = time.perf_counter()
+def _all_reduce(x: torch.Tensor, span: _Span, op=None) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over ``span``'s ranks, a new tensor."""
+    _count("all_reduce", span, x)
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    if span.group is None:
+        _book("all-reduce", span.label, out)
+        return out
+    t0 = time.perf_counter()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=span.group)
     STATS["seconds"] += time.perf_counter() - t0
     return out
 
 
-def gather_over(x: torch.Tensor, dim: int, axis: str = "model"
-                ) -> torch.Tensor:
-    """The ranks' pieces of ``x`` along ``axis``, concatenated along
-    ``dim`` in rank order (``x`` itself off-mesh)."""
-    n = _dry_ranks(x, axis)
-    if n > 1:
-        STATS["all_gather"] += 1
-        _book("all-gather", axis, x, n)
-        return _DryGather.apply(x, dim % x.dim(), n)
-    group, n = _group(axis)
-    if group is None:
-        return x
-    _count("all_gather", group, x)
-    t0 = time.perf_counter()
+def _all_gather(x: torch.Tensor, dim: int, span: _Span) -> torch.Tensor:
+    """The ranks' pieces of ``x`` concatenated along ``dim`` in rank order
+    (without storage, this rank's piece stands for every rank's)."""
+    _count("all_gather", span, x)
     src = x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
+    if span.group is None:
+        _book("all-gather", span.label, src, span.n)
+        return torch.cat([src] * span.n, dim=dim)
+    t0 = time.perf_counter()
+    parts = [torch.empty_like(src) for _ in range(span.n)]
+    dist.all_gather(parts, src, group=span.group)
     STATS["seconds"] += time.perf_counter() - t0
     return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, span: _Span) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``span``'s
+    ranks (``dim`` cut into even blocks in rank order)."""
+    _count("reduce_scatter", span, x)
+    size = x.shape[dim] // span.n
+    if span.group is None:
+        out = x.narrow(dim, span.coord * size, size).contiguous().clone()
+        _book("reduce-scatter", span.label, out)
+        return out
+    t0 = time.perf_counter()
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((size,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=span.group)
+    STATS["seconds"] += time.perf_counter() - t0
+    return out.movedim(0, dim).contiguous()
+
+
+#: what a collective's output gradient is across the ranks of its axis:
+#: "replicated" (what follows computes the same on every rank, so each rank
+#: holds the whole gradient) or "partial" (each rank holds its own part of
+#: it, the whole gradient being their sum)
+GRADS = ("replicated", "partial")
+
+
+def _grad_kind(grad: str) -> bool:
+    if grad not in GRADS:
+        raise ValueError(f"grad must be one of {GRADS}, got {grad!r}")
+    return grad == "partial"
+
+
+class _Reduce(torch.autograd.Function):
+    """An all-reduce; its backward passes a replicated gradient on and
+    all-reduces a partial one."""
+
+    @staticmethod
+    def forward(ctx, x, span, partial):
+        ctx.span, ctx.partial = span, partial
+        return _all_reduce(x, span)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, ctx.span) if ctx.partial else g), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """An all-gather; its backward takes this rank's block of a replicated
+    gradient and reduce-scatters a partial one."""
+
+    @staticmethod
+    def forward(ctx, x, dim, span, partial):
+        ctx.dim, ctx.size, ctx.span, ctx.partial = (dim, x.shape[dim], span,
+                                                    partial)
+        return _all_gather(x, dim, span)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            dx = _reduce_scatter(g, ctx.dim, ctx.span)
+        else:
+            dx = g.narrow(ctx.dim, ctx.span.coord * ctx.size, ctx.size)
+        return dx, None, None, None
+
+
+class _FanOut(torch.autograd.Function):
+    """The identity; its backward all-reduces the ranks' partial
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, span):
+        ctx.span = span
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.span), None
+
+
+def reduce_over(x: torch.Tensor, axis: MeshAxes = "model", *,
+                grad: str = "replicated") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` (a new tensor; ``x``
+    itself when off-mesh or the axis has one rank). ``grad`` (``GRADS``):
+    the output's gradient across the ranks, which sets the backward: the
+    gradient itself where it is replicated, its all-reduce where each rank
+    holds a part."""
+    partial = _grad_kind(grad)
+    span = _span(x, axis)
+    return x if span is None else _Reduce.apply(x, span, partial)
+
+
+def gather_over(x: torch.Tensor, dim: int, axis: MeshAxes = "model", *,
+                grad: str = "replicated") -> torch.Tensor:
+    """The ranks' pieces of ``x`` along ``axis``, concatenated along
+    ``dim`` in rank order (``x`` itself off-mesh). ``grad`` (``GRADS``)
+    sets the backward: this rank's block of a replicated gradient, or the
+    reduce-scatter of the ranks' parts of it."""
+    partial = _grad_kind(grad)
+    span = _span(x, axis)
+    return (x if span is None
+            else _Gather.apply(x, dim % x.dim(), span, partial))
+
+
+def fan_out(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``x``, the same on every rank of ``axis``, entering a computation
+    that differs by rank (a column-parallel product): the identity, whose
+    backward all-reduces the ranks' parts of the gradient, so that the
+    gradient of a replicated activation is whole on every rank. ``x``
+    itself off the mesh or on an axis of one rank."""
+    span = _span(x, axis)
+    return x if span is None else _FanOut.apply(x, span)
+
+
+def max_over(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The element-wise maximum of ``x`` over the ranks of ``axis``,
+    without a gradient (a new tensor; ``x`` detached off the mesh)."""
+    x = x.detach()
+    span = _span(x, axis)
+    return x if span is None else _all_reduce(x, span, dist.ReduceOp.MAX)
+
+
+def reduce_scatter_over(x: torch.Tensor, dim: int,
+                        axis: MeshAxes = "data") -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    of ``axis``, without a gradient (a train step's gradients; ``x`` itself
+    off the mesh). ``axis`` may fuse names (``("pod", "data")``) on a
+    shape-only mesh."""
+    span = _span(x, axis)
+    return x if span is None else _reduce_scatter(x.detach(), dim, span)
 
 
 def cache_seq_axis() -> Optional[str]:

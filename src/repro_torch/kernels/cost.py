@@ -66,15 +66,20 @@ def flash_attention(b: int, s: int, hq: int, hkv: int, d: int, elem: int,
 
 def flash_attention_backward(b: int, s: int, hq: int, hkv: int, d: int,
                              elem: int = 4, causal: bool = True,
-                             window: int = 0) -> Cost:
-    """One flash backward: q, k, v, o, do read once and dq, dk, dv written
-    once, all at ``elem`` bytes (the kernel takes and writes the inputs'
-    dtype), and the forward's f32 row log-sum-exp [B Hq, S] read once; the
-    five products of the visible pairs (scores, do.v, P^T do, dS^T q,
-    dS k: 10 D flops a pair and q head)."""
-    nbytes = elem * b * s * d * (4 * hq + 4 * hkv) + 4 * b * hq * s
-    flops = 10 * d * hq * b * visible_pairs(s, causal, window)
-    return flops, nbytes
+                             window: int = 0, q_offset: int = 0,
+                             sk: Optional[int] = None) -> Cost:
+    """One flash backward: q, o, do read once and dq written once at the
+    ``s`` query rows, k, v read once and dk, dv written once at the keys,
+    all at ``elem`` bytes (the kernel takes and writes the inputs' dtype),
+    and the forward's f32 row log-sum-exp [B Hq, S] read once; the five
+    products of the visible pairs (scores, do.v, P^T do, dS^T q, dS k: 10
+    D flops a pair and q head). ``q_offset`` / ``sk``: ``s`` query rows at
+    positions ``q_offset ..`` against ``sk`` keys, as the forward's."""
+    sk = s if sk is None else sk
+    nbytes = elem * b * d * (4 * hq * s + 4 * hkv * sk) + 4 * b * hq * s
+    pairs = (visible_pairs(s, causal, window) if sk == s and not q_offset
+             else visible_pairs_rows(q_offset, s, sk, causal, window))
+    return 10 * d * hq * b * pairs, nbytes
 
 
 def paged_attention(hq: int, hkv: int, d: int, bs: int, elem: int, c: int,

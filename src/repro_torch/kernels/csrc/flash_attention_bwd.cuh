@@ -8,18 +8,23 @@
 // reaches flash_attention_forward; this is the backward of that function,
 // behind a torch.autograd.Function in kernels/ops.py.
 //
-// What it computes. With q [B, S, Hq, D], k/v [B, S, Hkv, D] (read in place
-// through their (batch, seq, head) strides, unit stride along D), the
-// forward's output o and its gradient do ([B, S, Hq, D], contiguous), the
-// forward's row log-sum-exp L ([B Hq, S], f32), the visibility of the
-// forward (key j < S is seen by query i when (not causal or j <= i) and
-// (window == 0 or i - j < window)), s_ij = q_i.k_j / sqrt(D) and P_ij =
-// exp(s_ij - L_i) over the visible keys, it writes
+// What it computes. With q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (read in
+// place through their (batch, seq, head) strides, unit stride along D), the
+// forward's output o and its gradient do ([B, Sq, Hq, D], contiguous), the
+// forward's row log-sum-exp L ([B Hq, Sq], f32), the visibility of the
+// forward (query i sits at position i + off, off the query offset, 0 and
+// Sq == Sk for self-attention; key j < Sk is seen by query i < Sq when (not
+// causal or j <= i + off) and (window == 0 or i + off - j < window)),
+// s_ij = q_i.k_j / sqrt(D) and P_ij = exp(s_ij - L_i) over the visible
+// keys, it writes
 //   dq_i = scale sum_j dS_ij k_j,  dk_j = scale sum_{i, h in group} dS_ij q_i,
 //   dv_j = sum_{i, h in group} P_ij do_i,  dS_ij = P_ij (do_i.v_j - D_i),
 //   D_i = do_i.o_i
-// ([B, S, Hq, D] and [B, S, Hkv, D], contiguous, in the inputs' dtype;
-// every sum, P, dS and D_i in f32). L comes from the forward
+// ([B, Sq, Hq, D] and [B, Sk, Hkv, D], contiguous, in the inputs' dtype;
+// every sum, P, dS and D_i in f32; a key no query sees gets dk = dv = 0).
+// With an offset (a rank's block of query rows under q-seq sharding) the
+// rank's dk and dv are its rows' part of the keys' gradients, which the
+// caller sums over the ranks. L comes from the forward
 // (flash_attention.cu's lse output): a row that sees no key has L = 1e30
 // there and every P of it is masked to 0 here, so it gets no gradient, as
 // the forward gives it output 0.
@@ -106,14 +111,15 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;       // [B, S, Hq, D], contiguous
-  const void* dout;    // [B, S, Hq, D], contiguous
-  const float* lse;    // [B Hq, S], the forward's
-  void* dq;            // [B, S, Hq, D]
-  void* dk;            // [B, S, Hkv, D]
+  const void* o;       // [B, Sq, Hq, D], contiguous
+  const void* dout;    // [B, Sq, Hq, D], contiguous
+  const float* lse;    // [B Hq, Sq], the forward's
+  void* dq;            // [B, Sq, Hq, D]
+  void* dk;            // [B, Sk, Hkv, D]
   void* dv;
-  float* dsum;         // [B Hq, S]: D_i, written by the dq kernel
-  int S, Hq, Hkv, G;
+  float* dsum;         // [B Hq, Sq]: D_i, written by the dq kernel
+  int Sq, Sk, off;     // query rows, keys, the queries' first position
+  int Hq, Hkv, G;
   long long qb, qs, qh;
   long long kb, ks, kh;
   long long vb, vs, vh;
@@ -137,7 +143,7 @@ using tc::is_f32;
 using tc::to_f32;
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr float NO_ROW = 1e30f;        // L of a row past S: P = 0
+constexpr float NO_ROW = 1e30f;        // L of a row past Sq: P = 0
 constexpr unsigned FULL = 0xffffffffu;
 
 // A CTA's shape: GROUPS 16-row groups of its own rows, SPLIT warps a
@@ -190,9 +196,10 @@ __device__ __forceinline__ void mma3i(float (&c)[4], const uint32_t (&ah)[4],
   tc::mma3(c, ah, al, h0, h1, l0, l1);
 }
 
+// query row i (at position i + off) sees key j
 __device__ __forceinline__ bool visible(const Args& a, int i, int j) {
-  return i < a.S && j < a.S && (!a.causal || j <= i) &&
-         (a.window == 0 || i - j < a.window);
+  return i < a.Sq && j < a.Sk && (!a.causal || j <= i + a.off) &&
+         (a.window == 0 || i + a.off - j < a.window);
 }
 
 // c[j] += A . B_j^T over D for this warp's NJ n8 tiles of a streamed tile
@@ -318,7 +325,7 @@ __device__ __forceinline__ void fold_parts(float (&acc)[D / 8][4], float* red,
         acc[n][e] += red[((p - 1) * NA + 4 * n + e) * 32];
 }
 
-// Stage 16 rows of a [S, D] matrix (row r at base + r * rs, zeros past S)
+// Stage 16 rows of an [S, D] matrix (row r at base + r * rs, zeros past S)
 // in fragment order (f32: split into hi and lo).
 template <typename T, int D>
 __device__ __forceinline__ void stage(uint4* f, const T* base, long long rs,
@@ -341,7 +348,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
   T* kv = reinterpret_cast<T*>(smem + 2 * GROUPS * qf_u4<T, D>());
   float* ds = reinterpret_cast<float*>(kv + 2 * 2 * BK * LD);  // [BR] D_i
 
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk, off = a.off;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;    // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.G;
@@ -352,38 +359,39 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
   const T* v = static_cast<const T*>(a.v) + (size_t)b * a.vb +
                (size_t)hk * a.vh;
   const long long rs = (long long)a.Hq * D;            // o / do row stride
-  const T* o = static_cast<const T*>(a.o) + ((size_t)b * S * a.Hq + h) * D;
+  const T* o = static_cast<const T*>(a.o) + ((size_t)b * Sq * a.Hq + h) * D;
   const T* dout =
-      static_cast<const T*>(a.dout) + ((size_t)b * S * a.Hq + h) * D;
+      static_cast<const T*>(a.dout) + ((size_t)b * Sq * a.Hq + h) * D;
 
-  const int q_last = min(q0 + BR, S) - 1;
-  int kt_lo = 0, kt_hi = (S + BK - 1) / BK;
-  if (a.causal) kt_hi = min(kt_hi, q_last / BK + 1);
-  if (a.window > 0) kt_lo = max(0, q0 - a.window + 1) / BK;
+  // the key tiles the tile's rows (positions q0 + off .. q_last + off) see
+  const int q_last = min(q0 + BR, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk + BK - 1) / BK;
+  if (a.causal) kt_hi = min(kt_hi, (q_last + off) / BK + 1);
+  if (a.window > 0) kt_lo = min(max(0, q0 + off - a.window + 1) / BK, kt_hi);
 
   auto load = [&](int kt, int buf) {
     T* kd = kv + buf * 2 * BK * LD;
     const int k0 = kt * BK;
     attn::load_tile<T, D, THREADS>(kd, [&](int i) -> const T* {
-      return k0 + i < S ? k + (size_t)(k0 + i) * a.ks : nullptr;
+      return k0 + i < Sk ? k + (size_t)(k0 + i) * a.ks : nullptr;
     }, a.async, k);
     attn::load_tile<T, D, THREADS>(
         kd + BK * LD, [&](int i) -> const T* {
-          return k0 + i < S ? v + (size_t)(k0 + i) * a.vs : nullptr;
+          return k0 + i < Sk ? v + (size_t)(k0 + i) * a.vs : nullptr;
         }, a.async, v);
     attn::cp_commit();
   };
-  load(kt_lo, 0);
+  if (kt_lo < kt_hi) load(kt_lo, 0);
 
   const int wr0 = q0 + grp * 16;                       // this warp's rows
-  const int wr_last = min(wr0 + 15, S - 1);
-  if (part == 0) stage<T, D>(qf, q, a.qs, wr0, S);
-  if (part == 1) stage<T, D>(of, dout, rs, wr0, S);
+  const int wr_last = min(wr0 + 15, Sq - 1);
+  if (part == 0) stage<T, D>(qf, q, a.qs, wr0, Sq);
+  if (part == 1) stage<T, D>(of, dout, rs, wr0, Sq);
   {  // D_i = do_i . o_i: BR / 8 rows a warp, LR lanes a row
     constexpr int LR = 32 / (BR / WARPS);
     const int r = warp * (BR / WARPS) + lane / LR, row = q0 + r;
     float acc = 0.f;
-    if (row < S)
+    if (row < Sq)
       for (int d = lane % LR; d < D; d += LR)
         acc = fmaf(to_f32(dout[(size_t)row * rs + d]),
                    to_f32(o[(size_t)row * rs + d]), acc);
@@ -392,14 +400,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
       acc += __shfl_xor_sync(FULL, acc, o2);
     if (lane % LR == 0) {
       ds[r] = acc;
-      if (row < S) a.dsum[(size_t)bh * S + row] = acc;
+      if (row < Sq) a.dsum[(size_t)bh * Sq + row] = acc;
     }
   }
   float lrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wr0 + g + 8 * r;
-    lrow[r] = row < S ? a.lse[(size_t)bh * S + row] : NO_ROW;
+    lrow[r] = row < Sq ? a.lse[(size_t)bh * Sq + row] : NO_ROW;
   }
 
   float dq[D / 8][4];
@@ -407,6 +415,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
   for (int n = 0; n < D / 8; ++n)
     dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
   float drow[2] = {0.f, 0.f};
+  if (kt_lo >= kt_hi) __syncthreads();   // no key tile: D_i and ds written
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int buf = (kt - kt_lo) & 1;
     if (kt + 1 < kt_hi) load(kt + 1, buf ^ 1);
@@ -418,11 +427,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
       drow[1] = ds[grp * 16 + g + 8];
     }
     const int jb = NJ * part, k0 = kt * BK + 8 * jb;    // this warp's keys
-    int jmax = wr0 < S && k0 < S ? min(NJ, (S - k0 + 7) / 8) : 0;
-    if (a.causal) jmax = wr_last < k0 ? 0 : min(jmax, (wr_last - k0) / 8 + 1);
+    int jmax = wr0 < Sq && k0 < Sk ? min(NJ, (Sk - k0 + 7) / 8) : 0;
+    if (a.causal)
+      jmax = wr_last + off < k0 ? 0
+                                : min(jmax, (wr_last + off - k0) / 8 + 1);
     const int k1 = k0 + 8 * NJ - 1;
-    const bool full = jmax == NJ && k1 < S && (!a.causal || k1 <= wr0) &&
-                      (a.window == 0 || wr_last - k0 < a.window);
+    const bool full = jmax == NJ && k1 < Sk &&
+                      (!a.causal || k1 <= wr0 + off) &&
+                      (a.window == 0 || wr_last + off - k0 < a.window);
     if (jmax > 0) {
       const T* ks = kv + buf * 2 * BK * LD;
       const T* vs = ks + BK * LD;
@@ -450,8 +462,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = wr0 + g + 8 * r;
-    if (qpos >= S) continue;
-    T* out = static_cast<T*>(a.dq) + (((size_t)b * S + qpos) * a.Hq + h) * D +
+    if (qpos >= Sq) continue;
+    T* out = static_cast<T*>(a.dq) + (((size_t)b * Sq + qpos) * a.Hq + h) * D +
              2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -473,7 +485,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Args a) {
   T* qo = reinterpret_cast<T*>(smem + 2 * GROUPS * qf_u4<T, D>());
   float* vec = reinterpret_cast<float*>(qo + 2 * 2 * BK * LD);  // [2][2][BK]
 
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk, off = a.off;
   const int k0 = blockIdx.x * BR, bh = blockIdx.y;     // key tile 0 first
   const int b = bh / a.Hkv, hk = bh % a.Hkv;
   const T* k = static_cast<const T*>(a.k) + (size_t)b * a.kb +
@@ -482,42 +494,44 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Args a) {
                (size_t)hk * a.vh;
   const long long rs = (long long)a.Hq * D;
 
-  // the query tiles that see the key tile, for each of the G q heads
-  const int nq = (S + BK - 1) / BK;
-  const int k_last = min(k0 + BR, S) - 1;
-  const int qt_lo = a.causal ? k0 / BK : 0;
-  const int qt_hi =
-      a.window > 0 ? min(nq, (k_last + a.window - 1) / BK + 1) : nq;
-  const int nqt = qt_hi - qt_lo, n_it = a.G * nqt;
+  // the query tiles that see the key tile, for each of the G q heads:
+  // row i sees key j from i = j - off (causal) to i = j + window - 1 - off
+  const int nq = (Sq + BK - 1) / BK;
+  const int k_last = min(k0 + BR, Sk) - 1;
+  const int qt_lo = a.causal ? max(0, k0 - off) / BK : 0;
+  const int i_hi = k_last + a.window - 1 - off;        // last row (window)
+  const int qt_hi = a.window > 0 ? (i_hi < 0 ? 0 : min(nq, i_hi / BK + 1))
+                                 : nq;
+  const int nqt = max(0, qt_hi - qt_lo), n_it = a.G * nqt;
 
   auto load = [&](int it, int buf) {
     const int h = hk * a.G + it / nqt, q0 = (qt_lo + it % nqt) * BK;
     const T* q = static_cast<const T*>(a.q) + (size_t)b * a.qb +
                  (size_t)h * a.qh;
     const T* dout =
-        static_cast<const T*>(a.dout) + ((size_t)b * S * a.Hq + h) * D;
+        static_cast<const T*>(a.dout) + ((size_t)b * Sq * a.Hq + h) * D;
     T* qd = qo + buf * 2 * BK * LD;
     attn::load_tile<T, D, THREADS>(qd, [&](int i) -> const T* {
-      return q0 + i < S ? q + (size_t)(q0 + i) * a.qs : nullptr;
+      return q0 + i < Sq ? q + (size_t)(q0 + i) * a.qs : nullptr;
     }, a.async, q);
     attn::load_tile<T, D, THREADS>(
         qd + BK * LD, [&](int i) -> const T* {
-          return q0 + i < S ? dout + (size_t)(q0 + i) * rs : nullptr;
+          return q0 + i < Sq ? dout + (size_t)(q0 + i) * rs : nullptr;
         }, a.async, dout);
     attn::cp_commit();
     float* vb = vec + buf * 2 * BK;
-    const size_t row = (size_t)(b * a.Hq + h) * S + q0;
+    const size_t row = (size_t)(b * a.Hq + h) * Sq + q0;
     if (tid < BK)
-      vb[tid] = q0 + tid < S ? a.lse[row + tid] : NO_ROW;
+      vb[tid] = q0 + tid < Sq ? a.lse[row + tid] : NO_ROW;
     else if (tid < 2 * BK)
-      vb[tid] = q0 + tid - BK < S ? a.dsum[row + tid - BK] : 0.f;
+      vb[tid] = q0 + tid - BK < Sq ? a.dsum[row + tid - BK] : 0.f;
   };
   if (n_it > 0) load(0, 0);
 
   const int kw0 = k0 + grp * 16;                       // this warp's keys
-  const int kw_last = min(kw0 + 15, S - 1);
-  if (part == 0) stage<T, D>(kf, k, a.ks, kw0, S);
-  if (part == 1) stage<T, D>(vf, v, a.vs, kw0, S);
+  const int kw_last = min(kw0 + 15, Sk - 1);
+  if (part == 0) stage<T, D>(kf, k, a.ks, kw0, Sk);
+  if (part == 1) stage<T, D>(vf, v, a.vs, kw0, Sk);
 
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -525,6 +539,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   const int jb = NJ * part;
+  if (n_it == 0) __syncthreads();        // the staged K / V (no query tile)
   for (int it = 0; it < n_it; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_it) load(it + 1, buf ^ 1);
@@ -537,14 +552,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int q8 = qb0 + 8 * j;
-      live |= (unsigned)(q8 < S && kw0 < S &&
-                         (!a.causal || q8 + 7 >= kw0) &&
-                         (a.window == 0 || q8 - kw_last < a.window)) << j;
+      live |= (unsigned)(q8 < Sq && kw0 < Sk &&
+                         (!a.causal || q8 + 7 + off >= kw0) &&
+                         (a.window == 0 || q8 + off - kw_last < a.window))
+              << j;
     }
     const int q1 = qb0 + 8 * NJ - 1;
-    const bool full = live == (1u << NJ) - 1u && q1 < S && kw0 + 15 < S &&
-                      (!a.causal || kw0 + 15 <= qb0) &&
-                      (a.window == 0 || q1 - kw0 < a.window);
+    const bool full = live == (1u << NJ) - 1u && q1 < Sq && kw0 + 15 < Sk &&
+                      (!a.causal || kw0 + 15 <= qb0 + off) &&
+                      (a.window == 0 || q1 + off - kw0 < a.window);
     if (live) {
       const T* qs = qo + buf * 2 * BK * LD;
       const T* dos = qs + BK * LD;
@@ -578,10 +594,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kpos = kw0 + g + 8 * r;
-    if (kpos >= S) continue;
-    const size_t off = (((size_t)b * S + kpos) * a.Hkv + hk) * D + 2 * t;
-    T* dko = static_cast<T*>(a.dk) + off;
-    T* dvo = static_cast<T*>(a.dv) + off;
+    if (kpos >= Sk) continue;
+    const size_t at = (((size_t)b * Sk + kpos) * a.Hkv + hk) * D + 2 * t;
+    T* dko = static_cast<T*>(a.dk) + at;
+    T* dvo = static_cast<T*>(a.dv) + at;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       store2(dko + 8 * n, dk[n][2 * r] * a.scale,
@@ -609,13 +625,12 @@ int launch(const Args& a, int B, cudaStream_t s) {
           kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-  const unsigned tiles = (a.S + BR - 1) / BR;
   flash_bwd_dq_kernel<T, D, GROUPS>
-      <<<dim3(tiles, B * a.Hq), THREADS, smem, s>>>(a);
+      <<<dim3((a.Sq + BR - 1) / BR, B * a.Hq), THREADS, smem, s>>>(a);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
   flash_bwd_dkdv_kernel<T, D, GROUPS>
-      <<<dim3(tiles, B * a.Hkv), THREADS, smem, s>>>(a);
+      <<<dim3((a.Sk + BR - 1) / BR, B * a.Hkv), THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -634,7 +649,7 @@ int launch_shape(const Args& a, int B, int groups, cudaStream_t s) {
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    const long long ctas = (long long)(a.S + 63) / 64 * B * a.Hq;
+    const long long ctas = (long long)(a.Sq + 63) / 64 * B * a.Hq;
     if (ctas >= (long long)WIDE_WAVES * sms) return launch<T, D, 4>(a, B, s);
   }
   if (groups != 0) return (int)cudaErrorInvalidValue;

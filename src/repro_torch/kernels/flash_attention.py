@@ -14,9 +14,11 @@ q head ``h`` attending kv head ``h // G``; out ``[B, S, Hq, D]`` in q's
 dtype. ``kernels/ops.py`` routes by device and raises the JAX wrapper's
 ``ValueError`` for a non-causal S that is not a multiple of the block.
 
-A query offset (``q_offset``, the forward only: a rank's block of query
-rows under q-seq sharding) puts query i at position ``q_offset + i``
-against keys ``0 .. Sk - 1`` of k/v ``[B, Sk, Hkv, D]``, ``Sq <= Sk``.
+A query offset (``q_offset``: a rank's block of query rows under q-seq
+sharding) puts query i at position ``q_offset + i`` against keys
+``0 .. Sk - 1`` of k/v ``[B, Sk, Hkv, D]``, ``Sq <= Sk``, in the forward
+and the backward alike; the backward's dk and dv are then the block's part
+of the keys' gradients (0 for a key none of its rows sees).
 
 The backward has no TPU kernel to port (the JAX package trains through its
 plain attention): ``flash_attention_backward_cuda`` launches
@@ -50,7 +52,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
     """Plain version of the kernel: q [B, S, Hq, D], k/v [B, Sk, Hkv, D]
     (Sk == S unless ``q_offset`` places the queries at positions
     ``q_offset .. q_offset + S - 1`` of Sk keys) -> [B, S, Hq, D], f32
-    arithmetic, q's dtype out."""
+    arithmetic (f64 for f64 inputs), q's dtype out."""
     flash_attention_plain.calls += 1
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -62,15 +64,16 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
         mask &= q_pos[:, None] >= k_pos[None, :]
     if window:
         mask &= q_pos[:, None] - k_pos[None, :] < window
-    qg = q.reshape(b, s, hkv, g, d).float()
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, s, hkv, g, d).to(acc)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)) / math.sqrt(d)
     logits = logits.masked_fill(~mask, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.exp(logits - m) * mask
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.to(acc))
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
@@ -140,27 +143,29 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
 
 
 def flash_attention_backward_plain(q, k, v, dout, causal: bool = True,
-                                   window: int = 0):
+                                   window: int = 0, q_offset: int = 0):
     """The backward's plain version: (dq, dk, dv) of ``<out, dout>``
-    through autograd of ``flash_attention_plain``."""
+    through autograd of ``flash_attention_plain`` (at ``q_offset``)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = flash_attention_plain(*leaves, causal, window)
+        out = flash_attention_plain(*leaves, causal, window, q_offset)
         return torch.autograd.grad(out, leaves, dout)
 
 
 def flash_attention_backward_cuda(q, k, v, out, dout, lse,
                                   causal: bool = True, window: int = 0,
-                                  groups: int = 0):
-    """Launch the backward kernel: q [B, S, Hq, D], k/v [B, S, Hkv, D] (read
-    in place through their strides), the forward's ``out``, its gradient
-    ``dout`` [B, S, Hq, D] and its row log-sum-exp ``lse`` [B Hq, S]
-    (``flash_attention_cuda(..., return_lse=True)``) -> (dq, dk, dv),
+                                  groups: int = 0, q_offset: int = 0):
+    """Launch the backward kernel: q [B, S, Hq, D], k/v [B, Sk, Hkv, D]
+    (read in place through their strides; Sk == S unless ``q_offset``
+    places the queries at positions ``q_offset ..`` of Sk >= S keys), the
+    forward's ``out``, its gradient ``dout`` [B, S, Hq, D] and its row
+    log-sum-exp ``lse`` [B Hq, S] (``flash_attention_cuda(...,
+    return_lse=True)`` at the same offset) -> (dq, dk [B, Sk, Hkv, D], dv),
     contiguous, in q's dtype: float32 or bfloat16 (the kernel's sums are
     f32 in both; ``_check`` raises on any other dtype). ``groups`` 0 lets
     the kernel pick its CTA shape; 4 (D <= 96) or 2 forces four 16-row
     groups of two warps or two of four."""
-    _check(q, k, v)
+    _check(q, k, v, q_offset)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     b, s, hq, d = q.shape
@@ -181,7 +186,8 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
                          f"[{b * hq}, {s}] log-sum-exp on {q.device} "
                          f"(flash_attention_cuda(..., return_lse=True))")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, k.shape[1], hkv, d), dtype=q.dtype,
+                     device=q.device)
     dv = torch.empty_like(dk)
     dsum = torch.empty_like(lse)
     lib = build.library()
@@ -191,7 +197,8 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dsum.data_ptr(), b, s, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(bool(causal)), int(window), int(groups), _DTYPES[q.dtype],
+            int(bool(causal)), int(window), k.shape[1], int(q_offset),
+            int(groups), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on(code, "flash_attention_backward")
     return dq, dk, dv

@@ -27,12 +27,13 @@ run shows which it took. Their CPU route counts its calls in
 ``plain_calls`` (the plain versions' ``calls`` count every mode).
 
 Gradients. On CPU tensors autograd runs through the plain versions. On
-CUDA tensors ``flash_attention`` and ``ssd_scan`` run inside
-``torch.autograd.Function``s whose backward launches a hand-written kernel
-(``flash_attention_backward`` and ``ssd_scan_backward``, counted like the
-forwards); the paged kernels and the grouped matmul have no backward and
-raise when grad mode is on and an input requires grad, rather than return
-a result without a gradient.
+CUDA tensors ``flash_attention``, ``flash_attention_offset`` and
+``ssd_scan`` run inside ``torch.autograd.Function``s whose backward
+launches a hand-written kernel (``flash_attention_backward``,
+``flash_attention_offset_backward`` and ``ssd_scan_backward``, counted
+like the forwards); the paged kernels and the grouped matmul have no
+backward and raise when grad mode is on and an input requires grad, rather
+than return a result without a gradient.
 """
 from __future__ import annotations
 
@@ -61,15 +62,23 @@ def _book(name: str, terms, refused=None) -> None:
             return
 
 
-def _flash_forward(q, k, v, causal, window, return_lse=False):
-    """The forward kernel; on tensors without storage its outputs' shapes
-    (out, and the row log-sum-exp [B Hq, S] f32) and its cost booked."""
+def _flash_forward(q, k, v, causal, window, return_lse=False,
+                   q_offset=None):
+    """The forward kernel (at ``q_offset``: None for self-attention); on
+    tensors without storage its outputs' shapes (out, and the row
+    log-sum-exp [B Hq, S] f32) and its cost booked."""
     if not _storage_less(q):
         return _fa.flash_attention_cuda(q, k, v, causal, window,
-                                        return_lse=return_lse)
+                                        return_lse=return_lse,
+                                        q_offset=q_offset or 0)
     b, s, hq, d = q.shape
-    _book("flash_attention", cost.flash_attention(
-        b, s, hq, k.shape[2], d, q.element_size(), causal, window))
+    if q_offset is None:
+        _book("flash_attention", cost.flash_attention(
+            b, s, hq, k.shape[2], d, q.element_size(), causal, window))
+    else:
+        _book("flash_attention_offset", cost.flash_attention(
+            b, s, hq, k.shape[2], d, q.element_size(), causal, window,
+            q_offset=q_offset, sk=k.shape[1]))
     out = q.new_empty((b, s, hq, d))
     if return_lse:
         return out, q.new_empty((b * hq, s), dtype=torch.float32)
@@ -105,24 +114,30 @@ def _refuse_grad(what: str, *tensors) -> None:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel with the backward kernel as its gradient."""
+    """The flash kernel with the backward kernel as its gradient; at a
+    ``q_offset`` (None: self-attention) both are the query-offset
+    launches."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         # the backward kernel takes the forward's row log-sum-exp (f32 for
         # f32 and bf16 inputs)
-        out, lse = _flash_forward(q, k, v, causal, window, return_lse=True)
+        out, lse = _flash_forward(q, k, v, causal, window, return_lse=True,
+                                  q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
-                                              causal=ctx.causal,
-                                              window=ctx.window, lse=lse)
-        return dq, dk, dv, None, None
+        kw = dict(causal=ctx.causal, window=ctx.window, lse=lse)
+        if ctx.q_offset is None:
+            grads = flash_attention_backward(q, k, v, out, dout, **kw)
+        else:
+            grads = flash_attention_offset_backward(q, k, v, out, dout,
+                                                    ctx.q_offset, **kw)
+        return (*grads, None, None, None)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -154,7 +169,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal, window)
     if _needs_grad(q, k, v):
-        out = _FlashAttention.apply(q, k, v, causal, window)
+        out = _FlashAttention.apply(q, k, v, causal, window, None)
     else:
         out = _flash_forward(q, k, v, causal, window)
     if not _storage_less(q):
@@ -286,23 +301,50 @@ def flash_attention_offset(q, k, v, q_offset: int, *, causal: bool = True,
                            window: int = 0):
     """Flash attention for a block of query rows: q [B, Sq, Hq, D] at
     positions ``q_offset .. q_offset + Sq - 1`` against k, v
-    [B, Sk, Hkv, D] at ``0 .. Sk - 1`` (Sq <= Sk) -> [B, Sq, Hq, D]. The
-    forward only: with grad mode on and an input that requires grad it
-    raises, as the paged kernels do."""
+    [B, Sk, Hkv, D] at ``0 .. Sk - 1`` (Sq <= Sk) -> [B, Sq, Hq, D]. On
+    CUDA tensors that need a gradient the kernel runs with
+    ``flash_attention_offset_backward`` as its backward (the CPU route's
+    autograd runs through the plain version)."""
     if q.device.type == "cpu":
         flash_attention_offset.plain_calls += 1
         return _fa.flash_attention_plain(q, k, v, causal, window, q_offset)
-    _refuse_grad("flash_attention_offset", q, k, v)
+    if _needs_grad(q, k, v):
+        out = _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    else:
+        out = _flash_forward(q, k, v, causal, window, q_offset=q_offset)
+    if not _storage_less(q):
+        flash_attention_offset.launches += 1
+    return out
+
+
+def flash_attention_offset_backward(q, k, v, out, dout, q_offset: int, *,
+                                    causal: bool = True, window: int = 0,
+                                    lse=None):
+    """(dq, dk, dv) of ``flash_attention_offset`` for the upstream gradient
+    ``dout`` [B, Sq, Hq, D]: dq of the block's rows and dk, dv
+    [B, Sk, Hkv, D] of the keys, the block's part of them (0 for a key no
+    row of it sees). Autograd through the plain version on the CPU; on
+    CUDA tensors the backward kernel at the offset, which also takes the
+    forward's row log-sum-exp ``lse`` [B Hq, Sq] (f32)."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_backward_plain(q, k, v, dout, causal,
+                                                  window, q_offset)
     if _storage_less(q):
         b, s, hq, d = q.shape
-        _book("flash_attention_offset", cost.flash_attention(
-            b, s, hq, k.shape[2], d, q.element_size(), causal, window,
-            q_offset=q_offset, sk=k.shape[1]))
-        return q.new_empty(q.shape)
-    out = _fa.flash_attention_cuda(q, k, v, causal, window,
-                                   q_offset=q_offset)
-    flash_attention_offset.launches += 1
-    return out
+        refused = None
+        if q.dtype not in _fa._DTYPES:
+            refused = (f"the backward kernel takes float32 and bfloat16 "
+                       f"only, got {q.dtype}")
+        _book("flash_attention_offset_backward",
+              cost.flash_attention_backward(
+                  b, s, hq, k.shape[2], d, q.element_size(), causal, window,
+                  q_offset=q_offset, sk=k.shape[1]), refused)
+        return q.new_empty(q.shape), torch.empty_like(k), torch.empty_like(v)
+    grads = _fa.flash_attention_backward_cuda(q, k, v, out, dout, lse,
+                                              causal, window,
+                                              q_offset=q_offset)
+    flash_attention_offset_backward.launches += 1
+    return grads
 
 
 def ssd_scan(xdt, a_log, B, C, chunk: int = 128):
@@ -382,6 +424,7 @@ ssd_scan_backward.launches = 0
 paged_attention_partial.launches = 0
 paged_prefill_partial.launches = 0
 flash_attention_offset.launches = 0
+flash_attention_offset_backward.launches = 0
 #: the partial and query-offset wrappers' CPU calls (not in ``COUNTERS``:
 #: a graph captures CUDA work only)
 paged_attention_partial.plain_calls = 0
@@ -397,7 +440,8 @@ COUNTERS = tuple(
                                grouped_matmul, flash_attention_backward,
                                ssd_scan_backward, paged_attention_partial,
                                paged_prefill_partial,
-                               flash_attention_offset)]
+                               flash_attention_offset,
+                               flash_attention_offset_backward)]
     + [(f, "calls") for f in (_fa.flash_attention_plain,
                               _pa.paged_attention_plain,
                               _pa.paged_prefill_attention_plain,

@@ -44,22 +44,23 @@ SSM states' heads over 'model'). The record's ``held_replicated`` (leaves
 held whole where the reference splits them) is empty. Batch rows split
 over the batch axes when those divide the batch. The program runs under
 ``axis_rules(mesh, production_rules_table(...))`` with the reference's
-``kv_seq`` override, and the cache's sequence axis (``cache_seq``). Modes: ``train`` is the port's train step
-(``Model.loss``, backward, clip and AdamW as ``train/trainer.py`` runs it,
-under ``--remat``; with ZeRO-1 the update runs on this rank's shards of
-the gradients, moments and params); ``prefill`` is ``Model.forward``;
-``decode`` is ``Model.decode_step`` at the int position ``seq_len - 1``.
+``kv_seq`` override, and the cache's sequence axis (``cache_seq``). Modes:
+``train`` is the port's sharded train step (``train/sharded.py``:
+``Model.loss`` with the logits split over the vocabulary, backward, clip
+and AdamW, under ``--remat``; with ZeRO-1 the update runs on this rank's
+shards of the gradients, moments and params); ``prefill`` is
+``Model.forward``; ``decode`` is ``Model.decode_step`` at the int position
+``seq_len - 1``.
 
-Train collectives. The port has no sharded train step; the record derives
-it (``derived_collective_bytes``): the backward issues each forward
-collective over 'model' again at the same bytes, its conjugate (an
-all-reduce for an all-reduce, a reduce-scatter for an all-gather), and the
-gradients sync over the batch axes as ``opt_state_pspecs`` lays them out:
-an all-reduce of each local gradient, or under ZeRO-1 a reduce-scatter of
-it and an all-gather of the updated params (a leaf ZeRO-1 cannot split is
-all-reduced). ``collective_s`` sums each axis's wire bytes (2x an
-all-reduce's, as the reference's ring factor) over its bandwidth:
-NVLink for 'model', the network for 'data' and 'pod' (``launch/mesh.py``).
+Train collectives. The record holds what the step issues: the forward's
+over 'model', the backward's conjugates (``dist/sharding.py``, Gradients:
+an all-reduce at each column-parallel entry, a reduce-scatter for a gather
+whose gradient is partial), and over the batch axes the loss's sums, each
+gradient's reduce-scatter to its ZeRO-1 block (an all-reduce where ZeRO-1
+cannot split the leaf), the global norm's sum and the updated params'
+all-gather. ``collective_s`` sums each axis's wire bytes (2x an
+all-reduce's, as the reference's ring factor) over its bandwidth: NVLink
+for 'model', the network for 'data' and 'pod' (``launch/mesh.py``).
 
 Every layer is counted: the port's layer loops are Python, unlike XLA's
 while bodies, which its cost analysis counts once. ``probe_slopes`` keeps
@@ -191,7 +192,7 @@ def opt_state_pspecs(param_specs_tree, params_shape, mesh):
         dsz *= sizes[a]
 
     def zero1(path, spec):
-        shape = _shape(_at(params_shape, path))
+        shape = _shape(shd.leaf_at(params_shape, path))
         parts = list(spec) + [None] * (len(shape) - len(spec))
         for i, (p_, d) in enumerate(zip(parts, shape)):
             if p_ is None and d % dsz == 0 and d > 0:
@@ -200,12 +201,6 @@ def opt_state_pspecs(param_specs_tree, params_shape, mesh):
         return P(*parts)
 
     return tree_map_with_path(zero1, param_specs_tree)
-
-
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
 
 
 def _probe_plan(arch: str) -> tuple:
@@ -252,14 +247,6 @@ def probe_slopes(arch: str, shape_name: str, multi_pod: bool, *,
     return out
 
 
-def _spec_ranks(spec, sizes) -> int:
-    denom = 1
-    for part in (spec or P()):
-        for ax in shd._flat(part):
-            denom *= sizes[ax]
-    return denom
-
-
 def sharded_arg_bytes(shape_tree, spec_tree, mesh) -> float:
     """Analytic per-device bytes of the program arguments: each leaf's
     bytes over the ranks its spec splits it across (leaves: tensors)."""
@@ -269,7 +256,7 @@ def sharded_arg_bytes(shape_tree, spec_tree, mesh) -> float:
         n = 1
         for d in leaf.shape:
             n *= d
-        total += n * leaf.element_size() / _spec_ranks(spec, sizes)
+        total += n * leaf.element_size() / shd.spec_ranks(spec, sizes)
     return total
 
 
@@ -324,7 +311,6 @@ class CountingMode(TorchDispatchMode):
         self.current = self.peak = self.argument_bytes
         self.kernels: Dict[str, dict] = {}
         self.collectives: Dict[tuple, float] = {}
-        self.derived: Dict[tuple, float] = {}
 
     @staticmethod
     def active() -> Optional["CountingMode"]:
@@ -345,13 +331,11 @@ class CountingMode(TorchDispatchMode):
         if refused:
             k["refused"] = refused
 
-    def book_collective(self, kind: str, axis: str, nbytes: float,
-                        derived: bool = False) -> None:
-        """One collective's output bytes over mesh ``axis``; ``derived``:
-        one the program does not issue but its sharded counterpart would
-        (the train rule, module docstring)."""
-        into = self.derived if derived else self.collectives
-        into[(kind, axis)] = into.get((kind, axis), 0.0) + nbytes
+    def book_collective(self, kind: str, axis: str, nbytes: float) -> None:
+        """One collective's output bytes over mesh ``axis`` (fused axes
+        joined by "+")."""
+        self.collectives[(kind, axis)] = (self.collectives.get((kind, axis),
+                                                               0.0) + nbytes)
 
     # -- the dispatch --------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -441,8 +425,7 @@ class Program:
                                         for k in cm.kernels.values()),
                 "argument_bytes": cm.argument_bytes,
                 "output_bytes": out_bytes, "peak_bytes": cm.peak,
-                "kernels": cm.kernels, "collectives": cm.collectives,
-                "derived": cm.derived}
+                "kernels": cm.kernels, "collectives": cm.collectives}
 
 
 def _block(leaf, spec, mesh):
@@ -451,24 +434,11 @@ def _block(leaf, spec, mesh):
     return shd.local_block(leaf, spec, mesh).clone()
 
 
-def _local(tree, layout, mesh, requires_grad: bool = False):
+def _local(tree, layout, mesh):
     """Meta local blocks of a meta tree under a spec tree."""
-    def cut(path, leaf):
-        t = _block(leaf, _at(layout, path), mesh)
-        return t.requires_grad_(True) if requires_grad else t
-    return tree_map_with_path(cut, tree)
-
-
-def _cut_view(x, spec, mesh):
-    """This rank's block of ``x`` as a view (``local_block`` without the
-    copy)."""
-    for d, entry in enumerate(spec):
-        for a in shd._flat(entry):
-            n = mesh.sizes[a]
-            if n > 1:
-                x = x.narrow(d, mesh.coord(a) * (x.shape[d] // n),
-                             x.shape[d] // n)
-    return x
+    return tree_map_with_path(
+        lambda path, leaf: _block(leaf, shd.leaf_at(layout, path), mesh),
+        tree)
 
 
 def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
@@ -478,8 +448,8 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
     from repro_torch.models.api import (build_model, cache_specs,
                                         input_specs, params_specs)
     from repro_torch.serve.sharded import cache_seq
-    from repro_torch.train.optimizer import (adamw, constant, leaves,
-                                             tree_map)
+    from repro_torch.train import sharded as train_sharded
+    from repro_torch.train.optimizer import adamw, constant
     sizes = axis_sizes(mesh)
     model = build_model(cfg)
     ba = _batch_axes(mesh)
@@ -517,62 +487,19 @@ def build_program(cfg, ishape, mesh, table, *, zero1: bool = True,
         return Program(args=(params, cache, tokens), run=decode,
                        cache_seq=cache_seq(cspec, sizes), **common)
 
-    # train: the port's train step on this rank's blocks
+    # train: the sharded train step on this rank's blocks
+    plan = train_sharded.make_train_sharding(cfg, mesh, table=table,
+                                             zero1=zero1)
     optimizer = adamw(constant(1e-4))
-    params = _local(pshape, layout, mesh, requires_grad=True)
-    olayout = opt_state_pspecs(layout, pshape, mesh) if zero1 else layout
-    moments = tree_map_with_path(
-        lambda path, t: _block(t.to(torch.float32), _at(olayout, path),
-                               mesh), pshape)
-    opt = {"mu": moments, "nu": tree_map(torch.empty_like, moments)}
-    batch_axes = "+".join(ba)
+    state = train_sharded.create(_local(pshape, plan.param_layout, mesh),
+                                 optimizer, plan)
+    step = train_sharded.make_train_step(model.loss, optimizer, plan)
 
     def train(params, opt, batch):
-        """``state.make_train_step``'s step, its update on this rank's
-        ZeRO-1 shards, with the derived collectives booked."""
-        cm = CountingMode.active()
-        before = dict(cm.collectives) if cm is not None else {}
-        loss = model.loss(params, batch)
-        if cm is not None:
-            for (kind, axis), nb in list(cm.collectives.items()):
-                nb -= before.get((kind, axis), 0.0)
-                if axis == "model" and nb:
-                    cm.book_collective(
-                        "all-reduce" if kind == "all-reduce"
-                        else "reduce-scatter", axis, nb, derived=True)
-        loss.backward()
-        grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), params)
-
-        def shard(path, g):
-            spec, ospec_ = _at(layout, path), _at(olayout, path)
-            if basz > 1 and cm is not None:
-                nb = g.numel() * g.element_size()
-                extra = _spec_ranks(ospec_, sizes) // _spec_ranks(spec,
-                                                                  sizes)
-                if extra > 1:
-                    cm.book_collective("reduce-scatter", batch_axes,
-                                       nb / extra, derived=True)
-                    cm.book_collective("all-gather", batch_axes, nb,
-                                       derived=True)
-                else:
-                    cm.book_collective("all-reduce", batch_axes, nb,
-                                       derived=True)
-            return _cut_view(g, _shard_only(spec, ospec_), mesh)
-        g_local = tree_map_with_path(shard, grads)
-        p_local = tree_map_with_path(
-            lambda path, p: _cut_view(p.detach(), _shard_only(
-                _at(layout, path), _at(olayout, path)), mesh), params)
-        gnorm = optimizer.update(g_local, opt, p_local, 0)
-        for p in leaves(params):
-            p.grad = None
-        return loss.detach(), gnorm
-    return Program(args=(params, opt, batch), run=train, **common)
-
-
-def _shard_only(spec, ospec) -> P:
-    """The entries ZeRO-1 adds to ``spec`` (the cut of a local block)."""
-    return P(*(None if a == b else b for a, b in zip(spec, ospec)))
+        _, metrics = step({"params": params, "opt": opt, "step": 0}, batch)
+        return metrics["loss"], metrics["grad_norm"]
+    return Program(args=(state["params"], state["opt"], batch), run=train,
+                   **common)
 
 
 # ---------------------------------------------------------------------------
@@ -653,18 +580,12 @@ def lower_combo(arch: str, shape_name: str, multi_pod: bool,
 
     coll: Dict[str, float] = {k: 0.0 for k in _COLLECTIVES}
     by_axis: Dict[str, Dict[str, float]] = {}
-    derived: Dict[str, Dict[str, float]] = {}
-    for into, src in ((by_axis, counts["collectives"]),
-                      (derived, counts["derived"])):
-        for (kind, axis), nb in sorted(src.items()):
-            coll[kind] += nb
-            into.setdefault(axis, {})[kind] = \
-                into.setdefault(axis, {}).get(kind, 0.0) + nb
+    for (kind, axis), nb in sorted(counts["collectives"].items()):
+        coll[kind] += nb
+        by_axis.setdefault(axis, {})[kind] = \
+            by_axis.setdefault(axis, {}).get(kind, 0.0) + nb
     coll["total"] = sum(coll[k] for k in _COLLECTIVES)
-    axis_wire: Dict[str, float] = {}
-    for group in (by_axis, derived):
-        for axis, kinds in group.items():
-            axis_wire[axis] = axis_wire.get(axis, 0.0) + _wire(kinds)
+    axis_wire = {axis: _wire(kinds) for axis, kinds in by_axis.items()}
     wire = sum(axis_wire.values())
 
     flops = float(counts["flops"])
@@ -724,7 +645,6 @@ def lower_combo(arch: str, shape_name: str, multi_pod: bool,
         # the port's own keys
         "mesh_shape": dict(axis_sizes(mesh)),
         "collective_bytes_by_axis": by_axis,
-        "derived_collective_bytes": derived,
         "kernels": counts["kernels"],
         "held_replicated": program.held_replicated,
         "not_runnable": {name: k["refused"]

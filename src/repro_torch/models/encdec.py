@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -109,6 +110,8 @@ def _cross_kv(cfg, p, enc_out):
     cross pool ``ck`` / ``cv`` holds them."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
+    if p["wk"].shape[1] != cfg.n_kv_heads * hd:   # a column block
+        enc_out = shd.fan_out(enc_out, "model")
     k, v = enc_out @ p["wk"], enc_out @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]

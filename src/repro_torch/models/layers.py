@@ -31,11 +31,14 @@ reference's schemes (``attention_scheme``):
 then ``wo`` multiplies the rank's columns of the output and the partial
 sums are reduced over 'model', as ``w_down``'s are; the embedding is
 vocab-parallel (a masked lookup, then a reduce) and the logits are
-gathered over 'model'. Inside ``sharding.split_rows`` a decode step (or
-a paged prefill round) computes this rank's rows: a contiguous pool split
-over 'data' holds just those rows, so the write is local, while a paged
-K/V write first gathers every 'data' rank's rows, since each 'data' rank
-holds the whole paged pool.
+gathered over 'model' for serving, while the loss keeps them split over
+the vocabulary (``unembed_cross_entropy``). Under grad the collectives
+are autograd functions (``dist/sharding.py``, Gradients): each
+column-parallel entry takes its input through ``fan_out``. Inside
+``sharding.split_rows`` a decode step (or a paged prefill round) computes
+this rank's rows: a contiguous pool split over 'data' holds just those
+rows, so the write is local, while a paged K/V write first gathers every
+'data' rank's rows, since each 'data' rank holds the whole paged pool.
 """
 from __future__ import annotations
 
@@ -100,7 +103,14 @@ def remat(cfg, fn: Callable, dots: bool = True) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+        # the recomputation runs in the backward, on autograd's thread for
+        # CUDA tensors: under the mesh rules of this forward (thread-local)
+        rules = shd.current_rules()
+
+        def under_rules(*a):
+            with shd.use_rules(rules):
+                return fn(*a)
+        return _ckpt.checkpoint(under_rules, *args, use_reentrant=False,
                                 context_fn=context)
     return wrapped
 
@@ -118,8 +128,9 @@ def rmsnorm(x, weight, eps: float, width: Optional[int] = None):
     if width is None or width == x.shape[-1]:
         var = x.square().mean(dim=-1, keepdim=True)
     else:
+        # each rank normalizes its own block: the gradient is partial
         var = shd.reduce_over(x.square().sum(dim=-1, keepdim=True),
-                              "model") / width
+                              "model", grad="partial") / width
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
 
@@ -220,11 +231,16 @@ def heads_sharded(cfg) -> bool:
 def _whole(ts, fulls):
     """Column blocks [B, S, w_i] of flat head projections -> all of each
     [B, S, full_i] (``ts`` as they are when whole): one gather over
-    'model' of the blocks side by side, each cut back out in rank order."""
+    'model' of the blocks side by side, each cut back out in rank order.
+    What follows differs by rank (its rows under q-seq, its heads, or
+    ``row_parallel``'s columns of the output), so the gradient is partial:
+    the backward reduce-scatters it, summing, for instance, the ranks' dk
+    and dv of the keys before they reach the K/V projections."""
     if all(t.shape[-1] == f for t, f in zip(ts, fulls)):
         return ts
     widths = [t.shape[-1] for t in ts]
-    parts = shd.gather_over(torch.cat(ts, dim=-1)[None], 0, "model")
+    parts = shd.gather_over(torch.cat(ts, dim=-1)[None], 0, "model",
+                            grad="partial")
     out, c = [], 0
     for w in widths:                   # [m, B, S, w] -> [B, S, m w]
         out.append(parts[..., c:c + w].movedim(0, -2).flatten(-2))
@@ -244,9 +260,12 @@ def _qkv(p, cfg, x, heads: bool):
     (the layer runs head-sharded): q on this rank's heads, k / v on its KV
     heads where they divide 'model', else every KV head (their columns
     gathered); otherwise every head of all three (gathered where the
-    projections hold a column block). Off the mesh every leaf is whole."""
+    projections hold a column block). Off the mesh every leaf is whole;
+    column blocks take x through ``fan_out``."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    if p["wq"].shape[1] != cfg.n_heads_eff * hd:
+        x = shd.fan_out(x, "model")
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -292,8 +311,8 @@ def row_parallel(x, w, full: int):
         r = shd.axis_index("model")
         x = x[..., r * n:(r + 1) * n]
     y = x @ w
-    if n != full:
-        y = shd.reduce_over(y, "model")
+    if n != full:       # the residual stream: its gradient is replicated
+        y = shd.reduce_over(y, "model", grad="replicated")
     return y
 
 
@@ -302,14 +321,10 @@ def _heads_sum(p, cfg, out):
     return row_parallel(out, p["wo"], cfg.n_heads_eff * cfg.resolved_head_dim)
 
 
-def _q_seq(cfg, b: int, s: int, q) -> bool:
+def _q_seq(cfg, b: int, s: int) -> bool:
     """Whether the layer's scheme for a causal pass of ``s`` positions is
-    q-seq: the query sequence split over 'model' (``attention_scheme``).
-    Flash's query offset runs forward only, so a pass that needs the
-    gradient of ``q`` computes every row instead (the dry-run's train
-    programs)."""
-    if torch.is_grad_enabled() and q.requires_grad:
-        return False
+    q-seq: the query sequence split over 'model' (``attention_scheme``),
+    with or without gradients (flash's query offset has its backward)."""
     scheme = plan_attention_scheme(cfg, b, s, s)
     return scheme is not None and scheme["q"][1] == "model"
 
@@ -318,13 +333,17 @@ def _q_seq_attention(q, k, v, window: int):
     """Causal attention of every head, a block of query rows a 'model'
     rank: rank r's rows ``[r S/m, (r + 1) S/m)`` against keys
     ``[0, (r + 1) S/m)`` through flash with a query offset, the rows
-    gathered over 'model' in rank order."""
+    gathered over 'model' in rank order. Under grad the rank's backward
+    gives dq of its rows and its rows' part of dk and dv of those keys;
+    ``wo``'s row-parallel product reads a rank's columns of the gathered
+    rows, so their gradient is partial and the gather reduce-scatters it
+    (the keys' parts are summed by ``_whole``'s)."""
     n = q.shape[1] // _axis_ranks("model")
     r0 = shd.axis_index("model") * n
     out = kops.flash_attention_offset(q[:, r0:r0 + n], k[:, :r0 + n],
                                       v[:, :r0 + n], r0, causal=True,
                                       window=window)
-    return shd.gather_over(out, 1, "model")
+    return shd.gather_over(out, 1, "model", grad="partial")
 
 
 def _masked_logits(q, k, mask, no_repeat: bool):
@@ -615,8 +634,8 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     On the mesh the layer takes the reference's scheme (module
     docstring): head-sharded, kv-seq over a cache whose positions are
     split (``sharding.cache_seq_axis``), q-seq for a causal pass without a
-    cache whose length 'model' divides and that needs no gradient (flash
-    with a query offset, on either flag), else every head whole. The
+    cache whose length 'model' divides (flash with a query offset, on
+    either flag, and its backward under grad), else every head whole. The
     returned (k, v) hold this rank's KV heads head-sharded where they
     divide 'model', else every KV head, at every position of x. Cross
     attention runs head-sharded over cross K/V of the same layout, or
@@ -627,6 +646,8 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     no_repeat = cfg.gqa_no_repeat
     backend = plan_decode_backend(cfg, kv_cache)
     if cross_kv is not None:         # q only: k and v come precomputed
+        if p["wq"].shape[1] != cfg.n_heads_eff * hd:
+            x = shd.fan_out(x, "model")
         q = x @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
@@ -677,7 +698,7 @@ def attention(p, cfg, x, positions, *, causal: bool = True, window: int = 0,
     ka, va = (k, v) if heads is None else (k[:, :, heads].contiguous(),
                                            v[:, :, heads].contiguous())
     if (causal and split and q.shape[2] == cfg.n_heads_eff
-            and _q_seq(cfg, b, s, q)):
+            and _q_seq(cfg, b, s)):
         out = _q_seq_attention(q, ka, va, window)
     elif causal and flash:
         out = kops.flash_attention(q, ka, va, causal=True, window=window)
@@ -704,11 +725,14 @@ def init_mlp(d: int, d_ff: int, dtype, generator) -> dict:
 
 
 def mlp(p, x, d_ff: int = 0):
-    """SwiGLU; with ``d_ff`` (the full hidden width) a ``w_down`` row block
+    """SwiGLU; with ``d_ff`` (the full hidden width) a ``w_gate`` / ``w_up``
+    column block takes x through ``fan_out`` and the ``w_down`` row block
     (``ffn`` over 'model') has its partial sum reduced over 'model'."""
+    if d_ff and p["w_gate"].shape[1] != d_ff:
+        x = shd.fan_out(x, "model")
     y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     if d_ff and p["w_down"].shape[0] != d_ff:
-        y = shd.reduce_over(y, "model")
+        y = shd.reduce_over(y, "model", grad="replicated")
     return y
 
 
@@ -738,20 +762,39 @@ def embed(p, cfg, tokens):
         local = tokens - shd.axis_index("model") * n
         held = (local >= 0) & (local < n)
         x = F.embedding(local.clamp(0, n - 1), emb) * held[..., None]
-        x = shd.reduce_over(x, "model")
+        x = shd.reduce_over(x, "model", grad="replicated")
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
 
 
+def _vocab_block(p, cfg, x):
+    """x [.., D] times this rank's block of the unembedding -> the logits
+    of its vocab block [.., V / m] (all of them off the mesh); a block
+    takes x through ``fan_out``."""
+    w = p["tok_emb"].T if cfg.tie_embeddings else p["lm_head"]
+    if w.shape[1] != cfg.vocab_size:
+        x = shd.fan_out(x, "model")
+    return x @ w
+
+
 def unembed(p, cfg, x):
     """Logits over the whole vocabulary: a vocab block's logits are
-    gathered over 'model'."""
-    logits = (x @ p["tok_emb"].T if cfg.tie_embeddings
-              else x @ p["lm_head"])
+    gathered over 'model' (what follows, the serving steps' selection or
+    a loss, computes the same on every rank)."""
+    logits = _vocab_block(p, cfg, x)
     if logits.shape[-1] != cfg.vocab_size:
-        logits = shd.gather_over(logits, logits.dim() - 1, "model")
+        logits = shd.gather_over(logits, logits.dim() - 1, "model",
+                                 grad="replicated")
     return logits
+
+
+def _mean_nll(nll, mask=None):
+    """The mean of ``nll`` [B, S], or its mean weighted by ``mask``."""
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -760,8 +803,30 @@ def cross_entropy(logits, labels, mask=None):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
-    if mask is not None:
-        mask = mask.float()
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-    return nll.mean()
+    return _mean_nll(logz - gold, mask)
+
+
+def unembed_cross_entropy(p, cfg, x, labels, mask=None):
+    """``cross_entropy(unembed(p, cfg, x), labels, mask)`` of the final
+    hidden states x [B, S, D], with the logits kept split over the
+    vocabulary where the unembedding holds a vocab block, as the
+    reference keeps them through its loss (``shard(logits, "batch", None,
+    "vocab")``, ``layers.py:534, 537-546``): each rank's [B, S, V / m]
+    block in f32, the row maximum and the sum of exponentials over its
+    block combined over 'model' (``max_over``, ``reduce_over``), and the
+    gold logit from the rank that holds the label. The whole vocabulary
+    takes ``cross_entropy`` of ``unembed``."""
+    logits = _vocab_block(p, cfg, x)
+    n = logits.shape[-1]
+    if n == cfg.vocab_size:
+        return cross_entropy(logits, labels, mask)
+    logits = logits.float()
+    m = shd.max_over(logits.amax(dim=-1), "model")            # no gradient
+    z = shd.reduce_over(torch.exp(logits - m[..., None]).sum(dim=-1),
+                        "model", grad="replicated")
+    local = labels.long() - shd.axis_index("model") * n
+    held = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = shd.reduce_over(torch.where(held, gold, torch.zeros_like(gold)),
+                           "model", grad="replicated")
+    return _mean_nll(torch.log(z) + m - gold, mask)

@@ -96,7 +96,10 @@ def _project(cfg, p, x):
     ``2 di + 2 G N + H`` (``inner_flat`` over 'model') is gathered into
     every column first."""
     di, g, n, h, _, conv_ch = _dims(cfg)
-    (zxbcdt,) = L._whole((x @ p["in_proj"],), (2 * di + 2 * g * n + h,))
+    full = 2 * di + 2 * g * n + h
+    if p["in_proj"].shape[1] != full:          # a column block
+        x = shd.fan_out(x, "model")
+    (zxbcdt,) = L._whole((x @ p["in_proj"],), (full,))
     return (zxbcdt[..., :di], zxbcdt[..., di:di + conv_ch],
             zxbcdt[..., di + conv_ch:])
 

@@ -102,9 +102,13 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     cap = capacity(cfg, cap_tokens if cap_tokens else s)
     dev = x.device
 
+    if (p["router"].shape[1] != e or p["we_gate_up"].shape[0] != e
+            or p["we_down"].shape[-2] != cfg.d_ff):
+        x = shd.fan_out(x, "model")     # the experts' blocks differ by rank
     logits = x @ p["router"]
     if logits.shape[-1] != e:                  # a block of experts' logits
-        logits = shd.gather_over(logits, logits.dim() - 1, "model")
+        logits = shd.gather_over(logits, logits.dim() - 1, "model",
+                                 grad="replicated")     # routed alike
     logits = logits.float()                                      # [B, S, E]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                  # [B, S, K]
@@ -185,7 +189,7 @@ def moe_ffn(cfg, p, x, *, counts=None, cap_tokens=None, token_valid=None,
     y = out_buf[rows, flat_e, safe_pos] * w[..., None].to(out_buf.dtype)
     out = y.view(b, s, k, d).sum(dim=2)
     if n_local != e or f_local != f:
-        out = shd.reduce_over(out, "model")
+        out = shd.reduce_over(out, "model", grad="replicated")
     if counts is not None:
         return out, aux, cnt0 + one.sum(dim=1, dtype=torch.int32)
     return out, aux

@@ -163,13 +163,15 @@ def _grouped_layout(cfg):
     return groups, every, cfg.n_layers - groups * every
 
 
-def forward_banded(cfg, params, tokens, patch_embeds=None):
+def forward_banded(cfg, params, tokens, patch_embeds=None,
+                   unembed: bool = True):
     """The grouped forward (``transformer.py:193-226``): per group, every -
     1 banded local layers and one global layer, then the trailing local
     layers; the scanned path's layer order and function, with only the
     local layers' scores banded. ``cfg.remat`` wraps each group, as the
     reference checkpoints its group body; the trailing layers are not
-    recomputed."""
+    recomputed. ``unembed=False``: the final hidden states instead of the
+    logits (``forward``)."""
     x = L.embed(params["emb"], cfg, tokens)
     if patch_embeds is not None:
         n = patch_embeds.shape[1]
@@ -191,7 +193,7 @@ def forward_banded(cfg, params, tokens, patch_embeds=None):
     for p in layers[groups * every:]:
         x = _local_layer_banded(cfg, p, x, positions, w)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params["emb"], cfg, x)
+    return L.unembed(params["emb"], cfg, x) if unembed else x
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +201,7 @@ def forward_banded(cfg, params, tokens, patch_embeds=None):
 # reference for chunked paths)
 # ---------------------------------------------------------------------------
 def forward(cfg, params, tokens, patch_embeds=None,
-            return_cache: bool = False):
+            return_cache: bool = False, unembed: bool = True):
     """tokens: [B, S] int -> logits [B, S, V] (and, with ``return_cache``,
     the per-layer post-RoPE (k, v) stacked ``[L, B, S, Hkv, D]``).
     ``patch_embeds`` [B, P, D] (VLM) replace the embeddings of the first P
@@ -207,12 +209,14 @@ def forward(cfg, params, tokens, patch_embeds=None,
     sliding window, ``global_every`` and S a multiple of the window, the
     grouped banded forward runs (``forward_banded``; it has no prefill
     cache: ``return_cache`` raises ``NotImplementedError``); otherwise
-    every layer runs in order here."""
+    every layer runs in order here. ``unembed=False`` returns the final
+    (normed) hidden states [B, S, D] in place of the logits (the loss's
+    input, ``loss_fn``)."""
     if (cfg.local_banded and cfg.sliding_window and cfg.global_every
             and tokens.shape[1] % cfg.sliding_window == 0):
         if return_cache:
             raise NotImplementedError("banded path has no prefill cache yet")
-        return forward_banded(cfg, params, tokens, patch_embeds)
+        return forward_banded(cfg, params, tokens, patch_embeds, unembed)
     x = L.embed(params["emb"], cfg, tokens)
     if patch_embeds is not None:
         n = patch_embeds.shape[1]
@@ -227,25 +231,27 @@ def forward(cfg, params, tokens, patch_embeds=None,
         if return_cache:
             caches.append(kv)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.unembed(params["emb"], cfg, x)
+    out = L.unembed(params["emb"], cfg, x) if unembed else x
     if return_cache:
-        return logits, stack_caches(caches)
-    return logits
+        return out, stack_caches(caches)
+    return out
 
 
 def loss_fn(cfg, params, batch):
     """Mean next-token cross entropy over ``batch`` (tokens, labels,
     optional loss_mask and patch_embeds); a VLM batch without a loss_mask
     scores only the text positions, ``>= n_patches``
-    (``transformer.py:269-278``)."""
-    logits = forward(cfg, params, batch["tokens"],
-                     patch_embeds=batch.get("patch_embeds"))
+    (``transformer.py:269-278``). The logits stay split over the
+    vocabulary where the unembedding holds a vocab block
+    (``layers.unembed_cross_entropy``)."""
+    x = forward(cfg, params, batch["tokens"],
+                patch_embeds=batch.get("patch_embeds"), unembed=False)
     mask = batch.get("loss_mask")
     labels = batch["labels"]
     if cfg.family == "vlm" and mask is None:
         pos = torch.arange(labels.shape[1], device=labels.device)
         mask = (pos >= cfg.n_patches)[None, :].expand(labels.shape)
-    return L.cross_entropy(logits, labels, mask)
+    return L.unembed_cross_entropy(params["emb"], cfg, x, labels, mask)
 
 
 def stack_caches(caches):

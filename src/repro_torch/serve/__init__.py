@@ -2,7 +2,8 @@ from repro_torch.serve.cache import CachePool
 from repro_torch.serve.chaos import (FAULT_KINDS, Fault, FaultInjector,
                                      FaultSchedule)
 from repro_torch.serve.elastic import ElasticController, ScalePlan
-from repro_torch.serve.engine import CACHE_BACKENDS, ServeEngine, ServeStats
+from repro_torch.serve.engine import (CACHE_BACKENDS, ServeEngine, ServeStats,
+                                     serve_step_fn)
 from repro_torch.serve.paged import BlockManager
 from repro_torch.serve.replay import ReplayResult, philly_requests, run_replay
 from repro_torch.serve.sharded import (ServeSharding, make_serve_sharding,
@@ -23,5 +24,5 @@ __all__ = [
     "ServeSharding", "SLOSlack", "Tenant", "TenantAllocation", "TenantAllocator",
     "TenantRegistry", "TenantShare", "philly_requests", "plan_allocation",
     "make_serve_sharding", "profile_class", "profiles_from_requests",
-    "run_replay", "sharded_engine",
+    "run_replay", "serve_step_fn", "sharded_engine",
 ]

@@ -1646,3 +1646,15 @@ class ServeEngine:
         c.block_report = peak_report
         c.inc("prefix_hits", pool.prefix_blocks_hit)
         c.inc("prefix_total", pool.prefix_blocks_total)
+
+
+def serve_step_fn(cfg: ArchConfig):
+    """The (params, cache, tokens, pos) -> (logits, cache) step the dry-run
+    runs for decode shapes (``repro/serve/engine.py:1730``): one
+    ``Model.decode_step``, the cache updated in place."""
+    model = build_model(cfg)
+
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return serve_step

@@ -262,7 +262,7 @@ class ServeSharding:
         """This rank's blocks of a full param tree (each leaf cut by its
         ``param_layout`` spec)."""
         def cut(path, leaf):
-            spec = _at(self.param_layout, path)
+            spec = shd.leaf_at(self.param_layout, path)
             return shd.local_block(leaf, spec, self.mesh)
         return shd.tree_map_with_path(cut, params)
 
@@ -270,7 +270,7 @@ class ServeSharding:
         """The full param tree from this rank's blocks (each split leaf
         gathered over its mesh axes; every rank takes part)."""
         def join(path, leaf):
-            spec = _at(self.param_layout, path)
+            spec = shd.leaf_at(self.param_layout, path)
             with self.rules():
                 for d, entry in enumerate(spec):
                     for a in shd._flat(entry):
@@ -296,12 +296,6 @@ class ServeSharding:
                     f"{self.local_shape(name, shape)}"
                     + (" (blocks aside)" if self.paged else ""))
         return buffers
-
-
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
 
 
 def make_serve_sharding(cfg, n_slots: int, max_len: int, mesh=None, *,

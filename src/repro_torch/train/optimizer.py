@@ -87,17 +87,22 @@ def constant(lr: float) -> Callable:
 # ---------------------------------------------------------------------------
 # grad clipping
 # ---------------------------------------------------------------------------
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce: Optional[Callable] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (f32, on the leaves'
-    device: no host sync)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+    device: no host sync). ``reduce``, for a tree of blocks held across a
+    mesh: maps the leaves' sums of squares (0-d f32 tensors, in ``leaves``
+    order) to their total over the mesh, each block counted once
+    (``train/sharded.py``)."""
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    return torch.sqrt(sum(sq) if reduce is None else reduce(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float,
+                        reduce: Optional[Callable] = None):
     """Scale ``grads`` in place by ``min(1, max_norm / max(norm, 1e-9))``;
-    returns (grads, norm before clipping)."""
-    norm = global_norm(grads)
+    returns (grads, norm before clipping); ``reduce`` as
+    ``global_norm``'s."""
+    norm = global_norm(grads, reduce)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     with torch.no_grad():
         for g in leaves(grads):
@@ -111,8 +116,10 @@ def clip_by_global_norm(grads, max_norm: float):
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable         # params -> opt_state
-    update: Callable       # (grads, opt_state, params, step) -> grad_norm,
-                           # params and opt_state updated in place
+    update: Callable       # (grads, opt_state, params, step,
+                           # norm_reduce=None) -> grad_norm, params and
+                           # opt_state updated in place; norm_reduce:
+                           # global_norm's reduce
     name: str = "opt"
 
 
@@ -127,11 +134,11 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
     def init(params):
         return {"mu": _zeros(params), "nu": _zeros(params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_reduce=None):
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, norm_reduce)
         else:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, norm_reduce)
         lr = float(schedule(step))
         t = _F32(step) + _F32(1.0)
         bc1 = float(_F32(1.0) - _F32(b1) ** t)
@@ -155,11 +162,11 @@ def sgdm(schedule: Callable, momentum: float = 0.9,
     def init(params):
         return {"mom": _zeros(params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_reduce=None):
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, norm_reduce)
         else:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, norm_reduce)
         lr = float(schedule(step))
         with torch.no_grad():
             for g, m, p in zip(leaves(grads), leaves(state["mom"]),

@@ -10,8 +10,9 @@ results to ``OUTDIR/rank<r>.pkl``. A scenario is a sharded engine run
 optional fault spec; a tracer records the host loop's dispatches) or a
 ``Model.forward`` under the rules against the
 off-mesh forward, or (kind "capture") a collective issued inside a CUDA
-graph capture, which must raise. Imports no jax: the caller holds the
-results to the JAX package.
+graph capture, which must raise, or (kind "train") the sharded train step
+over a few global batches. Imports no jax: the caller holds the results to
+the JAX package.
 """
 import os
 import pickle
@@ -105,6 +106,41 @@ def _forward(sc, cfg, params, mesh, device):
                 held=list(plan.held_replicated))
 
 
+def _train(sc, cfg, params, mesh, device):
+    """The sharded train step (``repro_torch.train.sharded``) for the
+    scenario's global batches at AdamW ``lr`` (the reference's defaults
+    otherwise): each step's loss and gradient norm, the params after the
+    last step gathered whole (JAX layout, numpy), the collectives and the
+    query-offset flash calls."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.train import sharded as ts
+    from repro_torch.train.optimizer import adamw, constant
+    plan = ts.make_train_sharding(cfg, mesh)
+    optimizer = adamw(constant(sc["lr"]))
+    state = ts.create(plan.shard_params(params), optimizer, plan)
+    step = ts.make_train_step(build_model(cfg).loss, optimizer, plan)
+    shd.reset_stats()
+    ops.flash_attention_offset.plain_calls = 0
+    losses, norms = [], []
+    for batch in sc["batches"]:
+        batch = plan.local_batch({k: torch.as_tensor(v).to(device)
+                                  for k, v in batch.items()})
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    stats = dict(shd.STATS)
+    full = plan.gather(state["params"])
+    return dict(losses=losses, norms=norms, collectives=stats,
+                offset_calls=ops.flash_attention_offset.plain_calls,
+                local_shapes=[tuple(p.shape) for p in
+                              (state["params"]["layers"][0]["attn"]["wq"],
+                               state["params"]["emb"]["tok_emb"])],
+                params=params_to_jax(full) if dist.get_rank() == 0 else None)
+
+
 def _rank(rank, spec, outdir):
     device = spec.get("device", "cpu")
     if device == "cuda":
@@ -133,8 +169,8 @@ def _rank(rank, spec, outdir):
                              **sc.get("overrides", {}))
             params = params_from_jax(spec["params"][sc["params"]],
                                      device=device)
-            run = {"forward": _forward, "capture": _capture}.get(
-                sc.get("kind"), _engine_run)
+            run = {"forward": _forward, "capture": _capture,
+                   "train": _train}.get(sc.get("kind"), _engine_run)
             out[sc["name"]] = run(sc, cfg, params, meshes[tuple(sc["mesh"])],
                                   device)
         dist.barrier()

@@ -878,6 +878,46 @@ def test_flash_query_offset_matches_plain(cuda_device, dtype, q0, sq, sk,
         out.float(), fa.flash_attention_plain(q, k, v, True, window,
                                               q0).float(),
         atol=TOL[dtype], rtol=TOL[dtype])
-    with pytest.raises(RuntimeError, match="no backward"):
-        with torch.enable_grad():
-            ops.flash_attention_offset(q.requires_grad_(), k, v, q0)
+    # under grad the kernel runs with its backward kernel (no plain call)
+    before = (ops.flash_attention_offset.launches,
+              ops.flash_attention_offset_backward.launches,
+              fa.flash_attention_plain.calls)
+    with torch.enable_grad():
+        ops.flash_attention_offset(q.requires_grad_(), k, v, q0).sum(
+        ).backward()
+    assert (ops.flash_attention_offset.launches,
+            ops.flash_attention_offset_backward.launches,
+            fa.flash_attention_plain.calls) == (before[0] + 1, before[1] + 1,
+                                                before[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,q0,sq,sk,window", [
+    (2, 384, 128, 512, 0),      # rank 3 of a 512-token pass on (1, 4)
+    (2, 0, 128, 128, 0),        # rank 0
+    (1, 100, 37, 200, 9),       # a ragged block off the tiles, a window
+    (2, 384, 128, 512, 64),     # keys below 321 seen by no row
+    (1, 3584, 512, 4096, 0),    # rank 7 of 8 of a 4096-token pass
+])
+def test_flash_query_offset_gradients_match_plain(cuda_device, dtype, b,
+                                                  q0, sq, sk, window):
+    """Backward through ops.flash_attention_offset on the card (the
+    backward kernel at the offset): dq of the block's rows and its part of
+    dk and dv of the keys, in the inputs' dtype, equal to autograd of the
+    plain version at the offset on the same inputs (upcast to f32 for
+    bf16); a key no row sees gets dk = dv = 0."""
+    q, _, _ = _flash_case(cuda_device, dtype, sq, 14, 2, 64, q0 + 7, b=b)
+    _, k, v = _flash_case(cuda_device, dtype, sk, 14, 2, 64, sk + 3, b=b)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention_offset(*leaves, q0, window=window).backward(do)
+    want = fa.flash_attention_backward_plain(
+        *(t.float() for t in (q, k, v, do)), True, window, q0)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == dtype
+        _close_to_largest(t.grad.float(), w, FLASH_BWD_TOL[dtype])
+    if window:
+        unseen = q0 - window + 1
+        assert not leaves[1].grad[:, :unseen].any()
+        assert not leaves[2].grad[:, :unseen].any()

@@ -369,13 +369,22 @@ def test_dry_collectives_by_kind_and_axis():
         ("all-reduce", "model"): (1 + 2 * cfg.n_layers) * rows
         * cfg.d_model * 4,
         ("all-gather", "model"): rows * cfg.vocab_size * 4}
+    # the train step (heads split, remat none): over 'model' the forward's
+    # sums (the embedding, wo and w_down) and the backward's at each
+    # column-parallel entry (q/k/v, w_gate/w_up, the vocab block), all of
+    # [rows, 16, d]; the loss's row max, sum of exponentials and gold
+    # logit [rows, 16]; the global norm's scalar. No logits gathered.
     train = _program("qwen2-0.5b", "train", mesh=(2, 2)).count()
-    fwd = train["collectives"]
-    assert train["derived"][("all-reduce", "model")] == fwd[
-        ("all-reduce", "model")]
-    assert train["derived"][("reduce-scatter", "model")] == fwd[
-        ("all-gather", "model")]
-    assert train["derived"][("all-gather", "data")] > 0
+    booked = train["collectives"]
+    act = rows * 16 * cfg.d_model * 4
+    assert booked[("all-reduce", "model")] == (
+        (1 + 2 * cfg.n_layers) * act + (2 * cfg.n_layers + 1) * act
+        + 3 * rows * 16 * 4 + 4)
+    assert ("all-gather", "model") not in booked
+    # over 'data': each ZeRO-1 gradient reduce-scattered to half its
+    # block and the updated halves gathered back
+    assert booked[("reduce-scatter", "data")] * 2 == booked[
+        ("all-gather", "data")] > 0
 
 
 @pytest.mark.parametrize("entry", ["flash", "ssd", "paged", "prefill", "gmm"])
@@ -510,7 +519,7 @@ def test_main_roofline_and_store_against_reference(tmp_path, monkeypatch):
             rec["memory_stats"]["argument_bytes"] / 2**30, 3)
         assert rec["bottleneck"] in ("compute", "memory", "collective")
     assert recs[1]["tag"] == "t" and recs[1]["kernels"]["ssd_scan"]
-    assert recs[1]["derived_collective_bytes"]["data"]["reduce-scatter"] > 0
+    assert recs[1]["collective_bytes_by_axis"]["data"]["reduce-scatter"] > 0
 
     for rec in recs:
         assert roofline.fmt_row(rec) == jroof.fmt_row(rec)
@@ -553,3 +562,47 @@ def test_sweep_subprocess(tmp_path):
         "whisper-large-v3", "prefill_32k", "host")
     assert rec["kernels"]["flash_attention"]["calls"] == 2
     assert "now holds 1 records" in proc.stdout
+
+
+def test_list_archs_is_the_reference_registry():
+    """``configs.list_archs`` (``repro/configs/registry.py:36``): every
+    registered id in the reference's order, a fresh list each call."""
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import list_archs
+    assert list_archs() == jax_list_archs() == ARCH_IDS
+    assert list_archs() is not ARCH_IDS
+
+
+def test_serve_step_fn_matches_reference():
+    """``serve.serve_step_fn`` (``repro/serve/engine.py:1730``): one decode
+    step of smoke qwen2 from the JAX weights and a seeded cache, at
+    position 5 of 16, against the reference's step: logits within 1e-5,
+    and the new K/V written at position 5 only."""
+    import jax.numpy as jnp
+    from repro.models.api import build_model as jax_build
+    from repro.serve import serve_step_fn as jax_serve_step_fn
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.serve import serve_step_fn
+    jcfg, cfg = (jax_config("qwen2-0.5b", smoke=True),
+                 get_config("qwen2-0.5b", smoke=True))
+    jparams = jax_build(jcfg).init(jax.random.key(0))
+    rng = np.random.default_rng(2)
+    shape = (cfg.n_layers, 2, 16, cfg.n_kv_heads, cfg.resolved_head_dim)
+    kv = {n: rng.standard_normal(shape).astype(np.float32)
+          for n in ("k", "v")}
+    tokens = np.array([[7], [300]], np.int32)
+    want, wcache = jax_serve_step_fn(jcfg)(
+        jparams, {n: jnp.asarray(a) for n, a in kv.items()},
+        jnp.asarray(tokens), 5)
+    cache = {n: torch.from_numpy(a.copy()) for n, a in kv.items()}
+    got, cache = serve_step_fn(cfg)(
+        params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                        device="cpu"),
+        cache, torch.from_numpy(tokens), 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(cache[n].numpy(), np.asarray(wcache[n]),
+                                   atol=1e-5, rtol=1e-5)
+        assert np.array_equal(np.delete(cache[n].numpy(), 5, axis=2),
+                              np.delete(kv[n], 5, axis=2))

@@ -11,12 +11,15 @@ is a stand-in that hands back their (output, log-sum-exp) pairs in rank
 order; the merged output is held to the JAX package's ``kernels/ref.py``
 attention over the whole pool. A q-seq rank's block of query rows runs
 flash with a query offset, held to rows of the reference's causal
-attention. The serve plan's layouts of qwen2-0.5b, qwen2-7b and
+attention, and its backward's dq to those rows of the reference's
+gradients and its dk and dv, summed over the blocks, to the rest. The
+serve plan's layouts of qwen2-0.5b, qwen2-7b and
 olmoe-1b-7b on meshes (1, 4) and (1, 8) are the reference's specs with
 nothing held whole. Inputs come from numpy seeds; f32, tolerance 2e-5.
 """
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -240,6 +243,36 @@ def test_flash_query_offset_matches_reference_rows(a, b, window):
     np.testing.assert_allclose(via.numpy(), exp, atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("m,window", [(2, 0), (4, 0), (4, 7), (8, 20)])
+def test_flash_query_offset_backward_matches_reference_grads(m, window):
+    """The offset backward (its plain version) of each of m row blocks of a
+    64-row causal pass, at the block's offset over the keys up to its last
+    row (q-seq's rank blocks): dq of its rows equals those rows of
+    ``jax.vjp`` of the reference's whole attention, and the blocks' dk and
+    dv, summed over the blocks, equal the reference's."""
+    rng = np.random.default_rng(100 * m + window)
+    s, hq, hkv = 64, 6, 2
+    q, k, v, do = (rng.standard_normal((2, s, h, D)).astype(np.float32)
+                   for h in (hq, hkv, hkv, hq))
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention(
+        q, k, v, causal=True, window=window), *map(jnp.asarray, (q, k, v)))
+    jdq, jdk, jdv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    n = s // m
+    for r in range(m):
+        a, b = r * n, (r + 1) * n
+        gq, gk, gv = ops.flash_attention_offset_backward(
+            tq[:, a:b], tk[:, :b], tv[:, :b], None, tdo[:, a:b], a,
+            window=window)
+        np.testing.assert_allclose(gq.numpy(), jdq[:, a:b], atol=TOL,
+                                   rtol=TOL)
+        dk[:, :b] += gk.numpy()
+        dv[:, :b] += gv.numpy()
+    np.testing.assert_allclose(dk, jdk, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(dv, jdv, atol=TOL, rtol=TOL)
+
+
 def test_cost_of_slices_and_row_blocks_adds_up():
     """The partial calls' flops over the m slices sum to the whole call's
     (their bytes add each slice's log-sum-exp), and flash's row blocks'
@@ -362,13 +395,14 @@ def test_dryrun_kv_seq_rank_writes_and_merges(arch, seq_shard, mesh, axis):
     assert prog.count()["collectives"][("all-gather", axis)] > 0
 
 
-@pytest.mark.parametrize("mode,q_seq", [("train", False), ("prefill", True)])
-def test_dryrun_q_seq_runs_forward_only(mode, q_seq):
+@pytest.mark.parametrize("mode,backward", [("train", True),
+                                           ("prefill", False)])
+def test_dryrun_q_seq_runs_in_train_and_prefill(mode, backward):
     """qwen2-0.5b (smoke: 4 q heads) on mesh (1, 8) at 16 positions: the
-    heads do not divide 'model' but the length does, so a prefill runs
-    q-seq, each layer booking flash with a query offset; the
-    train program's meta params require grad and the offset kernel has no
-    backward, so it computes every row whole and stays runnable."""
+    heads do not divide 'model' but the length does, so a prefill and the
+    train step run q-seq, each layer booking flash with a query offset;
+    the train step also books its backward once a layer, and the
+    backward's reduce-scatter of the gathered rows' partial gradient."""
     cfg = get_config("qwen2-0.5b", smoke=True)
     prog = dryrun.build_program(
         cfg, InputShape("t", 16, 2, mode),
@@ -376,7 +410,11 @@ def test_dryrun_q_seq_runs_forward_only(mode, q_seq):
         shd.production_rules_table(seq_shard=False))
     counted = prog.count()
     assert prog.held_replicated == []
-    assert counted["kernels"].get("flash_attention_offset", {}).get(
-        "calls", 0) == (cfg.n_layers if q_seq else 0)
-    assert not any(k.get("refused") for k in counted["kernels"].values())
+    kernels = counted["kernels"]
+    assert kernels["flash_attention_offset"]["calls"] == cfg.n_layers
+    assert kernels.get("flash_attention_offset_backward", {}).get(
+        "calls", 0) == (cfg.n_layers if backward else 0)
+    assert not any(k.get("refused") for k in kernels.values())
     assert counted["collectives"][("all-gather", "model")] > 0
+    assert (("reduce-scatter", "model") in counted["collectives"]) \
+        == backward

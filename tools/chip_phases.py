@@ -2,7 +2,8 @@
 """Run the kernel checks or the sharded phase of ``chip_smoke.py`` alone, on
 one NVIDIA GPU.
 
-    python3 tools/chip_phases.py [kernels] [backward] [train-bf16] [sharded]
+    python3 tools/chip_phases.py [kernels] [backward] [offset-backward]
+        [train-bf16] [sharded] [sharded-train]
 
 Builds the kernels (with the build phase's tensor-core check), then, as
 asked (both by default): ``kernels`` holds the paged kernels at the
@@ -12,13 +13,16 @@ prints the
 ``kernels`` record of those timed cases (no launch counts: no engine runs);
 ``backward`` holds the flash and SSD backward kernels against autograd of
 their plain versions (flash in f32 and bf16) and prints their timed
-cases; ``train-bf16`` runs that phase (phi-3-vision-4.2b trained in bf16
-at full width, one step against f32); ``sharded`` draws the engine
+cases; ``offset-backward`` holds flash's backward at a query offset the
+same way and prints its timed cases; ``train-bf16`` runs that phase
+(phi-3-vision-4.2b trained in bf16 at full width, one step against f32); ``sharded`` draws the engine
 phase's seed-0 qwen2-0.5b weights and runs
 the sharded phase (two ranks on meshes (1, 2) and (2, 1): qwen2-0.5b paged
 on both and contiguous on (2, 1), mamba2-780m on both, zamba2-7b, whisper
 and mamba2-780m's forward on (1, 2); four on (1, 4)),
-printing its lines and each kernel's launches by path. Prints the card's
+printing its lines and each kernel's launches by path; ``sharded-train``
+runs the four-rank group's two train runs alone (qwen2-0.5b on (1, 4)
+and (2, 2) against the single-process step), no engine. Prints the card's
 name and power limit first. The functions are ``chip_smoke.py``'s, so a
 reading here is the full script's, minus the phases before it.
 """
@@ -68,6 +72,13 @@ def main(what) -> None:
         print(json.dumps({"kernels": recs}), flush=True)
         del flush
         print(f"backward done {time.perf_counter() - t0:.1f} s", flush=True)
+    if "offset-backward" in what:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        print(json.dumps({"kernels": [cs.check_flash_offset_backward(
+            flush)]}), flush=True)
+        del flush
+        print(f"offset-backward done {time.perf_counter() - t0:.1f} s",
+              flush=True)
     if "train-bf16" in what:
         gc.collect()
         torch.cuda.empty_cache()
@@ -82,6 +93,13 @@ def main(what) -> None:
             torch.Generator(device="cuda").manual_seed(0))
         print(json.dumps(cs.run_sharded({}, params)), flush=True)
         print(f"sharded done {time.perf_counter() - t0:.1f} s", flush=True)
+    if "sharded-train" in what:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cs.SHARD_RUNS = {world: () for world in cs.SHARD_TRAIN}
+        print(json.dumps(cs.run_sharded({}, None), default=str), flush=True)
+        print(f"sharded-train done {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 if __name__ == "__main__":

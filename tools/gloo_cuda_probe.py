@@ -5,7 +5,8 @@
 
 Spawns two ranks on cuda:0 in one gloo group (NCCL refuses two ranks on
 one device) and tries ``all_reduce``, ``all_gather``,
-``all_gather_into_tensor`` and ``broadcast`` on CUDA tensors, a
+``all_gather_into_tensor``, ``reduce_scatter_tensor`` (the sharded train
+step's gradients over 'data') and ``broadcast`` on CUDA tensors, a
 ``DeviceMesh`` over "cuda" on that group, and an ``all_reduce`` inside a
 CUDA graph capture (which gloo cannot be captured into); then times a
 [896] f32 ``all_reduce`` (host clock over 200 calls after 10 warm-up
@@ -59,6 +60,12 @@ def _rank(rank, world, port, queue):
             dist.all_gather_into_tensor(out, x)
             return out.tolist()
 
+        def reduce_scatter_tensor():
+            x = torch.arange(2.0 * world, device=dev) + rank
+            out = torch.empty(2, device=dev)
+            dist.reduce_scatter_tensor(out, x)
+            return out.tolist()
+
         def broadcast():
             x = torch.full((2,), float(rank), device=dev)
             dist.broadcast(x, 0)
@@ -76,6 +83,7 @@ def _rank(rank, world, port, queue):
         for name, fn in (("all_reduce", all_reduce),
                          ("all_gather", all_gather),
                          ("all_gather_into_tensor", all_gather_into_tensor),
+                         ("reduce_scatter_tensor", reduce_scatter_tensor),
                          ("broadcast", broadcast),
                          ("device_mesh_cuda", device_mesh)):
             _try(res, name, fn)
